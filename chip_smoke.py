@@ -10,16 +10,24 @@ requests are token ids. Phases, each reported on its own line:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``;
-3. kernels: K1 (decode), K2 (fresh prefill) and K3 (continuation) against
-   their plain PyTorch versions on the card, in bf16, at the main path's
-   shapes, each with its time beside the plain version's;
+3. kernels: K1 (decode), K2 (fresh prefill), K3 (continuation), K4
+   (quantized decode), K5 (quantized continuation) and K6 (quantized-weight
+   matmul) against their plain PyTorch versions on the card, at the main
+   paths' shapes, each with its time beside the plain version's;
 4. model: full-width Qwen3-0.6B; a 300-token prefill on the card agrees
    with the same prefill in float32 on the CPU; 64 greedy tokens through
    ``CausalLM.generate``; prefill ms and decode tok/s;
 5. engine: ``InferenceEngine`` serves six concurrent requests (chunked
    admission, prefix reuse, one sampled request); every request finishes,
    the statistics reconcile, and K1, K2 and K3 were each launched by this
-   main path.
+   main path;
+6. quantized model: the same weights quantized in situ to int4 (head
+   included); the 300-token prefill, and one decode step into an int8 and
+   one into an int4 KV cache, agree with the same codes run in float32 on
+   the CPU; 64 greedy tokens through ``generate`` on an int4 cache;
+7. quantized engine: the six-request mix with int8 weights on an int8 KV
+   cache, then with int4 weights on an int4 cache; K4, K5 and K6 were
+   launched, at each bit width, by this quantized path.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
@@ -74,9 +82,35 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def compare(name, got, ref) -> float:
+    """max |got - ref|, raising unless every element is finite and within
+    KERNEL_ATOL + KERNEL_RTOL * |ref|."""
+    import torch
+
+    err = (got.float() - ref.float()).abs()
+    bound = KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
+    if not torch.isfinite(got.float()).all() or (err > bound).any():
+        raise AssertionError(f"{name}: max |err| {err.max().item():.3g} over the bound")
+    return err.max().item()
+
+
+def timed_row(name, src, replaces, errs, kernel_fn, plain_fn, shape) -> dict:
+    """The kernel's JSON row: its worst error over the cases and its time
+    beside the plain version's at ``shape``, taken in turns (plain, kernel,
+    kernel, plain) so drift hits both alike."""
+    p1, k1_ms, k2_ms, p2 = (cuda_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    ms, plain_ms = (k1_ms + k2_ms) / 2, (p1 + p2) / 2
+    log("kernels", f"{name}: max|err| {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
+                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms at {shape}")
+    return {"name": name, "route": "cuda", "source": f"crane_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
+            "ms": ms, "plain_ms": plain_ms}
+
+
 def check_kernels() -> list[dict]:
-    """Phase 3: each kernel against its plain version at main-path shapes
-    (Hq=16, Hkv=8, D=128, plus D=64). Returns the JSON rows, launches 0."""
+    """Phase 3: K1-K3 against their plain versions in bf16 at the dense
+    path's shapes (Hq=16, Hkv=8, D=128, plus D=64). Returns the JSON rows,
+    launches 0."""
     import torch
 
     from crane_tpu_torch.ops.cuda import decode_attention as k1
@@ -86,23 +120,6 @@ def check_kernels() -> list[dict]:
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-    def compare(name, got, ref):
-        err = (got.float() - ref.float()).abs()
-        bound = KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
-        if not torch.isfinite(got.float()).all() or (err > bound).any():
-            raise AssertionError(f"{name}: max |err| {err.max().item():.3g} over the bf16 bound")
-        return err.max().item()
-
-    def row(name, src, replaces, errs, kernel_fn, plain_fn, shape):
-        # in turns (plain, kernel, kernel, plain), so drift hits both alike
-        p1, k1_ms, k2_ms, p2 = (cuda_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
-        ms, plain_ms = (k1_ms + k2_ms) / 2, (p1 + p2) / 2
-        log("kernels", f"{name}: max|err| {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
-                       f"{ms:.4f} ms vs plain {plain_ms:.4f} ms at {shape}")
-        return {"name": name, "route": "cuda", "source": f"crane_tpu_torch/csrc/{src}",
-                "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
-                "ms": ms, "plain_ms": plain_ms}
 
     Hq, Hkv = 16, 8
     # K2: fresh prefill, S=1024, with each option
@@ -118,11 +135,11 @@ def check_kernels() -> list[dict]:
             got = k23.flash_attention_causal(q, k, v, seg_arg, scale=D ** -0.5, **kw)
             ref = k23.flash_attention_causal_plain(q, k, v, seg_arg, scale=D ** -0.5, **kw)
             errs.append(compare(f"K2 D={D} {label}", got, ref))
-    rows = [row("flash_attention_causal", "flash_attention.cu",
-                "crane_tpu/ops/pallas/flash_attention.py:187", errs,
-                lambda: k23.flash_attention_causal(q, k, v, scale=D ** -0.5),
-                lambda: k23.flash_attention_causal_plain(q, k, v, scale=D ** -0.5),
-                "B=1 S=1024 Hq=16 Hkv=8 D=128")]
+    rows = [timed_row("flash_attention_causal", "flash_attention.cu",
+                      "crane_tpu/ops/pallas/flash_attention.py:187", errs,
+                      lambda: k23.flash_attention_causal(q, k, v, scale=D ** -0.5),
+                      lambda: k23.flash_attention_causal_plain(q, k, v, scale=D ** -0.5),
+                      "B=1 S=1024 Hq=16 Hkv=8 D=128")]
 
     # K3: a 256-token chunk at offsets 0, 512 and 1000 of a T=2048 buffer
     errs = []
@@ -134,15 +151,15 @@ def check_kernels() -> list[dict]:
             got = k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5)
             ref = k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5)
             errs.append(compare(f"K3 D={D} offset={off}", got, ref))
-    rows.append(row("flash_attention_cached", "flash_attention.cu",
-                    "crane_tpu/ops/pallas/flash_attention.py:384", errs,
-                    lambda: k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5),
-                    lambda: k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5),
-                    "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128"))
+    rows.append(timed_row("flash_attention_cached", "flash_attention.cu",
+                          "crane_tpu/ops/pallas/flash_attention.py:384", errs,
+                          lambda: k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5),
+                          lambda: k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5),
+                          "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128"))
 
     # K1: B=8 rows over T=2048, ragged kv_valid including 0 and T
     errs = []
-    valid = torch.tensor([0, 1, 17, 300, 1000, 1500, 2047, 2048], dtype=torch.int32, device="cuda")
+    valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
     for D in (64, 128):
         q = rnd(8, 1, Hq, D)
         kc, vc = rnd(8, 2048, Hkv, D), rnd(8, 2048, Hkv, D)
@@ -151,11 +168,103 @@ def check_kernels() -> list[dict]:
             got = k1.fp_decode_attention(q, kc, vc, valid, scale=D ** -0.5, **kw)
             ref = k1.fp_decode_attention_plain(q, kc, vc, valid, scale=D ** -0.5, **kw)
             errs.append(compare(f"K1 D={D} {label}", got, ref))
-    rows.append(row("fp_decode_attention", "decode_attention.cu",
-                    "crane_tpu/ops/pallas/quant_attention.py:266", errs,
-                    lambda: k1.fp_decode_attention(q, kc, vc, valid, scale=D ** -0.5),
-                    lambda: k1.fp_decode_attention_plain(q, kc, vc, valid, scale=D ** -0.5),
-                    "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128"))
+    rows.append(timed_row("fp_decode_attention", "decode_attention.cu",
+                          "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+                          lambda: k1.fp_decode_attention(q, kc, vc, valid, scale=D ** -0.5),
+                          lambda: k1.fp_decode_attention_plain(q, kc, vc, valid, scale=D ** -0.5),
+                          "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128"))
+    return rows
+
+
+# kv_valid of the decode kernels' cases: ragged, with an empty and a full row
+RAGGED_VALID = [0, 1, 17, 300, 1000, 1500, 2047, 2048]
+# (in, out) of Qwen3-0.6B's quantized linears: q, k/v, o, gate/up, down, and
+# the int4 head over the vocabulary padded to a multiple of 512
+LINEAR_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024),
+                 (1024, 152064)]
+
+
+def check_quant_kernels() -> list[dict]:
+    """Phase 3, quantized half: K6 (w8, w4) at M in {1, 8, 256} on every
+    quantized linear of the path, K4 and K5 (kv8, kv4) at D in {64, 128}
+    with a window and a softcap. Each kernel is held against its plain
+    version computed in float32 from the same codes; it is timed against
+    the plain version in bf16, the path's dtype. One JSON row per kernel and
+    bit width, launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+    from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+    from crane_tpu_torch.ops.linear import quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    rows = []
+    for bits in (8, 4):
+        errs = []
+        for I, O in LINEAR_SHAPES:
+            w = quantize_weight(rnd(I, O) * I ** -0.5, bits=bits)
+            for M in (1, 8, 256):
+                x = rnd(M, I).to(torch.bfloat16)
+                got = quant_matmul(x, w.codes, w.scales, bits=bits)
+                ref = quant_matmul_plain(x.float(), w.codes, w.scales, bits=bits)
+                errs.append(compare(f"K6 w{bits} M={M} I={I} O={O}", got, ref))
+                if I == 1024 and O in (3072, 152064) and M in (1, 8):
+                    t = [cuda_ms(f) for f in (
+                        lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
+                        lambda: quant_matmul(x, w.codes, w.scales, bits=bits))]
+                    log("kernels", f"K6 w{bits} M={M} I={I} O={O}: {t[1]:.4f} ms vs plain {t[0]:.4f} ms")
+        w = quantize_weight(rnd(1024, 3072) * 1024 ** -0.5, bits=bits)
+        x = rnd(8, 1024).to(torch.bfloat16)
+        rows.append(timed_row(f"quant_matmul[w{bits}]", "quant_matmul.cu",
+                              "crane_tpu/ops/pallas/quant_matmul.py:" + ("102" if bits == 8 else "115"),
+                              errs, lambda: quant_matmul(x, w.codes, w.scales, bits=bits),
+                              lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
+                              "M=8 I=1024 O=3072 (gate/up at 8 slots)"))
+
+    Hq, Hkv = 16, 8
+    kws = (("plain", {}), ("window=256", {"window": 256}), ("softcap=30", {"logit_softcap": 30.0}))
+    valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
+    for bits in (8, 4):
+        dec_errs, chunk_errs = [], []
+        for D in (64, 128):
+            cache = QuantLayerKVCache.empty(8, 2048, Hkv, D, bits=bits, device="cuda")
+            cache.update(rnd(8, 2048, Hkv, D).to(torch.bfloat16),
+                         rnd(8, 2048, Hkv, D).to(torch.bfloat16), 0)
+            ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+            row = cache.row(3)
+            row_ops = (row.k, row.v, row.k_scale, row.v_scale)
+            qd = rnd(8, 1, Hq, D).to(torch.bfloat16)
+            qc = rnd(1, 256, Hq, D).to(torch.bfloat16)
+            for label, kw in kws:
+                got = k45.quant_decode_attention(qd, *ops, valid, bits=bits, scale=D ** -0.5, **kw)
+                ref = k45.quant_decode_attention_plain(qd.float(), *ops, valid, bits=bits,
+                                                       scale=D ** -0.5, **kw)
+                dec_errs.append(compare(f"K4 kv{bits} D={D} {label}", got, ref))
+                for off in (0, 512, 1000):
+                    pos = (torch.arange(256, dtype=torch.int32, device="cuda") + off)[None]
+                    got = k45.quant_cached_attention(qc, *row_ops, pos, bits=bits,
+                                                     scale=D ** -0.5, **kw)
+                    ref = k45.quant_cached_attention_plain(qc.float(), *row_ops, pos, bits=bits,
+                                                           scale=D ** -0.5, **kw)
+                    chunk_errs.append(compare(f"K5 kv{bits} D={D} offset={off} {label}", got, ref))
+        rows.append(timed_row(
+            f"quant_decode_attention[kv{bits}]", "quant_attention.cu",
+            "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
+            lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits, scale=D ** -0.5),
+            lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits, scale=D ** -0.5),
+            "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128"))
+        rows.append(timed_row(
+            f"quant_cached_attention[kv{bits}]", "quant_attention.cu",
+            "crane_tpu/ops/pallas/quant_attention.py:647", chunk_errs,
+            lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits, scale=D ** -0.5),
+            lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, bits=bits,
+                                                     scale=D ** -0.5),
+            "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128"))
     return rows
 
 
@@ -181,29 +290,53 @@ def check_model():
     lm_cpu = CausalLM(cfg, cpu_params, dtype=torch.float32)
     logits_cpu, _ = lm_cpu.prefill(lm_cpu.init_cache(1, 512), [prompt], [300])
     del lm_cpu, cpu_params
-    got, ref = logits_gpu[0].float().cpu(), logits_cpu[0]
-    if not torch.isfinite(got).all() or got.shape != (cfg.vocab_size,):
-        raise AssertionError(f"card logits not finite or of shape {tuple(got.shape)}")
+    compare_logits("model", "prefill logits card bf16 vs cpu f32", logits_gpu[0], logits_cpu[0])
+
+    prefill_ms, decode_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
+    log("model", f"Qwen3-0.6B bf16, {cfg.num_layers} layers: prefill 300 tokens (bucket 512) "
+                 f"{prefill_ms:.2f} ms, decode 63 tokens at batch 1 {decode_tps:.1f} tok/s; "
+                 f"generate(64) matches")
+    return lm
+
+
+def compare_logits(phase: str, label: str, got, ref) -> None:
+    """Card logits against the CPU float32 reference: finite, of the vocab's
+    shape, relative L2 error within LOGIT_REL_L2, and the same greedy top-1
+    unless the reference's top two lie within LOGIT_TIE."""
+    import torch
+
+    got, ref = got.float().cpu(), ref.float().cpu()
+    if not torch.isfinite(got).all() or got.shape != ref.shape:
+        raise AssertionError(f"{label}: card logits not finite or of shape {tuple(got.shape)}")
     rel_l2 = ((got - ref).norm() / ref.norm()).item()
     top2 = ref.topk(2)
     margin = (top2.values[0] - top2.values[1]).item()
     top_gpu, top_cpu = int(got.argmax()), int(top2.indices[0])
     tie_ok = ref[top_gpu].item() >= top2.values[0].item() - LOGIT_TIE
-    log("model", f"prefill logits card bf16 vs cpu f32: rel L2 {rel_l2:.4g} (limit {LOGIT_REL_L2:g}), "
-                 f"max|err| {(got - ref).abs().max().item():.4g}, logit std {ref.std().item():.4g}, "
-                 f"top-1 card {top_gpu} cpu {top_cpu}, cpu top-2 margin {margin:.4g}")
+    log(phase, f"{label}: rel L2 {rel_l2:.4g} (limit {LOGIT_REL_L2:g}), "
+               f"max|err| {(got - ref).abs().max().item():.4g}, logit std {ref.std().item():.4g}, "
+               f"top-1 card {top_gpu} cpu {top_cpu}, cpu top-2 margin {margin:.4g}")
     if rel_l2 > LOGIT_REL_L2:
-        raise AssertionError("card prefill logits disagree with the CPU float32 reference")
+        raise AssertionError(f"{label}: card logits disagree with the CPU float32 reference")
     if top_gpu != top_cpu and not (margin < LOGIT_TIE and tie_ok):
-        raise AssertionError("greedy top-1 of the card disagrees with the CPU reference")
+        raise AssertionError(f"{label}: greedy top-1 of the card disagrees with the CPU reference")
 
-    # prefill and decode speed: the generate path's own steps, timed
-    padded = [prompt + [0] * (512 - 300)]
+
+def time_generate(lm, prompt, gen_cfg) -> tuple[float, float]:
+    """The generate path's own steps, timed: prefill ms and decode tok/s at
+    batch 1 (host clock, synchronised); then ``generate`` must return the
+    same greedy tokens."""
+    import torch
+
+    from crane_tpu_torch.ops.sampling import SamplingParams
+
+    n = gen_cfg.max_new_tokens
+    padded = [prompt + [0] * (512 - len(prompt))]
     for _ in range(2):  # the second run is the measurement
-        cache = lm.init_cache(1, 512)
+        cache = lm.init_cache(1, 512, quant_bits=gen_cfg.kv_quant_bits)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(cache, padded, [300])
+        logits, cache = lm.prefill(cache, padded, [len(prompt)])
         first = logits.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -211,27 +344,92 @@ def check_model():
     recent = torch.full((1, 64), -1, dtype=torch.int32, device="cuda")
     gen_dec = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    toks, _, _ = lm.decode_steps(cache, first, recent, sp, gen_dec, 63)
+    toks, _, _ = lm.decode_steps(cache, first, recent, sp, gen_dec, n - 1)
     manual = [int(first[0])] + toks[0].tolist()
     decode_s = time.perf_counter() - t0
-    out = lm.generate(prompt, GenerationConfig.greedy(64))
-    if out != manual or len(out) != 64 or not all(0 <= t < cfg.vocab_size for t in out):
+    out = lm.generate(prompt, gen_cfg)
+    if out != manual or len(out) != n or not all(0 <= t < lm.config.vocab_size for t in out):
         raise AssertionError("generate() disagrees with its own prefill + decode steps")
-    log("model", f"Qwen3-0.6B bf16, {cfg.num_layers} layers: prefill 300 tokens (bucket 512) {prefill_ms:.2f} ms, "
-                 f"decode 63 tokens at batch 1 {63 / decode_s:.1f} tok/s; generate(64) matches")
-    return lm
+    return prefill_ms, (n - 1) / decode_s
+
+
+def check_quant_model(lm):
+    """Phase 6: the bf16 model's weights quantized in situ to int4 on the
+    card (the tied head too); the same codes, with float32 scales and every
+    other weight in float32, on the CPU. The 300-token prefill, card against
+    CPU; then one decode step into the card's int8 and into its int4 KV
+    cache after that prefill, against the same step on the CPU over a copy
+    of the same cache (the KV codes are the card's: a bf16 key and its
+    float32 counterpart can round to neighbouring int4 codes, which is the
+    cache's quantization error, not the step's); then 64 greedy tokens
+    through generate on an int4 cache."""
+    import torch
+
+    from crane_tpu_torch.models.auto import quantize_params
+    from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits
+    from crane_tpu_torch.ops.kv_cache import KVCache, QuantLayerKVCache
+    from crane_tpu_torch.ops.linear import QuantizedWeight
+
+    cfg = lm.config
+    params = quantize_params(lm.params, bits=4)
+    if not isinstance(params.get("lm_head"), QuantizedWeight):
+        raise AssertionError("int4 ISQ did not quantize the tied head")
+    lm4 = CausalLM(cfg, params, dtype=torch.bfloat16)
+    cpu_params = _tree(params, lambda t: t.to("cpu", torch.float32))
+    cpu4 = CausalLM(cfg, cpu_params, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=gen).tolist()
+
+    caches = {}
+    for kv_bits in (8, 4):  # the prefill attends its own K/V, whatever the cache
+        logits_gpu, caches[kv_bits] = lm4.prefill(lm4.init_cache(1, 512, quant_bits=kv_bits),
+                                                  [prompt], [300])
+    logits_cpu, _ = cpu4.prefill(cpu4.init_cache(1, 512), [prompt], [300])
+    compare_logits("quant-model", "int4-weight prefill logits card bf16 vs cpu f32",
+                   logits_gpu[0], logits_cpu[0])
+
+    nxt = int(logits_cpu[0].argmax())
+    for kv_bits, cache in caches.items():
+        cpu_cache = KVCache(
+            layers=tuple(QuantLayerKVCache(k=c.k.cpu(), v=c.v.cpu(), k_scale=c.k_scale.cpu(),
+                                           v_scale=c.v_scale.cpu(), bits=c.bits,
+                                           n_kv_heads=c.n_kv_heads) for c in cache.layers),
+            lengths=cache.lengths.cpu())
+        logits = []
+        for model, c in ((lm4, cache), (cpu4, cpu_cache)):
+            tok = torch.tensor([[nxt]], dtype=torch.int32, device=model.device)
+            hidden, _ = forward_hidden(cfg, model.params, tok, c, c.lengths, model.rope)
+            logits.append(lm_logits(cfg, model.params, hidden)[0, 0])
+        compare_logits("quant-model",
+                       f"decode step on the int{kv_bits} KV cache card bf16 vs cpu f32", *logits)
+    del cpu4, cpu_params, caches
+
+    prefill_ms, decode_tps = time_generate(lm4, prompt, GenerationConfig.greedy(64, kv_quant_bits=4))
+    log("quant-model", f"Qwen3-0.6B int4 weights on an int4 KV cache: prefill 300 tokens "
+                       f"(bucket 512) {prefill_ms:.2f} ms, decode 63 tokens at batch 1 "
+                       f"{decode_tps:.1f} tok/s; generate(64) matches")
+    return params
 
 
 def _tree(tree, fn):
+    """``fn`` over every dense tensor of a parameter tree; a QuantizedWeight
+    moves to the CPU with its int8 codes and float32 scales unchanged."""
+    from crane_tpu_torch.ops.linear import QuantizedWeight
+
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree(v, fn) for v in tree)
+    if isinstance(tree, QuantizedWeight):
+        return QuantizedWeight(codes=tree.codes.cpu(), scales=tree.scales.cpu(),
+                               block=tree.block, bits=tree.bits)
     return fn(tree)
 
 
-def check_engine(lm) -> None:
-    """Phase 5: concurrent requests through the serving engine."""
+def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) -> None:
+    """Phases 5 and 7: concurrent requests through the serving engine, on
+    an fp or an int8/int4 KV cache."""
     import torch
 
     from crane_tpu_torch.serve.engine import (
@@ -253,11 +451,12 @@ def check_engine(lm) -> None:
     requests = [
         EngineRequest("p17", ids(17), 32, greedy),
         EngineRequest("p64", ids(64), 32, greedy),
-        EngineRequest("p300", ids(300), 32, greedy),   # two chunks: K2 then K3
+        EngineRequest("p300", ids(300), 32, greedy),   # two chunks: K2 then K3 (or K5)
         EngineRequest("p1000", ids(1000), 24, greedy),  # four chunks
         EngineRequest("sampled", ids(120), 32, sampled),
     ]
-    engine = InferenceEngine(lm, max_slots=8, max_seq_len=2048, prefill_chunk=256)
+    engine = InferenceEngine(lm, max_slots=8, max_seq_len=2048, prefill_chunk=256,
+                             kv_quant_bits=kv_quant_bits)
     engine.warmup()
     queues = {r.request_id: engine.submit(r) for r in requests}
     results: dict[str, dict] = {rid: {"tokens": [], "reason": None} for rid in queues}
@@ -277,7 +476,7 @@ def check_engine(lm) -> None:
         if followup is None and results["p300"]["reason"] is not None:
             # a later turn of the same conversation: the finished request's
             # prompt and output plus 300 new tokens, so the admission reuses
-            # the resident prefix and continues through K3
+            # the resident prefix and continues through K3 (or K5)
             prev = requests[2].prompt_ids + results["p300"]["tokens"]
             followup = EngineRequest("followup", prev + ids(300), 16, greedy)
             queues["followup"] = engine.submit(followup)
@@ -301,9 +500,19 @@ def check_engine(lm) -> None:
             and s.prompt_tokens == prompt_total
             and s.prefix_hits == 1 and s.prefix_tokens_reused >= 256):
         raise AssertionError(f"engine stats do not reconcile: {s.snapshot()}")
-    log("engine", f"{len(asked)} requests finished in {wall:.2f} s, "
-                  f"{s.generated_tokens} tokens; prefix reuse {s.prefix_tokens_reused} tokens; "
-                  f"stats {json.dumps(s.snapshot())}")
+    log(phase, f"{len(asked)} requests finished in {wall:.2f} s, "
+               f"{s.generated_tokens} tokens; prefix reuse {s.prefix_tokens_reused} tokens; "
+               f"stats {json.dumps(s.snapshot())}")
+
+
+def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
+    """Each row's launches from the path that drove it; fail for a kernel
+    that path never launched."""
+    log("launches", f"{path}: {json.dumps(counts)}")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was never launched by the {path}")
 
 
 def main() -> int:
@@ -334,17 +543,32 @@ def main() -> int:
                  f"({build.library_path().name})")
 
     rows = check_kernels()
+    quant_rows = check_quant_kernels()
 
+    # the dense main path: bf16 generation and serving (K1, K2, K3)
     kernels.reset_launch_counts()
     lm = check_model()
     check_engine(lm)
-    counts = kernels.launch_counts()
-    log("launches", json.dumps(counts))
-    for row in rows:
-        row["launches"] = counts[row["name"]]
-        if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} was never launched by the main path")
+    read_launches("dense path", rows, kernels.launch_counts())
 
+    # the quantized main path: int4 and int8 ISQ weights on int8 and int4
+    # KV caches (K2 for fresh prefills, K4, K5 and K6 at each bit width)
+    from crane_tpu_torch.models.auto import quantize_params
+    from crane_tpu_torch.models.causal_lm import CausalLM
+
+    kernels.reset_launch_counts()
+    params4 = check_quant_model(lm)
+    lm8 = CausalLM(lm.config, quantize_params(lm.params, bits=8), dtype=torch.bfloat16)
+    check_engine(lm8, "quant-engine w8 kv8", kv_quant_bits=8)
+    del lm8
+    check_engine(CausalLM(lm.config, params4, dtype=torch.bfloat16), "quant-engine w4 kv4",
+                 kv_quant_bits=4)
+    counts = kernels.launch_counts()
+    if counts["flash_attention_causal"] <= 0:
+        raise AssertionError("the quantized path never launched K2")
+    read_launches("quantized path", quant_rows, counts)
+
+    rows += quant_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

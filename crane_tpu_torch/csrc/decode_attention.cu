@@ -131,26 +131,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
   }
   __syncthreads();
-
-  for (int i = threadIdx.x; i < G * D; i += kWarps * 32) {
-    const int g = i / D;
-    const int d = i % D;
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float res = 0.f;
-    if (M != -INFINITY) {
-      float L = 0.f, A = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float c = __expf(sm_m[w][g] - M);  // 0 for an idle warp
-        L += sm_l[w][g] * c;
-        A += sm_acc[w][g][d] * c;
-      }
-      res = A / L;
-    }
-    out[((size_t)b * Hq + hk * G + g) * D + d] = from_float<T>(res);
-  }
+  merge_warp_states<T, G, D, kWarps>(sm_m, sm_l, sm_acc,
+                                     out + ((size_t)b * Hq + hk * G) * D);
 }
 
 template <typename T, int D, int G>

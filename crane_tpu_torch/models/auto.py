@@ -14,9 +14,11 @@ import os
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from crane_tpu_torch.models.causal_lm import CausalLM
 from crane_tpu_torch.models.modules.transformer import TransformerConfig
+from crane_tpu_torch.ops.linear import quantize_weight
 
 
 def read_json(path: str) -> dict:
@@ -214,13 +216,18 @@ def from_pretrained(
     dtype: torch.dtype = torch.bfloat16,
     device=None,
     tokenizer=None,
+    quant_bits: int | None = None,
 ) -> CausalLM:
-    """Load a dense causal LM from an HF checkpoint directory or hub id."""
+    """Load a dense causal LM from an HF checkpoint directory or hub id;
+    ``quant_bits`` 8 or 4 quantizes its linear weights in situ
+    (:func:`quantize_params`)."""
     from crane_tpu.utils.hub import resolve_checkpoint
 
     model_dir = resolve_checkpoint(model_dir)
     cfg = transformer_config_from_hf(load_hf_config(model_dir))
     params = map_hf_weights(cfg, load_state_dict(model_dir), dtype, device)
+    if quant_bits is not None:
+        params = quantize_params(params, bits=quant_bits)
     if tokenizer is None:
         try:
             from crane_tpu.tokenizer.autotokenizer import AutoTokenizer
@@ -230,3 +237,46 @@ def from_pretrained(
             tokenizer = None  # token ids only: the engine streams no text
     return CausalLM(cfg, params, tokenizer=tokenizer,
                     eos_token_ids=read_eos_ids(model_dir), dtype=dtype)
+
+
+# vocab columns of a quantized head are padded to a multiple of this, with
+# zero columns, so its storage matches the reference's byte for byte
+HEAD_PAD = 512
+LINEAR_NAMES = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def quantize_params(params: dict, *, bits: int = 8, block: int = 32,
+                    quant_tied_head: bool | None = None) -> dict:
+    """In-situ quantization (ISQ) of every linear weight of the layers, the
+    reference's ``quantize_params``: per-channel int8 or packed int4 codes
+    with float32 scales. Embeddings, norms and biases stay dense.
+
+    A separate ``lm_head`` is quantized too. A tied head gets a quantized
+    copy beside the dense embedding (which stays for the gathers) when
+    ``quant_tied_head``: by default for int4 and not for int8, as in the
+    reference, and ``CRANE_QUANT_TIED_HEAD=0/1`` overrides the default."""
+
+    def q_layer(layer):
+        out = {}
+        for k, v in layer.items():
+            if isinstance(v, dict):
+                out[k] = q_layer(v)
+            elif k in LINEAR_NAMES and v.ndim == 2:
+                out[k] = quantize_weight(v, bits=bits, block=block)
+            else:
+                out[k] = v
+        return out
+
+    def q_head(w):
+        return quantize_weight(F.pad(w, (0, (-w.shape[1]) % HEAD_PAD)), bits=bits, block=block)
+
+    new = dict(params)
+    new["layers"] = tuple(q_layer(layer) for layer in params["layers"])
+    if quant_tied_head is None:
+        env = os.environ.get("CRANE_QUANT_TIED_HEAD")
+        quant_tied_head = (bits == 4) if env is None else env == "1"
+    if "lm_head" in params:
+        new["lm_head"] = q_head(params["lm_head"])
+    elif quant_tied_head and "embed" in params:
+        new["lm_head"] = q_head(params["embed"].T)
+    return new

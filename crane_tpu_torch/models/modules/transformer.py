@@ -1,23 +1,30 @@
 """Shared decoder-only transformer: config and forward functions.
 
-Port of ``crane_tpu/models/modules/transformer.py``, dense branches. The
+Port of ``crane_tpu/models/modules/transformer.py``, dense branches, with
+quantized weights and int8/int4 KV caches. The
 pre-norm block is input_ln -> GQA attention (QK-norm, RoPE, KV-cache write)
 -> +res -> post_ln -> SwiGLU -> +res, one parameterised implementation for
 Qwen3, Qwen2.5, Llama-likes, Hunyuan-dense and Gemma3 text. Params are the
 reference's nested dict, with torch tensors as leaves.
 
-Attention has one route per phase, whatever S and T are:
+Attention has one route per phase and cache form, whatever S and T are:
 
 - fresh prefill (``read_cache=False``): in-context K/V through K2,
-  :func:`~crane_tpu_torch.ops.cuda.flash_attention.flash_attention_causal`;
-- a continuation chunk (``read_cache``, S > 1): the cache buffers through
+  :func:`~crane_tpu_torch.ops.cuda.flash_attention.flash_attention_causal`,
+  whatever the cache stores;
+- a continuation chunk (``read_cache``, S > 1): the fp cache buffers through
   K3, :func:`~crane_tpu_torch.ops.cuda.flash_attention.flash_attention_cached`;
-- decode (``read_cache``, S == 1): the cache buffers through K1,
-  :func:`~crane_tpu_torch.ops.cuda.decode_attention.fp_decode_attention`.
+  an int8/int4 cache's codes and scales through K5,
+  :func:`~crane_tpu_torch.ops.cuda.quant_attention.quant_cached_attention`;
+- decode (``read_cache``, S == 1): the fp cache through K1,
+  :func:`~crane_tpu_torch.ops.cuda.decode_attention.fp_decode_attention`; an
+  int8/int4 cache through K4,
+  :func:`~crane_tpu_torch.ops.cuda.quant_attention.quant_decode_attention`.
 
-Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
-PyTorch version on a CPU tensor. MoE, short-conv, GDN, sequence-parallel and
-quantized-cache branches are not ported yet and raise.
+Quantized linear weights go through :func:`~crane_tpu_torch.ops.linear.linear`
+(K6 at M <= 256). Each wrapper launches its CUDA kernel on a CUDA tensor and
+runs its plain PyTorch version on a CPU tensor. MoE, short-conv, GDN and
+sequence-parallel branches are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -34,8 +41,13 @@ from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_cached,
     flash_attention_causal,
 )
-from crane_tpu_torch.ops.kv_cache import KVCache
-from crane_tpu_torch.ops.linear import linear
+from crane_tpu_torch.ops.cuda.quant_attention import (
+    quant_cached_attention,
+    quant_decode_attention,
+)
+from crane_tpu_torch.ops.cuda.quant_matmul import matmul_f32
+from crane_tpu_torch.ops.kv_cache import KVCache, QuantLayerKVCache
+from crane_tpu_torch.ops.linear import QuantizedWeight, linear
 from crane_tpu_torch.ops.norm import rms_norm
 from crane_tpu_torch.ops.rope import apply_rope_embeds, inv_frequencies, rope_table
 
@@ -128,13 +140,11 @@ def make_cache(
     quant_bits: int | None = None,
     device=None,
 ) -> KVCache:
-    """Allocate the per-layer KV buffers ``[batch, max_seq, Hkv, D]``."""
+    """Allocate the per-layer KV buffers: ``[batch, max_seq, Hkv, D]`` in
+    ``dtype``, or int8/int4 codes and scales with ``quant_bits`` 8 or 4."""
     _check_ported(cfg)
-    if quant_bits is not None:
-        raise NotImplementedError(
-            "int8/int4 KV caches are not ported yet (ROADMAP Queue 1 item 7)")
     return KVCache.empty(cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-                         cfg.head_dim, dtype, device)
+                         cfg.head_dim, dtype, device, quant_bits=quant_bits)
 
 
 def make_rope_tables(cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
@@ -232,6 +242,13 @@ def attention_block(
 
     if not read_cache:
         out = flash_attention_causal(q, k, v, scale=scale, window=window, softcap=softcap)
+    elif isinstance(new_cache, QuantLayerKVCache):
+        args = (q, new_cache.k, new_cache.v, new_cache.k_scale, new_cache.v_scale)
+        kw = dict(bits=new_cache.bits, scale=scale, window=window, logit_softcap=softcap)
+        if S == 1:
+            out = quant_decode_attention(*args, positions[:, 0] + 1, **kw)
+        else:
+            out = quant_cached_attention(*args, positions, **kw)
     elif S == 1:
         out = fp_decode_attention(
             q, new_cache.k, new_cache.v, positions[:, 0] + 1, scale=scale,
@@ -338,20 +355,19 @@ def forward_hidden(
 def lm_logits(cfg: TransformerConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """Project hidden states to float32 vocab logits (tied or separate head).
 
-    The product reads the weights in the hidden states' dtype and writes
+    A dense head is read in the hidden states' dtype and the product writes
     float32, as XLA's ``preferred_element_type`` does: bf16 logits would
-    round ties into the greedy argmax at 151936 entries. cuBLAS writes the
-    float32 result itself (``out_dtype``); the CPU has no such product and
-    upcasts after, which in float32 is the same."""
+    round ties into the greedy argmax at 151936 entries. A quantized head
+    (``QuantizedWeight``) goes through :func:`linear` (K6 on the card), as
+    the reference's does: its output is in the hidden dtype, then float32,
+    and the zero columns padding the vocab are sliced off."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    head = head.to(hidden.dtype)
-    if hidden.is_cuda and hidden.dtype != torch.float32:
-        flat = torch.mm(hidden.reshape(-1, hidden.shape[-1]), head, out_dtype=torch.float32)
-        logits = flat.reshape(*hidden.shape[:-1], head.shape[-1])
+    if isinstance(head, QuantizedWeight):
+        logits = linear(hidden, head).float()[..., :cfg.vocab_size]
     else:
-        logits = torch.matmul(hidden, head).float()
+        logits = matmul_f32(hidden, head.to(hidden.dtype))
     if cfg.logit_softcap is not None:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

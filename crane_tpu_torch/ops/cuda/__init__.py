@@ -2,8 +2,10 @@
 
 Every wrapper launches its kernel on a CUDA tensor (or raises), runs its
 plain PyTorch counterpart on a CPU tensor, and counts its launches in a
-plain integer attribute ``launches``, so a run can show that the main path
-went through the kernels.
+plain attribute ``launches``, so a run can show that the main path went
+through the kernels. The quantized kernels count per bit width
+(``launches`` is a dict, ``{"w8": n, "w4": n}`` or ``{"kv8": n, "kv4": n}``),
+so a run can show each variant was launched.
 """
 
 from __future__ import annotations
@@ -13,18 +15,41 @@ from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_cached,
     flash_attention_causal,
 )
+from crane_tpu_torch.ops.cuda.quant_attention import (
+    quant_cached_attention,
+    quant_decode_attention,
+)
+from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul
 
+# counted name -> wrapper; a variant ``name[v]`` reads ``launches[v]``
 KERNELS = {
     "fp_decode_attention": fp_decode_attention,
     "flash_attention_causal": flash_attention_causal,
     "flash_attention_cached": flash_attention_cached,
+    **{f"quant_matmul[{v}]": quant_matmul for v in quant_matmul.launches},
+    **{f"quant_decode_attention[{v}]": quant_decode_attention
+       for v in quant_decode_attention.launches},
+    **{f"quant_cached_attention[{v}]": quant_cached_attention
+       for v in quant_cached_attention.launches},
 }
 
 
+def _variant(name: str) -> str | None:
+    return name[name.index("[") + 1:-1] if name.endswith("]") else None
+
+
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {}
+    for name, fn in KERNELS.items():
+        v = _variant(name)
+        counts[name] = fn.launches if v is None else fn.launches[v]
+    return counts
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for name, fn in KERNELS.items():
+        v = _variant(name)
+        if v is None:
+            fn.launches = 0
+        else:
+            fn.launches[v] = 0

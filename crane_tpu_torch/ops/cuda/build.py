@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
 Every ``*.cu`` under ``crane_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface, at
-first use. The library is named by a hash of the sources and the flags and
-lives under ``build/kernels/`` at the repository root (listed in
-``.gitignore``), so an edited source rebuilds and an unchanged one loads the
-existing file. Binding through ``ctypes`` keeps PyTorch's headers out of the
-compile.
+Hopper (``sm_90a``), one ``nvcc`` process per source, all started together,
+and the objects are linked into ONE shared library with a plain C
+interface, at first use. The library is named by a hash of the sources and
+the flags and lives under ``build/kernels/`` at the repository root (listed
+in ``.gitignore``), so an edited source rebuilds and an unchanged one loads
+the existing file. Binding through ``ctypes`` keeps PyTorch's headers out of
+the compile.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no ``nvcc`` and no card.
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 # storage type codes understood by csrc/common.cuh (crane::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +44,11 @@ SIGNATURES = {
                                _F, _I, _F, _P],
     "crane_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _F, _I, _F, _P],
+    "crane_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "crane_quant_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _F, _I, _F, _P],
+    "crane_quant_cached_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _F, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -75,6 +81,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcrane_kernels_{_digest()}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]  # waits for every process
+    for cmd, p, text in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{text}")
+
+
 def build() -> Path:
     """Compile the kernels if no library for the current sources exists.
     Returns the library path. Raises with nvcc's output on failure."""
@@ -82,14 +99,15 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    nvcc = _nvcc()
+    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+          for src, o in zip(_sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -112,7 +130,7 @@ def dtype_code(t: torch.Tensor) -> int:
     code = DTYPE_CODES.get(t.dtype)
     if code is None:
         raise TypeError(
-            f"CUDA attention kernels take float32 or bfloat16, got {t.dtype}"
+            f"the CUDA kernels take float32 or bfloat16, got {t.dtype}"
         )
     return code
 

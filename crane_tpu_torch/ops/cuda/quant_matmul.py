@@ -1,0 +1,78 @@
+"""K6: int8 / packed-int4 weight matmul with per-column scales
+(``csrc/quant_matmul.cu``).
+
+Port of ``crane_tpu/ops/pallas/quant_matmul.py::quant_matmul``:
+``y = (x @ codes) * scales`` for activations ``x [M, I]``, codes ``[I, O]``
+int8 (``bits=8``) or ``[I/2, O]`` packed int4 (``bits=4``: byte ``(i, o)``
+holds code ``i`` low and code ``i + I/2`` high) and ``scales [1, O]``
+float32. On a CUDA tensor :func:`quant_matmul` launches the hand-written
+kernel or raises; on a CPU tensor it runs :func:`quant_matmul_plain`. Unlike
+the TPU kernel, neither rounds a float32 ``x`` to bf16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crane_tpu_torch.ops.cuda import build
+from crane_tpu_torch.ops.kv_cache import unpack_int4
+
+BITS = (8, 4)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a float32 result, as XLA's ``preferred_element_type``
+    gives it: cuBLAS writes float32 itself for a bf16 pair on the card
+    (``out_dtype``); the CPU has no such product and upcasts after, which in
+    float32 is the same."""
+    if a.is_cuda and a.dtype != torch.float32:
+        flat = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return flat.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a, b).float()
+
+
+def quant_matmul_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                       *, bits: int) -> torch.Tensor:
+    """x ``[M, I]``; codes ``[I, O]`` int8 or ``[I/2, O]`` packed int4;
+    scales ``[1, O]`` (or ``[O]``) float32. The codes, exact in any float
+    type, are cast to x's dtype; the product accumulates in float32 and is
+    scaled once. Returns ``[M, O]`` in x's dtype."""
+    w = unpack_int4(codes.T).T if bits == 4 else codes
+    y = matmul_f32(x, w.to(x.dtype)) * scales.reshape(1, -1)
+    return y.to(x.dtype)
+
+
+def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                 *, bits: int) -> torch.Tensor:
+    """Quantized-weight matmul (contract in :func:`quant_matmul_plain`).
+    Launches are counted per ``bits``: ``launches["w8"]``, ``["w4"]``."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, codes, scales, bits=bits)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul: no kernel for {x.device}")
+    if bits not in BITS:
+        raise ValueError(f"quant_matmul takes bits in {BITS}, got {bits}")
+    if x.ndim != 2 or codes.ndim != 2:
+        raise ValueError(f"quant_matmul takes x [M, I] and codes [I', O], got "
+                         f"{tuple(x.shape)} and {tuple(codes.shape)}")
+    M, I = x.shape
+    Ip, O = codes.shape
+    if Ip * (2 if bits == 4 else 1) != I:
+        raise ValueError(f"quant_matmul: codes {tuple(codes.shape)} do not fit x "
+                         f"{tuple(x.shape)} at {bits} bits")
+    if codes.dtype != torch.int8:
+        raise TypeError(f"quant_matmul: codes must be int8, got {codes.dtype}")
+    if scales.dtype != torch.float32 or scales.numel() != O:
+        raise TypeError("quant_matmul: scales must be float32 [1, O]")
+    build.require_cuda("quant_matmul", x, codes, scales)
+    out = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    err = build.lib().crane_quant_matmul(
+        build.dtype_code(x), bits, x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        out.data_ptr(), M, I, O, build.stream_ptr(x.device),
+    )
+    build.check_launch("crane_quant_matmul", err)
+    quant_matmul.launches[f"w{bits}"] += 1
+    return out
+
+
+quant_matmul.launches = {f"w{b}": 0 for b in BITS}

@@ -1,11 +1,16 @@
-"""Fixed-shape KV caches (port of ``crane_tpu/ops/kv_cache.py``, fp form).
+"""Fixed-shape KV caches (port of ``crane_tpu/ops/kv_cache.py``).
 
-Layout is the reference's, byte for byte: per layer ``k``/``v``
-``[B, S_max, H_kv, D]`` and per row ``lengths [B]`` int32, allocated once at
-``max_seq`` and never regrown. Where JAX donated the buffers and returned
-updated copies, the port writes into them in place and returns the same
-object. The int8/int4 cache (``QuantLayerKVCache``) waits for ROADMAP Queue 1
-item 7.
+Layouts are the reference's, byte for byte, allocated once at ``max_seq``
+and never regrown:
+
+- fp (:class:`LayerKVCache`): per layer ``k``/``v`` ``[B, S_max, H_kv, D]``;
+- int8 / nibble-packed int4 (:class:`QuantLayerKVCache`): flat codes
+  ``[B, S_max, H_kv * stored]`` int8 (``stored = D``, or ``D/2`` packed) and
+  head-major per-(token, head) scales ``[B, H_kv, S_max]`` float32;
+
+plus per row ``lengths [B]`` int32. Where JAX donated the buffers and
+returned updated copies, the port writes into them in place and returns the
+same object.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ class LayerKVCache:
         cache (the port of ``_prefill_slot_cont``'s slice-and-merge)."""
         return LayerKVCache(k=self.k[slot:slot + 1], v=self.v[slot:slot + 1])
 
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.k, self.v)
+
     def update(
         self,
         k_new: torch.Tensor,
@@ -56,30 +64,184 @@ class LayerKVCache:
         multi-slot cache). Per-row positions ``>= max_seq`` are dropped
         (inactive-slot masking in the serving engine). Returns ``self``."""
         if not isinstance(positions, torch.Tensor):
-            start = int(positions)
-            s = k_new.shape[1]
-            if start < 0 or start + s > self.max_seq:
-                # jax's dynamic_update_slice would clamp the start and shift
-                # the write onto live slots; callers size writes to fit
-                raise ValueError(
-                    f"cache write [{start}, {start + s}) outside [0, {self.max_seq})"
-                )
-            r = slice(None) if row is None else slice(row, row + 1)
-            self.k[r, start:start + s] = k_new.to(self.k.dtype)
-            self.v[r, start:start + s] = v_new.to(self.v.dtype)
+            r, t = _slab(int(positions), k_new.shape[1], self.max_seq, row)
+            self.k[r, t] = k_new.to(self.k.dtype)
+            self.v[r, t] = v_new.to(self.v.dtype)
             return self
-        if positions.ndim != 1:
-            raise ValueError(f"per-row positions must be [B], got {tuple(positions.shape)}")
-        B, s = k_new.shape[0], k_new.shape[1]
-        b = torch.arange(B, device=self.k.device)[:, None]
-        idx = positions.to(torch.long)[:, None] + torch.arange(s, device=self.k.device)[None, :]
-        keep = (idx < self.max_seq)[:, :, None, None]
-        idx = idx.clamp(max=self.max_seq - 1)
-        # a dropped write stores back what the slot already held, so no
-        # host-side filtering (and no device sync) is needed
-        self.k[b, idx] = torch.where(keep, k_new.to(self.k.dtype), self.k[b, idx])
-        self.v[b, idx] = torch.where(keep, v_new.to(self.v.dtype), self.v[b, idx])
+        b, idx, keep = _row_writes(positions, k_new.shape[0], k_new.shape[1], self.max_seq)
+        _put(self.k, b, idx, keep, k_new)
+        _put(self.v, b, idx, keep, v_new)
         return self
+
+
+def _slab(start: int, s: int, max_seq: int, row: int | None) -> tuple[slice, slice]:
+    """(row slice, position slice) of an ``int``-start write of ``s`` tokens."""
+    if start < 0 or start + s > max_seq:
+        # jax's dynamic_update_slice would clamp the start and shift the
+        # write onto live slots; callers size writes to fit
+        raise ValueError(f"cache write [{start}, {start + s}) outside [0, {max_seq})")
+    r = slice(None) if row is None else slice(row, row + 1)
+    return r, slice(start, start + s)
+
+
+def _row_writes(positions: torch.Tensor, B: int, s: int, max_seq: int):
+    """Indices of a per-row write: (``b [B, 1]``, ``idx [B, s]`` clamped into
+    the buffer, ``keep [B, s]``, False where the position is ``>= max_seq``)."""
+    if positions.ndim != 1:
+        raise ValueError(f"per-row positions must be [B], got {tuple(positions.shape)}")
+    device = positions.device
+    b = torch.arange(B, device=device)[:, None]
+    idx = positions.to(torch.long)[:, None] + torch.arange(s, device=device)[None, :]
+    keep = idx < max_seq
+    return b, idx.clamp(max=max_seq - 1), keep
+
+
+def _put(buf: torch.Tensor, b, idx, keep, new: torch.Tensor) -> None:
+    """``buf[b, idx] = new`` along dims 0 and 1 where ``keep``. A dropped
+    write stores back what the slot already held, so no host-side filtering
+    (and no device sync) is needed."""
+    keep = keep.reshape(*keep.shape, *([1] * (new.ndim - 2)))
+    buf[b, idx] = torch.where(keep, new.to(buf.dtype), buf[b, idx])
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Pack int4 codes (int8, in [-7, 7]) two per byte along the last dim:
+    ``byte = 16 * codes[..., D/2:] + codes[..., :D/2]``, arithmetic, as the
+    reference packs them (max |byte| = 119, inside int8)."""
+    d = codes.shape[-1]
+    if d % 2:
+        raise ValueError(f"int4 packing needs an even last dim, got {d}")
+    lo, hi = codes[..., : d // 2], codes[..., d // 2:]
+    return (hi.to(torch.int16) * 16 + lo).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: ``[..., D/2]`` -> ``[..., D]`` int8, with
+    ``hi = floor((b + 8) / 16)`` and ``lo = b - 16 * hi``."""
+    p = packed.to(torch.int16)
+    hi = torch.div(p + 8, 16, rounding_mode="floor")
+    lo = p - 16 * hi
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def quant_symmetric(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric quantization over the last axis, the
+    reference's ``_quant_symmetric``: ``scale = amax / qmax``, codes rounded
+    half to even and clipped to ``[-qmax, qmax]``, a zero scale for an
+    all-zero vector. Returns (int8 codes, float32 scales ``[..., 1]``); int4
+    codes are unpacked here."""
+    qmax = float(2 ** (bits - 1) - 1)
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / qmax
+    inv = torch.where(scale > 0, 1.0 / torch.where(scale > 0, scale, 1.0), 0.0)
+    q = torch.round(xf * inv).clamp(-qmax, qmax).to(torch.int8)
+    return q, scale
+
+
+@dataclasses.dataclass
+class QuantLayerKVCache:
+    """One layer's int8 / nibble-packed int4 KV buffer.
+
+    ``k``/``v``: flat codes ``[B, S_max, H_kv * stored]`` int8, column
+    ``h * stored + j`` being byte ``j`` of head ``h`` (``stored = D`` for
+    int8; ``D/2`` for int4, byte ``j`` holding dim ``j`` low and dim
+    ``j + D/2`` high). ``k_scale``/``v_scale``: ``[B, H_kv, S_max]`` float32,
+    head-major, so the decode kernel reads one contiguous scale row per
+    (row, kv-head). Tokens are quantized at write time; attention folds the
+    scales in (K4, K5) or reads :meth:`dequant`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    bits: int = 8
+    n_kv_heads: int = 1
+
+    @staticmethod
+    def empty(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
+              dtype=None, *, bits: int = 8, device=None) -> "QuantLayerKVCache":
+        """``dtype`` is ignored (codes are int8, scales float32); kept for
+        the fp cache's signature. ``device="meta"`` sizes without allocating."""
+        if bits not in (4, 8):
+            raise ValueError(f"KV cache quantization takes 8 or 4 bits, got {bits}")
+        stored = head_dim // 2 if bits == 4 else head_dim
+        shape = (batch, max_seq, n_kv_heads * stored)
+        sshape = (batch, n_kv_heads, max_seq)
+        return QuantLayerKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            bits=bits, n_kv_heads=n_kv_heads,
+        )
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def head_dim(self) -> int:
+        stored = self.k.shape[2] // self.n_kv_heads
+        return stored * 2 if self.bits == 4 else stored
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.k, self.v, self.k_scale, self.v_scale)
+
+    def row(self, slot: int) -> "QuantLayerKVCache":
+        """Batch-1 view of row ``slot``: writes through it land in this cache."""
+        r = slice(slot, slot + 1)
+        return dataclasses.replace(self, k=self.k[r], v=self.v[r],
+                                   k_scale=self.k_scale[r], v_scale=self.v_scale[r])
+
+    def _encode(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``[B, S, H, D]`` -> flat codes ``[B, S, H * stored]`` and
+        head-major scales ``[B, H, S]``."""
+        q, s = quant_symmetric(x, self.bits)
+        if self.bits == 4:
+            q = pack_int4(q)
+        B, S = q.shape[0], q.shape[1]
+        return q.reshape(B, S, -1), s[..., 0].transpose(1, 2)
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor, positions,
+               row: int | None = None) -> "QuantLayerKVCache":
+        """Quantize ``k_new/v_new`` ``[B, S_new, H, D]`` and write codes and
+        scales at ``positions``, in place, with :meth:`LayerKVCache.update`'s
+        contract: an ``int`` start (with ``row``) or ``[B]`` per-row starts,
+        whose writes at ``>= max_seq`` are dropped for codes and scales
+        alike. Returns ``self``."""
+        kq, ks = self._encode(k_new)
+        vq, vs = self._encode(v_new)
+        if not isinstance(positions, torch.Tensor):
+            r, t = _slab(int(positions), k_new.shape[1], self.max_seq, row)
+            self.k[r, t] = kq
+            self.v[r, t] = vq
+            self.k_scale[r, :, t] = ks
+            self.v_scale[r, :, t] = vs
+            return self
+        b, idx, keep = _row_writes(positions, k_new.shape[0], k_new.shape[1], self.max_seq)
+        _put(self.k, b, idx, keep, kq)
+        _put(self.v, b, idx, keep, vq)
+        # scales [B, H, T] are written through a [B, T, H] view of themselves
+        _put(self.k_scale.transpose(1, 2), b, idx, keep, ks.transpose(1, 2))
+        _put(self.v_scale.transpose(1, 2), b, idx, keep, vs.transpose(1, 2))
+        return self
+
+    def dequant(self, dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whole buffer as K/V ``[B, S_max, H, D]``: ``codes * scale`` in
+        float32, cast to ``dtype``."""
+        return (dequant_codes(self.k, self.k_scale, self.bits, self.n_kv_heads, dtype),
+                dequant_codes(self.v, self.v_scale, self.bits, self.n_kv_heads, dtype))
+
+
+def dequant_codes(codes: torch.Tensor, scales: torch.Tensor, bits: int,
+                  n_kv_heads: int, dtype=torch.float32) -> torch.Tensor:
+    """Flat cache codes ``[B, T, H * stored]`` and scales ``[B, H, T]`` ->
+    ``[B, T, H, D]`` in ``dtype`` (the product is taken in float32)."""
+    B, T = codes.shape[0], codes.shape[1]
+    c = codes.reshape(B, T, n_kv_heads, -1)
+    if bits == 4:
+        c = unpack_int4(c)
+    return (c.float() * scales.transpose(1, 2)[..., None]).to(dtype)
 
 
 @dataclasses.dataclass
@@ -93,12 +255,17 @@ class KVCache:
 
     @staticmethod
     def empty(n_layers: int, batch: int, max_seq: int, n_kv_heads: int,
-              head_dim: int, dtype, device=None) -> "KVCache":
+              head_dim: int, dtype, device=None, *,
+              quant_bits: int | None = None) -> "KVCache":
+        """fp layers, or int8/int4 ones with ``quant_bits`` 8 or 4."""
+        def layer():
+            if quant_bits is None:
+                return LayerKVCache.empty(batch, max_seq, n_kv_heads, head_dim, dtype, device)
+            return QuantLayerKVCache.empty(batch, max_seq, n_kv_heads, head_dim,
+                                           bits=quant_bits, device=device)
+
         return KVCache(
-            layers=tuple(
-                LayerKVCache.empty(batch, max_seq, n_kv_heads, head_dim, dtype, device)
-                for _ in range(n_layers)
-            ),
+            layers=tuple(layer() for _ in range(n_layers)),
             lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
         )
 
@@ -115,5 +282,6 @@ class KVCache:
         )
 
     def nbytes(self) -> int:
-        tensors = [self.lengths] + [t for l in self.layers for t in (l.k, l.v)]
+        """Bytes of every buffer: lengths, codes or K/V, and scale planes."""
+        tensors = [self.lengths] + [t for layer in self.layers for t in layer.tensors()]
         return sum(t.numel() * t.element_size() for t in tensors)

@@ -18,8 +18,10 @@ What the engine keeps from the reference:
 - the depth-1 decode pipeline: block N's tokens are read back and streamed
   while the device runs block N+1.
 
-Speculative decoding (``speculative="ngram"``) and quantized KV caches are
-not ported yet and raise (ROADMAP Queue 1 items 6 and 7).
+``kv_quant_bits`` 8 or 4 keeps the slots in an int8 or int4 cache
+(decode through K4, continuation chunks through K5). Speculative decoding
+(``speculative="ngram"``) is not ported yet and raises (ROADMAP Queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from crane_tpu.serve.stats import EngineStats
 from crane_tpu.tokenizer.token_stream import TokenOutputStream
 from crane_tpu.utils.buckets import bucket_length
 from crane_tpu_torch.models.causal_lm import CausalLM
+from crane_tpu_torch.ops.linear import QuantizedWeight
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
 
 log = logging.getLogger("crane_tpu_torch.engine")
@@ -68,14 +71,19 @@ def _pow2_floor(cap: int, floor: int) -> int:
 
 
 def _tree_bytes(tree) -> int:
+    """Bytes of a parameter tree; a ``QuantizedWeight`` counts its codes
+    and scales."""
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
     if isinstance(tree, (tuple, list)):
         return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, QuantizedWeight):
+        return _tree_bytes(tree.tensors())
     return tree.numel() * tree.element_size()
 
 
-def _check_hbm_budget(lm, max_slots: int, max_seq_len: int) -> None:
+def _check_hbm_budget(lm, max_slots: int, max_seq_len: int,
+                      kv_quant_bits: int | None) -> None:
     """Fail fast at startup if weights + the fully committed KV slots can't
     fit device memory (the reference's memory governor, reduced to one
     inequality because static slots commit the whole budget up front).
@@ -94,16 +102,17 @@ def _check_hbm_budget(lm, max_slots: int, max_seq_len: int) -> None:
     else:
         return
     weights = _tree_bytes(lm.params)
-    kv = lm.init_cache(max_slots, max_seq_len, device="meta").nbytes()
+    kv = lm.init_cache(max_slots, max_seq_len, quant_bits=kv_quant_bits,
+                       device="meta").nbytes()
     need = int((weights + kv) * 1.15)
     gib = 1024 ** 3
     if need > limit:
         raise RuntimeError(
             f"HBM budget exceeded: weights {weights / gib:.2f} GiB + cache "
             f"{kv / gib:.2f} GiB ({max_slots} slots x {max_seq_len} tokens, "
-            f"{8 * torch.empty((), dtype=lm.dtype).element_size()}-bit KV) x 1.15 "
-            f"headroom = {need / gib:.2f} GiB > device limit {limit / gib:.2f} GiB. "
-            f"Reduce max_slots/max_seq_len."
+            f"{kv_quant_bits or 8 * torch.empty((), dtype=lm.dtype).element_size()}-bit KV) "
+            f"x 1.15 headroom = {need / gib:.2f} GiB > device limit {limit / gib:.2f} GiB. "
+            f"Reduce max_slots/max_seq_len or use kv_quant_bits=8/4."
         )
     log.info("memory budget: weights %.2f GiB + cache %.2f GiB (x1.15) fits %.2f GiB",
              weights / gib, kv / gib, limit / gib)
@@ -128,9 +137,6 @@ class InferenceEngine:
         if speculative is not None:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP Queue 1 item 6)")
-        if kv_quant_bits is not None:
-            raise NotImplementedError(
-                "int8/int4 KV caches are not ported yet (ROADMAP Queue 1 item 7)")
         self.lm = lm
         self.max_slots = max_slots
         # round the buffer up to an align multiple: admission offsets are
@@ -166,9 +172,9 @@ class InferenceEngine:
         # (recorded at finish/preemption; None once a new occupant writes)
         self._resident: list[Optional[np.ndarray]] = [None] * max_slots
 
-        _check_hbm_budget(lm, max_slots, self.max_seq_len)
+        _check_hbm_budget(lm, max_slots, self.max_seq_len, kv_quant_bits)
         device = lm.device
-        self.cache = lm.init_cache(max_slots, self.max_seq_len)
+        self.cache = lm.init_cache(max_slots, self.max_seq_len, quant_bits=kv_quant_bits)
         self.recent = torch.full((max_slots, RECENT_WINDOW), -1, dtype=torch.int32, device=device)
         self.sp = SamplingParams.make(max_slots, device=device)
         self.cur_tokens = torch.zeros((max_slots,), dtype=torch.int32, device=device)
@@ -220,8 +226,8 @@ class InferenceEngine:
         sample(logits, self.sp.row(0), self.recent[:1], self.generator)
         self.cache.lengths.zero_()
         for layer in self.cache.layers:
-            layer.k.zero_()
-            layer.v.zero_()
+            for t in layer.tensors():
+                t.zero_()
         self.recent.fill_(-1)
         self.cur_tokens.zero_()
         out.cpu()  # a real sync: no warmup work lands on the first request

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from crane_tpu_torch.ops.linear import QuantizedWeight
+
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """One array (numpy, ``jax.Array`` or anything ``np.asarray`` takes) ->
@@ -27,16 +29,18 @@ def params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
     """A ``crane_tpu`` params pytree -> the port's tree of tensors.
 
     Floating leaves are cast to ``dtype`` when it is given; integer leaves
-    keep their type. Quantized weights (``QuantizedWeight``) are not ported
-    yet (ROADMAP Queue 1 item 7) and raise."""
+    keep their type. A ``crane_tpu`` ``QuantizedWeight`` becomes the port's
+    :class:`~crane_tpu_torch.ops.linear.QuantizedWeight` with the same int8
+    codes, float32 scales, ``block`` and ``bits``: ``dtype`` never touches
+    codes or scales."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(params_from_jax(v, device, dtype) for v in tree)
     if hasattr(tree, "codes") and hasattr(tree, "scales"):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (ROADMAP Queue 1 item 7)"
-        )
+        return QuantizedWeight(codes=tensor_from_numpy(tree.codes, device),
+                               scales=tensor_from_numpy(tree.scales, device),
+                               block=tree.block, bits=tree.bits)
     t = tensor_from_numpy(tree, device)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)

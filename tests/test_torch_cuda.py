@@ -15,17 +15,24 @@ import os
 import pytest
 import torch
 
+from crane_tpu_torch.models.auto import quantize_params
 from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
 from crane_tpu_torch.models.init import QWEN3_TINY, init_params
 from crane_tpu_torch.ops import cuda as kernels
 from crane_tpu_torch.ops.cuda import decode_attention as k1
 from crane_tpu_torch.ops.cuda import flash_attention as k23
+from crane_tpu_torch.ops.cuda import quant_attention as k45
+from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+from crane_tpu_torch.ops.linear import QuantizedWeight, quantize_weight
 from crane_tpu_torch.serve.engine import EngineRequest, InferenceEngine, SamplingOptions
 
 pytestmark = pytest.mark.cuda
 
 # float32 kernels against float32 plain versions: the same sums in another
-# order, with __expf; bf16 ones: two roundings of the output (see chip_smoke.py)
+# order, with __expf; bf16 ones: two roundings of the output (see chip_smoke.py).
+# The quantized kernels (K4-K6) are held against their plain versions run in
+# float32 on the same codes, so the bf16 cases see only the kernel's rounding.
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=2 ** -6, atol=1e-3)}
 
 
@@ -80,12 +87,65 @@ def test_k1_matches_plain(dev, dtype, D, Hq, Hkv, opts):
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,I,O", [(1, 1024, 3072), (8, 3072, 1024), (256, 1024, 2048),
+                                   (3, 1024, 152064), (5, 96, 40)])
+def test_k6_matches_plain(dev, dtype, bits, M, I, O):
+    """The path's shapes (decode, 256-token chunks, the padded-vocab head)
+    and an O that is no multiple of 16 (byte loads, masked edge)."""
+    gen = torch.Generator(device=dev).manual_seed(M + O)
+    w = quantize_weight(rnd(gen, I, O, dtype=torch.float32) * I ** -0.5, bits=bits)
+    x = rnd(gen, M, I, dtype=dtype)
+    got = quant_matmul(x, w.codes, w.scales, bits=bits)
+    ref = quant_matmul_plain(x.float(), w.codes, w.scales, bits=bits)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 8), (128, 24, 3)])
+@pytest.mark.parametrize("opts", [{}, {"window": 33}, {"logit_softcap": 9.0}])
+def test_k4_k5_match_plain(dev, dtype, bits, D, Hq, Hkv, opts):
+    gen = torch.Generator(device=dev).manual_seed(D * Hq + bits)
+    T = 300
+    cache = QuantLayerKVCache.empty(6, T, Hkv, D, bits=bits, device=dev)
+    cache.update(rnd(gen, 6, T, Hkv, D, dtype=dtype), rnd(gen, 6, T, Hkv, D, dtype=dtype), 0)
+    ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    q = rnd(gen, 6, 1, Hq, D, dtype=dtype)
+    valid = torch.tensor([0, 1, 31, 32, 299, 300], dtype=torch.int32, device=dev)
+    got = k45.quant_decode_attention(q, *ops, valid, bits=bits, scale=D ** -0.5, **opts)
+    ref = k45.quant_decode_attention_plain(q.float(), *ops, valid, bits=bits, scale=D ** -0.5,
+                                           **opts)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # the empty row
+    torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+
+    S = 77  # a ragged last q-tile
+    q = rnd(gen, 6, S, Hq, D, dtype=dtype)
+    starts = torch.tensor([0, 40, 100, 150, 223, 260], device=dev)  # the last runs past T
+    pos = (starts[:, None] + torch.arange(S, device=dev)[None]).to(torch.int32)
+    got = k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=D ** -0.5, **opts)
+    ref = k45.quant_cached_attention_plain(q.float(), *ops, pos, bits=bits, scale=D ** -0.5,
+                                           **opts)
+    torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+
+
 def test_launch_counts_and_refusals(dev):
     q = torch.zeros(1, 4, 2, 64, device=dev)
+    valid = torch.ones(1, dtype=torch.int32, device=dev)
+    pos = torch.zeros(1, 4, dtype=torch.int32, device=dev)
     kernels.reset_launch_counts()
     k23.flash_attention_causal(q, q, q, scale=0.1)
-    k23.flash_attention_cached(q, q, q, torch.zeros(1, 4, dtype=torch.int32, device=dev), scale=0.1)
-    k1.fp_decode_attention(q[:, :1], q, q, torch.ones(1, dtype=torch.int32, device=dev), scale=0.1)
+    k23.flash_attention_cached(q, q, q, pos, scale=0.1)
+    k1.fp_decode_attention(q[:, :1], q, q, valid, scale=0.1)
+    for bits in (8, 4):
+        c = QuantLayerKVCache.empty(1, 4, 2, 64, bits=bits, device=dev)
+        ops = (c.k, c.v, c.k_scale, c.v_scale)
+        k45.quant_decode_attention(q[:, :1], *ops, valid, bits=bits, scale=0.1)
+        k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=0.1)
+        w = quantize_weight(torch.ones(64, 16, device=dev), bits=bits)
+        quant_matmul(q[0, 0], w.codes, w.scales, bits=bits)
     assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
     odd = torch.zeros(1, 4, 2, 96, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -93,8 +153,15 @@ def test_launch_counts_and_refusals(dev):
     with pytest.raises(ValueError, match="contiguous"):
         k23.flash_attention_causal(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), scale=0.1)
     with pytest.raises(TypeError):
-        k1.fp_decode_attention(q[:, :1].half(), q.half(), q.half(),
-                               torch.ones(1, dtype=torch.int32, device=dev), scale=0.1)
+        k1.fp_decode_attention(q[:, :1].half(), q.half(), q.half(), valid, scale=0.1)
+    with pytest.raises(ValueError, match="bits"):
+        k45.quant_decode_attention(q[:, :1], *ops, valid, bits=2, scale=0.1)
+    with pytest.raises(ValueError, match="codes"):  # int4 codes read as int8
+        k45.quant_cached_attention(q, *ops, pos, bits=8, scale=0.1)
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul(q[0, 0], w.codes.float(), w.scales, bits=4)
+    with pytest.raises(ValueError, match="do not fit"):
+        quant_matmul(q[0, 0], w.codes, w.scales, bits=8)
     assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
 
 
@@ -114,6 +181,8 @@ def _to(tree, dev):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_to(v, dev) for v in tree)
+    if isinstance(tree, QuantizedWeight):
+        return QuantizedWeight(tree.codes.to(dev), tree.scales.to(dev), tree.block, tree.bits)
     return tree.to(dev)
 
 
@@ -127,19 +196,48 @@ def test_generate_on_card_matches_cpu(lms):
     assert gpu.generate(prompt, gen) == cpu.generate(prompt, gen)
 
 
+@pytest.fixture(params=[8, 4], ids=["w8kv8", "w4kv4"])
+def quant_lms(lms, request):
+    """The same tiny model with ISQ weights (int4: the tied head too), in
+    float32 on the card and on the CPU, same codes; and its KV bits."""
+    cpu, _ = lms
+    params = quantize_params(cpu.params, bits=request.param)
+    dev = torch.device("cuda")
+    return (CausalLM(cpu.config, params, dtype=torch.float32),
+            CausalLM(cpu.config, _to(params, dev), dtype=torch.float32), request.param)
+
+
+def test_quant_generate_on_card_matches_cpu(quant_lms):
+    cpu, gpu, bits = quant_lms
+    prompt = list(range(3, 140, 2))
+    logits_c, _ = cpu.prefill(cpu.init_cache(1, 256, quant_bits=bits), [prompt], [len(prompt)])
+    logits_g, _ = gpu.prefill(gpu.init_cache(1, 256, quant_bits=bits), [prompt], [len(prompt)])
+    torch.testing.assert_close(logits_g.cpu(), logits_c, rtol=1e-4, atol=1e-4)
+    gen = GenerationConfig.greedy(24, kv_quant_bits=bits)
+    assert gpu.generate(prompt, gen) == cpu.generate(prompt, gen)
+
+
+def test_quant_engine_on_card_matches_cpu(quant_lms):
+    cpu, gpu, bits = quant_lms
+    assert _engine_tokens(cpu, bits) == _engine_tokens(gpu, bits)
+
+
 def test_engine_on_card_matches_cpu(lms):
+    assert _engine_tokens(lms[0]) == _engine_tokens(lms[1])
+
+
+def _engine_tokens(lm, kv_quant_bits=None):
+    """Three greedy requests (chunked admission, continuation chunks) through
+    the engine; their tokens."""
     greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
     prompts = [list(range(1, 1 + n)) for n in (5, 40, 90)]
-    outs = []
-    for lm in lms:
-        engine = InferenceEngine(lm, max_slots=2, max_seq_len=256, prefill_chunk=32,
-                                 bucket_align=32, decode_tokens_per_seq=4)
-        qs = [engine.submit(EngineRequest(f"r{i}", p, 12, greedy)) for i, p in enumerate(prompts)]
-        for _ in range(1000):
-            if not engine.step() and engine.request_q.empty():
-                break
-        outs.append([_drain(q) for q in qs])
-    assert outs[0] == outs[1]
+    engine = InferenceEngine(lm, max_slots=2, max_seq_len=256, prefill_chunk=32,
+                             bucket_align=32, decode_tokens_per_seq=4, kv_quant_bits=kv_quant_bits)
+    qs = [engine.submit(EngineRequest(f"r{i}", p, 12, greedy)) for i, p in enumerate(prompts)]
+    for _ in range(1000):
+        if not engine.step() and engine.request_q.empty():
+            break
+    return [_drain(q) for q in qs]
 
 
 def _drain(q):

@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from crane_tpu.generation.config import GenerationConfig
+from crane_tpu.models.auto import quantize_params
 from crane_tpu.models.causal_lm import CausalLM as JLM
 from crane_tpu.models.init import QWEN3_TINY, init_params
 from crane_tpu.serve.engine import InferenceEngine as JEngine
@@ -38,6 +39,18 @@ def lms():
     jp = init_params(QWEN3_TINY, seed=0, dtype=jnp.float32)
     return (JLM(QWEN3_TINY, jp, dtype=jnp.float32),
             TLM(QWEN3_TINY, params_from_jax(jp), dtype=torch.float32))
+
+
+@pytest.fixture(scope="module")
+def quant_lms(lms):
+    """ISQ-quantized models per bit width, on crane_tpu's codes."""
+    jp = lms[0].params
+    out = {}
+    for bits in (8, 4):
+        jq = quantize_params(jp, bits=bits)
+        out[bits] = (JLM(QWEN3_TINY, jq, dtype=jnp.float32),
+                     TLM(QWEN3_TINY, params_from_jax(jq), dtype=torch.float32))
+    return out
 
 
 def req(rid, prompt, n, sampling=GREEDY):
@@ -90,14 +103,18 @@ def preempt_scenario(engine):
     return [drain(qa)[0], drain(qb)[0]]
 
 
+@pytest.mark.parametrize("kv_quant_bits", [None, 8, 4], ids=["dense", "w8kv8", "w4kv4"])
 @pytest.mark.parametrize("scenario,kw", [
     (mixed_scenario, dict(max_slots=3, max_seq_len=256, prefill_chunk=16, bucket_align=16,
                           decode_tokens_per_seq=4, prefix_reuse_min=16)),
     (preempt_scenario, dict(max_slots=1, max_seq_len=128, decode_tokens_per_seq=2,
                             preempt_after_s=0.0)),
 ])
-def test_engine_matches_crane_tpu(lms, scenario, kw):
-    jl, tl = lms
+def test_engine_matches_crane_tpu(lms, quant_lms, scenario, kw, kv_quant_bits):
+    """Dense weights on an fp cache, or ISQ weights on a KV cache of the
+    same bit width."""
+    jl, tl = lms if kv_quant_bits is None else quant_lms[kv_quant_bits]
+    kw = dict(kw, kv_quant_bits=kv_quant_bits)
     jeng, teng = JEngine(jl, **kw), InferenceEngine(tl, **kw)
     assert scenario(teng) == scenario(jeng)
     js, ts = jeng.stats.snapshot(), teng.stats.snapshot()
@@ -135,7 +152,9 @@ def test_abort_mid_admission_frees_the_slot(lms):
     assert engine.stats.requests_aborted == 1
 
 
-def test_memory_budget_and_unported_options(lms, monkeypatch):
+def test_memory_budget_and_unported_options(lms, quant_lms, monkeypatch):
+    """The budget counts the fp or quantized cache (codes and scale planes)
+    and QuantizedWeight leaves (codes and scales), and names the KV bits."""
     _, tl = lms
     monkeypatch.setenv("CRANE_HBM_BYTES", str(1024 * 1024))
     with pytest.raises(RuntimeError, match="HBM budget exceeded"):
@@ -144,8 +163,25 @@ def test_memory_budget_and_unported_options(lms, monkeypatch):
     InferenceEngine(tl, max_slots=4, max_seq_len=512)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         InferenceEngine(tl, speculative="ngram")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        InferenceEngine(tl, kv_quant_bits=8)
+
+    _, tq = quant_lms[4]
+    cfg = QWEN3_TINY
+    E, V, I, H, Hkv, D = (cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size,
+                          cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    linear_in_out = [(E, H * D), (E, Hkv * D), (E, Hkv * D), (H * D, E), (E, I), (E, I), (I, E)]
+    # int4 codes pack two input rows per byte; one float32 scale per column;
+    # the dense embedding and norms stay float32; the tied head is quantized
+    weights = (cfg.num_layers * (sum(i // 2 * o + 4 * o for i, o in linear_in_out)
+                                 + 4 * (2 * E + 2 * D))
+               + 4 * (V * E + E) + (E // 2 * V + 4 * V))
+    slots, seq = 4, 512
+    kv = cfg.num_layers * (2 * slots * seq * Hkv * D // 2 + 2 * slots * Hkv * seq * 4) + 4 * slots
+    need = int((weights + kv) * 1.15)
+    monkeypatch.setenv("CRANE_HBM_BYTES", str(need))
+    InferenceEngine(tq, max_slots=slots, max_seq_len=seq, kv_quant_bits=4)
+    monkeypatch.setenv("CRANE_HBM_BYTES", str(need - 1))
+    with pytest.raises(RuntimeError, match="4-bit KV"):
+        InferenceEngine(tq, max_slots=slots, max_seq_len=seq, kv_quant_bits=4)
 
 
 def test_threaded_run(lms):

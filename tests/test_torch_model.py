@@ -243,8 +243,9 @@ def test_unported_branches_raise(tiny_pair):
     _, tl = tiny_pair
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tl.generate([1, 2], GenerationConfig.greedy(4, speculative="ngram"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tl.init_cache(1, 64, quant_bits=8)
+    for bits in (8, 4):  # int8/int4 caches, once refused, are allocated
+        cache = tl.init_cache(1, 64, quant_bits=bits)
+        assert all(layer.bits == bits for layer in cache.layers)
     moe = dataclasses.replace(tinit.QWEN3_TINY, num_experts=4)
     hybrid = dataclasses.replace(tinit.QWEN3_TINY, layer_types=("gdn", "full"))
     for cfg in (moe, hybrid):

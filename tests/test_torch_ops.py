@@ -97,11 +97,15 @@ def test_linear_dense(bias):
 
 
 def test_linear_quantized_weight_not_ported():
+    """A crane_tpu QuantizedWeight crosses the bridge with its int8 codes and
+    float32 scales untouched by ``dtype``, and runs through ``linear``."""
     qw = jlinear.quantize_weight(jnp.asarray(rnd(32, 16, seed=12)), bits=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tlinear.linear(torch.zeros(1, 32), qw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        params_from_jax({"w": qw})
+    tw = params_from_jax({"w": qw}, dtype=torch.bfloat16)["w"]
+    assert isinstance(tw, tlinear.QuantizedWeight) and (tw.block, tw.bits) == (32, 8)
+    assert tw.codes.dtype == torch.int8 and tw.scales.dtype == torch.float32
+    np.testing.assert_array_equal(tw.codes.numpy(), np.asarray(qw.codes))
+    x = rnd(1, 32, seed=13)
+    close(tlinear.linear(torch.tensor(x), tw), jlinear.linear(jnp.asarray(x), qw))
 
 
 def test_bridge_bf16_is_bit_exact():

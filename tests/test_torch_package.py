@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15  # every module of the slice was walked
+    assert int(res.stdout.split()[-1]) >= 23  # every module of both slices was walked
 
 
 def test_kernel_build_directory_is_git_ignored():
