@@ -11,9 +11,11 @@ requests are token ids. Phases, each reported on its own line:
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``;
 3. kernels: K1 (decode), K2 (fresh prefill), K3 (continuation), K4
-   (quantized decode), K5 (quantized continuation) and K6 (quantized-weight
-   matmul) against their plain PyTorch versions on the card, at the main
-   paths' shapes, each with its time beside the plain version's;
+   (quantized decode), K5 (quantized continuation), K6 (quantized-weight
+   matmul) and K7 (the GDN scan) against their plain PyTorch versions on
+   the card, at the main paths' shapes (K1-K5 also at head_dim 256 with
+   Qwen3.5's 8 query / 2 KV heads), each with its time beside the plain
+   version's (K7 also beside the chunked route's, crane_tpu's default);
 4. model: full-width Qwen3-0.6B; a 300-token prefill on the card agrees
    with the same prefill in float32 on the CPU; 64 greedy tokens through
    ``CausalLM.generate``; prefill ms and decode tok/s;
@@ -27,7 +29,17 @@ requests are token ids. Phases, each reported on its own line:
    the CPU; 64 greedy tokens through ``generate`` on an int4 cache;
 7. quantized engine: the six-request mix with int8 weights on an int8 KV
    cache, then with int4 weights on an int4 cache; K4, K5 and K6 were
-   launched, at each bit width, by this quantized path.
+   launched, at each bit width, by this quantized path;
+8. hybrid model: full-width Qwen3.5-0.8B (18 Gated-DeltaNet and 6 gated
+   attention layers, head_dim 256) with random bf16 weights in the HF
+   layout, mapped by ``map_hf_weights``; the 300-token prefill run in
+   float32 on the card (the kernels in float32) agrees with the same
+   prefill in float32 on the CPU, and the bf16 prefill's distance from it
+   is reported beside the CPU's own bf16 distance; 64 greedy tokens
+   through ``generate`` in bf16; prefill ms and decode tok/s;
+9. hybrid engine: the six-request mix on the hybrid model (prefix reuse
+   off); K1, K2, K3 (at head_dim 256) and K7 were each launched by this
+   hybrid path.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
@@ -51,7 +63,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_RTOL = 2.0 ** -6
 KERNEL_ATOL = 1e-3
 
-# model check: bf16 on the card against float32 on the CPU, same weights.
+# K7 against the plain scan: y is written in v's dtype (bf16 here), so it is
+# held to the kernel bound above; the final state stays float32 in both and
+# differs only by the order of float32 sums over a few hundred steps of a
+# contractive update, so it is held to STATE_ATOL + STATE_RTOL * |plain|.
+STATE_RTOL = 1e-4
+STATE_ATOL = 1e-4
+
+# model check: the card against float32 on the CPU, same weights.
 # Activations round to bf16 (2**-9 relative) at every op of 28 layers, so
 # the last-token logits may drift by a few percent of their spread: the
 # relative L2 error must stay under LOGIT_REL_L2, and the greedy top-1 must
@@ -65,12 +84,12 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
     after a warm-up."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -82,29 +101,35 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name, got, ref) -> float:
+def compare(name, got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL) -> float:
     """max |got - ref|, raising unless every element is finite and within
-    KERNEL_ATOL + KERNEL_RTOL * |ref|."""
+    atol + rtol * |ref| (by default the kernel bound above)."""
     import torch
 
     err = (got.float() - ref.float()).abs()
-    bound = KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
+    bound = atol + rtol * ref.float().abs()
     if not torch.isfinite(got.float()).all() or (err > bound).any():
         raise AssertionError(f"{name}: max |err| {err.max().item():.3g} over the bound")
     return err.max().item()
 
 
-def timed_row(name, src, replaces, errs, kernel_fn, plain_fn, shape) -> dict:
+def timed_row(name, src, replaces, errs, kernel_fn, plain_fn, shape, iters=20) -> dict:
     """The kernel's JSON row: its worst error over the cases and its time
     beside the plain version's at ``shape``, taken in turns (plain, kernel,
     kernel, plain) so drift hits both alike."""
-    p1, k1_ms, k2_ms, p2 = (cuda_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
-    ms, plain_ms = (k1_ms + k2_ms) / 2, (p1 + p2) / 2
+    ms, plain_ms = paired_ms(kernel_fn, plain_fn, iters)
     log("kernels", f"{name}: max|err| {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
                    f"{ms:.4f} ms vs plain {plain_ms:.4f} ms at {shape}")
     return {"name": name, "route": "cuda", "source": f"crane_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain_ms}
+
+
+def paired_ms(kernel_fn, plain_fn, iters=20) -> tuple[float, float]:
+    """(kernel ms, plain ms), each the mean of two timings taken in turns
+    plain, kernel, kernel, plain."""
+    p1, k1_ms, k2_ms, p2 = (cuda_ms(f, iters) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    return (k1_ms + k2_ms) / 2, (p1 + p2) / 2
 
 
 def check_kernels() -> list[dict]:
@@ -226,12 +251,13 @@ def check_quant_kernels() -> list[dict]:
                               lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
                               "M=8 I=1024 O=3072 (gate/up at 8 slots)"))
 
-    Hq, Hkv = 16, 8
     kws = (("plain", {}), ("window=256", {"window": 256}), ("softcap=30", {"logit_softcap": 30.0}))
     valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
     for bits in (8, 4):
         dec_errs, chunk_errs = [], []
-        for D in (64, 128):
+        # head_dim 256 (Qwen3.5's 8/2 heads) first: the rows are timed at
+        # the last shape, D=128 with Qwen3-0.6B's 16/8 heads
+        for D, Hq, Hkv in ((256, 8, 2), (64, 16, 8), (128, 16, 8)):
             cache = QuantLayerKVCache.empty(8, 2048, Hkv, D, bits=bits, device="cuda")
             cache.update(rnd(8, 2048, Hkv, D).to(torch.bfloat16),
                          rnd(8, 2048, Hkv, D).to(torch.bfloat16), 0)
@@ -252,20 +278,156 @@ def check_quant_kernels() -> list[dict]:
                     ref = k45.quant_cached_attention_plain(qc.float(), *row_ops, pos, bits=bits,
                                                            scale=D ** -0.5, **kw)
                     chunk_errs.append(compare(f"K5 kv{bits} D={D} offset={off} {label}", got, ref))
+            if D == 256:
+                log_times(f"K4 kv{bits} B=8 T=2048 ragged, Hq=8 Hkv=2 D=256",
+                          lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits,
+                                                             scale=D ** -0.5),
+                          lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits,
+                                                                   scale=D ** -0.5))
+                log_times(f"K5 kv{bits} B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256",
+                          lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits,
+                                                             scale=D ** -0.5),
+                          lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, bits=bits,
+                                                                   scale=D ** -0.5))
         rows.append(timed_row(
-            f"quant_decode_attention[kv{bits}]", "quant_attention.cu",
+            f"quant_decode_attention[kv{bits}]", "quant_decode_attention.cu",
             "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
             lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits, scale=D ** -0.5),
             lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits, scale=D ** -0.5),
             "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128"))
         rows.append(timed_row(
-            f"quant_cached_attention[kv{bits}]", "quant_attention.cu",
+            f"quant_cached_attention[kv{bits}]", "quant_cached_attention.cu",
             "crane_tpu/ops/pallas/quant_attention.py:647", chunk_errs,
             lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits, scale=D ** -0.5),
             lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, bits=bits,
                                                      scale=D ** -0.5),
             "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128"))
     return rows
+
+
+def log_times(label, kernel_fn, plain_fn) -> None:
+    ms, plain_ms = paired_ms(kernel_fn, plain_fn)
+    log("kernels", f"{label}: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+
+
+# the head_dim 256 rows of K1-K3 count the launches of the hybrid path,
+# under the wrapper's own counter
+D256 = "[D256]"
+
+
+def check_d256_kernels() -> list[dict]:
+    """Phase 3, head_dim 256: K2, K3 and K1 in bf16 with Qwen3.5's 8 query
+    and 2 KV heads (G = 4), with each option, at the shapes of the hybrid
+    path (a 1024-token prefill, 256-token chunks into a 2048-slot row, 8
+    ragged decode rows). One JSON row each, launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    gen = torch.Generator(device="cuda").manual_seed(2560)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    Hq, Hkv, D = 8, 2, 256
+    scale = D ** -0.5
+    q, k, v = rnd(1, 1024, Hq, D), rnd(1, 1024, Hkv, D), rnd(1, 1024, Hkv, D)
+    seg = torch.zeros(1, 1024, dtype=torch.int32, device="cuda")
+    seg[0, 100:356] = 1
+    errs = []
+    for label, seg_arg, kw in (("plain", None, {}), ("window=256", None, {"window": 256}),
+                               ("softcap=30", None, {"softcap": 30.0}), ("segments", seg, {})):
+        errs.append(compare(f"K2 D=256 {label}",
+                            k23.flash_attention_causal(q, k, v, seg_arg, scale=scale, **kw),
+                            k23.flash_attention_causal_plain(q, k, v, seg_arg, scale=scale, **kw)))
+    rows = [timed_row("flash_attention_causal" + D256, "flash_attention.cu",
+                      "crane_tpu/ops/pallas/flash_attention.py:187", errs,
+                      lambda: k23.flash_attention_causal(q, k, v, scale=scale),
+                      lambda: k23.flash_attention_causal_plain(q, k, v, scale=scale),
+                      "B=1 S=1024 Hq=8 Hkv=2 D=256")]
+
+    errs = []
+    kc, vc = rnd(1, 2048, Hkv, D), rnd(1, 2048, Hkv, D)
+    for off in (0, 512, 1000):
+        qc = rnd(1, 256, Hq, D)
+        pos = (torch.arange(256, dtype=torch.int32, device="cuda") + off)[None].contiguous()
+        for label, kw in (("plain", {}), ("window=256", {"window": 256})):
+            errs.append(compare(f"K3 D=256 offset={off} {label}",
+                                k23.flash_attention_cached(qc, kc, vc, pos, scale=scale, **kw),
+                                k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale,
+                                                                 **kw)))
+    rows.append(timed_row("flash_attention_cached" + D256, "flash_attention.cu",
+                          "crane_tpu/ops/pallas/flash_attention.py:384", errs,
+                          lambda: k23.flash_attention_cached(qc, kc, vc, pos, scale=scale),
+                          lambda: k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale),
+                          "B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256"))
+
+    errs = []
+    valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
+    qd = rnd(8, 1, Hq, D)
+    kc, vc = rnd(8, 2048, Hkv, D), rnd(8, 2048, Hkv, D)
+    for label, kw in (("plain", {}), ("window=256", {"window": 256}),
+                      ("softcap=30", {"logit_softcap": 30.0})):
+        errs.append(compare(f"K1 D=256 {label}",
+                            k1.fp_decode_attention(qd, kc, vc, valid, scale=scale, **kw),
+                            k1.fp_decode_attention_plain(qd, kc, vc, valid, scale=scale, **kw)))
+    rows.append(timed_row("fp_decode_attention" + D256, "decode_attention.cu",
+                          "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+                          lambda: k1.fp_decode_attention(qd, kc, vc, valid, scale=scale),
+                          lambda: k1.fp_decode_attention_plain(qd, kc, vc, valid, scale=scale),
+                          "B=8 T=2048 ragged kv_valid, Hq=8 Hkv=2 D=256"))
+    return rows
+
+
+def check_gdn_kernel() -> dict:
+    """Phase 3, K7: the GDN scan against its plain version (the step-by-
+    step recurrence) at the hybrid path's shape, H=16 and K=V=128, bf16 q,
+    k, v and float32 g, beta: batch 1 at S = 1, 300 and 1000, each from zero
+    and from a random initial state, and batch 8 at S=256. Each case is
+    timed against the plain scan and the chunked route (crane_tpu's
+    default). Returns the JSON row, timed at B=1 S=1000, launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan, gdn_scan_plain
+    from crane_tpu_torch.ops.gdn import gdn_recurrence_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    H, K, V = 16, 128, 128
+    errs, row = [], None
+    for B, S in ((1, 1), (1, 300), (1, 1000), (8, 256)):
+        q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for d in (K, K, V))
+        g = -torch.rand(B, S, H, generator=gen, device="cuda") * 0.5
+        beta = torch.rand(B, S, H, generator=gen, device="cuda")
+        inits = (None, torch.randn(B, H, K, V, generator=gen, device="cuda") * 0.3) \
+            if B == 1 else (None,)
+        for s0 in inits:
+            label = f"K7 B={B} S={S} {'init state' if s0 is not None else 'zero state'}"
+            y, st = gdn_scan(q, k, v, g, beta, s0)
+            yr, sr = gdn_scan_plain(q, k, v, g, beta, s0)
+            errs.append(compare(f"{label} y", y, yr))
+            compare(f"{label} state", st, sr, rtol=STATE_RTOL, atol=STATE_ATOL)
+        it = 2 if S >= 300 else 5  # the plain scan runs S steps of small launches
+        p1, ch1, k1_ms, k2_ms, ch2, p2 = (
+            cuda_ms(f, n, warmup=1) for f, n in (
+                (lambda: gdn_scan_plain(q, k, v, g, beta), it),
+                (lambda: gdn_recurrence_chunked(q, k, v, g, beta), 5),
+                (lambda: gdn_scan(q, k, v, g, beta), 20),
+                (lambda: gdn_scan(q, k, v, g, beta), 20),
+                (lambda: gdn_recurrence_chunked(q, k, v, g, beta), 5),
+                (lambda: gdn_scan_plain(q, k, v, g, beta), it)))
+        ms, plain_ms, chunked_ms = (k1_ms + k2_ms) / 2, (p1 + p2) / 2, (ch1 + ch2) / 2
+        log("kernels", f"K7 B={B} S={S} H={H} K=V={K}: {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                       f"chunked route {chunked_ms:.4f} ms")
+        if (B, S) == (1, 1000):
+            row = {"name": "gdn_scan", "route": "cuda", "source": "crane_tpu_torch/csrc/gdn_scan.cu",
+                   "replaces": "crane_tpu/ops/pallas/gdn_scan.py:126", "launches": 0,
+                   "ms": ms, "plain_ms": plain_ms, "chunked_ms": chunked_ms}
+    row["max_abs_err"] = max(errs)
+    log("kernels", f"gdn_scan: max|err| of y {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
+                   f"state within {STATE_ATOL:g} + {STATE_RTOL:g}*|ref|")
+    return row
 
 
 def check_model():
@@ -299,16 +461,100 @@ def check_model():
     return lm
 
 
-def compare_logits(phase: str, label: str, got, ref) -> None:
-    """Card logits against the CPU float32 reference: finite, of the vocab's
-    shape, relative L2 error within LOGIT_REL_L2, and the same greedy top-1
-    unless the reference's top two lie within LOGIT_TIE."""
+# Qwen3.5-0.8B's text model, as its published config.json gives it
+# (huggingface.co/Qwen/Qwen3.5-0.8B, "text_config"): 24 layers as
+# [gdn, gdn, gdn, full] x 6, hidden 1024, MLP 3584, 8 query / 2 KV heads of
+# 256 with a sigmoid output gate and rotary on a quarter of each head
+# (rot_dim 64, theta 1e7), 16 key and 16 value GDN heads of 128 with a
+# 4-tap conv, vocabulary 248320, tied head, unit-offset RMSNorm (eps 1e-6).
+# The text weights come to ~0.75 B parameters.
+QWEN3_5_0_8B = {
+    "model_type": "qwen3_5", "vocab_size": 248320, "hidden_size": 1024,
+    "num_hidden_layers": 24, "num_attention_heads": 8, "num_key_value_heads": 2,
+    "head_dim": 256, "intermediate_size": 3584, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000000.0, "partial_rotary_factor": 0.25,
+    "max_position_embeddings": 262144, "tie_word_embeddings": True,
+    "layer_types": (["linear_attention"] * 3 + ["full_attention"]) * 6,
+    "linear_num_key_heads": 16, "linear_num_value_heads": 16,
+    "linear_key_head_dim": 128, "linear_value_head_dim": 128,
+    "linear_conv_kernel_dim": 4,
+}
+
+
+def check_hybrid_model():
+    """Phase 8: full-width Qwen3.5-0.8B on the card. Random weights in the
+    HF layout from a seeded generator go through map_hf_weights in bf16.
+
+    The prefill check runs the same weights in float32 on the card and on
+    the CPU. In bf16 this random-weight hybrid cannot meet LOGIT_REL_L2 on
+    any device: its q and k are nearly orthogonal, so q . S cancels to a
+    few hundredths of its terms and the gated RMSNorm rescales the result,
+    magnifying every bf16 rounding upstream of it (on the CPU alone, bf16
+    against float32 reads about 0.08 at 24 layers; the dense Qwen3-0.6B
+    reads about 0.017). So the bf16 prefill's distance from the float32
+    reference is measured and logged beside the CPU's own bf16 distance,
+    and bf16 stays the path that generate and the engine drive."""
+    import torch
+
+    from crane_tpu_torch.models.auto import map_hf_weights, transformer_config_from_hf
+    from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
+    from crane_tpu_torch.models.init import hf_state_dict
+
+    cfg = transformer_config_from_hf(QWEN3_5_0_8B)
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    params = map_hf_weights(cfg, hf_state_dict(cfg, gen, torch.bfloat16), torch.bfloat16, "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    lm = CausalLM(cfg, params, dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=gen, device="cuda").tolist()
+
+    def prefill(model):
+        return model.prefill(model.init_cache(1, 512), [prompt], [300])[0][0]
+
+    logits_bf16 = prefill(lm)
+    logits_f32 = prefill(CausalLM(cfg, _tree(params, lambda t: t.float()), dtype=torch.float32))
+    cpu_params = _tree(params, lambda t: t.to("cpu", torch.float32))
+    logits_cpu = prefill(CausalLM(cfg, cpu_params, dtype=torch.float32))
+    logits_cpu_bf16 = prefill(CausalLM(cfg, _tree(params, lambda t: t.cpu()), dtype=torch.bfloat16))
+    del cpu_params
+    compare_logits("hybrid-model", "Qwen3.5-0.8B prefill logits card f32 vs cpu f32",
+                   logits_f32, logits_cpu)
+    for label, got in (("card bf16", logits_bf16), ("cpu bf16", logits_cpu_bf16)):
+        rel_l2, top = logits_distance(got, logits_cpu)
+        log("hybrid-model", f"Qwen3.5-0.8B prefill logits {label} vs cpu f32: rel L2 {rel_l2:.4g}, "
+                            f"top-1 {top} vs {int(logits_cpu.argmax())}")
+
+    prefill_ms, decode_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
+    log("hybrid-model", f"Qwen3.5-0.8B bf16, {cfg.num_layers} layers ({n_params / 1e9:.3f} B "
+                        f"parameters): prefill 300 tokens (bucket 512) {prefill_ms:.2f} ms, "
+                        f"decode 63 tokens at batch 1 {decode_tps:.1f} tok/s; generate(64) matches")
+    return lm
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def logits_distance(got, ref) -> tuple[float, int]:
+    """(relative L2 error, greedy top-1) of finite card logits against the
+    CPU reference; raises on non-finite logits or a shape mismatch."""
     import torch
 
     got, ref = got.float().cpu(), ref.float().cpu()
     if not torch.isfinite(got).all() or got.shape != ref.shape:
-        raise AssertionError(f"{label}: card logits not finite or of shape {tuple(got.shape)}")
-    rel_l2 = ((got - ref).norm() / ref.norm()).item()
+        raise AssertionError(f"card logits not finite or of shape {tuple(got.shape)}")
+    return ((got - ref).norm() / ref.norm()).item(), int(got.argmax())
+
+
+def compare_logits(phase: str, label: str, got, ref) -> None:
+    """Card logits against the CPU float32 reference: finite, of the vocab's
+    shape, relative L2 error within LOGIT_REL_L2, and the same greedy top-1
+    unless the reference's top two lie within LOGIT_TIE."""
+    rel_l2, _ = logits_distance(got, ref)
+    got, ref = got.float().cpu(), ref.float().cpu()
     top2 = ref.topk(2)
     margin = (top2.values[0] - top2.values[1]).item()
     top_gpu, top_cpu = int(got.argmax()), int(top2.indices[0])
@@ -428,8 +674,9 @@ def _tree(tree, fn):
 
 
 def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) -> None:
-    """Phases 5 and 7: concurrent requests through the serving engine, on
-    an fp or an int8/int4 KV cache."""
+    """Phases 5, 7 and 9: concurrent requests through the serving engine, on
+    an fp or an int8/int4 KV cache. A hybrid model's engine keeps prefix
+    reuse off, so the follow-up is admitted whole, in chunks."""
     import torch
 
     from crane_tpu_torch.serve.engine import (
@@ -476,7 +723,8 @@ def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) ->
         if followup is None and results["p300"]["reason"] is not None:
             # a later turn of the same conversation: the finished request's
             # prompt and output plus 300 new tokens, so the admission reuses
-            # the resident prefix and continues through K3 (or K5)
+            # the resident prefix and continues through K3 (or K5); a hybrid
+            # model admits it whole, in chunks
             prev = requests[2].prompt_ids + results["p300"]["tokens"]
             followup = EngineRequest("followup", prev + ids(300), 16, greedy)
             queues["followup"] = engine.submit(followup)
@@ -494,11 +742,13 @@ def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) ->
             raise AssertionError(f"{rid}: {len(toks)} of {asked[rid]} tokens, finish {res['reason']}")
     s = engine.stats
     prompt_total = sum(len(r.prompt_ids) for r in requests + [followup])
+    hybrid = lm.config.gdn is not None
+    reuse_ok = (s.prefix_hits == s.prefix_tokens_reused == 0 and not engine.prefix_cache
+                if hybrid else s.prefix_hits == 1 and s.prefix_tokens_reused >= 256)
     if not (s.requests_received == s.requests_completed == len(asked)
             and s.requests_failed == s.requests_aborted == 0
             and s.generated_tokens == sum(asked.values())
-            and s.prompt_tokens == prompt_total
-            and s.prefix_hits == 1 and s.prefix_tokens_reused >= 256):
+            and s.prompt_tokens == prompt_total and reuse_ok):
         raise AssertionError(f"engine stats do not reconcile: {s.snapshot()}")
     log(phase, f"{len(asked)} requests finished in {wall:.2f} s, "
                f"{s.generated_tokens} tokens; prefix reuse {s.prefix_tokens_reused} tokens; "
@@ -506,11 +756,12 @@ def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) ->
 
 
 def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
-    """Each row's launches from the path that drove it; fail for a kernel
-    that path never launched."""
+    """Each row's launches from the path that drove it (a head_dim 256 row
+    reads its wrapper's counter); fail for a kernel that path never
+    launched."""
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = counts[row["name"].removesuffix(D256)]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched by the {path}")
 
@@ -544,6 +795,7 @@ def main() -> int:
 
     rows = check_kernels()
     quant_rows = check_quant_kernels()
+    hybrid_rows = check_d256_kernels() + [check_gdn_kernel()]
 
     # the dense main path: bf16 generation and serving (K1, K2, K3)
     kernels.reset_launch_counts()
@@ -567,8 +819,16 @@ def main() -> int:
     if counts["flash_attention_causal"] <= 0:
         raise AssertionError("the quantized path never launched K2")
     read_launches("quantized path", quant_rows, counts)
+    del params4, lm
 
-    rows += quant_rows
+    # the hybrid main path: Qwen3.5-0.8B generation and serving (K1, K2, K3
+    # at head_dim 256; K7 for every GDN prefill and continuation chunk)
+    kernels.reset_launch_counts()
+    lm35 = check_hybrid_model()
+    check_engine(lm35, "hybrid-engine")
+    read_launches("hybrid path", hybrid_rows, kernels.launch_counts())
+
+    rows += quant_rows + hybrid_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 // Helpers shared by the kernels: element conversion between the storage
 // types (float32, bfloat16) and the float32 the kernels compute in, the
-// int8 / packed-int4 code arithmetic, and the cross-warp softmax merge of
-// the decode kernels.
+// int8 / packed-int4 code arithmetic, the head-dim tiling of the prefill
+// and decode kernels, and the cross-warp softmax merge of the decode
+// kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,25 +50,90 @@ __device__ __forceinline__ int int4_lo(int byte) {
   return byte - 16 * int4_hi(byte);
 }
 
-// N (1, 2 or 4) consecutive bytes as the low bytes of a word; p is
-// N-aligned.
+// N (1, 2, 4 or 8) consecutive bytes as the low bytes of (N + 3) / 4
+// words; p is N-aligned.
 template <int N>
-__device__ __forceinline__ uint32_t load_bytes(const int8_t* p) {
-  static_assert(N == 1 || N == 2 || N == 4, "1, 2 or 4 bytes");
-  if constexpr (N == 4) return *reinterpret_cast<const uint32_t*>(p);
-  if constexpr (N == 2) return *reinterpret_cast<const uint16_t*>(p);
-  return *reinterpret_cast<const uint8_t*>(p);
+__device__ __forceinline__ void load_bytes(const int8_t* p,
+                                           uint32_t (&w)[(N + 3) / 4]) {
+  static_assert(N == 1 || N == 2 || N == 4 || N == 8, "1, 2, 4 or 8 bytes");
+  if constexpr (N == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else if constexpr (N == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (N == 2) {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint8_t*>(p);
+  }
+}
+
+// The head-dim policy of the prefill kernels (K2, K3, K5): a block owns
+// kBlockQ query rows, kTPR threads share a row (each owning the dims c,
+// c + kTPR, ...) and kBlockK keys are staged per tile. Up to D = 128 that
+// is 4 threads and 32 keys; at D = 256, 8 threads and 16 keys, so a thread
+// still holds 32 dims of q and of the accumulator and the float32 K/V
+// staging stays at 32 KB, under the 48 KB static shared-memory limit.
+template <int D>
+struct RowTile {
+  static constexpr int kBlockQ = 32;
+  static constexpr int kTPR = D > 128 ? 8 : 4;
+  static constexpr int kBlockK = D > 128 ? 16 : 32;
+  static constexpr int kThreads = kBlockQ * kTPR;
+};
+
+// Tokens a decode warp (K1, K4) has in flight: 4, or 2 at D = 256, where a
+// lane already holds 8 dims of q and of the accumulator per head.
+template <int D>
+__host__ __device__ constexpr int decode_unroll() {
+  return D > 128 ? 2 : 4;
+}
+
+// Dynamic shared memory of a decode kernel's cross-warp merge: m and l
+// [kWarps][G] and acc [kWarps][G][D], float32. At D = 256 and G >= 6 this
+// passes the 48 KB a block gets without opting in.
+template <int G, int D, int kWarps>
+constexpr size_t merge_smem_bytes() {
+  return sizeof(float) * kWarps * G * (D + 2);
+}
+
+// Opt a kernel into `bytes` of dynamic shared memory when that passes the
+// default 48 KB (a refusal shows in cudaGetLastError, as a failed launch).
+template <typename Kernel>
+inline void allow_dynamic_smem(Kernel kernel, size_t bytes) {
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(bytes));
 }
 
 // The end of a decode kernel: kWarps warps each hold a partial online
 // softmax state (max m, sum l, unnormalised output acc) for the G query
-// heads of one (row, kv-head), stored in shared memory. The block merges
-// them and writes out[g * D + d]. A head no warp saw (every m = -inf: an
-// empty row) writes zeros.
-template <typename T, int G, int D, int kWarps>
+// heads of one (row, kv-head). Each warp stores its state into the dynamic
+// shared memory `smem` (merge_smem_bytes), then the block merges them and
+// writes out[g * D + d]; acc_at(e) is the head dim of the lane's e-th
+// value. A head no warp saw (every m = -inf: an empty row) writes zeros.
+template <typename T, int G, int D, int E, int kWarps, typename DimOf>
 __device__ __forceinline__ void merge_warp_states(
-    const float (&sm_m)[kWarps][G], const float (&sm_l)[kWarps][G],
-    const float (&sm_acc)[kWarps][G][D], T* __restrict__ out) {
+    float* smem, const float (&m)[G], const float (&l)[G],
+    const float (&acc)[G][E], DimOf acc_at, T* __restrict__ out) {
+  float(&sm_m)[kWarps][G] = *reinterpret_cast<float(*)[kWarps][G]>(smem);
+  float(&sm_l)[kWarps][G] =
+      *reinterpret_cast<float(*)[kWarps][G]>(smem + kWarps * G);
+  float(&sm_acc)[kWarps][G][D] =
+      *reinterpret_cast<float(*)[kWarps][G][D]>(smem + 2 * kWarps * G);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (lane == 0) {
+      sm_m[warp][g] = m[g];
+      sm_l[warp][g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) sm_acc[warp][g][acc_at(e)] = acc[g][e];
+  }
+  __syncthreads();
   for (int i = threadIdx.x; i < G * D; i += kWarps * 32) {
     const int g = i / D;
     const int d = i % D;

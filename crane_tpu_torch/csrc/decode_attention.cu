@@ -19,17 +19,18 @@
 // UNROLL tokens up to the row's live length only -- slots past kv_valid are
 // never read, whatever the allocated T -- with each lane loading a
 // contiguous D/32 slice of a row, so a warp's load of one row is one
-// coalesced 128/256-byte transaction. UNROLL independent rows are in
-// flight per warp before the reductions. Warps merge their partial
-// (max, sum, acc) states in shared memory at the end. Split-KV across
-// blocks and TMA staging are later work.
+// coalesced 128/256/512-byte transaction. UNROLL independent rows (4, or 2
+// at D = 256, where each lane holds 8 dims of q and acc per head) are in
+// flight per warp before the reductions. Warps merge their partial (max,
+// sum, acc) states in dynamic shared memory at the end: 8 * G * (D + 2)
+// floats, above the 48 KB default at D = 256 and G >= 6, so the launch opts
+// in. Split-KV across blocks and TMA staging are later work.
 #include "common.cuh"
 
 namespace crane {
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
 
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -39,6 +40,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         int T_len, int Hkv, float scale, int window,
                         float softcap) {
   constexpr int E = D / 32;  // elements of a row owned by one lane
+  constexpr int kUnroll = decode_unroll<D>();
   const int b = blockIdx.y;
   const int hk = blockIdx.x;
   const int warp = threadIdx.x / 32;
@@ -118,21 +120,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
-  }
-  __syncthreads();
-  merge_warp_states<T, G, D, kWarps>(sm_m, sm_l, sm_acc,
-                                     out + ((size_t)b * Hq + hk * G) * D);
+  extern __shared__ float smem[];
+  merge_warp_states<T, G, D, E, kWarps>(
+      smem, m, l, acc, [lane](int e) { return lane * E + e; },
+      out + ((size_t)b * Hq + hk * G) * D);
 }
 
 template <typename T, int D, int G>
@@ -140,7 +131,9 @@ void launch(const void* q, const void* k, const void* v, const int* kv_valid,
             void* out, int B, int T_len, int Hkv, float scale, int window,
             float softcap, cudaStream_t stream) {
   dim3 grid(Hkv, B);
-  decode_attention_kernel<T, D, G><<<grid, kWarps * 32, 0, stream>>>(
+  constexpr size_t smem = merge_smem_bytes<G, D, kWarps>();
+  allow_dynamic_smem(decode_attention_kernel<T, D, G>, smem);
+  decode_attention_kernel<T, D, G><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_valid, static_cast<T*>(out), T_len, Hkv,
       scale, window, softcap);
@@ -175,6 +168,9 @@ bool dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
                                  scale, window, softcap, stream);
   if (D == 128)
     return dispatch_group<T, 128>(G, q, k, v, kv_valid, out, B, T_len, Hkv,
+                                  scale, window, softcap, stream);
+  if (D == 256)
+    return dispatch_group<T, 256>(G, q, k, v, kv_valid, out, B, T_len, Hkv,
                                   scale, window, softcap, stream);
   return false;
 }

@@ -21,34 +21,36 @@
 // bound by the KV bytes of the live context it reads per chunk.
 //
 // What the design does about it: one block per (q-tile of 32 rows, q-head,
-// b); the block loops over 32-key tiles only inside the causal/window band
-// of its rows (every tile when segments are given, since same-segment
-// pairs can sit above the diagonal), so a K3 chunk at context L reads
-// O(L + S) keys, never the whole allocated buffer. Each K/V tile is staged
-// once in shared memory (float32) and reused by all 32 rows; four threads
-// share a row, each owning the interleaved dims c, c+4, ... (conflict-free
-// shared-memory reads), and combine partial dots with two shuffles. The
-// softmax is online in float32. This is the simple, correct first form: it
-// runs on the CUDA cores; mma/wgmma tiles, TMA and KV sharing across the G
-// heads of a group are later work.
+// b); the block loops over key tiles only inside the causal/window band of
+// its rows (every tile when segments are given, since same-segment pairs
+// can sit above the diagonal), so a K3 chunk at context L reads O(L + S)
+// keys, never the whole allocated buffer. Each K/V tile is staged once in
+// shared memory (float32) and reused by all 32 rows; TPR threads share a
+// row, each owning the interleaved dims c, c+TPR, ... (conflict-free
+// shared-memory reads), and combine partial dots with log2(TPR) shuffles.
+// TPR and the tile size follow the head dim (common.cuh RowTile: 4 threads
+// and 32 keys up to D = 128, 8 and 16 at D = 256). The softmax is online in
+// float32. This is the simple, correct first form: it runs on the CUDA
+// cores; mma/wgmma tiles, TMA and KV sharing across the G heads of a group
+// are later work.
 #include "common.cuh"
 
 namespace crane {
 namespace {
 
-constexpr int kBlockQ = 32;                // query rows per block
-constexpr int kBlockK = 32;                // keys per tile
-constexpr int kThreads = kBlockQ * 4;      // four threads per query row
-
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(RowTile<D>::kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        const int* __restrict__ positions,
                        const int* __restrict__ segments, int S, int Tk,
                        int Hkv, int G, float scale, int window,
                        float softcap) {
-  constexpr int NE = D / 4;  // dims owned by one thread
+  constexpr int kBlockQ = RowTile<D>::kBlockQ;
+  constexpr int kTPR = RowTile<D>::kTPR;
+  constexpr int kBlockK = RowTile<D>::kBlockK;
+  constexpr int kThreads = RowTile<D>::kThreads;
+  constexpr int NE = D / kTPR;  // dims owned by one thread
   __shared__ float Ks[kBlockK][D];
   __shared__ float Vs[kBlockK][D];
   __shared__ int seg_k[kBlockK];
@@ -60,8 +62,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / G;
   const int Hq = Hkv * G;
   const int tid = threadIdx.x;
-  const int r = tid / 4;  // query row within the tile
-  const int c = tid % 4;  // this thread's dim lane: dims c + 4 * i
+  const int r = tid / kTPR;  // query row within the tile
+  const int c = tid % kTPR;  // this thread's dim lane: dims c + kTPR * i
   const int qi = q0 + r;
   const bool live = qi < S;
 
@@ -90,7 +92,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qp = q + (((size_t)b * S + (live ? qi : 0)) * Hq + h) * D;
 #pragma unroll
   for (int i = 0; i < NE; ++i) {
-    qr[i] = live ? to_float(qp[c + 4 * i]) : 0.f;
+    qr[i] = live ? to_float(qp[c + kTPR * i]) : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -120,9 +122,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kBlockK; ++j) {
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < NE; ++i) part += qr[i] * Ks[j][c + 4 * i];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      for (int i = 0; i < NE; ++i) part += qr[i] * Ks[j][c + kTPR * i];
+#pragma unroll
+      for (int off = 1; off < kTPR; off <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
       const int t = kt + j;
       bool ok = t <= p && (window <= 0 || t > p - window);
       if (segments != nullptr) ok = ok || (sq > 0 && seg_k[j] == sq);
@@ -141,7 +144,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float pj = __expf(s[j] - m_new);
         l += pj;
 #pragma unroll
-        for (int i = 0; i < NE; ++i) acc[i] += pj * Vs[j][c + 4 * i];
+        for (int i = 0; i < NE; ++i) acc[i] += pj * Vs[j][c + kTPR * i];
       }
       m = m_new;
     }
@@ -152,7 +155,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l > 0.f ? 1.f / l : 0.f;
     T* op = out + (((size_t)b * S + qi) * Hq + h) * D;
 #pragma unroll
-    for (int i = 0; i < NE; ++i) op[c + 4 * i] = from_float<T>(acc[i] * inv);
+    for (int i = 0; i < NE; ++i)
+      op[c + kTPR * i] = from_float<T>(acc[i] * inv);
   }
 }
 
@@ -161,8 +165,9 @@ void launch(const void* q, const void* k, const void* v, void* out,
             const int* positions, const int* segments, int B, int S, int Tk,
             int Hq, int Hkv, float scale, int window, float softcap,
             cudaStream_t stream) {
-  dim3 grid((S + kBlockQ - 1) / kBlockQ, Hq, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  using Tl = RowTile<D>;
+  dim3 grid((S + Tl::kBlockQ - 1) / Tl::kBlockQ, Hq, B);
+  flash_attention_kernel<T, D><<<grid, Tl::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), positions, segments, S,
       Tk, Hkv, Hq / Hkv, scale, window, softcap);
@@ -180,6 +185,11 @@ bool dispatch_dim(int D, const void* q, const void* k, const void* v,
   }
   if (D == 128) {
     launch<T, 128>(q, k, v, out, positions, segments, B, S, Tk, Hq, Hkv,
+                   scale, window, softcap, stream);
+    return true;
+  }
+  if (D == 256) {
+    launch<T, 256>(q, k, v, out, positions, segments, B, S, Tk, Hq, Hkv,
                    scale, window, softcap, stream);
     return true;
   }

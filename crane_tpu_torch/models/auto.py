@@ -1,5 +1,5 @@
-"""HF checkpoint loading for the dense decoder families (port of
-``crane_tpu/models/auto.py``).
+"""HF checkpoint loading for the dense decoder families and the hybrid
+Gated-DeltaNet family (port of ``crane_tpu/models/auto.py``).
 
 ``config.json`` is authoritative for the family. HF stores linear weights
 ``[out, in]``; the port stores ``[in, out]`` as the reference does, so the
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from crane_tpu_torch.models.causal_lm import CausalLM
+from crane_tpu_torch.models.modules.gdn_layer import GdnConfig
 from crane_tpu_torch.models.modules.transformer import TransformerConfig
 from crane_tpu_torch.ops.linear import quantize_weight
 
@@ -32,12 +33,16 @@ def load_hf_config(model_dir: str) -> dict:
 
 def transformer_config_from_hf(hf: dict) -> TransformerConfig:
     """Map an HF config.json dict to a TransformerConfig: qwen2, qwen3,
-    llama/mistral, ernie4_5, hunyuan_v1_dense and gemma3(_text). The hybrid
-    families (lfm2, qwen3_next, qwen3_5) are not ported yet and raise."""
+    llama/mistral, ernie4_5, hunyuan_v1_dense, gemma3(_text) and the dense
+    GDN hybrids qwen3_next / qwen3_5. LFM2 (short-conv) and the MoE hybrids
+    are not ported yet and raise."""
     mt = hf.get("model_type", "llama")
-    if mt in ("lfm2", "qwen3_next", "qwen3_5"):
+    if mt == "lfm2":
         raise NotImplementedError(
-            f"{mt!r} (hybrid conv/GDN/MoE) is not ported yet (ROADMAP Queue 1 item 8)")
+            "'lfm2' (hybrid short-conv) is not ported yet (ROADMAP Queue 1 item 8)")
+    if mt in ("qwen3_next", "qwen3_5") and hf.get("num_experts", 0):
+        raise NotImplementedError(
+            f"{mt!r} with MoE MLPs is not ported yet (ROADMAP Queue 1 item 8)")
     if mt == "gemma3" and "text_config" in hf:
         return transformer_config_from_hf({**hf["text_config"], "model_type": "gemma3_text"})
     hidden = hf["hidden_size"]
@@ -107,6 +112,27 @@ def transformer_config_from_hf(hf: dict) -> TransformerConfig:
             logit_softcap=hf.get("final_logit_softcapping"),
             **common,
         )
+    if mt in ("qwen3_next", "qwen3_5"):
+        # hybrid GDN: unit-offset norms, 2x-wide gated q_proj, partial
+        # rotary, 3-in-4 linear-attention layers
+        return TransformerConfig(
+            attn_bias=hf.get("attention_bias", False),
+            qk_norm=True,
+            norm_weight_offset=1.0,
+            attn_output_gate=True,
+            partial_rotary_factor=hf.get("partial_rotary_factor", 0.25),
+            layer_types=tuple(
+                "gdn" if t == "linear_attention" else "full" for t in hf["layer_types"]
+            ),
+            gdn=GdnConfig(
+                num_v_heads=hf["linear_num_value_heads"],
+                num_k_heads=hf["linear_num_key_heads"],
+                head_k_dim=hf["linear_key_head_dim"],
+                head_v_dim=hf["linear_value_head_dim"],
+                conv_kernel=hf.get("linear_conv_kernel_dim", 4),
+            ),
+            **common,
+        )
     raise ValueError(f"unsupported model_type for dense causal LM: {mt!r}")
 
 
@@ -120,12 +146,15 @@ def _pick(sd: dict, *names: str):
 def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
                    device=None) -> dict:
     """Map an HF llama/qwen-style state dict (name -> tensor) to the port's
-    param tree: linear weights transposed to ``[in, out]``."""
-    if cfg.num_experts > 0 or cfg.has_recurrent_layers:
-        raise NotImplementedError("MoE and hybrid layers are not ported yet (ROADMAP Queue 1 item 8)")
+    param tree: linear weights transposed to ``[in, out]``. A GDN layer's
+    conv weight ``[C, 1, k]`` becomes ``[C, k]`` float32, and its ``A_log``
+    and ``dt_bias`` stay float32."""
+    if cfg.num_experts > 0 or (cfg.layer_types is not None and "conv" in cfg.layer_types):
+        raise NotImplementedError(
+            "MoE and short-conv layers are not ported yet (ROADMAP Queue 1 item 8)")
 
-    def a(w):
-        return w.to(device=device, dtype=dtype)
+    def a(w, dt=dtype):
+        return w.to(device=device, dtype=dt)
 
     def t(w):
         return w.T.contiguous().to(device=device, dtype=dtype)
@@ -134,6 +163,28 @@ def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
     layers = []
     for i in range(cfg.num_layers):
         lp = f"{p}layers.{i}."
+        mlp = {
+            "gate": t(_pick(sd, lp + "mlp.gate_proj.weight", lp + "feed_forward.w1.weight")),
+            "up": t(_pick(sd, lp + "mlp.up_proj.weight", lp + "feed_forward.w3.weight")),
+            "down": t(_pick(sd, lp + "mlp.down_proj.weight", lp + "feed_forward.w2.weight")),
+        }
+        if cfg.layer_type(i) == "gdn":
+            gp = lp + "linear_attn."
+            layers.append({
+                "gdn": {
+                    "in_proj_qkvz": t(sd[gp + "in_proj_qkvz.weight"]),
+                    "in_proj_ba": t(sd[gp + "in_proj_ba.weight"]),
+                    "conv_w": a(sd[gp + "conv1d.weight"][:, 0, :], torch.float32),
+                    "dt_bias": a(sd[gp + "dt_bias"], torch.float32),
+                    "A_log": a(sd[gp + "A_log"], torch.float32),
+                    "norm": a(sd[gp + "norm.weight"]),
+                    "out_proj": t(sd[gp + "out_proj.weight"]),
+                },
+                "mlp": mlp,
+                "input_ln": a(sd[lp + "input_layernorm.weight"]),
+                "post_ln": a(sd[lp + "post_attention_layernorm.weight"]),
+            })
+            continue
         attn = {
             "wq": t(sd[lp + "self_attn.q_proj.weight"]),
             "wk": t(sd[lp + "self_attn.k_proj.weight"]),
@@ -156,11 +207,7 @@ def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
             ))
         layer = {
             "attn": attn,
-            "mlp": {
-                "gate": t(_pick(sd, lp + "mlp.gate_proj.weight", lp + "feed_forward.w1.weight")),
-                "up": t(_pick(sd, lp + "mlp.up_proj.weight", lp + "feed_forward.w3.weight")),
-                "down": t(_pick(sd, lp + "mlp.down_proj.weight", lp + "feed_forward.w2.weight")),
-            },
+            "mlp": mlp,
             "input_ln": a(sd[lp + "input_layernorm.weight"]),
         }
         if cfg.sandwich_norms:
@@ -218,7 +265,8 @@ def from_pretrained(
     tokenizer=None,
     quant_bits: int | None = None,
 ) -> CausalLM:
-    """Load a dense causal LM from an HF checkpoint directory or hub id;
+    """Load a causal LM (dense or GDN hybrid) from an HF checkpoint
+    directory or hub id;
     ``quant_bits`` 8 or 4 quantizes its linear weights in situ
     (:func:`quantize_params`)."""
     from crane_tpu.utils.hub import resolve_checkpoint

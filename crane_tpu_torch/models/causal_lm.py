@@ -10,7 +10,9 @@ checks.
 Shape discipline is kept as in the reference: prompts are padded to
 power-of-two buckets (``crane_tpu.utils.buckets``, shared) and caches are
 allocated once at a bucketed max length. Pad tokens sit past each row's true
-length and are causally masked until decode overwrites them.
+length and are causally masked until decode overwrites them; every prefill
+hands the true lengths to ``forward_hidden``, so GDN layers keep the pad
+steps out of their recurrent state and conv window.
 
 Speculative decoding (``GenerationConfig.speculative``) is not ported yet
 (ROADMAP Queue 1 item 6) and raises.
@@ -75,13 +77,13 @@ class CausalLM:
         """token_ids ``[B, S_bucket]`` (padded) written at ``start..``.
         Returns (last-token logits ``[B, V]`` f32, cache). ``start == 0`` is
         a fresh prefill that attends the in-context K/V (K2); a later start
-        attends the cache buffers (K3)."""
+        attends the cache buffers (K3) and continues the GDN states."""
         tokens = self._ids(token_ids)
+        true_lengths = self._ids(true_lengths)
         hidden, new_cache = forward_hidden(
             self.config, self.params, tokens, cache, start, self.rope,
-            read_cache=start != 0,
+            read_cache=start != 0, true_lengths=true_lengths,
         )
-        true_lengths = self._ids(true_lengths)
         new_cache.lengths = cache.lengths + true_lengths
         b = torch.arange(tokens.shape[0], device=self.device)
         last = hidden[b, (true_lengths - 1).long()]  # the chunk's last real token
@@ -94,7 +96,7 @@ class CausalLM:
         other row is touched. Returns (last-token logits ``[1, V]``, cache)."""
         hidden, new_cache = forward_hidden(
             self.config, self.params, self._ids(token_ids), cache, 0, self.rope,
-            read_cache=False, cache_row=slot,
+            read_cache=False, cache_row=slot, true_lengths=self._ids([true_length]),
         )
         new_cache.lengths = cache.lengths.clone()
         new_cache.lengths[slot] = true_length
@@ -106,12 +108,13 @@ class CausalLM:
                               start: int, true_length: int):
         """Write a continuation chunk ``token_ids [1, S_bucket]`` at
         positions ``start..`` of row ``slot`` (chunked admission and prefix
-        reuse); it attends the row's live context. JAX sliced the row out
-        and merged it back; here the layers write through a batch-1 view of
-        the row, in place. Returns logits at the chunk's last real token."""
+        reuse); it attends the row's live context and continues the row's
+        GDN states. JAX sliced the row out and merged it back; here the
+        layers write through a batch-1 view of the row, in place. Returns
+        logits at the chunk's last real token."""
         hidden, _ = forward_hidden(
             self.config, self.params, self._ids(token_ids), cache.row(slot),
-            start, self.rope,
+            start, self.rope, true_lengths=self._ids([true_length]),
         )
         lengths = cache.lengths.clone()
         lengths[slot] = start + true_length

@@ -21,8 +21,11 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
     """Normal weights (scale ``fan_in ** -0.5``, embedding 0.02), unit norms,
-    zero biases. Drawn in float32 on the generator's device, then cast and
-    moved to ``device``."""
+    zero biases, for the attention layers of ``cfg`` (as the reference's,
+    every layer is one; a hybrid model's GDN weights come from
+    :func:`hf_state_dict`). With ``attn_output_gate`` the q projection
+    carries ``[query | gate]`` per head and is twice as wide. Drawn in
+    float32 on the generator's device, then cast and moved to ``device``."""
     gen_device = generator.device
 
     def nrm(shape, scale):
@@ -38,10 +41,11 @@ def init_params(
     E, D = cfg.hidden_size, cfg.head_dim
     H, Hkv, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
     s = E ** -0.5
+    q_out = H * D * (2 if cfg.attn_output_gate else 1)
     layers = []
     for _ in range(cfg.num_layers):
         attn = {
-            "wq": nrm((E, H * D), s),
+            "wq": nrm((E, q_out), s),
             "wk": nrm((E, Hkv * D), s),
             "wv": nrm((E, Hkv * D), s),
             "wo": nrm((H * D, E), (H * D) ** -0.5),
@@ -50,7 +54,7 @@ def init_params(
             attn["q_norm"] = ones(D)
             attn["k_norm"] = ones(D)
         if cfg.attn_bias:
-            attn["bq"], attn["bk"], attn["bv"] = zeros(H * D), zeros(Hkv * D), zeros(Hkv * D)
+            attn["bq"], attn["bk"], attn["bv"] = zeros(q_out), zeros(Hkv * D), zeros(Hkv * D)
         layers.append({
             "attn": attn,
             "mlp": {
@@ -69,6 +73,65 @@ def init_params(
     if not cfg.tie_word_embeddings:
         params["lm_head"] = nrm((E, cfg.vocab_size), s)
     return params
+
+
+def hf_state_dict(cfg: TransformerConfig, generator: torch.Generator,
+                  dtype: torch.dtype = torch.bfloat16) -> dict[str, torch.Tensor]:
+    """A random checkpoint in the HF layout (``[out, in]`` linears, the
+    Qwen3-Next names for GDN layers), for ``map_hf_weights``: normal
+    weights with :func:`init_params`' scales, unit norm weights (zero where
+    ``norm_weight_offset`` makes them ``1 + w``), and each GDN layer's
+    ``A_log`` and ``dt_bias`` drawn as HF initializes them
+    (``A = U(0, 16)``, ``A_log = log A``; ``dt_bias = 1``), so the
+    recurrent state stays bounded. Tensors stay on the generator's
+    device."""
+    dev = generator.device
+    E, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+
+    def lin(out_f, in_f):
+        w = torch.randn((out_f, in_f), generator=generator, device=dev)
+        return (w * in_f ** -0.5).to(dtype)
+
+    def norm(n):
+        return torch.full((n,), 1.0 - cfg.norm_weight_offset, dtype=dtype, device=dev)
+
+    sd = {"model.embed_tokens.weight":
+          (torch.randn((cfg.vocab_size, E), generator=generator, device=dev) * 0.02).to(dtype),
+          "model.norm.weight": norm(E)}
+    for i in range(cfg.num_layers):
+        lp = f"model.layers.{i}."
+        sd.update({lp + "input_layernorm.weight": norm(E),
+                   lp + "post_attention_layernorm.weight": norm(E),
+                   lp + "mlp.gate_proj.weight": lin(I, E),
+                   lp + "mlp.up_proj.weight": lin(I, E),
+                   lp + "mlp.down_proj.weight": lin(E, I)})
+        if cfg.layer_type(i) == "gdn":
+            g, gp = cfg.gdn, lp + "linear_attn."
+            n_v = g.num_v_heads
+            a = torch.rand((n_v,), generator=generator, device=dev) * 16
+            conv = torch.randn((g.conv_dim, 1, g.conv_kernel), generator=generator, device=dev)
+            sd.update({
+                gp + "in_proj_qkvz.weight": lin(2 * g.key_dim + 2 * g.value_dim, E),
+                gp + "in_proj_ba.weight": lin(2 * n_v, E),
+                gp + "conv1d.weight": (conv * g.conv_kernel ** -0.5).to(dtype),
+                gp + "A_log": torch.log(a.clamp(min=1e-4)),
+                gp + "dt_bias": torch.ones((n_v,), device=dev),
+                gp + "norm.weight": torch.ones((g.head_v_dim,), dtype=dtype, device=dev),
+                gp + "out_proj.weight": lin(E, g.value_dim),
+            })
+            continue
+        q_out = H * D * (2 if cfg.attn_output_gate else 1)
+        sd.update({lp + "self_attn.q_proj.weight": lin(q_out, E),
+                   lp + "self_attn.k_proj.weight": lin(Hkv * D, E),
+                   lp + "self_attn.v_proj.weight": lin(Hkv * D, E),
+                   lp + "self_attn.o_proj.weight": lin(E, H * D)})
+        if cfg.qk_norm:
+            sd[lp + "self_attn.q_norm.weight"] = norm(D)
+            sd[lp + "self_attn.k_norm.weight"] = norm(D)
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = lin(cfg.vocab_size, E)
+    return sd
 
 
 QWEN3_0_6B = TransformerConfig(

@@ -1,11 +1,15 @@
 """Shared decoder-only transformer: config and forward functions.
 
-Port of ``crane_tpu/models/modules/transformer.py``, dense branches, with
-quantized weights and int8/int4 KV caches. The
-pre-norm block is input_ln -> GQA attention (QK-norm, RoPE, KV-cache write)
--> +res -> post_ln -> SwiGLU -> +res, one parameterised implementation for
-Qwen3, Qwen2.5, Llama-likes, Hunyuan-dense and Gemma3 text. Params are the
-reference's nested dict, with torch tensors as leaves.
+Port of ``crane_tpu/models/modules/transformer.py``: the dense branches,
+quantized weights and int8/int4 KV caches, and the hybrid Gated-DeltaNet
+layers of Qwen3-Next / Qwen3.5. The pre-norm block is input_ln -> token
+mixer -> +res -> post_ln -> SwiGLU -> +res, one parameterised implementation
+for Qwen3, Qwen2.5, Llama-likes, Hunyuan-dense, Gemma3 text and the GDN
+hybrids. The mixer is GQA attention (QK-norm, RoPE, KV-cache write, the
+optional sigmoid output gate) or, in a ``gdn`` layer,
+:func:`~crane_tpu_torch.models.modules.gdn_layer.gdn_block` (K7 for fresh
+prefills and continuation chunks). Params are the reference's nested dict,
+with torch tensors as leaves.
 
 Attention has one route per phase and cache form, whatever S and T are:
 
@@ -23,7 +27,7 @@ Attention has one route per phase and cache form, whatever S and T are:
 
 Quantized linear weights go through :func:`~crane_tpu_torch.ops.linear.linear`
 (K6 at M <= 256). Each wrapper launches its CUDA kernel on a CUDA tensor and
-runs its plain PyTorch version on a CPU tensor. MoE, short-conv, GDN and
+runs its plain PyTorch version on a CPU tensor. MoE, short-conv and
 sequence-parallel branches are not ported yet and raise.
 """
 
@@ -36,6 +40,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from crane_tpu_torch.models.modules.gdn_layer import gdn_block
 from crane_tpu_torch.ops.cuda.decode_attention import fp_decode_attention
 from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_cached,
@@ -46,7 +51,12 @@ from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_decode_attention,
 )
 from crane_tpu_torch.ops.cuda.quant_matmul import matmul_f32
-from crane_tpu_torch.ops.kv_cache import KVCache, QuantLayerKVCache
+from crane_tpu_torch.ops.kv_cache import (
+    GdnLayerCache,
+    KVCache,
+    LayerKVCache,
+    QuantLayerKVCache,
+)
 from crane_tpu_torch.ops.linear import QuantizedWeight, linear
 from crane_tpu_torch.ops.norm import rms_norm
 from crane_tpu_torch.ops.rope import apply_rope_embeds, inv_frequencies, rope_table
@@ -118,14 +128,11 @@ class TransformerConfig:
 def _check_ported(cfg: TransformerConfig) -> None:
     """Refuse configurations whose branches the port does not have yet, so
     they never fall through to a dense path silently."""
-    if cfg.has_recurrent_layers or cfg.gdn is not None:
+    if cfg.layer_types is not None and "conv" in cfg.layer_types:
         raise NotImplementedError(
-            "GDN and short-conv hybrid layers are not ported yet (ROADMAP Queue 1 item 8)")
+            "short-conv hybrid layers (LFM2) are not ported yet (ROADMAP Queue 1 item 8)")
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.attn_output_gate:
-        raise NotImplementedError(
-            "the gated attention output (Qwen3.5) is not ported yet (ROADMAP Queue 1 item 8)")
     if cfg.sequence_axis is not None:
         raise NotImplementedError(
             "sequence-parallel attention is not ported yet (ROADMAP Queue 1 item 12)")
@@ -140,11 +147,25 @@ def make_cache(
     quant_bits: int | None = None,
     device=None,
 ) -> KVCache:
-    """Allocate the per-layer KV buffers: ``[batch, max_seq, Hkv, D]`` in
-    ``dtype``, or int8/int4 codes and scales with ``quant_bits`` 8 or 4."""
+    """Allocate the per-layer cache: KV buffers ``[batch, max_seq, Hkv, D]``
+    in ``dtype`` (or int8/int4 codes and scales with ``quant_bits`` 8 or 4)
+    for attention layers, the conv window and float32 recurrent state for
+    GDN layers. ``device="meta"`` sizes without allocating."""
     _check_ported(cfg)
-    return KVCache.empty(cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-                         cfg.head_dim, dtype, device, quant_bits=quant_bits)
+    layers = []
+    for i in range(cfg.num_layers):
+        if cfg.layer_type(i) == "gdn":
+            g = cfg.gdn
+            layers.append(GdnLayerCache.empty(batch, g.conv_kernel, g.conv_dim, g.num_v_heads,
+                                              g.head_k_dim, g.head_v_dim, dtype, device))
+        elif quant_bits is not None:
+            layers.append(QuantLayerKVCache.empty(batch, max_seq, cfg.num_kv_heads, cfg.head_dim,
+                                                  bits=quant_bits, device=device))
+        else:
+            layers.append(LayerKVCache.empty(batch, max_seq, cfg.num_kv_heads, cfg.head_dim,
+                                             dtype, device))
+    return KVCache(layers=tuple(layers),
+                   lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
 def make_rope_tables(cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
@@ -206,18 +227,28 @@ def attention_block(
     cache_row: int | None = None,
     use_local_rope: bool = False,
 ):
-    """GQA attention with QK-norm, RoPE and the KV-cache append.
+    """GQA attention with QK-norm, RoPE, the KV-cache append and the
+    optional sigmoid output gate.
 
     x ``[B, S, E]``; positions ``[B, S]`` int32; ``cache_positions`` an int
     start or ``[B]`` per-row write positions (see ``LayerKVCache.update``).
     ``read_cache=False`` attends over the freshly computed in-context K/V
     (fresh prefill from position 0) so a slot prefill touches no other row.
-    The cache is written in place. Returns (out ``[B, S, E]``, layer cache).
+    With ``cfg.attn_output_gate`` the q projection is twice as wide and
+    carries ``[query | gate]`` per head; the attention output is multiplied
+    by ``sigmoid(gate)`` before the output projection. The cache is written
+    in place. Returns (out ``[B, S, E]``, layer cache).
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, D)
+    q = linear(x, p["wq"], p.get("bq"))
+    gate = None
+    if cfg.attn_output_gate:
+        q = q.reshape(B, S, H, 2 * D)
+        q, gate = q[..., :D], q[..., D:]
+    else:
+        q = q.reshape(B, S, H, D)
     k = linear(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, D)
     v = linear(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, D)
 
@@ -258,6 +289,8 @@ def attention_block(
             q, new_cache.k, new_cache.v, positions, scale=scale, window=window,
             softcap=softcap)
 
+    if gate is not None:
+        out = out * torch.sigmoid(gate.float()).to(out.dtype)
     return linear(out.reshape(B, S, H * D), p["wo"], p.get("bo")), new_cache
 
 
@@ -273,21 +306,37 @@ def decoder_layer(
     layer_idx: int,
     read_cache: bool = True,
     cache_row: int | None = None,
+    active: torch.Tensor | None = None,
+    true_lengths: torch.Tensor | None = None,
 ):
     ltype = cfg.layer_type(layer_idx)
-    if ltype not in ("full", "sliding"):
+    if ltype not in ("full", "sliding", "gdn"):
         raise NotImplementedError(f"{ltype!r} layers are not ported yet (ROADMAP Queue 1 item 8)")
 
     def nrm(t, w):
         return rms_norm(t, w, eps=cfg.rms_norm_eps, weight_offset=cfg.norm_weight_offset)
 
-    attn_out, new_cache = attention_block(
-        cfg, p["attn"], nrm(x, p["input_ln"]), layer_cache, positions,
-        cache_positions, rope,
-        window=cfg.sliding_window if ltype == "sliding" else None,
-        read_cache=read_cache, cache_row=cache_row,
-        use_local_rope=(ltype == "sliding" and cfg.rope_local_theta is not None),
-    )
+    if ltype == "gdn":
+        # as attention: S == 1 while reading the cache is decode; S > 1
+        # while reading it is a continuation chunk (re-enters the saved conv
+        # window and recurrent state, so chunked prefill == whole prefill);
+        # read_cache=False is a fresh prefill restarting from zero state
+        decode = read_cache and x.shape[1] == 1
+        attn_out, new_cache = gdn_block(
+            cfg.gdn, p["gdn"], nrm(x, p["input_ln"]), layer_cache,
+            eps=cfg.rms_norm_eps, decode=decode, cache_row=cache_row,
+            active=active if decode else None,
+            true_lengths=None if decode else true_lengths,
+            continuation=read_cache and x.shape[1] > 1 and cache_row is None,
+        )
+    else:
+        attn_out, new_cache = attention_block(
+            cfg, p["attn"], nrm(x, p["input_ln"]), layer_cache, positions,
+            cache_positions, rope,
+            window=cfg.sliding_window if ltype == "sliding" else None,
+            read_cache=read_cache, cache_row=cache_row,
+            use_local_rope=(ltype == "sliding" and cfg.rope_local_theta is not None),
+        )
     if cfg.sandwich_norms:
         x = x + nrm(attn_out, p["post_attn_ln"])
         x = x + nrm(mlp_block(cfg, p["mlp"], nrm(x, p["pre_ffn_ln"])), p["post_ffn_ln"])
@@ -308,15 +357,18 @@ def forward_hidden(
     read_cache: bool = True,
     cache_row: int | None = None,
     active: torch.Tensor | None = None,
+    true_lengths: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Token ids ``[B, S]`` -> final hidden states ``[B, S, E]`` + cache.
 
     ``cache_positions``: an ``int`` start (prefill; all rows aligned) or a
     ``[B]`` tensor of per-row write positions (batched decode, S == 1).
     ``active [B]`` bool masks rows out of a batched decode: their KV writes
-    are dropped and their lengths don't advance (static-slot serving).
-    KV buffers are written in place; the returned cache shares them and
-    carries the advanced lengths.
+    are dropped, their GDN states stay and their lengths don't advance
+    (static-slot serving). ``true_lengths [B]``: the unpadded length of each
+    row of a bucket-padded prefill; GDN layers keep the pad steps out of
+    their state (attention masks them by position). Buffers are written in
+    place; the returned cache shares them and carries the advanced lengths.
     """
     _check_ported(cfg)
     B, S = tokens.shape
@@ -346,6 +398,7 @@ def forward_hidden(
         x, new_layers[i] = decoder_layer(
             cfg, params["layers"][i], x, cache.layers[i], positions, write_pos,
             rope_embeds, layer_idx=i, read_cache=read_cache, cache_row=cache_row,
+            active=active, true_lengths=true_lengths,
         )
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_norm_eps,
                  weight_offset=cfg.norm_weight_offset)

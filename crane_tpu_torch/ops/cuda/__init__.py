@@ -15,6 +15,7 @@ from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_cached,
     flash_attention_causal,
 )
+from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan
 from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_cached_attention,
     quant_decode_attention,
@@ -31,6 +32,7 @@ KERNELS = {
        for v in quant_decode_attention.launches},
     **{f"quant_cached_attention[{v}]": quant_cached_attention
        for v in quant_cached_attention.launches},
+    "gdn_scan": gdn_scan,
 }
 
 

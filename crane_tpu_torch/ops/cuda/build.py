@@ -49,6 +49,7 @@ SIGNATURES = {
                                      _I, _I, _I, _F, _I, _F, _P],
     "crane_quant_cached_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _I, _F, _I, _F, _P],
+    "crane_gdn_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,7 @@ import torch
 from crane_tpu_torch.ops.attention import masked_attention
 from crane_tpu_torch.ops.cuda import build
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 
 

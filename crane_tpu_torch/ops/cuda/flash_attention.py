@@ -22,7 +22,7 @@ import torch
 from crane_tpu_torch.ops.attention import masked_attention
 from crane_tpu_torch.ops.cuda import build
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_causal_plain(

@@ -1,5 +1,5 @@
 """K4 and K5: GQA attention over an int8 / packed-int4 KV cache
-(``csrc/quant_attention.cu``).
+(``csrc/quant_decode_attention.cu``, ``csrc/quant_cached_attention.cu``).
 
 Port of ``crane_tpu/ops/pallas/quant_attention.py`` with ``bits`` 8 and 4:
 

@@ -7,6 +7,8 @@ and never regrown:
 - int8 / nibble-packed int4 (:class:`QuantLayerKVCache`): flat codes
   ``[B, S_max, H_kv * stored]`` int8 (``stored = D``, or ``D/2`` packed) and
   head-major per-(token, head) scales ``[B, H_kv, S_max]`` float32;
+- Gated-Delta-Net layers (:class:`GdnLayerCache`): a rolling conv window
+  ``[B, k, conv_dim]`` and a float32 recurrent state ``[B, H_v, K, V]``;
 
 plus per row ``lengths [B]`` int32. Where JAX donated the buffers and
 returned updated copies, the port writes into them in place and returns the
@@ -245,10 +247,64 @@ def dequant_codes(codes: torch.Tensor, scales: torch.Tensor, bits: int,
 
 
 @dataclasses.dataclass
+class GdnLayerCache:
+    """Gated-Delta-Net layer state: the rolling conv window
+    ``conv_state [B, k, conv_dim]`` (the last k pre-activation conv inputs,
+    in the model dtype) and ``recurrent_state [B, H_v, K, V]``, always
+    float32."""
+
+    conv_state: torch.Tensor
+    recurrent_state: torch.Tensor
+
+    @staticmethod
+    def empty(batch: int, conv_kernel: int, conv_dim: int, n_v_heads: int,
+              head_k_dim: int, head_v_dim: int, dtype=torch.bfloat16,
+              device=None) -> "GdnLayerCache":
+        """``device="meta"`` sizes without allocating."""
+        return GdnLayerCache(
+            conv_state=torch.zeros((batch, conv_kernel, conv_dim), dtype=dtype, device=device),
+            recurrent_state=torch.zeros((batch, n_v_heads, head_k_dim, head_v_dim),
+                                        dtype=torch.float32, device=device),
+        )
+
+    def row(self, slot: int) -> "GdnLayerCache":
+        """Batch-1 view of row ``slot``: writes through it land in this cache."""
+        return GdnLayerCache(conv_state=self.conv_state[slot:slot + 1],
+                             recurrent_state=self.recurrent_state[slot:slot + 1])
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.conv_state, self.recurrent_state)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors())
+
+    def replace_rows(self, conv_state: torch.Tensor, recurrent_state: torch.Tensor,
+                     row: int | None = None,
+                     active: torch.Tensor | None = None) -> "GdnLayerCache":
+        """Write new states in place: for the whole batch, for one ``row``
+        (slot prefill; the new states have batch 1), or only where
+        ``active [B]`` (masked batched decode). Returns ``self``."""
+        conv_state = conv_state.to(self.conv_state.dtype)
+        if row is not None:
+            self.conv_state[row:row + 1] = conv_state
+            self.recurrent_state[row:row + 1] = recurrent_state
+        elif active is not None:
+            self.conv_state.copy_(torch.where(active[:, None, None], conv_state,
+                                              self.conv_state))
+            self.recurrent_state.copy_(torch.where(active[:, None, None, None],
+                                                   recurrent_state, self.recurrent_state))
+        else:
+            self.conv_state.copy_(conv_state)
+            self.recurrent_state.copy_(recurrent_state)
+        return self
+
+
+@dataclasses.dataclass
 class KVCache:
-    """Whole-model cache: one :class:`LayerKVCache` per layer + per-row
-    ``lengths [B]`` int32 (the number of valid tokens, i.e. the next write
-    position)."""
+    """Whole-model cache: one layer cache per layer (:class:`LayerKVCache`,
+    :class:`QuantLayerKVCache` or, in hybrid models, :class:`GdnLayerCache`)
+    + per-row ``lengths [B]`` int32 (the number of valid tokens, i.e. the
+    next write position)."""
 
     layers: tuple
     lengths: torch.Tensor
@@ -271,7 +327,12 @@ class KVCache:
 
     @property
     def max_seq(self) -> int:
-        return self.layers[0].max_seq
+        """The KV buffers' length; a model with no attention layer has
+        none, and any position fits."""
+        for layer in self.layers:
+            if hasattr(layer, "max_seq"):
+                return layer.max_seq
+        return 1 << 30
 
     def row(self, slot: int) -> "KVCache":
         """Batch-1 view of row ``slot`` (layers and length): in-place writes

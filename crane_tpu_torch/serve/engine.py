@@ -9,11 +9,13 @@ the statistics are ``crane_tpu``'s own modules, shared.
 What the engine keeps from the reference:
 
 - chunked admission: prompts longer than ``prefill_chunk`` admit one chunk
-  per engine step (the first a fresh slot prefill, K2; the rest
-  continuation chunks, K3), with a decode block for the running sequences
-  between chunks;
+  per engine step (the first a fresh slot prefill, K2, which restarts a
+  hybrid row's GDN states; the rest continuation chunks, K3, which continue
+  them through the row's view), with a decode block for the running
+  sequences between chunks;
 - cross-request prefix reuse: a freed slot's rows still hold its context,
   and a new prompt that extends it prefills only the unseen suffix (K3);
+  off for hybrid models, whose GDN states cannot be re-entered mid-way;
 - longest-first preempt-and-requeue under slot starvation;
 - the depth-1 decode pipeline: block N's tokens are read back and streamed
   while the device runs block N+1.
@@ -161,10 +163,11 @@ class InferenceEngine:
         self._inflight: Optional[tuple] = None
         self._pending: Optional[dict] = None
         # cross-request prefix reuse, gated to purely positional caches:
-        # sliding-window layers summarize the past only up to their window,
-        # so their rows cannot be re-entered at an arbitrary position
+        # GDN recurrent states and sliding-window layers summarize the past
+        # at the END of the sequence, so their rows cannot be re-entered at
+        # an arbitrary earlier position
         cfg = lm.config
-        self.prefix_cache = bool(prefix_cache) and (
+        self.prefix_cache = bool(prefix_cache) and cfg.gdn is None and (
             cfg.layer_types is None or all(t == "full" for t in cfg.layer_types)
         )
         self.prefix_reuse_min = prefix_reuse_min

@@ -1,10 +1,12 @@
-"""Hand ``crane_tpu`` parameters to the port.
+"""Hand ``crane_tpu`` parameters and caches to the port.
 
 :func:`params_from_jax` turns a ``crane_tpu`` params pytree (nested dicts,
 tuples and lists whose leaves are numpy arrays or ``jax.Array``s) into the
 same tree of torch tensors, so both packages can run on the same weights.
-Nothing here imports jax: a ``jax.Array`` leaf is read through
-``numpy.asarray``.
+:func:`cache_from_jax` turns a ``crane_tpu`` ``KVCache`` (fp, int8/int4 and
+GDN layers) into the port's, so a decode step or a continuation can start
+from JAX's own state. Nothing here imports jax: a ``jax.Array`` leaf is read
+through ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from crane_tpu_torch.ops.kv_cache import (
+    GdnLayerCache,
+    KVCache,
+    LayerKVCache,
+    QuantLayerKVCache,
+)
 from crane_tpu_torch.ops.linear import QuantizedWeight
 
 
@@ -45,3 +53,24 @@ def params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
+
+
+def cache_from_jax(cache, device=None) -> KVCache:
+    """A ``crane_tpu`` ``KVCache`` -> the port's, layer by layer, with the
+    same values and dtypes: ``GdnLayerCache`` (conv window and recurrent
+    state), ``QuantLayerKVCache`` (codes, scales, bits) or ``LayerKVCache``."""
+    def t(a):
+        return tensor_from_numpy(a, device)
+
+    layers = []
+    for layer in cache.layers:
+        if hasattr(layer, "recurrent_state"):
+            layers.append(GdnLayerCache(conv_state=t(layer.conv_state),
+                                        recurrent_state=t(layer.recurrent_state)))
+        elif hasattr(layer, "k_scale"):
+            layers.append(QuantLayerKVCache(k=t(layer.k), v=t(layer.v), k_scale=t(layer.k_scale),
+                                            v_scale=t(layer.v_scale), bits=layer.bits,
+                                            n_kv_heads=layer.k_scale.shape[1]))
+        else:
+            layers.append(LayerKVCache(k=t(layer.k), v=t(layer.v)))
+    return KVCache(layers=tuple(layers), lengths=t(cache.lengths))

@@ -51,6 +51,8 @@ def segments(B, S):
         (2, 48, 2, 2, 16, 12, 30.0, False),     # both
         (1, 96, 4, 2, 32, None, None, True),    # segments
         (2, 96, 4, 2, 32, 24, 25.0, True),      # segments with window and softcap
+        (1, 48, 8, 2, 256, None, None, False),  # head_dim 256, Qwen3.5's 8/2 heads
+        (1, 48, 2, 1, 256, 16, 30.0, False),    # head_dim 256, window and softcap (Gemma3)
     ],
 )
 def test_k2_plain_matches_pallas(B, S, Hq, Hkv, D, window, softcap, seg):
@@ -76,6 +78,8 @@ def test_k2_plain_matches_pallas(B, S, Hq, Hkv, D, window, softcap, seg):
         (1, 30, 32, 128, 4, 2, 32, 8, None),     # window
         (1, 20, 16, 64, 2, 2, 16, None, 30.0),   # softcap
         (1, 100, 32, 128, 2, 2, 16, None, None),  # padded tail: positions past T-1
+        (1, 40, 32, 128, 8, 2, 256, None, None),  # head_dim 256, Qwen3.5's 8/2 heads
+        (1, 100, 32, 128, 2, 1, 256, 24, 30.0),   # head_dim 256, window, softcap, tail
     ],
 )
 def test_k3_plain_matches_pallas(B, ctx, S, T, Hq, Hkv, D, window, softcap):
@@ -117,6 +121,24 @@ def test_k1_plain_matches_pallas(window, softcap):
     got = k1.fp_decode_attention_plain(
         torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(valid),
         scale=0.125, window=window, logit_softcap=softcap).numpy()
+    np.testing.assert_array_equal(got[0], 0.0)
+    np.testing.assert_allclose(got, np.asarray(ref), **DECODE_TOL)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (64, 30.0)])
+def test_k1_plain_matches_pallas_head_dim_256(window, softcap):
+    """K1 at head_dim 256 with Qwen3.5's 8 query / 2 KV heads (G = 4)."""
+    B, T, Hq, Hkv, D = 4, 256, 8, 2, 256
+    q = rnd(B, 1, Hq, D, seed=14)
+    k, v = rnd(B, T, Hkv, D, seed=15), rnd(B, T, Hkv, D, seed=16)
+    valid = np.array([0, 3, 130, T], np.int32)
+    ref = quant_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, None, jnp.asarray(valid),
+        bits=16, scale=D ** -0.5, window=window, logit_softcap=softcap, block_t=128,
+        interpret=True)
+    got = k1.fp_decode_attention_plain(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(valid),
+        scale=D ** -0.5, window=window, logit_softcap=softcap).numpy()
     np.testing.assert_array_equal(got[0], 0.0)
     np.testing.assert_allclose(got, np.asarray(ref), **DECODE_TOL)
 

@@ -15,13 +15,14 @@ import os
 import pytest
 import torch
 
-from crane_tpu_torch.models.auto import quantize_params
+from crane_tpu_torch.models.auto import map_hf_weights, quantize_params, transformer_config_from_hf
 from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
-from crane_tpu_torch.models.init import QWEN3_TINY, init_params
+from crane_tpu_torch.models.init import QWEN3_TINY, hf_state_dict, init_params
 from crane_tpu_torch.ops import cuda as kernels
 from crane_tpu_torch.ops.cuda import decode_attention as k1
 from crane_tpu_torch.ops.cuda import flash_attention as k23
 from crane_tpu_torch.ops.cuda import quant_attention as k45
+from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan, gdn_scan_plain
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
 from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight, quantize_weight
@@ -48,7 +49,7 @@ def rnd(gen, *shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 2), (64, 12, 4)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 2), (64, 12, 4), (256, 8, 2)])
 @pytest.mark.parametrize("opts", [{}, {"window": 19}, {"softcap": 7.0}])
 def test_k2_k3_match_plain(dev, dtype, D, Hq, Hkv, opts):
     gen = torch.Generator(device=dev).manual_seed(D + Hq)
@@ -73,7 +74,8 @@ def test_k2_k3_match_plain(dev, dtype, D, Hq, Hkv, opts):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 2), (128, 24, 3)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 2), (128, 24, 3), (256, 8, 2),
+                                     (256, 16, 2)])
 @pytest.mark.parametrize("opts", [{}, {"window": 33}, {"logit_softcap": 9.0}])
 def test_k1_matches_plain(dev, dtype, D, Hq, Hkv, opts):
     gen = torch.Generator(device=dev).manual_seed(D * Hq)
@@ -105,7 +107,8 @@ def test_k6_matches_plain(dev, dtype, bits, M, I, O):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 8), (128, 24, 3)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 8), (128, 24, 3), (256, 8, 2),
+                                     (256, 16, 2)])
 @pytest.mark.parametrize("opts", [{}, {"window": 33}, {"logit_softcap": 9.0}])
 def test_k4_k5_match_plain(dev, dtype, bits, D, Hq, Hkv, opts):
     gen = torch.Generator(device=dev).manual_seed(D * Hq + bits)
@@ -131,6 +134,27 @@ def test_k4_k5_match_plain(dev, dtype, bits, D, Hq, Hkv, opts):
     torch.testing.assert_close(got.float(), ref, **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,V,init", [(1, 300, 16, 128, 128, True), (8, 256, 16, 128, 128, False),
+                                           (2, 77, 3, 64, 40, True), (1, 33, 2, 256, 64, False),
+                                           (1, 1, 4, 128, 128, True)])
+def test_k7_matches_plain(dev, dtype, B, S, H, K, V, init):
+    """K7 against the step-by-step scan: the Qwen3.5 shape (H=16,
+    K=V=128) at batch 1 and 8, a V that fills no block, K 64 and 256, one
+    step. y is compared in its dtype, the state in float32."""
+    gen = torch.Generator(device=dev).manual_seed(S + K)
+    q, k = rnd(gen, B, S, H, K, dtype=dtype), rnd(gen, B, S, H, K, dtype=dtype)
+    v = rnd(gen, B, S, H, V, dtype=dtype)
+    g = -torch.rand(B, S, H, generator=gen, device=dev) * 0.5
+    beta = torch.rand(B, S, H, generator=gen, device=dev)
+    s0 = torch.randn(B, H, K, V, generator=gen, device=dev) * 0.3 if init else None
+    y, s = gdn_scan(q, k, v, g, beta, s0)
+    yr, sr = gdn_scan_plain(q, k, v, g, beta, s0)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(), **TOL[dtype])
+    torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
+
+
 def test_launch_counts_and_refusals(dev):
     q = torch.zeros(1, 4, 2, 64, device=dev)
     valid = torch.ones(1, dtype=torch.int32, device=dev)
@@ -146,6 +170,7 @@ def test_launch_counts_and_refusals(dev):
         k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=0.1)
         w = quantize_weight(torch.ones(64, 16, device=dev), bits=bits)
         quant_matmul(q[0, 0], w.codes, w.scales, bits=bits)
+    gdn_scan(q, q, q, q[..., 0], q[..., 0])
     assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
     odd = torch.zeros(1, 4, 2, 96, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -162,6 +187,8 @@ def test_launch_counts_and_refusals(dev):
         quant_matmul(q[0, 0], w.codes.float(), w.scales, bits=4)
     with pytest.raises(ValueError, match="do not fit"):
         quant_matmul(q[0, 0], w.codes, w.scales, bits=8)
+    with pytest.raises(ValueError, match="key head dim"):
+        gdn_scan(odd, odd, odd, odd[..., 0], odd[..., 0])
     assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
 
 
@@ -248,3 +275,42 @@ def _drain(q):
         if r.finished:
             return toks
         toks.append(r.token)
+
+
+# a tiny Qwen3.5-shaped hybrid whose head dims the kernels take: GDN K=64,
+# attention D=64
+TINY_HYBRID = {
+    "model_type": "qwen3_5", "vocab_size": 256, "hidden_size": 64, "num_hidden_layers": 4,
+    "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 64,
+    "intermediate_size": 128, "rms_norm_eps": 1e-6, "rope_theta": 1e7,
+    "tie_word_embeddings": True, "partial_rotary_factor": 0.25,
+    "layer_types": ["linear_attention"] * 3 + ["full_attention"],
+    "linear_num_value_heads": 4, "linear_num_key_heads": 2, "linear_key_head_dim": 64,
+    "linear_value_head_dim": 32, "linear_conv_kernel_dim": 4,
+}
+
+
+@pytest.fixture
+def hybrid_lms(dev):
+    """The tiny hybrid in float32 on the card (K7 for every prefill) and on
+    the CPU (the chunked form), same weights."""
+    cfg = transformer_config_from_hf(TINY_HYBRID)
+    sd = hf_state_dict(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    return (CausalLM(cfg, map_hf_weights(cfg, sd, torch.float32), dtype=torch.float32),
+            CausalLM(cfg, map_hf_weights(cfg, sd, torch.float32, dev), dtype=torch.float32))
+
+
+def test_hybrid_generate_on_card_matches_cpu(hybrid_lms):
+    cpu, gpu = hybrid_lms
+    prompt = list(range(3, 200, 2))
+    kernels.reset_launch_counts()
+    logits_c, _ = cpu.prefill(cpu.init_cache(1, 128), [prompt + [0] * 28], [len(prompt)])
+    logits_g, _ = gpu.prefill(gpu.init_cache(1, 128), [prompt + [0] * 28], [len(prompt)])
+    assert kernels.launch_counts()["gdn_scan"] == 3
+    torch.testing.assert_close(logits_g.cpu(), logits_c, rtol=1e-4, atol=1e-4)
+    gen = GenerationConfig.greedy(24)
+    assert gpu.generate(prompt, gen) == cpu.generate(prompt, gen)
+
+
+def test_hybrid_engine_on_card_matches_cpu(hybrid_lms):
+    assert _engine_tokens(hybrid_lms[0]) == _engine_tokens(hybrid_lms[1])

@@ -246,10 +246,28 @@ def test_unported_branches_raise(tiny_pair):
     for bits in (8, 4):  # int8/int4 caches, once refused, are allocated
         cache = tl.init_cache(1, 64, quant_bits=bits)
         assert all(layer.bits == bits for layer in cache.layers)
+    # GDN hybrids are ported (tests/test_torch_hybrid.py); MoE MLPs and
+    # LFM2 short-conv layers still raise
     moe = dataclasses.replace(tinit.QWEN3_TINY, num_experts=4)
-    hybrid = dataclasses.replace(tinit.QWEN3_TINY, layer_types=("gdn", "full"))
-    for cfg in (moe, hybrid):
+    short_conv = dataclasses.replace(tinit.QWEN3_TINY, layer_types=("conv", "full"))
+    for cfg in (moe, short_conv):
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             ttf.make_cache(cfg, 1, 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tauto.transformer_config_from_hf({"model_type": "qwen3_next"})
+    for hf in ({"model_type": "qwen3_next", "num_experts": 8}, {"model_type": "lfm2"}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            tauto.transformer_config_from_hf(hf)
+
+
+@pytest.mark.parametrize("gate,bias", [(False, False), (True, False), (True, True)])
+def test_init_params_shapes_match_crane_tpu(gate, bias):
+    """init_params draws crane_tpu's tree: with ``attn_output_gate`` the q
+    projection (and its bias) is ``H * D * 2`` wide, ``[query | gate]``."""
+    jcfg = dataclasses.replace(TINY, attn_output_gate=gate, attn_bias=bias)
+    tcfg = ttf.TransformerConfig(**dataclasses.asdict(jcfg))
+    jp = jinit.init_params(jcfg, seed=0, dtype=jnp.float32)
+    tp = tinit.init_params(tcfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    jflat = jax.tree_util.tree_leaves_with_path(jp)
+    tflat = jax.tree_util.tree_leaves_with_path(tp)
+    assert [(p, tuple(j.shape)) for p, j in jflat] == [(p, tuple(t.shape)) for p, t in tflat]
+    wq = tp["layers"][0]["attn"]["wq"]
+    assert wq.shape == (TINY.hidden_size, TINY.num_heads * TINY.head_dim * (2 if gate else 1))

@@ -56,7 +56,7 @@ def operands(cache):
 
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("window,softcap,D", [(None, None, 64), (64, None, 64), (None, 30.0, 32),
-                                              (7, 20.0, 64)])
+                                              (7, 20.0, 64), (None, None, 256), (64, 30.0, 256)])
 def test_k4_plain_matches_pallas(bits, window, softcap, D):
     """A ragged batch with an empty row (which writes zeros) and a full one."""
     B, T, Hq, Hkv = 4, 256, 4, 2
@@ -98,6 +98,27 @@ def test_k5_plain_matches_pallas(bits, ctx, S, window, softcap):
         t(q), *map(t, (k, v, ks, vs)), t(pos), bits=bits, scale=D ** -0.5, window=window,
         logit_softcap=softcap).numpy()
     rows = min(S, T - ctx)  # rows whose position lies inside the buffer
+    np.testing.assert_allclose(got[:, :rows], np.asarray(ref)[:, :rows], **CACHED_TOL)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("ctx,S,window", [(30, 32, None), (100, 32, 24)])
+def test_k5_plain_matches_pallas_head_dim_256(bits, ctx, S, window):
+    """K5 at head_dim 256 with Qwen3.5's 8 query / 2 KV heads, mid-buffer
+    and with a padded tail past the buffer's end."""
+    B, T, Hq, Hkv, D = 1, 128, 8, 2, 256
+    live = min(ctx + S, T)
+    cache = filled_cache(bits, B, T, Hkv, D, [live], seed=5)
+    q = rnd(B, S, Hq, D, seed=6)
+    pos = (np.arange(S)[None] + ctx).astype(np.int32)
+    ref = quant_cached_attention(
+        jnp.asarray(q), *operands(cache), jnp.asarray(pos), n_kv_heads=Hkv, bits=bits,
+        scale=D ** -0.5, window=window, block_q=16, block_k=32, interpret=True)
+    got = k45.quant_cached_attention_plain(
+        t(q), *(t(a) for a in operands(cache)), t(pos), bits=bits, scale=D ** -0.5,
+        window=window).numpy()
+    rows = min(S, T - ctx)
     np.testing.assert_allclose(got[:, :rows], np.asarray(ref)[:, :rows], **CACHED_TOL)
     assert np.isfinite(got).all()
 
