@@ -39,7 +39,23 @@ requests are token ids. Phases, each reported on its own line:
    through ``generate`` in bf16; prefill ms and decode tok/s;
 9. hybrid engine: the six-request mix on the hybrid model (prefix reuse
    off); K1, K2, K3 (at head_dim 256) and K7 were each launched by this
-   hybrid path.
+   hybrid path;
+10. sp: sequence-parallel serving of full-width Qwen3-0.6B in four slabs on
+   the one card (``make_sp_mesh(4, ["cuda:0"] * 4)``). The with-stats
+   kernels K1-S, K3-S, K4-S and K5-S (kv8, kv4) against their plain
+   versions and their no-stats kernels at a slab's shapes (empty slabs and
+   chunks below, inside and past the slab); a 5000-token prompt over three
+   slabs in float32 against the unsharded port on the card, on fp, int8 and
+   int4 caches; the bf16 engine with two 16,384-token slots serving a
+   12,000- and a 300-token prompt against the unsharded engine; the
+   with-stats kernels were each launched by this sp path, and K1 and K3
+   never were; the decode step's time beside the unsharded one.
+
+Every kernel row carries its time beside its plain version's, the library
+call's where one PyTorch call computes the same function
+(``F.scaled_dot_product_attention`` for K1-K3), and its bound: the least
+time for the bytes it must move at 3.35 TB/s or its operations at the peak
+of their type, whichever is larger.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
@@ -79,6 +95,31 @@ STATE_ATOL = 1e-4
 LOGIT_REL_L2 = 5e-2
 LOGIT_TIE = 0.05
 
+# the with-stats kernels' softmax max m and sum l against their plain
+# versions, where the plain row saw a slot (l > 0): float32 sums of the same
+# logits in another order, with __expf
+STATS_RTOL = 1e-5
+STATS_ATOL = 1e-5
+
+# sequence parallelism on one card, float32: the sp run against the
+# unsharded port differs only by the order of the float32 softmax sums
+# (the merge), so the logits agree to SP_REL_L2 (by KV cache bits: None
+# for an fp cache) and every greedy token is the same unless the unsharded
+# run's top two logits lie within SP_TIE. A quantized cache adds a step: a
+# key or value that differs by a float32 rounding can round to the
+# neighbouring code, which moves it by a whole code step (its row's amax /
+# 127 in int8, amax / 7 in int4), and the next layers carry that on; the
+# codes that differ between the runs are counted and logged. int4's limit
+# is 1e-3 for that reason (the first run read 1.18e-4 at the prefill).
+SP_REL_L2 = {None: 1e-4, 8: 1e-4, 4: 1e-3}
+SP_TIE = 1e-3
+
+# the card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, dense):
+# HBM bytes/s, and FLOP/s by the type the operations are done in (bf16 on
+# the tensor cores; float32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
@@ -113,23 +154,99 @@ def compare(name, got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL) -> float:
     return err.max().item()
 
 
-def timed_row(name, src, replaces, errs, kernel_fn, plain_fn, shape, iters=20) -> dict:
-    """The kernel's JSON row: its worst error over the cases and its time
-    beside the plain version's at ``shape``, taken in turns (plain, kernel,
-    kernel, plain) so drift hits both alike."""
-    ms, plain_ms = paired_ms(kernel_fn, plain_fn, iters)
+def bound(nbytes: float, flops: float, peak: str = "bf16") -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for work
+    that moves ``nbytes`` (each input read once, each output written once)
+    and does ``flops`` operations of type ``peak``, the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_work(B, S, Hq, Hkv, D, pairs, kv_rows, kv_bytes, index_bytes, stats=False):
+    """(bytes, FLOPs) of an attention call with bf16 queries: q read and
+    out written (2 bytes each), ``kv_rows`` token rows of K and V read at
+    ``kv_bytes`` a token and kv-head (2 D in bf16; D or D/2 codes plus a
+    4-byte scale quantized), the indices, and with stats m and l written
+    (float32); ``pairs`` (query row, visible key) pairs summed over the
+    batch, 4 D FLOPs each per query head (q.k and p.v)."""
+    nbytes = 2 * B * S * Hq * D * 2 + 2 * kv_rows * Hkv * kv_bytes + index_bytes
+    if stats:
+        nbytes += 2 * B * Hq * S * 4
+    return nbytes, 4 * Hq * D * pairs
+
+
+def kv_token_bytes(D: int, bits: int) -> int:
+    """Bytes of one token and kv-head of K (or V) as the cache stores it."""
+    return 2 * D if bits == 16 else (D if bits == 8 else D // 2) + 4
+
+
+def decode_work(q, Hkv, valid, bits=16, stats=False):
+    """attn_work of a decode call over the live lengths ``valid``."""
+    B, _, Hq, D = q.shape
+    live = int(valid.clamp(min=0).sum())
+    return attn_work(B, 1, Hq, Hkv, D, live, live, kv_token_bytes(D, bits), 4 * B, stats)
+
+
+def chunk_work(q, Hkv, T, pos, bits=16, stats=False):
+    """attn_work of a continuation chunk at ``pos [B, S]`` over a T-slot
+    buffer: each row sees ``min(p, T - 1) + 1`` keys (none below 0), and
+    each batch row reads the keys of its furthest query."""
+    B, S, Hq, D = q.shape
+    seen = (pos.clamp(max=T - 1) + 1).clamp(min=0)
+    return attn_work(B, S, Hq, Hkv, D, int(seen.sum()), int(seen.amax(dim=1).sum()),
+                     kv_token_bytes(D, bits), 4 * B * S, stats)
+
+
+def sdpa(q, k, v, mask=None, causal=False):
+    """The library yardstick of K1-K3 (timed only, never used by the
+    port): PyTorch's fused attention over ``[B, S, H, D]`` layouts, with a
+    boolean mask (or causal) and grouped KV heads."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        is_causal=causal, enable_gqa=True)
+
+
+def decode_mask(valid, T):
+    import torch
+
+    return (torch.arange(T, device=valid.device)[None] < valid[:, None])[:, None, None]
+
+
+def chunk_mask(pos, T):
+    import torch
+
+    t = torch.arange(T, device=pos.device)
+    return (t[None, None] <= pos.clamp(max=T - 1)[:, :, None])[:, None]
+
+
+def timed_row(name, src, replaces, errs, kernel_fn, plain_fn, shape, work, library_fn=None,
+              peak="bf16", iters=20) -> dict:
+    """The kernel's JSON row: its worst error over the cases, its time
+    beside the plain version's (and the library call's, where one computes
+    the same function) at ``shape``, taken in turns so drift hits all alike,
+    and its bound from ``work`` = (bytes, FLOPs) of that call."""
+    ms, plain_ms, library_ms = paired_ms(kernel_fn, plain_fn, library_fn, iters)
+    bound_ms, bound_by = bound(*work, peak=peak)
+    lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     log("kernels", f"{name}: max|err| {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
-                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms at {shape}")
+                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
+                   f"({bound_by}) at {shape}")
     return {"name": name, "route": "cuda", "source": f"crane_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
-def paired_ms(kernel_fn, plain_fn, iters=20) -> tuple[float, float]:
-    """(kernel ms, plain ms), each the mean of two timings taken in turns
-    plain, kernel, kernel, plain."""
-    p1, k1_ms, k2_ms, p2 = (cuda_ms(f, iters) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
-    return (k1_ms + k2_ms) / 2, (p1 + p2) / 2
+def paired_ms(kernel_fn, plain_fn, library_fn=None, iters=20):
+    """(kernel ms, plain ms, library ms or None), each the mean of two
+    timings taken in turns plain, kernel, [library, library,] kernel, plain."""
+    order = [plain_fn, kernel_fn] + ([library_fn] * 2 if library_fn else []) + [kernel_fn, plain_fn]
+    t = [cuda_ms(f, iters) for f in order]
+    library_ms = (t[2] + t[3]) / 2 if library_fn else None
+    return (t[1] + t[-2]) / 2, (t[0] + t[-1]) / 2, library_ms
 
 
 def check_kernels() -> list[dict]:
@@ -164,7 +281,9 @@ def check_kernels() -> list[dict]:
                       "crane_tpu/ops/pallas/flash_attention.py:187", errs,
                       lambda: k23.flash_attention_causal(q, k, v, scale=D ** -0.5),
                       lambda: k23.flash_attention_causal_plain(q, k, v, scale=D ** -0.5),
-                      "B=1 S=1024 Hq=16 Hkv=8 D=128")]
+                      "B=1 S=1024 Hq=16 Hkv=8 D=128",
+                      attn_work(1, 1024, Hq, Hkv, D, 1024 * 1025 // 2, 1024, 2 * D, 0),
+                      lambda: sdpa(q, k, v, causal=True))]
 
     # K3: a 256-token chunk at offsets 0, 512 and 1000 of a T=2048 buffer
     errs = []
@@ -180,7 +299,9 @@ def check_kernels() -> list[dict]:
                           "crane_tpu/ops/pallas/flash_attention.py:384", errs,
                           lambda: k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5),
                           lambda: k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5),
-                          "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128"))
+                          "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128",
+                          chunk_work(q, Hkv, 2048, pos),
+                          lambda: sdpa(q, kc, vc, mask=chunk_mask(pos, 2048))))
 
     # K1: B=8 rows over T=2048, ragged kv_valid including 0 and T
     errs = []
@@ -197,7 +318,9 @@ def check_kernels() -> list[dict]:
                           "crane_tpu/ops/pallas/quant_attention.py:266", errs,
                           lambda: k1.fp_decode_attention(q, kc, vc, valid, scale=D ** -0.5),
                           lambda: k1.fp_decode_attention_plain(q, kc, vc, valid, scale=D ** -0.5),
-                          "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128"))
+                          "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128",
+                          decode_work(q, Hkv, valid),
+                          lambda: sdpa(q, kc, vc, mask=decode_mask(valid, 2048))))
     return rows
 
 
@@ -245,11 +368,13 @@ def check_quant_kernels() -> list[dict]:
                     log("kernels", f"K6 w{bits} M={M} I={I} O={O}: {t[1]:.4f} ms vs plain {t[0]:.4f} ms")
         w = quantize_weight(rnd(1024, 3072) * 1024 ** -0.5, bits=bits)
         x = rnd(8, 1024).to(torch.bfloat16)
+        M, I, O = 8, 1024, 3072
+        work = (M * I * 2 + I * O * bits // 8 + O * 4 + M * O * 2, 2 * M * I * O)
         rows.append(timed_row(f"quant_matmul[w{bits}]", "quant_matmul.cu",
                               "crane_tpu/ops/pallas/quant_matmul.py:" + ("102" if bits == 8 else "115"),
                               errs, lambda: quant_matmul(x, w.codes, w.scales, bits=bits),
                               lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
-                              "M=8 I=1024 O=3072 (gate/up at 8 slots)"))
+                              "M=8 I=1024 O=3072 (gate/up at 8 slots)", work))
 
     kws = (("plain", {}), ("window=256", {"window": 256}), ("softcap=30", {"logit_softcap": 30.0}))
     valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
@@ -294,19 +419,20 @@ def check_quant_kernels() -> list[dict]:
             "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
             lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits, scale=D ** -0.5),
             lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits, scale=D ** -0.5),
-            "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128"))
+            "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128", decode_work(qd, Hkv, valid, bits)))
         rows.append(timed_row(
             f"quant_cached_attention[kv{bits}]", "quant_cached_attention.cu",
             "crane_tpu/ops/pallas/quant_attention.py:647", chunk_errs,
             lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits, scale=D ** -0.5),
             lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, bits=bits,
                                                      scale=D ** -0.5),
-            "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128"))
+            "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128",
+            chunk_work(qc, Hkv, 2048, pos, bits)))
     return rows
 
 
 def log_times(label, kernel_fn, plain_fn) -> None:
-    ms, plain_ms = paired_ms(kernel_fn, plain_fn)
+    ms, plain_ms, _ = paired_ms(kernel_fn, plain_fn)
     log("kernels", f"{label}: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
 
 
@@ -345,7 +471,9 @@ def check_d256_kernels() -> list[dict]:
                       "crane_tpu/ops/pallas/flash_attention.py:187", errs,
                       lambda: k23.flash_attention_causal(q, k, v, scale=scale),
                       lambda: k23.flash_attention_causal_plain(q, k, v, scale=scale),
-                      "B=1 S=1024 Hq=8 Hkv=2 D=256")]
+                      "B=1 S=1024 Hq=8 Hkv=2 D=256",
+                      attn_work(1, 1024, Hq, Hkv, D, 1024 * 1025 // 2, 1024, 2 * D, 0),
+                      lambda: sdpa(q, k, v, causal=True))]
 
     errs = []
     kc, vc = rnd(1, 2048, Hkv, D), rnd(1, 2048, Hkv, D)
@@ -361,7 +489,9 @@ def check_d256_kernels() -> list[dict]:
                           "crane_tpu/ops/pallas/flash_attention.py:384", errs,
                           lambda: k23.flash_attention_cached(qc, kc, vc, pos, scale=scale),
                           lambda: k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale),
-                          "B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256"))
+                          "B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256",
+                          chunk_work(qc, Hkv, 2048, pos),
+                          lambda: sdpa(qc, kc, vc, mask=chunk_mask(pos, 2048))))
 
     errs = []
     valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
@@ -376,7 +506,9 @@ def check_d256_kernels() -> list[dict]:
                           "crane_tpu/ops/pallas/quant_attention.py:266", errs,
                           lambda: k1.fp_decode_attention(qd, kc, vc, valid, scale=scale),
                           lambda: k1.fp_decode_attention_plain(qd, kc, vc, valid, scale=scale),
-                          "B=8 T=2048 ragged kv_valid, Hq=8 Hkv=2 D=256"))
+                          "B=8 T=2048 ragged kv_valid, Hq=8 Hkv=2 D=256",
+                          decode_work(qd, Hkv, valid),
+                          lambda: sdpa(qd, kc, vc, mask=decode_mask(valid, 2048))))
     return rows
 
 
@@ -421,9 +553,17 @@ def check_gdn_kernel() -> dict:
         log("kernels", f"K7 B={B} S={S} H={H} K=V={K}: {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
                        f"chunked route {chunked_ms:.4f} ms")
         if (B, S) == (1, 1000):
+            # q, k, v (bf16) and g, beta (float32) read, y (bf16) and the
+            # float32 state written; per step and head about 7 K V float32
+            # operations (decay, k.S, the rank-1 update, q.S)
+            work = (B * S * H * (2 * K + V) * 2 + 2 * B * S * H * 4 + B * S * H * V * 2
+                    + B * H * K * V * 4, 7 * B * S * H * K * V)
+            bound_ms, bound_by = bound(*work, peak="f32")
+            log("kernels", f"K7 bound {bound_ms:.4f} ms ({bound_by}, float32 operations)")
             row = {"name": "gdn_scan", "route": "cuda", "source": "crane_tpu_torch/csrc/gdn_scan.cu",
                    "replaces": "crane_tpu/ops/pallas/gdn_scan.py:126", "launches": 0,
-                   "ms": ms, "plain_ms": plain_ms, "chunked_ms": chunked_ms}
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None, "chunked_ms": chunked_ms}
     row["max_abs_err"] = max(errs)
     log("kernels", f"gdn_scan: max|err| of y {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
                    f"state within {STATE_ATOL:g} + {STATE_RTOL:g}*|ref|")
@@ -755,6 +895,356 @@ def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) ->
                f"stats {json.dumps(s.snapshot())}")
 
 
+# local lengths of the sp decode rows at a 4096-token slab (Qwen3-0.6B at
+# four slabs of a 16,384-token slot): ragged, with an empty slab and a full
+SLAB_VALID = [0, 1, 17, 300, 1000, 2048, 4095, 4096]
+# slab-local starts of the sp chunk cases (256 tokens): wholly before the
+# slab, from below into it, inside it, and from inside past its end
+CHUNK_STARTS = (-300, -128, 1000, 3968)
+
+
+def check_with_stats(label, got, ref, no_stats) -> float:
+    """A with-stats kernel's (out, m, l) against its plain version's: out to
+    the kernel bound and bitwise the no-stats kernel's output; m and l to
+    STATS_ATOL + STATS_RTOL |plain| where the plain row saw a slot (l > 0),
+    and m = -inf, l = 0, out = 0 where it saw none. Returns max |err| of out."""
+    import torch
+
+    out, m, l = got
+    r_out, r_m, r_l = ref
+    if not torch.equal(out, no_stats):
+        raise AssertionError(f"{label}: out differs from the no-stats kernel's")
+    err = compare(f"{label} out", out, r_out)
+    seen = r_l > 0
+    if seen.any():  # a chunk wholly before the slab sees nothing
+        compare(f"{label} m", m[seen], r_m[seen], rtol=STATS_RTOL, atol=STATS_ATOL)
+        compare(f"{label} l", l[seen], r_l[seen], rtol=STATS_RTOL, atol=STATS_ATOL)
+    heads = seen[..., None].transpose(1, 2) if out.shape[1] > 1 else seen[:, None, :, None]
+    if (l[~seen] != 0).any() or (m[~seen] != -torch.inf).any() \
+            or (out.float() * ~heads).abs().max() != 0:
+        raise AssertionError(f"{label}: a row that saw no slot is not (0, -inf, 0)")
+    return err
+
+
+def check_stats_kernels() -> list[dict]:
+    """Phase 10, kernels: K1-S (bf16 cache) and K4-S (kv8, kv4) at B=8 over a
+    4096-token slab at the local lengths SLAB_VALID; K3-S and K5-S on a
+    256-token chunk at each of CHUNK_STARTS, slab-local; Qwen3-0.6B's 16/8
+    heads of 128. Each against its plain version and its no-stats kernel.
+    One JSON row per kernel and bit width (decode timed as above, chunks at
+    start 1000), launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+    from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(4096)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    B, T, Hq, Hkv, D = 8, 4096, 16, 8, 128
+    scale = D ** -0.5
+    k, v = rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+    qd, qc = rnd(B, 1, Hq, D), rnd(1, 256, Hq, D)
+    valid = torch.tensor(SLAB_VALID, dtype=torch.int32, device="cuda")
+    rows = []
+    for bits in (16, 8, 4):
+        if bits == 16:
+            ops, plain_q = (k, v, None, None), (lambda q: q)
+            names = ("fp_decode_attention_with_stats", "flash_attention_cached_with_stats")
+            srcs = ("decode_attention.cu", "flash_attention.cu")
+            lines = ("266", "647")
+        else:
+            cache = QuantLayerKVCache.empty(B, T, Hkv, D, bits=bits, device="cuda")
+            cache.update(k, v, 0)
+            ops, plain_q = (cache.k, cache.v, cache.k_scale, cache.v_scale), (lambda q: q.float())
+            names = (f"quant_decode_attention_with_stats[kv{bits}]",
+                     f"quant_cached_attention_with_stats[kv{bits}]")
+            srcs = ("quant_decode_attention.cu", "quant_cached_attention.cu")
+            lines = ("367", "647")
+        row_ops = tuple(None if t is None else t[3:4] for t in ops)
+
+        def dec_kernel():
+            return k45.decode_attention_with_stats(qd, *ops, valid, bits=bits, scale=scale)
+
+        ref = plain_with_stats(True, bits, plain_q(qd), ops, valid, scale)
+        errs = [check_with_stats(f"{names[0]} B=8 T=4096", dec_kernel(), ref,
+                                 no_stats_kernel(True, bits, qd, ops, valid, scale))]
+        rows.append(timed_row(
+            names[0], srcs[0], f"crane_tpu/ops/pallas/quant_attention.py:{lines[0]}", errs,
+            dec_kernel, lambda: plain_with_stats(True, bits, plain_q(qd), ops, valid, scale),
+            "B=8 slab T=4096, local lengths 0..4096, Hq=16 Hkv=8 D=128",
+            decode_work(qd, Hkv, valid, bits, stats=True)))
+
+        errs = []
+        for start in CHUNK_STARTS:
+            pos = (torch.arange(256, dtype=torch.int32, device="cuda") + start)[None]
+            got = k45.cached_attention_with_stats(qc, *row_ops, pos, bits=bits, scale=scale)
+            ref = plain_with_stats(False, bits, plain_q(qc), row_ops, pos, scale)
+            errs.append(check_with_stats(f"{names[1]} start {start}", got, ref,
+                                         no_stats_kernel(False, bits, qc, row_ops, pos, scale)))
+        pos = (torch.arange(256, dtype=torch.int32, device="cuda") + 1000)[None]
+        rows.append(timed_row(
+            names[1], srcs[1], f"crane_tpu/ops/pallas/quant_attention.py:{lines[1]}", errs,
+            lambda: k45.cached_attention_with_stats(qc, *row_ops, pos, bits=bits, scale=scale),
+            lambda: plain_with_stats(False, bits, plain_q(qc), row_ops, pos, scale),
+            "B=1 S=256 at slab-local 1000, slab T=4096, Hq=16 Hkv=8 D=128",
+            chunk_work(qc, Hkv, T, pos, bits, stats=True)))
+    return rows
+
+
+def no_stats_kernel(decode: bool, bits, q, ops, idx, scale):
+    """The no-stats kernel (K1 or K4 for ``decode``, else K3 or K5) on the
+    same inputs as its with-stats form."""
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+
+    if bits == 16:
+        fn = k1.fp_decode_attention if decode else k23.flash_attention_cached
+        return fn(q, ops[0], ops[1], idx, scale=scale)
+    fn = k45.quant_decode_attention if decode else k45.quant_cached_attention
+    return fn(q, *ops, idx, bits=bits, scale=scale)
+
+
+def plain_with_stats(decode: bool, bits, q, ops, idx, scale):
+    """The with-stats plain version of K1-S/K4-S (``decode``) or K3-S/K5-S
+    on the card's tensors."""
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+
+    if bits == 16:
+        if decode:
+            return k1.fp_decode_attention_with_stats_plain(q, ops[0], ops[1], idx, scale=scale)
+        return k23.flash_attention_cached_with_stats_plain(q, ops[0], ops[1], idx, scale=scale)
+    fn = (k45.quant_decode_attention_with_stats_plain if decode
+          else k45.quant_cached_attention_with_stats_plain)
+    return fn(q, *ops, idx, bits=bits, scale=scale)
+
+
+def sp_greedy(model, prompt, kv_bits, steps, feed=None):
+    """The float32 sp check's run of one model: a 4096-token fresh prefill
+    (K2), the prompt's rest as one continuation chunk (K3 or K5; K3-S or
+    K5-S on an sp model), then ``steps`` greedy decode steps, each fed the
+    token ``feed`` gives (the unsharded run's) or its own. Returns (logits
+    after the prefill and each step's, the cache)."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits
+
+    cfg = model.config
+    cache = model.init_cache(1, 8192, quant_bits=kv_bits)
+    _, cache = model.prefill(cache, [prompt[:4096]], [4096])
+    rest = prompt[4096:]
+    logits, cache = model.prefill(cache, [rest + [0] * (1024 - len(rest))], [len(rest)],
+                                  start=4096)
+    out = [logits[0]]
+    for s in range(steps):
+        tok = feed[s] if feed is not None else int(out[-1].argmax())
+        t = torch.tensor([[tok]], dtype=torch.int32, device=model.device)
+        hidden, cache = forward_hidden(cfg, model.params, t, cache, cache.lengths, model.rope)
+        out.append(lm_logits(cfg, model.params, hidden)[0, 0])
+    return out, cache
+
+
+def code_flips(sp_cache, cache) -> tuple[int, int]:
+    """(bytes that differ, bytes) between an sp run's quantized K/V codes,
+    its slabs laid end to end, and an unsharded run's, over the live
+    tokens."""
+    import torch
+
+    live = int(cache.lengths[0])
+    differ = total = 0
+    for sp_layer, layer in zip(sp_cache.layers, cache.layers):
+        for name in ("k", "v"):
+            a = torch.cat([getattr(s, name) for s in sp_layer.slabs], dim=1)[:, :live]
+            b = getattr(layer, name)[:, :live]
+            differ += int((a != b).sum())
+            total += b.numel()
+    return differ, total
+
+
+def compare_sp(label, got, ref, limit) -> None:
+    """An sp run's logits against the unsharded run's, step by step: finite,
+    relative L2 within ``limit``, and the same greedy token unless the
+    unsharded top two lie within SP_TIE."""
+    worst = 0.0
+    for s, (g, r) in enumerate(zip(got, ref)):
+        rel_l2, top = logits_distance(g, r)
+        worst = max(worst, rel_l2)
+        top2 = r.float().topk(2)
+        if rel_l2 > limit:
+            raise AssertionError(f"{label} step {s}: rel L2 {rel_l2:.3g} over {limit:g}")
+        if top != int(top2.indices[0]) and (top2.values[0] - top2.values[1]).item() >= SP_TIE:
+            raise AssertionError(f"{label} step {s}: greedy token {top} vs {int(top2.indices[0])}")
+    log("sp", f"{label}: {len(got) - 1} steps, logits rel L2 prefill "
+              f"{logits_distance(got[0], ref[0])[0]:.3g}, last step "
+              f"{logits_distance(got[-1], ref[-1])[0]:.3g}, worst {worst:.3g} (limit {limit:g}); "
+              f"greedy tokens agree")
+
+
+def sp_engine_run(lm, prompts, phase):
+    """The bf16 sp engine mix: two slots of 16,384 tokens, 256-token chunks,
+    32 greedy tokens per prompt. Returns (tokens per request, decode step ms
+    with both slots live afterwards)."""
+    import torch
+
+    from crane_tpu_torch.serve.engine import (
+        EngineRequest,
+        FinishReason,
+        InferenceEngine,
+        SamplingOptions,
+    )
+
+    greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
+    engine = InferenceEngine(lm, max_slots=2, max_seq_len=16384, prefill_chunk=256)
+    engine.warmup()
+    queues = {rid: engine.submit(EngineRequest(rid, p, 32, greedy)) for rid, p in prompts.items()}
+    toks = {rid: [] for rid in prompts}
+    done = {}
+    t0 = time.perf_counter()
+    for _ in range(20000):
+        busy = engine.step()
+        for rid, q in queues.items():
+            while not q.empty():
+                r = q.get_nowait()
+                if r.error is not None:
+                    raise AssertionError(f"{phase} {rid}: {r.error}")
+                if r.token is not None:
+                    toks[rid].append(r.token)
+                if r.finished:
+                    done[rid] = r.finish_reason
+        if len(done) == len(prompts) and not busy and engine.request_q.empty():
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = engine.stats
+    if not (all(done.get(rid) == FinishReason.LENGTH and len(toks[rid]) == 32 for rid in prompts)
+            and s.requests_received == s.requests_completed == len(prompts)
+            and s.requests_failed == s.requests_aborted == 0
+            and s.generated_tokens == 32 * len(prompts)
+            and s.prompt_tokens == sum(len(p) for p in prompts.values())):
+        raise AssertionError(f"{phase}: requests or stats do not reconcile: {s.snapshot()}")
+    contexts = engine.cache.lengths.tolist()
+    steps = 8
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, engine.cache, engine.recent = engine.lm.decode_active(
+        engine.cache, engine.cur_tokens, engine.recent, engine.sp, engine.generator,
+        [True, True], steps)
+    out.cpu()
+    step_ms = (time.perf_counter() - t1) / steps * 1e3
+    log(phase, f"{len(prompts)} requests finished in {wall:.2f} s; a decode step with both "
+               f"slots live at contexts {contexts}: {step_ms:.2f} ms (host clock)")
+    return toks, step_ms
+
+
+def launches_per(model, label, kv_bits=None) -> None:
+    """Log the kernels one B=1 decode step and one 256-token continuation
+    chunk launch, read from the launch counters (outside any main-path
+    window)."""
+    import torch
+
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.ops.sampling import SamplingParams
+
+    ids = [i % model.config.vocab_size for i in range(1, 513)]
+    cache = model.init_cache(1, 2048, quant_bits=kv_bits)
+    _, cache = model.prefill(cache, [ids], [512])
+    kernels.reset_launch_counts()
+    model.decode_steps(cache, torch.ones(1, dtype=torch.int32, device=model.device),
+                       torch.full((1, 8), -1, dtype=torch.int32, device=model.device),
+                       SamplingParams.make(1, do_sample=False, device=model.device),
+                       torch.Generator(device=model.device), 1)
+    step = {k: n for k, n in kernels.launch_counts().items() if n}
+    kernels.reset_launch_counts()
+    model.prefill(cache, [ids[:256]], [256], start=513)
+    chunk = {k: n for k, n in kernels.launch_counts().items() if n}
+    log("launches", f"{label}: per decode step {json.dumps(step)}, "
+                    f"per 256-token chunk {json.dumps(chunk)}")
+
+
+def check_sp(lm, rows: list[dict]) -> None:
+    """Phase 10: sequence-parallel serving of full-width Qwen3-0.6B on the
+    one card, four slabs (make_sp_mesh(4, ["cuda:0"] * 4)).
+
+    Float32: a 5000-token prompt into an 8192-token cache (four slabs of
+    2048; the prompt spans three), as a 4096-token prefill and a 904-token
+    continuation chunk, then 16 greedy steps on an fp cache and 8 on int8
+    and int4 caches; each against the unsharded port on the same card
+    (compare_sp). bf16: the engine with two slots of 16,384 tokens serves a
+    12,000- and a 300-token prompt, against the unsharded engine. The
+    with-stats kernels' launches are counted over the sp runs only, and K1
+    and K3 must not have run there (every layer of this model is sharded).
+    ``rows`` (the with-stats kernels') get their launches."""
+    import torch
+
+    from crane_tpu_torch.models.causal_lm import CausalLM
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
+
+    mesh = make_sp_mesh(4, ["cuda:0"] * 4)
+    counts: dict[str, int] = {}
+
+    def sp_path(fn):
+        kernels.reset_launch_counts()
+        res = fn()
+        for name, n in kernels.launch_counts().items():
+            counts[name] = counts.get(name, 0) + n
+        return res
+
+    cfg = lm.config
+    gen = torch.Generator().manual_seed(10)
+    lm32 = CausalLM(cfg, _tree(lm.params, lambda t: t.float()), dtype=torch.float32)
+    slm32 = sp_shard_lm(lm32, mesh)
+    prompt = torch.randint(0, cfg.vocab_size, (5000,), generator=gen).tolist()
+    for kv_bits, steps in ((None, 16), (8, 8), (4, 8)):
+        ref, ref_cache = sp_greedy(lm32, prompt, kv_bits, steps)
+        feed = [int(x.argmax()) for x in ref[:-1]]
+        got, got_cache = sp_path(lambda: sp_greedy(slm32, prompt, kv_bits, steps, feed))
+        label = f"float32, {'fp' if kv_bits is None else f'int{kv_bits}'} cache"
+        if kv_bits is not None:
+            differ, total = code_flips(got_cache, ref_cache)
+            log("sp", f"{label}: {differ} of {total} K/V code bytes differ between the sp and "
+                      f"the unsharded run")
+        compare_sp(f"{label}, 5000-token prompt over 3 of 4 slabs", got, ref, SP_REL_L2[kv_bits])
+        del ref, got, ref_cache, got_cache
+    del lm32, slm32
+
+    slm = sp_shard_lm(lm, mesh)
+    prompts = {"long": torch.randint(0, cfg.vocab_size, (12000,), generator=gen).tolist(),
+               "short": torch.randint(0, cfg.vocab_size, (300,), generator=gen).tolist()}
+    ref_toks, ref_ms = sp_engine_run(lm, prompts, "sp-engine unsharded")
+    got_toks, sp_ms = sp_path(lambda: sp_engine_run(slm, prompts, "sp-engine 4 slabs"))
+    for rid, p in prompts.items():
+        got, ref = got_toks[rid], ref_toks[rid]
+        j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+        if j is None:
+            continue
+        # the first differing step: both models' logits on the common
+        # context, within the logit rules, and the two tokens a near-tie of
+        # the unsharded model's logits
+        ctx = p + ref[:j]
+        logits = [m.prefill(m.init_cache(1, 16384), [ctx], [len(ctx)])[0][0] for m in (slm, lm)]
+        compare_logits("sp", f"engine {rid} step {j}: sp vs unsharded bf16", *logits)
+        gap = (logits[1][ref[j]] - logits[1][got[j]]).item()
+        if abs(gap) >= LOGIT_TIE:
+            raise AssertionError(f"sp engine {rid} step {j}: token {got[j]} vs {ref[j]}, "
+                                 f"logit gap {gap:.3g} is no tie")
+    log("sp", f"engine tokens agree with the unsharded engine (LOGIT_REL_L2 / LOGIT_TIE at a "
+              f"first difference); decode step {sp_ms:.2f} ms in 4 slabs vs {ref_ms:.2f} ms unsharded")
+
+    if counts["fp_decode_attention"] or counts["flash_attention_cached"]:
+        raise AssertionError("K1 or K3 ran on a sequence-sharded layer")
+    if counts["flash_attention_causal"] <= 0:
+        raise AssertionError("the sp path never launched K2")
+    read_launches("sp path", rows, counts)
+    launches_per(lm, "Qwen3-0.6B bf16 unsharded")
+    launches_per(slm, "Qwen3-0.6B bf16, 4 slabs")
+
+
 def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     """Each row's launches from the path that drove it (a head_dim 256 row
     reads its wrapper's counter); fail for a kernel that path never
@@ -819,7 +1309,8 @@ def main() -> int:
     if counts["flash_attention_causal"] <= 0:
         raise AssertionError("the quantized path never launched K2")
     read_launches("quantized path", quant_rows, counts)
-    del params4, lm
+    launches_per(CausalLM(lm.config, params4, dtype=torch.bfloat16), "Qwen3-0.6B w4", kv_bits=4)
+    del params4
 
     # the hybrid main path: Qwen3.5-0.8B generation and serving (K1, K2, K3
     # at head_dim 256; K7 for every GDN prefill and continuation chunk)
@@ -827,8 +1318,17 @@ def main() -> int:
     lm35 = check_hybrid_model()
     check_engine(lm35, "hybrid-engine")
     read_launches("hybrid path", hybrid_rows, kernels.launch_counts())
+    launches_per(lm35, "Qwen3.5-0.8B bf16")
+    del lm35
 
-    rows += quant_rows + hybrid_rows
+    # the sequence-parallel main path: Qwen3-0.6B in four slabs on the card
+    # (K2 for fresh prompts; K1-S, K3-S, K4-S and K5-S over the slabs)
+    sp_rows = check_stats_kernels()
+    t_sp = time.perf_counter()
+    check_sp(lm, sp_rows)
+    log("sp", f"phase 10 ran in {time.perf_counter() - t_sp:.1f} s")
+
+    rows += quant_rows + hybrid_rows + sp_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

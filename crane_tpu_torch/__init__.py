@@ -1,10 +1,11 @@
 """crane_tpu_torch: the PyTorch and CUDA port of crane_tpu, for NVIDIA Hopper.
 
 The package mirrors ``crane_tpu``'s layout and names, so each module's
-counterpart is easy to find. It imports ``torch`` and never ``jax``; the
-modules of ``crane_tpu`` that never import jax (the scheduler, sequence and
-stats of the engine, the bucket helpers, the generation config and the
-token stream) are shared, not copied.
+counterpart is easy to find. It imports ``torch`` and never ``jax``, and
+nothing of ``crane_tpu``: the few jax-free modules it needs from there (the
+scheduler, sequence and stats of the engine, the bucket and hub helpers, the
+generation config, the token stream and the tokenizer) are copies at the
+same relative paths.
 
 Every kernel that ``crane_tpu`` wrote in Pallas for the TPU and that this
 port carries is a hand-written CUDA kernel for ``sm_90a`` under

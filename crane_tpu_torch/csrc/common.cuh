@@ -113,10 +113,16 @@ inline void allow_dynamic_smem(Kernel kernel, size_t bytes) {
 // shared memory `smem` (merge_smem_bytes), then the block merges them and
 // writes out[g * D + d]; acc_at(e) is the head dim of the lane's e-th
 // value. A head no warp saw (every m = -inf: an empty row) writes zeros.
+// With stats (m_out, l_out non-null, the with-stats form) the merged
+// running max M and sum L of head g go to m_out[g] and l_out[g]: M in
+// natural-log units of the scaled, softcapped logits, L = sum exp(s - M).
+// An empty head keeps M = -INFINITY (the TPU kernel writes -1e30) and
+// L = 0; a merge across slabs weighs it by l > 0 ? ... : 0, never by M.
 template <typename T, int G, int D, int E, int kWarps, typename DimOf>
 __device__ __forceinline__ void merge_warp_states(
     float* smem, const float (&m)[G], const float (&l)[G],
-    const float (&acc)[G][E], DimOf acc_at, T* __restrict__ out) {
+    const float (&acc)[G][E], DimOf acc_at, T* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out) {
   float(&sm_m)[kWarps][G] = *reinterpret_cast<float(*)[kWarps][G]>(smem);
   float(&sm_l)[kWarps][G] =
       *reinterpret_cast<float(*)[kWarps][G]>(smem + kWarps * G);
@@ -140,9 +146,9 @@ __device__ __forceinline__ void merge_warp_states(
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float res = 0.f;
+    float res = 0.f, L = 0.f;
     if (M != -INFINITY) {
-      float L = 0.f, A = 0.f;
+      float A = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
         const float c = __expf(sm_m[w][g] - M);  // 0 for an idle warp
@@ -152,6 +158,10 @@ __device__ __forceinline__ void merge_warp_states(
       res = A / L;
     }
     out[g * D + d] = from_float<T>(res);
+    if (m_out != nullptr && d == 0) {
+      m_out[g] = M;
+      l_out[g] = L;
+    }
   }
 }
 

@@ -1,7 +1,12 @@
 // K1: GQA decode attention (one query token per row) over an fp KV cache.
 //
 // Replaces crane_tpu/ops/pallas/quant_attention.py::_fp_decode_attention
-// (kernel _fp_kernel), reached through quant_decode_attention(bits=16).
+// (kernel _fp_kernel), reached through quant_decode_attention(bits=16), and
+// its with-stats form (K1-S, decode_attention_with_stats(bits=16),
+// return_stats=True): the same launch with m_out/l_out non-null also writes
+// each head's softmax max and sum [B, Hq] float32, which the sequence-
+// parallel merge needs (parallel/sequence.py). A run-time pointer, not a
+// template parameter, so the instance count does not double.
 //
 // What it computes: q [B, 1, Hq, D] against k/v [B, T, Hkv, D] read as
 // stored. Row b attends the slots [max(0, valid - window), valid) with
@@ -37,6 +42,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ kv_valid, T* __restrict__ out,
+                        float* __restrict__ m_out, float* __restrict__ l_out,
                         int T_len, int Hkv, float scale, int window,
                         float softcap) {
   constexpr int E = D / 32;  // elements of a row owned by one lane
@@ -121,34 +127,36 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   extern __shared__ float smem[];
+  const size_t head0 = (size_t)b * Hq + hk * G;  // the group's first q-head
   merge_warp_states<T, G, D, E, kWarps>(
-      smem, m, l, acc, [lane](int e) { return lane * E + e; },
-      out + ((size_t)b * Hq + hk * G) * D);
+      smem, m, l, acc, [lane](int e) { return lane * E + e; }, out + head0 * D,
+      m_out != nullptr ? m_out + head0 : nullptr,
+      l_out != nullptr ? l_out + head0 : nullptr);
 }
 
 template <typename T, int D, int G>
 void launch(const void* q, const void* k, const void* v, const int* kv_valid,
-            void* out, int B, int T_len, int Hkv, float scale, int window,
-            float softcap, cudaStream_t stream) {
+            void* out, float* m_out, float* l_out, int B, int T_len, int Hkv,
+            float scale, int window, float softcap, cudaStream_t stream) {
   dim3 grid(Hkv, B);
   constexpr size_t smem = merge_smem_bytes<G, D, kWarps>();
   allow_dynamic_smem(decode_attention_kernel<T, D, G>, smem);
   decode_attention_kernel<T, D, G><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), T_len, Hkv,
-      scale, window, softcap);
+      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), m_out, l_out,
+      T_len, Hkv, scale, window, softcap);
 }
 
 template <typename T, int D>
 bool dispatch_group(int G, const void* q, const void* k, const void* v,
-                    const int* kv_valid, void* out, int B, int T_len, int Hkv,
-                    float scale, int window, float softcap,
-                    cudaStream_t stream) {
+                    const int* kv_valid, void* out, float* m_out, float* l_out,
+                    int B, int T_len, int Hkv, float scale, int window,
+                    float softcap, cudaStream_t stream) {
   switch (G) {
 #define CRANE_CASE(g)                                                      \
   case g:                                                                  \
-    launch<T, D, g>(q, k, v, kv_valid, out, B, T_len, Hkv, scale, window, \
-                    softcap, stream);                                      \
+    launch<T, D, g>(q, k, v, kv_valid, out, m_out, l_out, B, T_len, Hkv,  \
+                    scale, window, softcap, stream);                       \
     return true;
     CRANE_CASE(1) CRANE_CASE(2) CRANE_CASE(3) CRANE_CASE(4)
     CRANE_CASE(5) CRANE_CASE(6) CRANE_CASE(7) CRANE_CASE(8)
@@ -160,18 +168,18 @@ bool dispatch_group(int G, const void* q, const void* k, const void* v,
 
 template <typename T>
 bool dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
-                  const int* kv_valid, void* out, int B, int T_len, int Hkv,
-                  float scale, int window, float softcap,
-                  cudaStream_t stream) {
+                  const int* kv_valid, void* out, float* m_out, float* l_out,
+                  int B, int T_len, int Hkv, float scale, int window,
+                  float softcap, cudaStream_t stream) {
   if (D == 64)
-    return dispatch_group<T, 64>(G, q, k, v, kv_valid, out, B, T_len, Hkv,
-                                 scale, window, softcap, stream);
+    return dispatch_group<T, 64>(G, q, k, v, kv_valid, out, m_out, l_out, B,
+                                 T_len, Hkv, scale, window, softcap, stream);
   if (D == 128)
-    return dispatch_group<T, 128>(G, q, k, v, kv_valid, out, B, T_len, Hkv,
-                                  scale, window, softcap, stream);
+    return dispatch_group<T, 128>(G, q, k, v, kv_valid, out, m_out, l_out, B,
+                                  T_len, Hkv, scale, window, softcap, stream);
   if (D == 256)
-    return dispatch_group<T, 256>(G, q, k, v, kv_valid, out, B, T_len, Hkv,
-                                  scale, window, softcap, stream);
+    return dispatch_group<T, 256>(G, q, k, v, kv_valid, out, m_out, l_out, B,
+                                  T_len, Hkv, scale, window, softcap, stream);
   return false;
 }
 
@@ -179,27 +187,32 @@ bool dispatch_dim(int D, int G, const void* q, const void* k, const void* v,
 }  // namespace crane
 
 // q [B,1,Hq,D], k/v [B,T,Hkv,D], kv_valid [B] int32, out [B,1,Hq,D]; all
-// contiguous, on the device of `stream`. window <= 0 and softcap <= 0 mean
-// "off". Returns the CUDA error of the launch (0 on success), or
+// contiguous, on the device of `stream`. m_out/l_out [B,Hq] float32, both
+// NULL (K1) or both set (K1-S). window <= 0 and softcap <= 0 mean "off".
+// Returns the CUDA error of the launch (0 on success), or
 // cudaErrorInvalidValue for a dtype/head-dim/group the kernel does not take.
 extern "C" int crane_decode_attention(int dtype, const void* q, const void* k,
                                       const void* v, const void* kv_valid,
-                                      void* out, int B, int T_len, int Hq,
-                                      int Hkv, int D, float scale, int window,
-                                      float softcap, void* stream) {
+                                      void* out, void* m_out, void* l_out,
+                                      int B, int T_len, int Hq, int Hkv, int D,
+                                      float scale, int window, float softcap,
+                                      void* stream) {
   using namespace crane;
   if (B == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int* valid = static_cast<const int*>(kv_valid);
+  float* ms = static_cast<float*>(m_out);
+  float* ls = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == kBFloat16)
-    ok = dispatch_dim<__nv_bfloat16>(D, G, q, k, v, valid, out, B, T_len, Hkv,
-                                     scale, window, softcap, s);
+    ok = dispatch_dim<__nv_bfloat16>(D, G, q, k, v, valid, out, ms, ls, B,
+                                     T_len, Hkv, scale, window, softcap, s);
   else if (dtype == kFloat32)
-    ok = dispatch_dim<float>(D, G, q, k, v, valid, out, B, T_len, Hkv, scale,
-                             window, softcap, s);
+    ok = dispatch_dim<float>(D, G, q, k, v, valid, out, ms, ls, B, T_len, Hkv,
+                             scale, window, softcap, s);
   if (!ok) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

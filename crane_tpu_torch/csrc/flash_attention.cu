@@ -8,13 +8,22 @@
 //      the whole cache buffer k/v [B, T, Hkv, D]. The same K3 launch also
 //      stands for quant_attention.py::quant_cached_attention(bits=16), which
 //      computes the same function over the same storage layout.
+//   K3-S quant_attention.py::cached_attention_with_stats(bits=16) (the
+//      _cached_attention call with return_stats=True): K3 with m_out/l_out
+//      non-null also writes each query row's softmax max and sum [B, Hq, S]
+//      float32, for the sequence-parallel merge of slabs
+//      (parallel/sequence.py). There the positions are slab-local and may be
+//      negative (the row attends nothing in this slab).
 //
 // What it computes, per query row i at position p (K2: p = i; K3:
 // p = min(positions[b, i], T - 1), the clamp the TPU kernel applies to
 // bucket-padded tail rows): softmax over keys j of scale * q.k (optionally
 // c * tanh(s / c)), where key j takes part iff j <= p and, with a window,
 // j > p - window; with `segments` (K2 only) also iff seg[i] == seg[j] > 0.
-// A row with no key to attend writes zeros.
+// A row with no key to attend writes zeros, and with stats m = -INFINITY
+// (the TPU kernel writes -1e30) and l = 0. The stats are m, the running max
+// of the scaled, softcapped logits in natural-log units, and l = sum
+// exp(s - m), written by the thread that owns the row's first dim (c == 0).
 //
 // What bounds it on an H100: K2 at long S is bound by the attention FLOPs
 // (4 * S^2/2 * D per head), which at scale belong on the tensor cores; K3 is
@@ -42,6 +51,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(RowTile<D>::kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
                        const int* __restrict__ positions,
                        const int* __restrict__ segments, int S, int Tk,
                        int Hkv, int G, float scale, int window,
@@ -81,7 +91,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     atomicMax(&band_hi, p);
   }
   __syncthreads();
-  int kv_lo = 0, kv_hi = band_hi;  // inclusive key range of the tile loop
+  // inclusive key range of the tile loop; kv_lo >= 0 always (C's `/`
+  // truncates where a floor is meant), and a band wholly before this buffer
+  // (every p < 0, a later slab's view of an earlier chunk) runs no tile
+  int kv_lo = 0, kv_hi = band_hi;
   if (segments != nullptr) {
     kv_hi = Tk - 1;
   } else if (window > 0) {
@@ -157,40 +170,46 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NE; ++i)
       op[c + kTPR * i] = from_float<T>(acc[i] * inv);
+    if (m_out != nullptr && c == 0) {
+      const size_t si = ((size_t)b * Hq + h) * S + qi;  // [B, Hq, S]
+      m_out[si] = m;
+      l_out[si] = l;
+    }
   }
 }
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* out,
-            const int* positions, const int* segments, int B, int S, int Tk,
-            int Hq, int Hkv, float scale, int window, float softcap,
-            cudaStream_t stream) {
+            float* m_out, float* l_out, const int* positions,
+            const int* segments, int B, int S, int Tk, int Hq, int Hkv,
+            float scale, int window, float softcap, cudaStream_t stream) {
   using Tl = RowTile<D>;
   dim3 grid((S + Tl::kBlockQ - 1) / Tl::kBlockQ, Hq, B);
   flash_attention_kernel<T, D><<<grid, Tl::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), positions, segments, S,
-      Tk, Hkv, Hq / Hkv, scale, window, softcap);
+      static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, positions,
+      segments, S, Tk, Hkv, Hq / Hkv, scale, window, softcap);
 }
 
 template <typename T>
 bool dispatch_dim(int D, const void* q, const void* k, const void* v,
-                  void* out, const int* positions, const int* segments, int B,
-                  int S, int Tk, int Hq, int Hkv, float scale, int window,
-                  float softcap, cudaStream_t stream) {
+                  void* out, float* m_out, float* l_out, const int* positions,
+                  const int* segments, int B, int S, int Tk, int Hq, int Hkv,
+                  float scale, int window, float softcap,
+                  cudaStream_t stream) {
   if (D == 64) {
-    launch<T, 64>(q, k, v, out, positions, segments, B, S, Tk, Hq, Hkv, scale,
-                  window, softcap, stream);
+    launch<T, 64>(q, k, v, out, m_out, l_out, positions, segments, B, S, Tk,
+                  Hq, Hkv, scale, window, softcap, stream);
     return true;
   }
   if (D == 128) {
-    launch<T, 128>(q, k, v, out, positions, segments, B, S, Tk, Hq, Hkv,
-                   scale, window, softcap, stream);
+    launch<T, 128>(q, k, v, out, m_out, l_out, positions, segments, B, S, Tk,
+                   Hq, Hkv, scale, window, softcap, stream);
     return true;
   }
   if (D == 256) {
-    launch<T, 256>(q, k, v, out, positions, segments, B, S, Tk, Hq, Hkv,
-                   scale, window, softcap, stream);
+    launch<T, 256>(q, k, v, out, m_out, l_out, positions, segments, B, S, Tk,
+                   Hq, Hkv, scale, window, softcap, stream);
     return true;
   }
   return false;
@@ -200,14 +219,16 @@ bool dispatch_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace crane
 
 // q [B,S,Hq,D], k/v [B,Tk,Hkv,D], out [B,S,Hq,D]; all contiguous.
-// positions [B,S] int32 or NULL: NULL is K2 (fresh prefill, positions
-// 0..S-1, Tk == S); non-NULL is K3 (continuation over the cache buffer).
-// segments [B,S] int32 or NULL (K2 only). window <= 0 and softcap <= 0 mean
-// "off". Returns the CUDA error of the launch (0 on success), or
-// cudaErrorInvalidValue for a dtype/head dim the kernel does not take.
+// m_out/l_out [B,Hq,S] float32, both NULL or both set (K3-S; positions path
+// only). positions [B,S] int32 or NULL: NULL is K2 (fresh prefill,
+// positions 0..S-1, Tk == S); non-NULL is K3 (continuation over the cache
+// buffer). segments [B,S] int32 or NULL (K2 only). window <= 0 and
+// softcap <= 0 mean "off". Returns the CUDA error of the launch (0 on
+// success), or cudaErrorInvalidValue for a dtype/head dim the kernel does
+// not take.
 extern "C" int crane_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* out,
-                                     const void* positions,
+                                     const void* v, void* out, void* m_out,
+                                     void* l_out, const void* positions,
                                      const void* segments, int B, int S,
                                      int Tk, int Hq, int Hkv, int D,
                                      float scale, int window, float softcap,
@@ -215,16 +236,20 @@ extern "C" int crane_flash_attention(int dtype, const void* q, const void* k,
   using namespace crane;
   if (B == 0 || S == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Tk <= 0) return cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
+  if (m_out != nullptr && positions == nullptr) return cudaErrorInvalidValue;
   const int* pos = static_cast<const int*>(positions);
   const int* seg = static_cast<const int*>(segments);
+  float* ms = static_cast<float*>(m_out);
+  float* ls = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == kBFloat16)
-    ok = dispatch_dim<__nv_bfloat16>(D, q, k, v, out, pos, seg, B, S, Tk, Hq,
-                                     Hkv, scale, window, softcap, s);
+    ok = dispatch_dim<__nv_bfloat16>(D, q, k, v, out, ms, ls, pos, seg, B, S,
+                                     Tk, Hq, Hkv, scale, window, softcap, s);
   else if (dtype == kFloat32)
-    ok = dispatch_dim<float>(D, q, k, v, out, pos, seg, B, S, Tk, Hq, Hkv,
-                             scale, window, softcap, s);
+    ok = dispatch_dim<float>(D, q, k, v, out, ms, ls, pos, seg, B, S, Tk, Hq,
+                             Hkv, scale, window, softcap, s);
   if (!ok) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -5,7 +5,12 @@
 // Replaces crane_tpu/ops/pallas/quant_attention.py::_cached_attention
 // (kernel _cached_kernel), reached through quant_cached_attention with
 // bits 8 and 4: a chunk of S queries at absolute positions over the whole
-// quantized buffer.
+// quantized buffer; and its with-stats form (K5-S,
+// cached_attention_with_stats(bits=8/4), return_stats=True): with
+// m_out/l_out non-null the same launch also writes each query row's softmax
+// max and sum [B, Hq, S] float32 (as K3-S: m = -INFINITY and l = 0 for a row
+// with no key, whose slab-local position may be negative), for the
+// sequence-parallel merge.
 //
 // Cache layout as K4's (csrc/quant_decode_attention.cu): codes [B, T, Hkv *
 // stored] int8 and scales [B, Hkv, T] float32. Per key, s = (q . code) *
@@ -34,7 +39,8 @@ __global__ void __launch_bounds__(RowTile<D>::kThreads)
 quant_cached_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                     const int8_t* __restrict__ vc,
                     const float* __restrict__ ks, const float* __restrict__ vs,
-                    T* __restrict__ out, const int* __restrict__ positions,
+                    T* __restrict__ out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, const int* __restrict__ positions,
                     int S, int Tk, int Hkv, int G, float scale, int window,
                     float softcap) {
   constexpr int kBlockQ = RowTile<D>::kBlockQ;
@@ -70,8 +76,11 @@ quant_cached_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
     atomicMax(&band_hi, p);
   }
   __syncthreads();
+  // inclusive; kv_lo >= 0 (C's `/` truncates), and a band wholly before
+  // the buffer (every p < 0: a later slab's view of an earlier chunk) runs
+  // no tile
   const int kv_lo = window > 0 ? max(0, band_lo - window + 1) : 0;
-  const int kv_hi = band_hi;  // inclusive
+  const int kv_hi = band_hi;
 
   float qr[NE], acc[NE];
   const T* qp = q + (((size_t)b * S + (live ? qi : 0)) * Hq + h) * D;
@@ -153,33 +162,39 @@ quant_cached_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
 #pragma unroll
     for (int i = 0; i < NE; ++i)
       op[c + kTPR * i] = from_float<T>(acc[i] * inv);
+    if (m_out != nullptr && c == 0) {
+      const size_t si = ((size_t)b * Hq + h) * S + qi;  // [B, Hq, S]
+      m_out[si] = m;
+      l_out[si] = l;
+    }
   }
 }
 
 template <typename T, int D, int BITS>
 void launch_cached(const void* q, const int8_t* kc, const int8_t* vc,
-                   const float* ks, const float* vs, void* out,
-                   const int* positions, int B, int S, int Tk, int Hq,
+                   const float* ks, const float* vs, void* out, float* m_out,
+                   float* l_out, const int* positions, int B, int S, int Tk,
+                   int Hq,
                    int Hkv, float scale, int window, float softcap,
                    cudaStream_t stream) {
   using Tl = RowTile<D>;
   dim3 grid((S + Tl::kBlockQ - 1) / Tl::kBlockQ, Hq, B);
   quant_cached_kernel<T, D, BITS><<<grid, Tl::kThreads, 0, stream>>>(
-      static_cast<const T*>(q), kc, vc, ks, vs, static_cast<T*>(out),
-      positions, S, Tk, Hkv, Hq / Hkv, scale, window, softcap);
+      static_cast<const T*>(q), kc, vc, ks, vs, static_cast<T*>(out), m_out,
+      l_out, positions, S, Tk, Hkv, Hq / Hkv, scale, window, softcap);
 }
 
 template <typename T>
 bool cached_dispatch(int bits, int D, const void* q, const int8_t* kc,
                      const int8_t* vc, const float* ks, const float* vs,
-                     void* out, const int* pos, int B, int S, int Tk, int Hq,
-                     int Hkv, float scale, int window, float softcap,
-                     cudaStream_t st) {
-#define CRANE_CACHED(d, bb)                                                  \
-  if (D == d && bits == bb) {                                                \
-    launch_cached<T, d, bb>(q, kc, vc, ks, vs, out, pos, B, S, Tk, Hq, Hkv, \
-                            scale, window, softcap, st);                     \
-    return true;                                                             \
+                     void* out, float* m_out, float* l_out, const int* pos,
+                     int B, int S, int Tk, int Hq, int Hkv, float scale,
+                     int window, float softcap, cudaStream_t st) {
+#define CRANE_CACHED(d, bb)                                                 \
+  if (D == d && bits == bb) {                                               \
+    launch_cached<T, d, bb>(q, kc, vc, ks, vs, out, m_out, l_out, pos, B, S, \
+                            Tk, Hq, Hkv, scale, window, softcap, st);       \
+    return true;                                                            \
   }
   CRANE_CACHED(64, 8) CRANE_CACHED(64, 4) CRANE_CACHED(128, 8)
   CRANE_CACHED(128, 4) CRANE_CACHED(256, 8) CRANE_CACHED(256, 4)
@@ -192,33 +207,36 @@ bool cached_dispatch(int bits, int D, const void* q, const int8_t* kc,
 
 // q [B,S,Hq,D] at absolute positions [B,S] int32; k/v codes
 // [B,T,Hkv*stored] int8 and scales [B,Hkv,T] float32 over the whole buffer
-// (Tk tokens, the chunk already written); out [B,S,Hq,D]; all contiguous,
-// on the device of `stream`. window <= 0 and softcap <= 0 mean "off".
-// Returns the CUDA error of the launch (0 on success), or
-// cudaErrorInvalidValue for a dtype, bit width or head dim the kernel does
-// not take.
+// (Tk tokens, the chunk already written); out [B,S,Hq,D]; m_out/l_out
+// [B,Hq,S] float32, both NULL (K5) or both set (K5-S); all contiguous, on
+// the device of `stream`. window <= 0 and softcap <= 0 mean "off". Returns
+// the CUDA error of the launch (0 on success), or cudaErrorInvalidValue for
+// a dtype, bit width or head dim the kernel does not take.
 extern "C" int crane_quant_cached_attention(
     int dtype, int bits, const void* q, const void* kc, const void* vc,
-    const void* ks, const void* vs, void* out, const void* positions, int B,
-    int S, int Tk, int Hq, int Hkv, int D, float scale, int window,
-    float softcap, void* stream) {
+    const void* ks, const void* vs, void* out, void* m_out, void* l_out,
+    const void* positions, int B, int S, int Tk, int Hq, int Hkv, int D,
+    float scale, int window, float softcap, void* stream) {
   using namespace crane;
   if (B == 0 || S == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Tk <= 0) return cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
   const int8_t* k8 = static_cast<const int8_t*>(kc);
   const int8_t* v8 = static_cast<const int8_t*>(vc);
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
   const int* pos = static_cast<const int*>(positions);
+  float* ms = static_cast<float*>(m_out);
+  float* ls = static_cast<float*>(l_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == kBFloat16)
-    ok = cached_dispatch<__nv_bfloat16>(bits, D, q, k8, v8, kss, vss, out,
-                                        pos, B, S, Tk, Hq, Hkv, scale, window,
-                                        softcap, st);
+    ok = cached_dispatch<__nv_bfloat16>(bits, D, q, k8, v8, kss, vss, out, ms,
+                                        ls, pos, B, S, Tk, Hq, Hkv, scale,
+                                        window, softcap, st);
   else if (dtype == kFloat32)
-    ok = cached_dispatch<float>(bits, D, q, k8, v8, kss, vss, out, pos, B, S,
-                                Tk, Hq, Hkv, scale, window, softcap, st);
+    ok = cached_dispatch<float>(bits, D, q, k8, v8, kss, vss, out, ms, ls, pos,
+                                B, S, Tk, Hq, Hkv, scale, window, softcap, st);
   if (!ok) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -3,7 +3,11 @@
 //
 // Replaces crane_tpu/ops/pallas/quant_attention.py::_quant_decode_attention
 // (kernel _kernel), reached through quant_decode_attention with bits 8 and
-// 4: one query token per row over the quantized cache.
+// 4: one query token per row over the quantized cache; and its with-stats
+// form (K4-S, decode_attention_with_stats(bits=8/4), return_stats=True): with
+// m_out/l_out non-null the same launch also writes each head's softmax max
+// and sum [B, Hq] float32 for the sequence-parallel merge. The pointers are
+// run-time arguments, so the 96 instances do not double.
 //
 // Cache layout (ops/kv_cache.py QuantLayerKVCache): codes [B, T, Hkv *
 // stored] int8, head h's bytes at columns [h * stored, (h + 1) * stored);
@@ -75,6 +79,7 @@ quant_decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
                     const int8_t* __restrict__ vc,
                     const float* __restrict__ ks, const float* __restrict__ vs,
                     const int* __restrict__ kv_valid, T* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
                     int T_len, int Hkv, float scale, int window,
                     float softcap) {
   using L = LaneSlice<D, BITS>;
@@ -164,9 +169,11 @@ quant_decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ kc,
   }
 
   extern __shared__ float smem[];
+  const size_t head0 = (size_t)b * Hq + hk * G;  // the group's first q-head
   merge_warp_states<T, G, D, E, kWarps>(
       smem, m, l, acc, [lane](int e) { return L::dim(lane, e); },
-      out + ((size_t)b * Hq + hk * G) * D);
+      out + head0 * D, m_out != nullptr ? m_out + head0 : nullptr,
+      l_out != nullptr ? l_out + head0 : nullptr);
 }
 
 struct DecodeArgs {
@@ -177,6 +184,8 @@ struct DecodeArgs {
   const float* vs;
   const int* kv_valid;
   void* out;
+  float* m_out;  // NULL, or [B, Hq] float32 (the with-stats form)
+  float* l_out;
   int B, T_len, Hkv;
   float scale;
   int window;
@@ -191,7 +200,8 @@ void launch_decode(const DecodeArgs& a) {
   allow_dynamic_smem(quant_decode_kernel<T, D, G, BITS>, smem);
   quant_decode_kernel<T, D, G, BITS><<<grid, kWarps * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), a.kc, a.vc, a.ks, a.vs, a.kv_valid,
-      static_cast<T*>(a.out), a.T_len, a.Hkv, a.scale, a.window, a.softcap);
+      static_cast<T*>(a.out), a.m_out, a.l_out, a.T_len, a.Hkv, a.scale,
+      a.window, a.softcap);
 }
 
 template <typename T, int D, int BITS>
@@ -224,24 +234,27 @@ bool decode_dispatch(int bits, int D, int G, const DecodeArgs& a) {
 }  // namespace crane
 
 // q [B,1,Hq,D]; k/v codes [B,T,Hkv*stored] int8; k/v scales [B,Hkv,T]
-// float32; kv_valid [B] int32; out [B,1,Hq,D]; all contiguous, on the
-// device of `stream`. window <= 0 and softcap <= 0 mean "off". Returns the
-// CUDA error of the launch (0 on success), or cudaErrorInvalidValue for a
-// dtype, bit width, head dim or group the kernel does not take.
+// float32; kv_valid [B] int32; out [B,1,Hq,D]; m_out/l_out [B,Hq] float32,
+// both NULL (K4) or both set (K4-S); all contiguous, on the device of
+// `stream`. window <= 0 and softcap <= 0 mean "off". Returns the CUDA error
+// of the launch (0 on success), or cudaErrorInvalidValue for a dtype, bit
+// width, head dim or group the kernel does not take.
 extern "C" int crane_quant_decode_attention(
     int dtype, int bits, const void* q, const void* kc, const void* vc,
-    const void* ks, const void* vs, const void* kv_valid, void* out, int B,
-    int T_len, int Hq, int Hkv, int D, float scale, int window, float softcap,
-    void* stream) {
+    const void* ks, const void* vs, const void* kv_valid, void* out,
+    void* m_out, void* l_out, int B, int T_len, int Hq, int Hkv, int D,
+    float scale, int window, float softcap, void* stream) {
   using namespace crane;
   if (B == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
   const DecodeArgs a{q, static_cast<const int8_t*>(kc),
                      static_cast<const int8_t*>(vc),
                      static_cast<const float*>(ks),
                      static_cast<const float*>(vs),
-                     static_cast<const int*>(kv_valid), out, B, T_len, Hkv,
-                     scale, window, softcap,
+                     static_cast<const int*>(kv_valid), out,
+                     static_cast<float*>(m_out), static_cast<float*>(l_out),
+                     B, T_len, Hkv, scale, window, softcap,
                      static_cast<cudaStream_t>(stream)};
   const int G = Hq / Hkv;
   bool ok = false;

@@ -20,6 +20,7 @@ from crane_tpu_torch.models.causal_lm import CausalLM
 from crane_tpu_torch.models.modules.gdn_layer import GdnConfig
 from crane_tpu_torch.models.modules.transformer import TransformerConfig
 from crane_tpu_torch.ops.linear import quantize_weight
+from crane_tpu_torch.utils.device import default_device
 
 
 def read_json(path: str) -> dict:
@@ -266,11 +267,12 @@ def from_pretrained(
     quant_bits: int | None = None,
 ) -> CausalLM:
     """Load a causal LM (dense or GDN hybrid) from an HF checkpoint
-    directory or hub id;
-    ``quant_bits`` 8 or 4 quantizes its linear weights in situ
-    (:func:`quantize_params`)."""
-    from crane_tpu.utils.hub import resolve_checkpoint
+    directory or hub id onto ``device``: by default the card, and with no
+    card an error unless ``device="cpu"`` is given. ``quant_bits`` 8 or 4
+    quantizes its linear weights in situ (:func:`quantize_params`)."""
+    from crane_tpu_torch.utils.hub import resolve_checkpoint
 
+    device = default_device(device)
     model_dir = resolve_checkpoint(model_dir)
     cfg = transformer_config_from_hf(load_hf_config(model_dir))
     params = map_hf_weights(cfg, load_state_dict(model_dir), dtype, device)
@@ -278,7 +280,7 @@ def from_pretrained(
         params = quantize_params(params, bits=quant_bits)
     if tokenizer is None:
         try:
-            from crane_tpu.tokenizer.autotokenizer import AutoTokenizer
+            from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
 
             tokenizer = AutoTokenizer.from_pretrained(model_dir)
         except (ImportError, OSError, ValueError):

@@ -8,7 +8,7 @@ the device; only sampled token ids cross to the host, for streaming and EOS
 checks.
 
 Shape discipline is kept as in the reference: prompts are padded to
-power-of-two buckets (``crane_tpu.utils.buckets``, shared) and caches are
+power-of-two buckets (``utils/buckets.py``, a copy of crane_tpu's) and caches are
 allocated once at a bucketed max length. Pad tokens sit past each row's true
 length and are causally masked until decode overwrites them; every prefill
 hands the true lengths to ``forward_hidden``, so GDN layers keep the pad
@@ -26,8 +26,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from crane_tpu.generation.config import GenerationConfig
-from crane_tpu.utils.buckets import bucket_length
+from crane_tpu_torch.generation.config import GenerationConfig
+from crane_tpu_torch.utils.buckets import bucket_length
 from crane_tpu_torch.models.modules.transformer import (
     TransformerConfig,
     forward_hidden,

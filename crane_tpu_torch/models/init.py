@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from crane_tpu_torch.models.modules.transformer import TransformerConfig
+from crane_tpu_torch.utils.device import default_device
 
 
 def init_params(
@@ -25,7 +26,10 @@ def init_params(
     every layer is one; a hybrid model's GDN weights come from
     :func:`hf_state_dict`). With ``attn_output_gate`` the q projection
     carries ``[query | gate]`` per head and is twice as wide. Drawn in
-    float32 on the generator's device, then cast and moved to ``device``."""
+    float32 on the generator's device, then cast and moved to ``device``:
+    by default the card, and with no card an error unless ``device="cpu"``
+    is given."""
+    device = default_device(device)
     gen_device = generator.device
 
     def nrm(shape, scale):

@@ -25,10 +25,17 @@ Attention has one route per phase and cache form, whatever S and T are:
   int8/int4 cache through K4,
   :func:`~crane_tpu_torch.ops.cuda.quant_attention.quant_decode_attention`.
 
+A layer whose cache is a
+:class:`~crane_tpu_torch.ops.kv_cache.SequenceShardedKVCache` (sequence
+parallelism, :mod:`crane_tpu_torch.parallel.sequence`) writes each token to
+its slab and, reading the cache, runs the with-stats kernel per slab and
+merges the partials exactly: decode through K1-S / K4-S, continuation chunks
+through K3-S / K5-S. A fresh prefill still attends its own K/V through K2.
+
 Quantized linear weights go through :func:`~crane_tpu_torch.ops.linear.linear`
 (K6 at M <= 256). Each wrapper launches its CUDA kernel on a CUDA tensor and
-runs its plain PyTorch version on a CPU tensor. MoE, short-conv and
-sequence-parallel branches are not ported yet and raise.
+runs its plain PyTorch version on a CPU tensor. MoE and short-conv branches
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from crane_tpu_torch.ops.kv_cache import (
     KVCache,
     LayerKVCache,
     QuantLayerKVCache,
+    SequenceShardedKVCache,
 )
 from crane_tpu_torch.ops.linear import QuantizedWeight, linear
 from crane_tpu_torch.ops.norm import rms_norm
@@ -133,9 +141,6 @@ def _check_ported(cfg: TransformerConfig) -> None:
             "short-conv hybrid layers (LFM2) are not ported yet (ROADMAP Queue 1 item 8)")
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.sequence_axis is not None:
-        raise NotImplementedError(
-            "sequence-parallel attention is not ported yet (ROADMAP Queue 1 item 12)")
 
 
 def make_cache(
@@ -152,20 +157,23 @@ def make_cache(
     for attention layers, the conv window and float32 recurrent state for
     GDN layers. ``device="meta"`` sizes without allocating."""
     _check_ported(cfg)
-    layers = []
-    for i in range(cfg.num_layers):
-        if cfg.layer_type(i) == "gdn":
-            g = cfg.gdn
-            layers.append(GdnLayerCache.empty(batch, g.conv_kernel, g.conv_dim, g.num_v_heads,
-                                              g.head_k_dim, g.head_v_dim, dtype, device))
-        elif quant_bits is not None:
-            layers.append(QuantLayerKVCache.empty(batch, max_seq, cfg.num_kv_heads, cfg.head_dim,
-                                                  bits=quant_bits, device=device))
-        else:
-            layers.append(LayerKVCache.empty(batch, max_seq, cfg.num_kv_heads, cfg.head_dim,
-                                             dtype, device))
-    return KVCache(layers=tuple(layers),
+    layers = tuple(make_layer_cache(cfg, i, batch, max_seq, dtype, quant_bits=quant_bits,
+                                    device=device) for i in range(cfg.num_layers))
+    return KVCache(layers=layers,
                    lengths=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def make_layer_cache(cfg: TransformerConfig, i: int, batch: int, max_seq: int, dtype, *,
+                     quant_bits: int | None = None, device=None):
+    """Layer ``i``'s cache as :func:`make_cache` allocates it."""
+    if cfg.layer_type(i) == "gdn":
+        g = cfg.gdn
+        return GdnLayerCache.empty(batch, g.conv_kernel, g.conv_dim, g.num_v_heads,
+                                   g.head_k_dim, g.head_v_dim, dtype, device)
+    if quant_bits is not None:
+        return QuantLayerKVCache.empty(batch, max_seq, cfg.num_kv_heads, cfg.head_dim,
+                                       bits=quant_bits, device=device)
+    return LayerKVCache.empty(batch, max_seq, cfg.num_kv_heads, cfg.head_dim, dtype, device)
 
 
 def make_rope_tables(cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
@@ -273,6 +281,18 @@ def attention_block(
 
     if not read_cache:
         out = flash_attention_causal(q, k, v, scale=scale, window=window, softcap=softcap)
+    elif isinstance(new_cache, SequenceShardedKVCache):
+        # only full-attention layers shard (a sliding window's KV is bounded)
+        if window is not None:
+            raise ValueError("a sliding-window layer's cache is never sequence-sharded")
+        from crane_tpu_torch.parallel.sequence import sp_chunk_attention, sp_decode_attention
+
+        if S == 1:
+            out = sp_decode_attention(q, new_cache, positions[:, 0] + 1, scale=scale,
+                                      logit_softcap=softcap)
+        else:
+            out = sp_chunk_attention(q, new_cache, positions, scale=scale,
+                                     logit_softcap=softcap)
     elif isinstance(new_cache, QuantLayerKVCache):
         args = (q, new_cache.k, new_cache.v, new_cache.k_scale, new_cache.v_scale)
         kw = dict(bits=new_cache.bits, scale=scale, window=window, logit_softcap=softcap)

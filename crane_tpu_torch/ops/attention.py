@@ -78,6 +78,28 @@ def masked_attention(
     """GQA attention under an explicit mask ``[B, S, T]``, all in float32:
     the arithmetic the CUDA attention kernels implement, written plainly.
     A query with no visible slot gives zeros (as the kernels write)."""
+    return _masked_attention(q, k, v, mask, scale, logit_softcap, stats=False)
+
+
+def masked_attention_with_stats(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    scale: float,
+    logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`masked_attention` with each query row's softmax statistics:
+    ``(out [B, S, Hq, D], m [B, Hq, S], l [B, Hq, S])``, ``m`` the max of the
+    scaled, softcapped logits over the visible slots and ``l = sum exp(s -
+    m)``, both float32. Softmax partials over disjoint slot sets merge
+    exactly by these (``crane_tpu_torch.parallel.sequence``). A query with
+    no visible slot gives ``out = 0``, ``m = -inf`` and ``l = 0``."""
+    return _masked_attention(q, k, v, mask, scale, logit_softcap, stats=True)
+
+
+def _masked_attention(q, k, v, mask, scale, logit_softcap, *, stats: bool):
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -87,7 +109,15 @@ def masked_attention(
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     m = mask[:, None, None]
     logits = logits.masked_fill(~m, float("-inf"))
+    seen = m.any(dim=-1, keepdim=True)
     probs = torch.softmax(logits, dim=-1)
-    probs = torch.where(m.any(dim=-1, keepdim=True), probs, 0.0)
+    probs = torch.where(seen, probs, 0.0)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(B, S, Hq, D).to(q.dtype)
+    out = out.reshape(B, S, Hq, D).to(q.dtype)
+    if not stats:
+        return out
+    mx = logits.amax(dim=-1)  # [B, Hkv, G, S]; -inf for an empty row
+    # an empty row's exp(-inf - -inf) is nan: replaced, never summed into l
+    total = torch.exp(logits - mx[..., None]).sum(dim=-1)
+    total = torch.where(seen[..., 0], total, 0.0)
+    return out, mx.reshape(B, Hq, S), total.reshape(B, Hq, S)

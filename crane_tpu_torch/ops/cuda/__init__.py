@@ -5,33 +5,47 @@ plain PyTorch counterpart on a CPU tensor, and counts its launches in a
 plain attribute ``launches``, so a run can show that the main path went
 through the kernels. The quantized kernels count per bit width
 (``launches`` is a dict, ``{"w8": n, "w4": n}`` or ``{"kv8": n, "kv4": n}``),
-so a run can show each variant was launched.
+so a run can show each variant was launched. A with-stats form (K1-S, K3-S,
+K4-S, K5-S) shares its kernel's launch path but counts on its own wrapper.
 """
 
 from __future__ import annotations
 
-from crane_tpu_torch.ops.cuda.decode_attention import fp_decode_attention
+from crane_tpu_torch.ops.cuda.decode_attention import (
+    fp_decode_attention,
+    fp_decode_attention_with_stats,
+)
 from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_cached,
+    flash_attention_cached_with_stats,
     flash_attention_causal,
 )
 from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan
 from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_cached_attention,
+    quant_cached_attention_with_stats,
     quant_decode_attention,
+    quant_decode_attention_with_stats,
 )
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul
+
+
+def _variants(name, fn):
+    return {f"{name}[{v}]": fn for v in fn.launches}
+
 
 # counted name -> wrapper; a variant ``name[v]`` reads ``launches[v]``
 KERNELS = {
     "fp_decode_attention": fp_decode_attention,
+    "fp_decode_attention_with_stats": fp_decode_attention_with_stats,
     "flash_attention_causal": flash_attention_causal,
     "flash_attention_cached": flash_attention_cached,
-    **{f"quant_matmul[{v}]": quant_matmul for v in quant_matmul.launches},
-    **{f"quant_decode_attention[{v}]": quant_decode_attention
-       for v in quant_decode_attention.launches},
-    **{f"quant_cached_attention[{v}]": quant_cached_attention
-       for v in quant_cached_attention.launches},
+    "flash_attention_cached_with_stats": flash_attention_cached_with_stats,
+    **_variants("quant_matmul", quant_matmul),
+    **_variants("quant_decode_attention", quant_decode_attention),
+    **_variants("quant_decode_attention_with_stats", quant_decode_attention_with_stats),
+    **_variants("quant_cached_attention", quant_cached_attention),
+    **_variants("quant_cached_attention_with_stats", quant_cached_attention_with_stats),
     "gdn_scan": gdn_scan,
 }
 

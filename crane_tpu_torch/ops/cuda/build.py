@@ -40,15 +40,15 @@ _F = ctypes.c_float
 # C signatures of the entry points: name -> argtypes (restype is int, the
 # CUDA error of the launch)
 SIGNATURES = {
-    "crane_decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _I, _F, _P],
-    "crane_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _I, _F, _P],
+    "crane_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _F, _I, _F, _P],
+    "crane_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _F, _I, _F, _P],
     "crane_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    "crane_quant_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _F, _I, _F, _P],
-    "crane_quant_cached_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _F, _I, _F, _P],
+    "crane_quant_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _F, _I, _F, _P],
+    "crane_quant_cached_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
     "crane_gdn_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

@@ -1,4 +1,4 @@
-"""K2 and K3: causal GQA flash attention for prefill
+"""K2, K3 and K3-S: causal GQA flash attention for prefill
 (``csrc/flash_attention.cu``).
 
 Port of ``crane_tpu/ops/pallas/flash_attention.py``:
@@ -9,6 +9,10 @@ Port of ``crane_tpu/ops/pallas/flash_attention.py``:
   ``positions`` over the whole cache buffer ``[B, T, Hkv, D]`` read as
   stored. It also stands for ``quant_cached_attention(bits=16)``, which
   computes the same function over the same layout.
+- :func:`flash_attention_cached_with_stats` (K3-S, the same launch with
+  stats pointers): K3 that also returns each query row's softmax max and sum,
+  ``cached_attention_with_stats(bits=16)``, for the sequence-parallel merge
+  of slabs; positions may be negative there (the row attends nothing).
 
 On a CUDA tensor each wrapper launches the hand-written kernel or raises;
 on a CPU tensor it runs its ``*_plain`` counterpart, the same function in
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from crane_tpu_torch.ops.attention import masked_attention
+from crane_tpu_torch.ops.attention import masked_attention, masked_attention_with_stats
 from crane_tpu_torch.ops.cuda import build
 
 HEAD_DIMS = (64, 128, 256)
@@ -65,14 +69,32 @@ def flash_attention_cached_plain(
     cache buffers ``[B, T, Hkv, D]`` (the chunk already written). Positions
     past the buffer (bucket-padded tail rows) are clamped to ``T - 1``, as
     the TPU kernel clamps them. Returns ``[B, S, Hq, D]`` in q's dtype."""
-    T = k_cache.shape[1]
+    mask = _cached_mask(positions, k_cache.shape[1], window)
+    return masked_attention(q, k_cache, v_cache, mask, scale=scale,
+                            logit_softcap=softcap)
+
+
+def flash_attention_cached_with_stats_plain(
+    q, k_cache, v_cache, positions, *, scale: float, window: int | None = None,
+    softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_cached_plain` with each query row's softmax
+    max ``m`` and sum ``l``, ``[B, Hq, S]`` float32: ``(out, m, l)``. A row
+    with no visible slot (a negative position) gives 0, ``-inf`` and 0."""
+    mask = _cached_mask(positions, k_cache.shape[1], window)
+    return masked_attention_with_stats(q, k_cache, v_cache, mask, scale=scale,
+                                       logit_softcap=softcap)
+
+
+def _cached_mask(positions, T, window):
+    """``[B, S, T]``: slot t is visible to the query at position p iff
+    ``p - window < t <= min(p, T - 1)``."""
     pos = positions.to(torch.int64).clamp(max=T - 1)[:, :, None]
-    t = torch.arange(T, device=q.device)[None, None, :]
+    t = torch.arange(T, device=positions.device)[None, None, :]
     mask = t <= pos
     if window is not None:
         mask = mask & (t > pos - window)
-    return masked_attention(q, k_cache, v_cache, mask, scale=scale,
-                            logit_softcap=softcap)
+    return mask
 
 
 def _check(name, q, k, v, B, S, Tk, Hkv):
@@ -87,20 +109,26 @@ def _check(name, q, k, v, B, S, Tk, Hkv):
         raise TypeError(f"{name}: dtype mismatch {q.dtype} {k.dtype} {v.dtype}")
 
 
-def _launch(q, k, v, positions, segments, Tk, scale, window, softcap):
+def _launch(q, k, v, positions, segments, Tk, scale, window, softcap, stats=False):
+    """Launch K2 (no positions) or K3 (positions); ``stats`` (K3-S) also
+    writes ``m``, ``l`` ``[B, Hq, S]`` and returns ``(out, m, l)``."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     err = build.lib().crane_flash_attention(
         build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(),
+        out.data_ptr(), m.data_ptr() if stats else None, l.data_ptr() if stats else None,
         positions.data_ptr() if positions is not None else None,
         segments.data_ptr() if segments is not None else None,
         B, S, Tk, Hq, Hkv, D, float(scale), int(window or 0),
         float(softcap or 0.0), build.stream_ptr(q.device),
     )
     build.check_launch("crane_flash_attention", err)
-    return out
+    return (out, m, l) if stats else out
 
 
 def flash_attention_causal(
@@ -151,17 +179,39 @@ def flash_attention_cached(
             softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cached: no kernel for {q.device}")
-    B, S = q.shape[0], q.shape[1]
-    T = k_cache.shape[1]
-    _check("flash_attention_cached", q, k_cache, v_cache, B, S, T,
-           k_cache.shape[2])
-    if positions.dtype != torch.int32 or positions.shape != (B, S):
-        raise TypeError("positions must be int32 [B, S]")
-    build.require_cuda("flash_attention_cached", q, k_cache, v_cache, positions)
-    out = _launch(q, k_cache, v_cache, positions, None, T, scale, window, softcap)
+    out = _launch_cached("flash_attention_cached", q, k_cache, v_cache, positions,
+                         scale, window, softcap, stats=False)
     flash_attention_cached.launches += 1
     return out
 
 
+def flash_attention_cached_with_stats(
+    q, k_cache, v_cache, positions, *, scale: float, window: int | None = None,
+    softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cached-continuation flash attention with its softmax statistics,
+    K3-S (contract in :func:`flash_attention_cached_with_stats_plain`)."""
+    if q.device.type == "cpu":
+        return flash_attention_cached_with_stats_plain(
+            q, k_cache, v_cache, positions, scale=scale, window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cached_with_stats: no kernel for {q.device}")
+    res = _launch_cached("flash_attention_cached_with_stats", q, k_cache, v_cache,
+                         positions, scale, window, softcap, stats=True)
+    flash_attention_cached_with_stats.launches += 1
+    return res
+
+
+def _launch_cached(name, q, k_cache, v_cache, positions, scale, window, softcap, stats):
+    B, S = q.shape[0], q.shape[1]
+    T = k_cache.shape[1]
+    _check(name, q, k_cache, v_cache, B, S, T, k_cache.shape[2])
+    if positions.dtype != torch.int32 or positions.shape != (B, S):
+        raise TypeError("positions must be int32 [B, S]")
+    build.require_cuda(name, q, k_cache, v_cache, positions)
+    return _launch(q, k_cache, v_cache, positions, None, T, scale, window, softcap, stats)
+
+
 flash_attention_causal.launches = 0
 flash_attention_cached.launches = 0
+flash_attention_cached_with_stats.launches = 0

@@ -1,20 +1,29 @@
-"""K4 and K5: GQA attention over an int8 / packed-int4 KV cache
-(``csrc/quant_decode_attention.cu``, ``csrc/quant_cached_attention.cu``).
+"""K4, K5 and their with-stats forms K4-S and K5-S: GQA attention over an int8
+/ packed-int4 KV cache (``csrc/quant_decode_attention.cu``,
+``csrc/quant_cached_attention.cu``).
 
 Port of ``crane_tpu/ops/pallas/quant_attention.py`` with ``bits`` 8 and 4:
 
 - :func:`quant_decode_attention` (K4, ``_quant_decode_attention``): one
   query per row over the cache's live length;
 - :func:`quant_cached_attention` (K5, ``_cached_attention``): a
-  continuation chunk at absolute ``positions`` over the whole buffer.
+  continuation chunk at absolute ``positions`` over the whole buffer;
+- :func:`quant_decode_attention_with_stats` (K4-S) and
+  :func:`quant_cached_attention_with_stats` (K5-S): the same launches with
+  stats pointers (Pallas's ``return_stats=True``), which also return each
+  query row's softmax max ``m`` and sum ``l`` for the sequence-parallel merge.
 
-Both read the cache as :class:`~crane_tpu_torch.ops.kv_cache.QuantLayerKVCache`
+:func:`decode_attention_with_stats` and :func:`cached_attention_with_stats`
+are the JAX package's dispatchers by name: ``bits=16`` goes to K1-S / K3-S
+over an fp cache, ``bits`` 8 / 4 to K4-S / K5-S.
+
+All read the cache as :class:`~crane_tpu_torch.ops.kv_cache.QuantLayerKVCache`
 stores it: flat codes ``[B, T, Hkv * stored]`` int8 and scales
 ``[B, Hkv, T]`` float32. On a CUDA tensor each wrapper launches the
 hand-written kernel or raises; on a CPU tensor it runs its ``*_plain``
 counterpart, which dequantizes the buffer (in q's dtype) and runs K1's or
 K3's plain version. Launches are counted per ``bits`` (``launches["kv8"]``,
-``["kv4"]``).
+``["kv4"]``), each wrapper on its own counter.
 """
 
 from __future__ import annotations
@@ -22,8 +31,18 @@ from __future__ import annotations
 import torch
 
 from crane_tpu_torch.ops.cuda import build
-from crane_tpu_torch.ops.cuda.decode_attention import MAX_GROUP, fp_decode_attention_plain
-from crane_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS, flash_attention_cached_plain
+from crane_tpu_torch.ops.cuda.decode_attention import (
+    MAX_GROUP,
+    fp_decode_attention_plain,
+    fp_decode_attention_with_stats,
+    fp_decode_attention_with_stats_plain,
+)
+from crane_tpu_torch.ops.cuda.flash_attention import (
+    HEAD_DIMS,
+    flash_attention_cached_plain,
+    flash_attention_cached_with_stats,
+    flash_attention_cached_with_stats_plain,
+)
 from crane_tpu_torch.ops.kv_cache import dequant_codes
 
 BITS = (8, 4)
@@ -48,6 +67,17 @@ def quant_decode_attention_plain(q, k_codes, v_codes, k_scale, v_scale, kv_valid
                                      logit_softcap=logit_softcap)
 
 
+def quant_decode_attention_with_stats_plain(
+    q, k_codes, v_codes, k_scale, v_scale, kv_valid, *, bits: int, scale: float,
+    window: int | None = None, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`quant_decode_attention_plain` with each head's softmax max and
+    sum ``[B, Hq]`` float32: ``(out, m, l)``."""
+    k, v = _dequant(q, k_codes, v_codes, k_scale, v_scale, bits)
+    return fp_decode_attention_with_stats_plain(q, k, v, kv_valid, scale=scale, window=window,
+                                                logit_softcap=logit_softcap)
+
+
 def quant_cached_attention_plain(q, k_codes, v_codes, k_scale, v_scale, positions, *,
                                  bits: int, scale: float, window: int | None = None,
                                  logit_softcap: float | None = None) -> torch.Tensor:
@@ -57,6 +87,18 @@ def quant_cached_attention_plain(q, k_codes, v_codes, k_scale, v_scale, position
     k, v = _dequant(q, k_codes, v_codes, k_scale, v_scale, bits)
     return flash_attention_cached_plain(q, k, v, positions, scale=scale, window=window,
                                         softcap=logit_softcap)
+
+
+def quant_cached_attention_with_stats_plain(
+    q, k_codes, v_codes, k_scale, v_scale, positions, *, bits: int, scale: float,
+    window: int | None = None, logit_softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`quant_cached_attention_plain` with each query row's softmax max
+    and sum ``[B, Hq, S]`` float32: ``(out, m, l)``; a row with no visible
+    slot (a negative position) gives 0, ``-inf`` and 0."""
+    k, v = _dequant(q, k_codes, v_codes, k_scale, v_scale, bits)
+    return flash_attention_cached_with_stats_plain(q, k, v, positions, scale=scale,
+                                                   window=window, softcap=logit_softcap)
 
 
 def _check(name, q, k_codes, v_codes, k_scale, v_scale, bits):
@@ -84,6 +126,59 @@ def _check(name, q, k_codes, v_codes, k_scale, v_scale, bits):
     return B, T, Hq, Hkv, D
 
 
+def _stats(q, stats: bool, shape):
+    """Float32 ``m``, ``l`` of ``shape``, or ``(None, None)`` without stats."""
+    if not stats:
+        return None, None
+    m = torch.empty(shape, dtype=torch.float32, device=q.device)
+    return m, torch.empty_like(m)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch_decode(name, q, k_codes, v_codes, k_scale, v_scale, kv_valid, bits, scale,
+                   window, logit_softcap, stats: bool):
+    if q.shape[1] != 1:
+        raise ValueError(f"decode kernel takes one query per row, got S={q.shape[1]}")
+    B, T, Hq, Hkv, D = _check(name, q, k_codes, v_codes, k_scale, v_scale, bits)
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"decode kernel needs Hq/Hkv in 1..{MAX_GROUP}: {Hq}/{Hkv}")
+    if kv_valid.dtype != torch.int32 or kv_valid.shape != (B,):
+        raise TypeError("kv_valid must be int32 [B]")
+    build.require_cuda(name, q, k_codes, v_codes, k_scale, v_scale, kv_valid)
+    out = torch.empty_like(q)
+    m, l = _stats(q, stats, (B, Hq))
+    err = build.lib().crane_quant_decode_attention(
+        build.dtype_code(q), bits, q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
+        _ptr(m), _ptr(l), B, T, Hq, Hkv, D, float(scale), int(window or 0),
+        float(logit_softcap or 0.0), build.stream_ptr(q.device),
+    )
+    build.check_launch("crane_quant_decode_attention", err)
+    return (out, m, l) if stats else out
+
+
+def _launch_cached(name, q, k_codes, v_codes, k_scale, v_scale, positions, bits, scale,
+                   window, logit_softcap, stats: bool):
+    B, T, Hq, Hkv, D = _check(name, q, k_codes, v_codes, k_scale, v_scale, bits)
+    S = q.shape[1]
+    if positions.dtype != torch.int32 or positions.shape != (B, S):
+        raise TypeError("positions must be int32 [B, S]")
+    build.require_cuda(name, q, k_codes, v_codes, k_scale, v_scale, positions)
+    out = torch.empty_like(q)
+    m, l = _stats(q, stats, (B, Hq, S))
+    err = build.lib().crane_quant_cached_attention(
+        build.dtype_code(q), bits, q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
+        positions.data_ptr(), B, S, T, Hq, Hkv, D, float(scale), int(window or 0),
+        float(logit_softcap or 0.0), build.stream_ptr(q.device),
+    )
+    build.check_launch("crane_quant_cached_attention", err)
+    return (out, m, l) if stats else out
+
+
 def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,
                            bits: int, scale: float, window: int | None = None,
                            logit_softcap: float | None = None) -> torch.Tensor:
@@ -95,26 +190,27 @@ def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,
             window=window, logit_softcap=logit_softcap)
     if q.device.type != "cuda":
         raise ValueError(f"quant_decode_attention: no kernel for {q.device}")
-    if q.shape[1] != 1:
-        raise ValueError(f"decode kernel takes one query per row, got S={q.shape[1]}")
-    B, T, Hq, Hkv, D = _check("quant_decode_attention", q, k_codes, v_codes,
-                              k_scale, v_scale, bits)
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode kernel needs Hq/Hkv in 1..{MAX_GROUP}: {Hq}/{Hkv}")
-    if kv_valid.dtype != torch.int32 or kv_valid.shape != (B,):
-        raise TypeError("kv_valid must be int32 [B]")
-    build.require_cuda("quant_decode_attention", q, k_codes, v_codes, k_scale, v_scale,
-                       kv_valid)
-    out = torch.empty_like(q)
-    err = build.lib().crane_quant_decode_attention(
-        build.dtype_code(q), bits, q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
-        B, T, Hq, Hkv, D, float(scale), int(window or 0), float(logit_softcap or 0.0),
-        build.stream_ptr(q.device),
-    )
-    build.check_launch("crane_quant_decode_attention", err)
+    out = _launch_decode("quant_decode_attention", q, k_codes, v_codes, k_scale, v_scale,
+                         kv_valid, bits, scale, window, logit_softcap, stats=False)
     quant_decode_attention.launches[f"kv{bits}"] += 1
     return out
+
+
+def quant_decode_attention_with_stats(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,
+                                      bits: int, scale: float, window: int | None = None,
+                                      logit_softcap: float | None = None):
+    """Decode attention over a quantized cache with its softmax statistics,
+    K4-S (contract in :func:`quant_decode_attention_with_stats_plain`)."""
+    if q.device.type == "cpu":
+        return quant_decode_attention_with_stats_plain(
+            q, k_codes, v_codes, k_scale, v_scale, kv_valid, bits=bits, scale=scale,
+            window=window, logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"quant_decode_attention_with_stats: no kernel for {q.device}")
+    res = _launch_decode("quant_decode_attention_with_stats", q, k_codes, v_codes, k_scale,
+                         v_scale, kv_valid, bits, scale, window, logit_softcap, stats=True)
+    quant_decode_attention_with_stats.launches[f"kv{bits}"] += 1
+    return res
 
 
 def quant_cached_attention(q, k_codes, v_codes, k_scale, v_scale, positions, *,
@@ -128,24 +224,59 @@ def quant_cached_attention(q, k_codes, v_codes, k_scale, v_scale, positions, *,
             window=window, logit_softcap=logit_softcap)
     if q.device.type != "cuda":
         raise ValueError(f"quant_cached_attention: no kernel for {q.device}")
-    B, T, Hq, Hkv, D = _check("quant_cached_attention", q, k_codes, v_codes,
-                              k_scale, v_scale, bits)
-    S = q.shape[1]
-    if positions.dtype != torch.int32 or positions.shape != (B, S):
-        raise TypeError("positions must be int32 [B, S]")
-    build.require_cuda("quant_cached_attention", q, k_codes, v_codes, k_scale, v_scale,
-                       positions)
-    out = torch.empty_like(q)
-    err = build.lib().crane_quant_cached_attention(
-        build.dtype_code(q), bits, q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), positions.data_ptr(),
-        B, S, T, Hq, Hkv, D, float(scale), int(window or 0), float(logit_softcap or 0.0),
-        build.stream_ptr(q.device),
-    )
-    build.check_launch("crane_quant_cached_attention", err)
+    out = _launch_cached("quant_cached_attention", q, k_codes, v_codes, k_scale, v_scale,
+                         positions, bits, scale, window, logit_softcap, stats=False)
     quant_cached_attention.launches[f"kv{bits}"] += 1
     return out
 
 
+def quant_cached_attention_with_stats(q, k_codes, v_codes, k_scale, v_scale, positions, *,
+                                      bits: int, scale: float, window: int | None = None,
+                                      logit_softcap: float | None = None):
+    """Continuation-chunk attention over a quantized cache with its softmax
+    statistics, K5-S (contract in :func:`quant_cached_attention_with_stats_plain`)."""
+    if q.device.type == "cpu":
+        return quant_cached_attention_with_stats_plain(
+            q, k_codes, v_codes, k_scale, v_scale, positions, bits=bits, scale=scale,
+            window=window, logit_softcap=logit_softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"quant_cached_attention_with_stats: no kernel for {q.device}")
+    res = _launch_cached("quant_cached_attention_with_stats", q, k_codes, v_codes, k_scale,
+                         v_scale, positions, bits, scale, window, logit_softcap, stats=True)
+    quant_cached_attention_with_stats.launches[f"kv{bits}"] += 1
+    return res
+
+
+def decode_attention_with_stats(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,
+                                bits: int, scale: float, window: int | None = None,
+                                logit_softcap: float | None = None):
+    """``crane_tpu``'s ``decode_attention_with_stats``: decode attention
+    returning ``(out [B, 1, Hq, D], m [B, Hq], l [B, Hq])``. ``bits=16``
+    reads an fp cache ``[B, T, Hkv, D]`` (scales ignored; K1-S); 8 or 4 a
+    quantized one (K4-S)."""
+    if bits == 16:
+        return fp_decode_attention_with_stats(q, k_codes, v_codes, kv_valid, scale=scale,
+                                              window=window, logit_softcap=logit_softcap)
+    return quant_decode_attention_with_stats(q, k_codes, v_codes, k_scale, v_scale, kv_valid,
+                                             bits=bits, scale=scale, window=window,
+                                             logit_softcap=logit_softcap)
+
+
+def cached_attention_with_stats(q, k, v, k_scale, v_scale, positions, *, bits: int,
+                                scale: float, window: int | None = None,
+                                logit_softcap: float | None = None):
+    """``crane_tpu``'s ``cached_attention_with_stats``: continuation-chunk
+    attention returning ``(out [B, S, Hq, D], m [B, Hq, S], l [B, Hq, S])``.
+    ``bits=16`` reads an fp cache (K3-S); 8 or 4 a quantized one (K5-S)."""
+    if bits == 16:
+        return flash_attention_cached_with_stats(q, k, v, positions, scale=scale,
+                                                 window=window, softcap=logit_softcap)
+    return quant_cached_attention_with_stats(q, k, v, k_scale, v_scale, positions, bits=bits,
+                                             scale=scale, window=window,
+                                             logit_softcap=logit_softcap)
+
+
 quant_decode_attention.launches = {f"kv{b}": 0 for b in BITS}
 quant_cached_attention.launches = {f"kv{b}": 0 for b in BITS}
+quant_decode_attention_with_stats.launches = {f"kv{b}": 0 for b in BITS}
+quant_cached_attention_with_stats.launches = {f"kv{b}": 0 for b in BITS}

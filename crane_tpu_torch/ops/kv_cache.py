@@ -9,6 +9,9 @@ and never regrown:
   head-major per-(token, head) scales ``[B, H_kv, S_max]`` float32;
 - Gated-Delta-Net layers (:class:`GdnLayerCache`): a rolling conv window
   ``[B, k, conv_dim]`` and a float32 recurrent state ``[B, H_v, K, V]``;
+- sequence parallelism (:class:`SequenceShardedKVCache`): an fp or
+  quantized layer cache split along its sequence axis into slabs, one per
+  slab device;
 
 plus per row ``lengths [B]`` int32. Where JAX donated the buffers and
 returned updated copies, the port writes into them in place and returns the
@@ -300,11 +303,80 @@ class GdnLayerCache:
 
 
 @dataclasses.dataclass
+class SequenceShardedKVCache:
+    """One attention layer's KV cache split along its sequence axis into
+    ``n`` contiguous slabs (sequence parallelism,
+    :mod:`crane_tpu_torch.parallel.sequence`): slab ``i`` is a
+    :class:`LayerKVCache` or :class:`QuantLayerKVCache` of ``T/n`` positions
+    holding ``[i T/n, (i + 1) T/n)``, on ``devices[i]``. The port of the JAX
+    package's ``P(None, "sp", ...)`` placement of the K/V buffers (fp or
+    codes) and ``P(None, None, "sp")`` placement of the scale planes.
+
+    ``devices`` names each slab's device apart from its tensors', so a cache
+    sized on the ``meta`` device still says where each slab would live (the
+    engine's memory budget). Writes route each token to its slab."""
+
+    slabs: tuple
+    devices: tuple
+
+    @property
+    def slab_len(self) -> int:
+        return self.slabs[0].max_seq
+
+    @property
+    def max_seq(self) -> int:
+        return self.slab_len * len(self.slabs)
+
+    @property
+    def bits(self) -> int:
+        """16 for fp slabs, else the codes' 8 or 4."""
+        return self.slabs[0].bits if isinstance(self.slabs[0], QuantLayerKVCache) else 16
+
+    def row(self, slot: int) -> "SequenceShardedKVCache":
+        """Batch-1 view of row ``slot`` in every slab: writes through it
+        land in this cache."""
+        return SequenceShardedKVCache(tuple(s.row(slot) for s in self.slabs), self.devices)
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(t for s in self.slabs for t in s.tensors())
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor, positions,
+               row: int | None = None) -> "SequenceShardedKVCache":
+        """:meth:`LayerKVCache.update`'s contract over the whole sequence
+        axis, in place: an ``int`` start (with ``row``) writes each slab its
+        part of the span; ``[B]`` per-row starts (decode, one token per row)
+        write each row into the slab that holds its position, and drop a
+        position ``>= max_seq`` in every slab. Returns ``self``."""
+        T = self.slab_len
+        if not isinstance(positions, torch.Tensor):
+            start, s = int(positions), k_new.shape[1]
+            if start < 0 or start + s > self.max_seq:
+                raise ValueError(f"cache write [{start}, {start + s}) outside [0, {self.max_seq})")
+            for i, (slab, dev) in enumerate(zip(self.slabs, self.devices)):
+                lo, hi = max(start, i * T), min(start + s, (i + 1) * T)
+                if lo < hi:
+                    span = slice(lo - start, hi - start)
+                    slab.update(k_new[:, span].to(dev), v_new[:, span].to(dev), lo - i * T,
+                                row=row)
+            return self
+        if k_new.shape[1] != 1:
+            raise ValueError("a sequence-sharded cache takes per-row writes of one token "
+                             f"(decode), got {k_new.shape[1]}")
+        for i, (slab, dev) in enumerate(zip(self.slabs, self.devices)):
+            local = positions - i * T
+            # a row whose position lies in another slab writes nowhere here:
+            # T is past this slab's end, which the slab's update drops
+            local = torch.where((local >= 0) & (local < T), local, T)
+            slab.update(k_new.to(dev), v_new.to(dev), local.to(dev))
+        return self
+
+
+@dataclasses.dataclass
 class KVCache:
     """Whole-model cache: one layer cache per layer (:class:`LayerKVCache`,
-    :class:`QuantLayerKVCache` or, in hybrid models, :class:`GdnLayerCache`)
-    + per-row ``lengths [B]`` int32 (the number of valid tokens, i.e. the
-    next write position)."""
+    :class:`QuantLayerKVCache`, :class:`SequenceShardedKVCache` or, in hybrid
+    models, :class:`GdnLayerCache`) + per-row ``lengths [B]`` int32 (the
+    number of valid tokens, i.e. the next write position)."""
 
     layers: tuple
     lengths: torch.Tensor

@@ -4,7 +4,8 @@ Port of ``crane_tpu/serve/engine.py``. ONE static ``[max_slots, max_seq]``
 cache holds every sequence: admission prefills directly into a free slot
 row, batched decode runs over all slots with an activity mask, eviction
 clears a host-side bit. The scheduler, the per-request sequence state and
-the statistics are ``crane_tpu``'s own modules, shared.
+the statistics are copies of ``crane_tpu``'s modules (``serve/scheduler.py``,
+``serve/sequence.py``, ``serve/stats.py``).
 
 What the engine keeps from the reference:
 
@@ -21,7 +22,10 @@ What the engine keeps from the reference:
   while the device runs block N+1.
 
 ``kv_quant_bits`` 8 or 4 keeps the slots in an int8 or int4 cache
-(decode through K4, continuation chunks through K5). Speculative decoding
+(decode through K4, continuation chunks through K5). A sequence-parallel
+model (:func:`~crane_tpu_torch.parallel.sequence.sp_shard_lm`) is served the
+same way: its slots' rows are split into slabs, and every admission, chunk,
+preemption and prefix reuse works on the sharded rows. Speculative decoding
 (``speculative="ngram"``) is not ported yet and raises (ROADMAP Queue 1
 item 6).
 """
@@ -38,18 +42,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from crane_tpu.serve.scheduler import Scheduler
-from crane_tpu.serve.sequence import (  # noqa: F401  (EngineRequest, SamplingOptions: re-exported API)
+from crane_tpu_torch.serve.scheduler import Scheduler
+from crane_tpu_torch.serve.sequence import (  # noqa: F401  (EngineRequest, SamplingOptions: re-exported API)
     EngineRequest,
     EngineResponse,
     FinishReason,
     SamplingOptions,
     Sequence,
 )
-from crane_tpu.serve.stats import EngineStats
-from crane_tpu.tokenizer.token_stream import TokenOutputStream
-from crane_tpu.utils.buckets import bucket_length
+from crane_tpu_torch.serve.stats import EngineStats
+from crane_tpu_torch.tokenizer.token_stream import TokenOutputStream
+from crane_tpu_torch.utils.buckets import bucket_length
 from crane_tpu_torch.models.causal_lm import CausalLM
+from crane_tpu_torch.ops.kv_cache import SequenceShardedKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
 
@@ -84,40 +89,56 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def _device_bytes(lm, cache) -> dict:
+    """Bytes each device holds: the weights, the lengths and every whole
+    layer cache on the model's (lead) device, and each slab of a
+    sequence-sharded layer on its own device."""
+    held = {lm.device: _tree_bytes(lm.params) + _tree_bytes(cache.lengths)}
+    for layer in cache.layers:
+        if isinstance(layer, SequenceShardedKVCache):
+            for slab, dev in zip(layer.slabs, layer.devices):
+                held[dev] = held.get(dev, 0) + _tree_bytes(slab.tensors())
+        else:
+            held[lm.device] += _tree_bytes(layer.tensors())
+    return held
+
+
 def _check_hbm_budget(lm, max_slots: int, max_seq_len: int,
                       kv_quant_bits: int | None) -> None:
     """Fail fast at startup if weights + the fully committed KV slots can't
     fit device memory (the reference's memory governor, reduced to one
-    inequality because static slots commit the whole budget up front).
+    inequality per device because static slots commit the whole budget up
+    front).
 
     The cache size is exact by construction: the same ``init_cache`` call
     the engine makes next runs on the ``meta`` device, which allocates
-    nothing. 15% headroom covers activations and allocator slack. The limit
-    is the device's total memory (``torch.cuda.mem_get_info``) on a CUDA
-    model; ``CRANE_HBM_BYTES`` overrides it, and on the CPU the check runs
-    only when that variable is set."""
+    nothing. A sequence-parallel model counts its lead device as the weights
+    plus what it holds of the cache, and every other device as its slabs
+    (slabs on a repeated device add up). 15% headroom covers activations and
+    allocator slack. The limit is the device's total memory
+    (``torch.cuda.mem_get_info``) on a CUDA model; ``CRANE_HBM_BYTES``
+    overrides it for every device, and on the CPU the check runs only when
+    that variable is set."""
     env = os.environ.get("CRANE_HBM_BYTES")
-    if env:
-        limit = int(env)
-    elif lm.device.type == "cuda":
-        limit = torch.cuda.mem_get_info(lm.device)[1]
-    else:
+    if not env and lm.device.type != "cuda":
         return
+    cache = lm.init_cache(max_slots, max_seq_len, quant_bits=kv_quant_bits, device="meta")
     weights = _tree_bytes(lm.params)
-    kv = lm.init_cache(max_slots, max_seq_len, quant_bits=kv_quant_bits,
-                       device="meta").nbytes()
-    need = int((weights + kv) * 1.15)
     gib = 1024 ** 3
-    if need > limit:
-        raise RuntimeError(
-            f"HBM budget exceeded: weights {weights / gib:.2f} GiB + cache "
-            f"{kv / gib:.2f} GiB ({max_slots} slots x {max_seq_len} tokens, "
-            f"{kv_quant_bits or 8 * torch.empty((), dtype=lm.dtype).element_size()}-bit KV) "
-            f"x 1.15 headroom = {need / gib:.2f} GiB > device limit {limit / gib:.2f} GiB. "
-            f"Reduce max_slots/max_seq_len or use kv_quant_bits=8/4."
-        )
-    log.info("memory budget: weights %.2f GiB + cache %.2f GiB (x1.15) fits %.2f GiB",
-             weights / gib, kv / gib, limit / gib)
+    for dev, held in _device_bytes(lm, cache).items():
+        limit = int(env) if env else torch.cuda.mem_get_info(dev)[1]
+        need = int(held * 1.15)
+        w = weights if dev == lm.device else 0
+        if need > limit:
+            raise RuntimeError(
+                f"HBM budget exceeded on {dev}: weights {w / gib:.2f} GiB + cache "
+                f"{(held - w) / gib:.2f} GiB ({max_slots} slots x {max_seq_len} tokens, "
+                f"{kv_quant_bits or 8 * torch.empty((), dtype=lm.dtype).element_size()}-bit KV) "
+                f"x 1.15 headroom = {need / gib:.2f} GiB > device limit {limit / gib:.2f} GiB. "
+                f"Reduce max_slots/max_seq_len or use kv_quant_bits=8/4."
+            )
+        log.info("memory budget on %s: weights %.2f GiB + cache %.2f GiB (x1.15) fits %.2f GiB",
+                 dev, w / gib, (held - w) / gib, limit / gib)
 
 
 class InferenceEngine:

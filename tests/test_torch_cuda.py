@@ -26,6 +26,7 @@ from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan, gdn_scan_plain
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
 from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight, quantize_weight
+from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
 from crane_tpu_torch.serve.engine import EngineRequest, InferenceEngine, SamplingOptions
 
 pytestmark = pytest.mark.cuda
@@ -155,6 +156,61 @@ def test_k7_matches_plain(dev, dtype, B, S, H, K, V, init):
     torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 16, 8), (64, 12, 4), (256, 8, 2)])
+def test_with_stats_kernels_match_plain(dev, dtype, bits, D, Hq, Hkv):
+    """K1-S / K4-S (decode) and K3-S / K5-S (chunks) against their plain
+    versions, at a slab's local lengths (0 included) and slab-local positions
+    below, inside and past the slab; out is bitwise the no-stats kernel's."""
+    gen = torch.Generator(device=dev).manual_seed(D + Hq + bits)
+    T = 300
+    k, v = rnd(gen, 6, T, Hkv, D, dtype=dtype), rnd(gen, 6, T, Hkv, D, dtype=dtype)
+    if bits == 16:
+        ops, ops_plain = (k, v, None, None), (k.float(), v.float(), None, None)
+    else:
+        cache = QuantLayerKVCache.empty(6, T, Hkv, D, bits=bits, device=dev)
+        cache.update(k, v, 0)
+        ops = ops_plain = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    q = rnd(gen, 6, 1, Hq, D, dtype=dtype)
+    valid = torch.tensor([0, 1, 31, 32, 299, 300], dtype=torch.int32, device=dev)
+    out, m, l = k45.decode_attention_with_stats(q, *ops, valid, bits=bits, scale=D ** -0.5)
+    r_out, r_m, r_l = k45.decode_attention_with_stats(q.cpu().float(), *(
+        None if a is None else a.cpu() for a in ops_plain), valid.cpu(), bits=bits,
+        scale=D ** -0.5)
+    no_stats = (k1.fp_decode_attention(q, k, v, valid, scale=D ** -0.5) if bits == 16 else
+                k45.quant_decode_attention(q, *ops, valid, bits=bits, scale=D ** -0.5))
+    assert torch.equal(out, no_stats)
+    _check_stats(out, m, l, r_out, r_m, r_l, dtype)
+    assert (l[0] == 0).all() and (m[0] == -torch.inf).all() and (out[0] == 0).all()
+
+    S = 77
+    q = rnd(gen, 6, S, Hq, D, dtype=dtype)
+    starts = torch.tensor([-200, -40, 0, 100, 250, 290], device=dev)  # below, into, past
+    pos = (starts[:, None] + torch.arange(S, device=dev)[None]).to(torch.int32)
+    out, m, l = k45.cached_attention_with_stats(q, *ops, pos, bits=bits, scale=D ** -0.5)
+    r_out, r_m, r_l = k45.cached_attention_with_stats(q.cpu().float(), *(
+        None if a is None else a.cpu() for a in ops_plain), pos.cpu(), bits=bits,
+        scale=D ** -0.5)
+    no_stats = (k23.flash_attention_cached(q, k, v, pos, scale=D ** -0.5) if bits == 16 else
+                k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=D ** -0.5))
+    assert torch.equal(out, no_stats)
+    _check_stats(out, m, l, r_out, r_m, r_l, dtype)
+    assert (l[0] == 0).all() and (out[0] == 0).all()  # a chunk wholly before the slab
+
+
+def _check_stats(out, m, l, r_out, r_m, r_l, dtype):
+    """The kernel's (out, m, l) against the plain float32 run: out to the
+    dtype's tolerance; m and l to 1e-5 + 1e-5 |plain| where l > 0, and
+    m = -inf, l = 0 where the plain run saw no slot."""
+    torch.testing.assert_close(out.float().cpu(), r_out, **TOL[dtype])
+    seen = r_l > 0
+    m, l = m.cpu(), l.cpu()
+    torch.testing.assert_close(m[seen], r_m[seen], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l[seen], r_l[seen], rtol=1e-5, atol=1e-5)
+    assert (l[~seen] == 0).all() and (m[~seen] == -torch.inf).all()
+
+
 def test_launch_counts_and_refusals(dev):
     q = torch.zeros(1, 4, 2, 64, device=dev)
     valid = torch.ones(1, dtype=torch.int32, device=dev)
@@ -163,11 +219,15 @@ def test_launch_counts_and_refusals(dev):
     k23.flash_attention_causal(q, q, q, scale=0.1)
     k23.flash_attention_cached(q, q, q, pos, scale=0.1)
     k1.fp_decode_attention(q[:, :1], q, q, valid, scale=0.1)
+    k45.decode_attention_with_stats(q[:, :1], q, q, None, None, valid, bits=16, scale=0.1)
+    k45.cached_attention_with_stats(q, q, q, None, None, pos, bits=16, scale=0.1)
     for bits in (8, 4):
         c = QuantLayerKVCache.empty(1, 4, 2, 64, bits=bits, device=dev)
         ops = (c.k, c.v, c.k_scale, c.v_scale)
         k45.quant_decode_attention(q[:, :1], *ops, valid, bits=bits, scale=0.1)
         k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=0.1)
+        k45.decode_attention_with_stats(q[:, :1], *ops, valid, bits=bits, scale=0.1)
+        k45.cached_attention_with_stats(q, *ops, pos, bits=bits, scale=0.1)
         w = quantize_weight(torch.ones(64, 16, device=dev), bits=bits)
         quant_matmul(q[0, 0], w.codes, w.scales, bits=bits)
     gdn_scan(q, q, q, q[..., 0], q[..., 0])
@@ -197,7 +257,7 @@ def lms(dev):
     """A tiny Qwen3 with a kernel-sized head dim, in float32 on the card and
     on the CPU, same weights."""
     cfg = dataclasses.replace(QWEN3_TINY, head_dim=64)
-    params = init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
     cpu = CausalLM(cfg, params, dtype=torch.float32)
     gpu = CausalLM(cfg, {k: _to(v, dev) for k, v in params.items()}, dtype=torch.float32)
     return cpu, gpu
@@ -251,6 +311,27 @@ def test_quant_engine_on_card_matches_cpu(quant_lms):
 
 def test_engine_on_card_matches_cpu(lms):
     assert _engine_tokens(lms[0]) == _engine_tokens(lms[1])
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+def test_sp_generate_on_card_matches_unsharded(lms, bits):
+    """Four slabs on the one card: generate and the engine give the
+    unsharded port's tokens, and only the with-stats kernels read the
+    sharded caches."""
+    _, gpu = lms
+    slm = sp_shard_lm(gpu, make_sp_mesh(4, ["cuda:0"] * 4))
+    prompt = list(range(3, 140, 2))
+    gen = GenerationConfig.greedy(24, kv_quant_bits=bits)
+    expected = gpu.generate(prompt, gen)
+    kernels.reset_launch_counts()
+    assert slm.generate(prompt, gen) == expected
+    counts = kernels.launch_counts()
+    stats = ("fp_decode_attention_with_stats" if bits is None else
+             f"quant_decode_attention_with_stats[kv{bits}]")
+    plain = "fp_decode_attention" if bits is None else f"quant_decode_attention[kv{bits}]"
+    # 4 slabs x 2 layers x 3 decode blocks of 8 steps
+    assert counts[stats] == 4 * 2 * 24 and counts[plain] == 0
+    assert _engine_tokens(slm, bits) == _engine_tokens(gpu, bits)
 
 
 def _engine_tokens(lm, kv_quant_bits=None):

@@ -13,11 +13,12 @@ import torch
 
 import jax.numpy as jnp
 
-from crane_tpu.generation.config import GenerationConfig
 from crane_tpu.models.auto import quantize_params
 from crane_tpu.models.causal_lm import CausalLM as JLM
 from crane_tpu.models.init import QWEN3_TINY, init_params
+from crane_tpu.serve import sequence as jseq
 from crane_tpu.serve.engine import InferenceEngine as JEngine
+from crane_tpu_torch.generation.config import GenerationConfig
 from crane_tpu_torch.models.causal_lm import CausalLM as TLM
 from crane_tpu_torch.serve.engine import (
     EngineRequest,
@@ -53,7 +54,11 @@ def quant_lms(lms):
     return out
 
 
-def req(rid, prompt, n, sampling=GREEDY):
+def req(engine, rid, prompt, n, sampling=GREEDY):
+    """A request of the engine's own package (greedy unless ``sampling``)."""
+    if isinstance(engine, JEngine):
+        return jseq.EngineRequest(request_id=rid, prompt_ids=list(prompt), max_new_tokens=n,
+                                  sampling=jseq.SamplingOptions(**vars(sampling)))
     return EngineRequest(request_id=rid, prompt_ids=list(prompt), max_new_tokens=n,
                          sampling=sampling)
 
@@ -82,11 +87,11 @@ def mixed_scenario(engine):
     chunks."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 500, n) for n in (3, 17, 40, 70)]
-    qs = [engine.submit(req(f"r{i}", p, 10)) for i, p in enumerate(prompts)]
+    qs = [engine.submit(req(engine, f"r{i}", p, 10)) for i, p in enumerate(prompts)]
     run_until_idle(engine)
     outs = [drain(q)[0] for q in qs]
     follow = list(prompts[2]) + outs[2] + list(rng.integers(1, 500, 35))
-    q = engine.submit(req("follow", follow, 8))
+    q = engine.submit(req(engine, "follow", follow, 8))
     run_until_idle(engine)
     return outs + [drain(q)[0]]
 
@@ -94,10 +99,10 @@ def mixed_scenario(engine):
 def preempt_scenario(engine):
     """One slot, immediate starvation preemption: the victim's stream pauses
     and resumes from re-admission with no token lost or repeated."""
-    qa = engine.submit(req("a", [3, 14, 15, 92, 6], 12))
+    qa = engine.submit(req(engine, "a", [3, 14, 15, 92, 6], 12))
     for _ in range(3):
         engine.step()
-    qb = engine.submit(req("b", [7, 8, 9], 4))
+    qb = engine.submit(req(engine, "b", [7, 8, 9], 4))
     run_until_idle(engine)
     assert engine.stats.requests_preempted == 1
     return [drain(qa)[0], drain(qb)[0]]
@@ -129,8 +134,8 @@ def test_warmup_leaves_no_trace_and_sampling_finishes(lms):
     engine = InferenceEngine(tl, max_slots=2, max_seq_len=128)
     engine.warmup()
     sampled = SamplingOptions(temperature=0.8, top_p=0.9, top_k=0, repetition_penalty=1.1)
-    qa = engine.submit(req("greedy", [3, 14, 15], 6))
-    qb = engine.submit(req("sampled", [5, 6, 7, 8], 9, sampled))
+    qa = engine.submit(req(engine, "greedy", [3, 14, 15], 6))
+    qb = engine.submit(req(engine, "sampled", [5, 6, 7, 8], 9, sampled))
     run_until_idle(engine)
     assert drain(qa) == (tl.generate([3, 14, 15], GenerationConfig.greedy(6)), FinishReason.LENGTH)
     toks, reason = drain(qb)
@@ -141,11 +146,11 @@ def test_warmup_leaves_no_trace_and_sampling_finishes(lms):
 def test_abort_mid_admission_frees_the_slot(lms):
     _, tl = lms
     engine = InferenceEngine(tl, max_slots=1, max_seq_len=256, prefill_chunk=16, bucket_align=16)
-    q1 = engine.submit(req("r1", np.random.default_rng(9).integers(1, 500, 64), 4))
+    q1 = engine.submit(req(engine, "r1", np.random.default_rng(9).integers(1, 500, 64), 4))
     engine.step()  # first chunk done, admission pending
     assert engine._pending is not None
     engine.abort("r1")
-    q2 = engine.submit(req("r2", [5, 6], 3))
+    q2 = engine.submit(req(engine, "r2", [5, 6], 3))
     run_until_idle(engine)
     assert drain(q1) == ([], FinishReason.ABORT)
     assert drain(q2)[0] == tl.generate([5, 6], GenerationConfig.greedy(3))
@@ -189,7 +194,7 @@ def test_threaded_run(lms):
     engine = InferenceEngine(tl, max_slots=2, max_seq_len=64)
     engine.start()
     try:
-        toks, reason = drain(engine.submit(req("r1", [3, 14, 15], 5)))
+        toks, reason = drain(engine.submit(req(engine, "r1", [3, 14, 15], 5)))
     finally:
         engine.stop()
     assert not engine._thread.is_alive()

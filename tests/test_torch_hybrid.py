@@ -17,10 +17,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from crane_tpu.generation.config import GenerationConfig
+from crane_tpu.generation.config import GenerationConfig as JGenerationConfig
 from crane_tpu.models import auto as jauto
 from crane_tpu.models.modules import transformer as jtf
+from crane_tpu.serve import sequence as jseq
 from crane_tpu.serve.engine import InferenceEngine as JEngine
+from crane_tpu_torch.generation.config import GenerationConfig
 from crane_tpu_torch.models import auto as tauto
 from crane_tpu_torch.models import init as tinit
 from crane_tpu_torch.models.modules import transformer as ttf
@@ -41,7 +43,7 @@ STAT_KEYS = ("requests_received", "requests_completed", "requests_preempted",
 def pair(tmp_path_factory):
     _, d = _save_tiny_next(tmp_path_factory.mktemp("next"))
     return (jauto.from_pretrained(d, dtype=jnp.float32),
-            tauto.from_pretrained(d, dtype=torch.float32))
+            tauto.from_pretrained(d, dtype=torch.float32, device="cpu"))
 
 
 def ids(n, seed):
@@ -157,8 +159,8 @@ def test_decode_after_prefill_equals_prefill_logits(pair):
 def test_generate_greedy_tokens_identical(pair, penalty):
     jl, tl = pair
     prompt = ids(70, 6)  # crosses the 64-token bucket
-    gen = GenerationConfig.greedy(16, repetition_penalty=penalty)
-    assert tl.generate(prompt, gen) == jl.generate(prompt, gen)
+    assert tl.generate(prompt, GenerationConfig.greedy(16, repetition_penalty=penalty)) == \
+        jl.generate(prompt, JGenerationConfig.greedy(16, repetition_penalty=penalty))
 
 
 def test_slot_prefill_and_continuation_match_whole(pair):
@@ -183,24 +185,31 @@ def test_slot_prefill_and_continuation_match_whole(pair):
     assert tc.layers[0].recurrent_state[0].abs().sum() == 0
 
 
+def request(engine, rid, prompt, n):
+    """A greedy request of the engine's own package."""
+    if isinstance(engine, JEngine):
+        return jseq.EngineRequest(rid, prompt, n, jseq.SamplingOptions(**vars(GREEDY)))
+    return EngineRequest(rid, prompt, n, GREEDY)
+
+
 def mixed(engine):
     """Three concurrent requests (two admitted in chunks), then a later turn
     of one conversation, which a positional cache would reuse."""
     prompts = [ids(5, 10), ids(40, 11), ids(70, 12)]
-    qs = [engine.submit(EngineRequest(f"r{i}", p, 8, GREEDY)) for i, p in enumerate(prompts)]
+    qs = [engine.submit(request(engine, f"r{i}", p, 8)) for i, p in enumerate(prompts)]
     outs = [_drain(q) for q in _after(engine, qs)]
     follow = prompts[1] + outs[1] + ids(20, 13)
     return outs + [_drain(q) for q in _after(engine, [engine.submit(
-        EngineRequest("follow", follow, 6, GREEDY))])]
+        request(engine, "follow", follow, 6))])]
 
 
 def preempt(engine):
     """One slot, immediate starvation preemption: the victim's stream
     resumes from a fresh re-prefill of prompt + generated."""
-    qa = engine.submit(EngineRequest("a", ids(7, 14), 10, GREEDY))
+    qa = engine.submit(request(engine, "a", ids(7, 14), 10))
     for _ in range(3):
         engine.step()
-    qb = engine.submit(EngineRequest("b", ids(3, 15), 4, GREEDY))
+    qb = engine.submit(request(engine, "b", ids(3, 15), 4))
     out = [_drain(q) for q in _after(engine, [qa, qb])]
     assert engine.stats.requests_preempted == 1
     return out

@@ -15,11 +15,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from crane_tpu.generation.config import GenerationConfig
+from crane_tpu.generation.config import GenerationConfig as JGenerationConfig
 from crane_tpu.models import auto as jauto
 from crane_tpu.models import init as jinit
 from crane_tpu.models.causal_lm import CausalLM as JLM
 from crane_tpu.models.modules import transformer as jtf
+from crane_tpu_torch.generation.config import GenerationConfig
 from crane_tpu_torch.models import auto as tauto
 from crane_tpu_torch.models import init as tinit
 from crane_tpu_torch.models.causal_lm import CausalLM as TLM
@@ -199,8 +200,8 @@ def test_causal_lm_slot_prefill_continue_and_decode(tiny_pair):
 def test_generate_greedy_tokens_identical(tiny_pair, penalty):
     jl, tl = tiny_pair
     prompt = list(np.random.default_rng(7).integers(1, 500, 70))  # crosses a bucket
-    gen = GenerationConfig.greedy(24, repetition_penalty=penalty)
-    assert tl.generate(prompt, gen) == jl.generate(prompt, gen)
+    assert tl.generate(prompt, GenerationConfig.greedy(24, repetition_penalty=penalty)) == \
+        jl.generate(prompt, JGenerationConfig.greedy(24, repetition_penalty=penalty))
 
 
 def test_generate_streams_and_stops_on_eos(tiny_pair):
@@ -225,7 +226,7 @@ def test_from_pretrained_matches_crane_tpu(tmp_path):
 
     d = make_tiny_qwen3_checkpoint(str(tmp_path / "ckpt"))
     jl = jauto.from_pretrained(d, dtype=jnp.float32)
-    tl = tauto.from_pretrained(d, dtype=torch.float32)
+    tl = tauto.from_pretrained(d, dtype=torch.float32, device="cpu")
     assert dataclasses.asdict(tl.config) == dataclasses.asdict(jl.config)
     assert tl.eos_token_ids == jl.eos_token_ids
     assert tl.tokenizer is not None
@@ -235,8 +236,23 @@ def test_from_pretrained_matches_crane_tpu(tmp_path):
     for (_, j), (_, t) in zip(jflat, tflat):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     prompt = [3, 14, 15, 42, 6]  # the checkpoint's vocabulary has 67 ids
-    gen = GenerationConfig.greedy(10)
-    assert tl.generate(prompt, gen) == jl.generate(prompt, gen)
+    assert tl.generate(prompt, GenerationConfig.greedy(10)) == \
+        jl.generate(prompt, JGenerationConfig.greedy(10))
+
+
+def test_entry_points_default_to_the_card():
+    """from_pretrained and init_params place weights on the card unless
+    told otherwise; with no card they raise rather than fall back to the
+    CPU."""
+    if torch.cuda.is_available():
+        assert tinit.init_params(tinit.QWEN3_TINY, torch.Generator().manual_seed(0))["embed"].is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tinit.init_params(tinit.QWEN3_TINY, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tauto.from_pretrained("any-checkpoint")
+    p = tinit.init_params(tinit.QWEN3_TINY, torch.Generator().manual_seed(0), device="cpu")
+    assert p["embed"].device.type == "cpu"
 
 
 def test_unported_branches_raise(tiny_pair):
@@ -265,7 +281,8 @@ def test_init_params_shapes_match_crane_tpu(gate, bias):
     jcfg = dataclasses.replace(TINY, attn_output_gate=gate, attn_bias=bias)
     tcfg = ttf.TransformerConfig(**dataclasses.asdict(jcfg))
     jp = jinit.init_params(jcfg, seed=0, dtype=jnp.float32)
-    tp = tinit.init_params(tcfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    tp = tinit.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu",
+                           dtype=torch.float32)
     jflat = jax.tree_util.tree_leaves_with_path(jp)
     tflat = jax.tree_util.tree_leaves_with_path(tp)
     assert [(p, tuple(j.shape)) for p, j in jflat] == [(p, tuple(t.shape)) for p, t in tflat]

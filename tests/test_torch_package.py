@@ -1,8 +1,10 @@
 """Package-level guarantees of crane_tpu_torch, checked without a card.
 
-- Every module imports with jax (and the packages the card machine lacks)
-  blocked, in a fresh interpreter: tests/conftest.py has already imported
-  jax into this one.
+- Every module imports with jax, crane_tpu (the JAX package, whose jax-free
+  modules the port keeps its own copies of) and the packages the card
+  machine lacks blocked, in a fresh interpreter: tests/conftest.py has
+  already imported jax into this one. A root of exactly ``crane_tpu`` does
+  not match ``crane_tpu_torch``.
 - The kernel build directory is ignored by git.
 - No CUDA wrapper catches an exception or reads an environment switch, so
   nothing can fall back from a kernel to the plain version.
@@ -26,7 +28,8 @@ PKG = pathlib.Path(crane_tpu_torch.__file__).parent
 IMPORT_ALL = r"""
 import importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "tokenizers", "safetensors", "transformers", "aiohttp", "jinja2")
+BLOCKED = ("jax", "jaxlib", "crane_tpu", "tokenizers", "safetensors", "transformers", "aiohttp",
+           "jinja2")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -48,7 +51,7 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 23  # every module of both slices was walked
+    assert int(res.stdout.split()[-1]) >= 39  # every module of the four slices was walked
 
 
 def test_kernel_build_directory_is_git_ignored():

@@ -16,13 +16,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from crane_tpu.generation.config import GenerationConfig
+from crane_tpu.generation.config import GenerationConfig as JGenerationConfig
 from crane_tpu.models import auto as jauto
 from crane_tpu.models import init as jinit
 from crane_tpu.models.causal_lm import CausalLM as JLM
 from crane_tpu.models.modules import transformer as jtf
 from crane_tpu.ops import kv_cache as jkv
 from crane_tpu.ops import linear as jlinear
+from crane_tpu_torch.generation.config import GenerationConfig
 from crane_tpu_torch.models import auto as tauto
 from crane_tpu_torch.models import init as tinit
 from crane_tpu_torch.models.causal_lm import CausalLM as TLM
@@ -254,8 +255,9 @@ def quant_pair(request):
 def test_generate_greedy_tokens_identical(quant_pair, penalty):
     jl, tl, kvbits = quant_pair
     prompt = list(np.random.default_rng(7).integers(1, 500, 70))  # crosses a bucket
-    gen = GenerationConfig.greedy(24, repetition_penalty=penalty, kv_quant_bits=kvbits)
-    assert tl.generate(prompt, gen) == jl.generate(prompt, gen)
+    kw = dict(repetition_penalty=penalty, kv_quant_bits=kvbits)
+    assert tl.generate(prompt, GenerationConfig.greedy(24, **kw)) == \
+        jl.generate(prompt, JGenerationConfig.greedy(24, **kw))
 
 
 def test_slot_prefill_continue_and_decode(quant_pair):
@@ -295,7 +297,7 @@ def test_from_pretrained_quantized_matches_crane_tpu(tmp_path, bits):
 
     d = make_tiny_qwen3_checkpoint(str(tmp_path / "ckpt"))
     jl = jauto.from_pretrained(d, dtype=jnp.float32, quant_bits=bits)
-    tl = tauto.from_pretrained(d, dtype=torch.float32, quant_bits=bits)
+    tl = tauto.from_pretrained(d, dtype=torch.float32, device="cpu", quant_bits=bits)
     assert ("lm_head" in tl.params) == ("lm_head" in jl.params)
     for layer_t, layer_j in zip(tl.params["layers"], jl.params["layers"]):
         for name in ("wq", "wk", "wv", "wo"):
@@ -303,5 +305,5 @@ def test_from_pretrained_quantized_matches_crane_tpu(tmp_path, bits):
         for name in ("gate", "up", "down"):
             same_weight(layer_t["mlp"][name], layer_j["mlp"][name])
     prompt = [3, 14, 15, 42, 6]  # the checkpoint's vocabulary has 67 ids
-    gen = GenerationConfig.greedy(10, kv_quant_bits=bits)
-    assert tl.generate(prompt, gen) == jl.generate(prompt, gen)
+    assert tl.generate(prompt, GenerationConfig.greedy(10, kv_quant_bits=bits)) == \
+        jl.generate(prompt, JGenerationConfig.greedy(10, kv_quant_bits=bits))
