@@ -9,16 +9,24 @@ tokenizer: weights are random, drawn from a seeded ``torch.Generator``, and
 requests are token ids. Phases, each reported on its own line:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``;
+2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``,
+   and log the compiled form of the bf16 K2/K3 kernel (registers, spill
+   bytes, shared memory) at each head dim;
 3. kernels: K1 (decode), K2 (fresh prefill), K3 (continuation), K4
    (quantized decode), K5 (quantized continuation), K6 (quantized-weight
    matmul) and K7 (the GDN scan) against their plain PyTorch versions on
    the card, at the main paths' shapes (K1-K5 also at head_dim 256 with
    Qwen3.5's 8 query / 2 KV heads), each with its time beside the plain
-   version's (K7 also beside the chunked route's, crane_tpu's default);
+   version's (K7 also beside the chunked route's, crane_tpu's default).
+   K2 and K3 run the bf16 tensor-core kernel; ragged cases (a two-row
+   300-token prefill, a two-row chunk at other offsets past the buffer's
+   end) join their checks, and their float32 route (the CUDA-core kernel)
+   is checked and timed beside them;
 4. model: full-width Qwen3-0.6B; a 300-token prefill on the card agrees
    with the same prefill in float32 on the CPU; 64 greedy tokens through
-   ``CausalLM.generate``; prefill ms and decode tok/s;
+   ``CausalLM.generate``; prefill ms and decode tok/s, and the prefill's
+   device time (``torch.profiler``, as for the 256-token chunks the
+   ``launches`` lines count);
 5. engine: ``InferenceEngine`` serves six concurrent requests (chunked
    admission, prefix reuse, one sampled request); every request finishes,
    the statistics reconcile, and K1, K2 and K3 were each launched by this
@@ -53,9 +61,11 @@ requests are token ids. Phases, each reported on its own line:
 
 Every kernel row carries its time beside its plain version's, the library
 call's where one PyTorch call computes the same function
-(``F.scaled_dot_product_attention`` for K1-K3), and its bound: the least
-time for the bytes it must move at 3.35 TB/s or its operations at the peak
-of their type, whichever is larger.
+(``F.scaled_dot_product_attention`` for K1-K3, ``torch._weight_int8pack_mm``
+for K6 w8 where the build has it) with ``ms_over_library``, and its bound:
+the least time for the bytes it must move at 3.35 TB/s or its operations at
+the peak of their type, whichever is larger. K3-S's row also carries its
+no-stats launch's time on the same inputs.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
@@ -78,6 +88,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # with RTOL two bf16 ulps and ATOL for outputs near zero.
 KERNEL_RTOL = 2.0 ** -6
 KERNEL_ATOL = 1e-3
+
+# a float32 kernel against its plain version: the same float32 sums in
+# another order, with __expf (as tests/test_torch_cuda.py holds them)
+F32_RTOL = 1e-4
+F32_ATOL = 1e-5
 
 # K7 against the plain scan: y is written in v's dtype (bf16 here), so it is
 # held to the kernel bound above; the final state stays float32 in both and
@@ -234,10 +249,13 @@ def timed_row(name, src, replaces, errs, kernel_fn, plain_fn, shape, work, libra
     log("kernels", f"{name}: max|err| {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
                    f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
                    f"({bound_by}) at {shape}")
-    return {"name": name, "route": "cuda", "source": f"crane_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    row = {"name": name, "route": "cuda", "source": f"crane_tpu_torch/csrc/{src}",
+           "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    if library_ms is not None:
+        row["ms_over_library"] = ms / library_ms
+    return row
 
 
 def paired_ms(kernel_fn, plain_fn, library_fn=None, iters=20):
@@ -251,8 +269,11 @@ def paired_ms(kernel_fn, plain_fn, library_fn=None, iters=20):
 
 def check_kernels() -> list[dict]:
     """Phase 3: K1-K3 against their plain versions in bf16 at the dense
-    path's shapes (Hq=16, Hkv=8, D=128, plus D=64). Returns the JSON rows,
-    launches 0."""
+    path's shapes (Hq=16, Hkv=8, D=128, plus D=64), with the ragged cases
+    (a 300-token prefill of two rows, a two-row chunk at other offsets with
+    a tail past the buffer). K2 and K3 in bf16 run the tensor-core kernel;
+    their float32 route (the CUDA-core kernel) is checked and timed beside
+    it. Returns the JSON rows, launches 0."""
     import torch
 
     from crane_tpu_torch.ops.cuda import decode_attention as k1
@@ -277,7 +298,9 @@ def check_kernels() -> list[dict]:
             got = k23.flash_attention_causal(q, k, v, seg_arg, scale=D ** -0.5, **kw)
             ref = k23.flash_attention_causal_plain(q, k, v, seg_arg, scale=D ** -0.5, **kw)
             errs.append(compare(f"K2 D={D} {label}", got, ref))
-    rows = [timed_row("flash_attention_causal", "flash_attention.cu",
+        errs += ragged_k2(rnd, Hq, Hkv, D)
+    check_float32_route(q, k, v, "B=1 S=1024 Hq=16 Hkv=8 D=128")
+    rows = [timed_row("flash_attention_causal", "flash_attention_mma.cu",
                       "crane_tpu/ops/pallas/flash_attention.py:187", errs,
                       lambda: k23.flash_attention_causal(q, k, v, scale=D ** -0.5),
                       lambda: k23.flash_attention_causal_plain(q, k, v, scale=D ** -0.5),
@@ -295,7 +318,9 @@ def check_kernels() -> list[dict]:
             got = k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5)
             ref = k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5)
             errs.append(compare(f"K3 D={D} offset={off}", got, ref))
-    rows.append(timed_row("flash_attention_cached", "flash_attention.cu",
+        errs += ragged_k3(rnd, Hq, Hkv, D)
+    check_float32_route(q, kc, vc, "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128", pos)
+    rows.append(timed_row("flash_attention_cached", "flash_attention_mma.cu",
                           "crane_tpu/ops/pallas/flash_attention.py:384", errs,
                           lambda: k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5),
                           lambda: k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5),
@@ -324,6 +349,75 @@ def check_kernels() -> list[dict]:
     return rows
 
 
+def ragged_k2(rnd, Hq, Hkv, D) -> list[float]:
+    """K2 on a 300-token prefill of two rows (a ragged last row and key
+    tile), with a window of 7 (inside one 16-row mma tile), a softcap and
+    segments reaching above the diagonal. Returns the errors."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    q, k, v = rnd(2, 300, Hq, D), rnd(2, 300, Hkv, D), rnd(2, 300, Hkv, D)
+    seg = torch.zeros(2, 300, dtype=torch.int32, device="cuda")
+    seg[1, 40:290] = 3
+    errs = []
+    for label, seg_arg, kw in (("", None, {}), (" window=7", None, {"window": 7}),
+                               (" softcap=30", None, {"softcap": 30.0}),
+                               (" segments", seg, {})):
+        errs.append(compare(f"K2 B=2 S=300 D={D}{label}",
+                            k23.flash_attention_causal(q, k, v, seg_arg, scale=D ** -0.5, **kw),
+                            k23.flash_attention_causal_plain(q, k, v, seg_arg, scale=D ** -0.5,
+                                                             **kw)))
+    return errs
+
+
+def ragged_k3(rnd, Hq, Hkv, D) -> list[float]:
+    """K3 on a 300-token chunk of two rows at other offsets of a 2048-slot
+    buffer, the second running past its end (clamped to T - 1), plain and
+    with a window of 7. Returns the errors."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    kc, vc = rnd(2, 2048, Hkv, D), rnd(2, 2048, Hkv, D)
+    q = rnd(2, 300, Hq, D)
+    pos = torch.stack([torch.arange(300) + 37, torch.arange(300) + 1900]).to("cuda", torch.int32)
+    errs = []
+    for label, kw in (("", {}), (" window=7", {"window": 7})):
+        errs.append(compare(f"K3 B=2 S=300 offsets 37/1900 D={D}{label}",
+                            k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5, **kw),
+                            k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5,
+                                                             **kw)))
+    return errs
+
+
+def check_float32_route(q, k, v, shape, pos=None) -> None:
+    """The float32 route of K2 (``pos`` None) or K3, the CUDA-core kernel
+    that float32 runs take (the float32 checks of phases 8 and 10): held to
+    the float32 tolerance against its plain version, timed beside it."""
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    q, k, v = q.float(), k.float(), v.float()
+    scale = q.shape[-1] ** -0.5
+    if pos is None:
+        def kernel():
+            return k23.flash_attention_causal(q, k, v, scale=scale)
+
+        def plain():
+            return k23.flash_attention_causal_plain(q, k, v, scale=scale)
+    else:
+        def kernel():
+            return k23.flash_attention_cached(q, k, v, pos, scale=scale)
+
+        def plain():
+            return k23.flash_attention_cached_plain(q, k, v, pos, scale=scale)
+    err = compare(f"{'K2' if pos is None else 'K3'} float32 {shape}", kernel(), plain(),
+                  rtol=F32_RTOL, atol=F32_ATOL)
+    ms, plain_ms, _ = paired_ms(kernel, plain)
+    log("kernels", f"{'K2' if pos is None else 'K3'} float32 route (CUDA cores): max|err| "
+                   f"{err:.3g}, {ms:.4f} ms vs plain {plain_ms:.4f} ms at {shape}")
+
+
 # kv_valid of the decode kernels' cases: ragged, with an empty and a full row
 RAGGED_VALID = [0, 1, 17, 300, 1000, 1500, 2047, 2048]
 # (in, out) of Qwen3-0.6B's quantized linears: q, k/v, o, gate/up, down, and
@@ -334,11 +428,14 @@ LINEAR_SHAPES = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 
 
 def check_quant_kernels() -> list[dict]:
     """Phase 3, quantized half: K6 (w8, w4) at M in {1, 8, 256} on every
-    quantized linear of the path, K4 and K5 (kv8, kv4) at D in {64, 128}
-    with a window and a softcap. Each kernel is held against its plain
+    quantized linear of the path, K4 and K5 (kv8, kv4) at D in {64, 128,
+    256} with a window and a softcap. Each kernel is held against its plain
     version computed in float32 from the same codes; it is timed against
-    the plain version in bf16, the path's dtype. One JSON row per kernel and
-    bit width, launches 0."""
+    the plain version in bf16, the path's dtype, and K6 w8 against
+    ``torch._weight_int8pack_mm`` where this build has a CUDA kernel for it.
+    One JSON row per kernel and bit width, and one per K4/K5 bit width at
+    head_dim 256 (their launches: the wrapper's count on the quantized path,
+    which runs them at 128), launches 0."""
     import torch
 
     from crane_tpu_torch.ops.cuda import quant_attention as k45
@@ -374,7 +471,8 @@ def check_quant_kernels() -> list[dict]:
                               "crane_tpu/ops/pallas/quant_matmul.py:" + ("102" if bits == 8 else "115"),
                               errs, lambda: quant_matmul(x, w.codes, w.scales, bits=bits),
                               lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
-                              "M=8 I=1024 O=3072 (gate/up at 8 slots)", work))
+                              "M=8 I=1024 O=3072 (gate/up at 8 slots)", work,
+                              int8pack_mm(x, w) if bits == 8 else None))
 
     kws = (("plain", {}), ("window=256", {"window": 256}), ("softcap=30", {"logit_softcap": 30.0}))
     valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
@@ -404,16 +502,24 @@ def check_quant_kernels() -> list[dict]:
                                                            scale=D ** -0.5, **kw)
                     chunk_errs.append(compare(f"K5 kv{bits} D={D} offset={off} {label}", got, ref))
             if D == 256:
-                log_times(f"K4 kv{bits} B=8 T=2048 ragged, Hq=8 Hkv=2 D=256",
-                          lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits,
+                rows.append(timed_row(
+                    f"quant_decode_attention[kv{bits}]" + D256, "quant_decode_attention.cu",
+                    "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
+                    lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits,
+                                                       scale=D ** -0.5),
+                    lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits,
                                                              scale=D ** -0.5),
-                          lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits,
-                                                                   scale=D ** -0.5))
-                log_times(f"K5 kv{bits} B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256",
-                          lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits,
+                    "B=8 T=2048 ragged kv_valid, Hq=8 Hkv=2 D=256",
+                    decode_work(qd, Hkv, valid, bits)))
+                rows.append(timed_row(
+                    f"quant_cached_attention[kv{bits}]" + D256, "quant_cached_attention.cu",
+                    "crane_tpu/ops/pallas/quant_attention.py:647", chunk_errs,
+                    lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits,
+                                                       scale=D ** -0.5),
+                    lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, bits=bits,
                                                              scale=D ** -0.5),
-                          lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, bits=bits,
-                                                                   scale=D ** -0.5))
+                    "B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256",
+                    chunk_work(qc, Hkv, 2048, pos, bits)))
         rows.append(timed_row(
             f"quant_decode_attention[kv{bits}]", "quant_decode_attention.cu",
             "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
@@ -431,9 +537,29 @@ def check_quant_kernels() -> list[dict]:
     return rows
 
 
-def log_times(label, kernel_fn, plain_fn) -> None:
-    ms, plain_ms, _ = paired_ms(kernel_fn, plain_fn)
-    log("kernels", f"{label}: {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+def int8pack_mm(x, w):
+    """K6 w8's library yardstick (timed only, never used by the port):
+    ``torch._weight_int8pack_mm`` on the codes as ``[O, I]`` and the scales
+    in x's dtype, where this build registers a CUDA kernel for it (checked
+    against the plain version first); else None, and the log says so."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
+
+    if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
+        log("kernels", "K6 w8: this torch build has no CUDA kernel for "
+                       "aten::_weight_int8pack_mm; no library time")
+        return None
+    codes_t = w.codes.t().contiguous()
+    scales = w.scales.reshape(-1).to(x.dtype)
+
+    def fn():
+        return torch._weight_int8pack_mm(x, codes_t, scales)
+
+    err = compare("K6 w8 library call (_weight_int8pack_mm)", fn(),
+                  quant_matmul_plain(x.float(), w.codes, w.scales, bits=8))
+    log("kernels", f"K6 w8 library call computes the same function: max|err| {err:.3g}")
+    return fn
 
 
 # the head_dim 256 rows of K1-K3 count the launches of the hybrid path,
@@ -445,7 +571,8 @@ def check_d256_kernels() -> list[dict]:
     """Phase 3, head_dim 256: K2, K3 and K1 in bf16 with Qwen3.5's 8 query
     and 2 KV heads (G = 4), with each option, at the shapes of the hybrid
     path (a 1024-token prefill, 256-token chunks into a 2048-slot row, 8
-    ragged decode rows). One JSON row each, launches 0."""
+    ragged decode rows), and K2/K3's ragged cases and float32 route as in
+    check_kernels. One JSON row each, launches 0."""
     import torch
 
     from crane_tpu_torch.ops.cuda import decode_attention as k1
@@ -467,7 +594,9 @@ def check_d256_kernels() -> list[dict]:
         errs.append(compare(f"K2 D=256 {label}",
                             k23.flash_attention_causal(q, k, v, seg_arg, scale=scale, **kw),
                             k23.flash_attention_causal_plain(q, k, v, seg_arg, scale=scale, **kw)))
-    rows = [timed_row("flash_attention_causal" + D256, "flash_attention.cu",
+    errs += ragged_k2(rnd, Hq, Hkv, D)
+    check_float32_route(q, k, v, "B=1 S=1024 Hq=8 Hkv=2 D=256")
+    rows = [timed_row("flash_attention_causal" + D256, "flash_attention_mma.cu",
                       "crane_tpu/ops/pallas/flash_attention.py:187", errs,
                       lambda: k23.flash_attention_causal(q, k, v, scale=scale),
                       lambda: k23.flash_attention_causal_plain(q, k, v, scale=scale),
@@ -485,7 +614,9 @@ def check_d256_kernels() -> list[dict]:
                                 k23.flash_attention_cached(qc, kc, vc, pos, scale=scale, **kw),
                                 k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale,
                                                                  **kw)))
-    rows.append(timed_row("flash_attention_cached" + D256, "flash_attention.cu",
+    errs += ragged_k3(rnd, Hq, Hkv, D)
+    check_float32_route(qc, kc, vc, "B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256", pos)
+    rows.append(timed_row("flash_attention_cached" + D256, "flash_attention_mma.cu",
                           "crane_tpu/ops/pallas/flash_attention.py:384", errs,
                           lambda: k23.flash_attention_cached(qc, kc, vc, pos, scale=scale),
                           lambda: k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale),
@@ -594,6 +725,8 @@ def check_model():
     del lm_cpu, cpu_params
     compare_logits("model", "prefill logits card bf16 vs cpu f32", logits_gpu[0], logits_cpu[0])
 
+    log_device_ms("Qwen3-0.6B bf16", "the 300-token prefill (bucket 512)",
+                  lambda: lm.prefill(lm.init_cache(1, 512), [prompt], [300]))
     prefill_ms, decode_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
     log("model", f"Qwen3-0.6B bf16, {cfg.num_layers} layers: prefill 300 tokens (bucket 512) "
                  f"{prefill_ms:.2f} ms, decode 63 tokens at batch 1 {decode_tps:.1f} tok/s; "
@@ -663,6 +796,7 @@ def check_hybrid_model():
         log("hybrid-model", f"Qwen3.5-0.8B prefill logits {label} vs cpu f32: rel L2 {rel_l2:.4g}, "
                             f"top-1 {top} vs {int(logits_cpu.argmax())}")
 
+    log_device_ms("Qwen3.5-0.8B bf16", "the 300-token prefill (bucket 512)", lambda: prefill(lm))
     prefill_ms, decode_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
     log("hybrid-model", f"Qwen3.5-0.8B bf16, {cfg.num_layers} layers ({n_params / 1e9:.3f} B "
                         f"parameters): prefill 300 tokens (bucket 512) {prefill_ms:.2f} ms, "
@@ -953,7 +1087,7 @@ def check_stats_kernels() -> list[dict]:
         if bits == 16:
             ops, plain_q = (k, v, None, None), (lambda q: q)
             names = ("fp_decode_attention_with_stats", "flash_attention_cached_with_stats")
-            srcs = ("decode_attention.cu", "flash_attention.cu")
+            srcs = ("decode_attention.cu", "flash_attention_mma.cu")
             lines = ("266", "647")
         else:
             cache = QuantLayerKVCache.empty(B, T, Hkv, D, bits=bits, device="cuda")
@@ -985,13 +1119,38 @@ def check_stats_kernels() -> list[dict]:
             errs.append(check_with_stats(f"{names[1]} start {start}", got, ref,
                                          no_stats_kernel(False, bits, qc, row_ops, pos, scale)))
         pos = (torch.arange(256, dtype=torch.int32, device="cuda") + 1000)[None]
+
+        def chunk_kernel():
+            return k45.cached_attention_with_stats(qc, *row_ops, pos, bits=bits, scale=scale)
+
         rows.append(timed_row(
             names[1], srcs[1], f"crane_tpu/ops/pallas/quant_attention.py:{lines[1]}", errs,
-            lambda: k45.cached_attention_with_stats(qc, *row_ops, pos, bits=bits, scale=scale),
-            lambda: plain_with_stats(False, bits, plain_q(qc), row_ops, pos, scale),
+            chunk_kernel, lambda: plain_with_stats(False, bits, plain_q(qc), row_ops, pos, scale),
             "B=1 S=256 at slab-local 1000, slab T=4096, Hq=16 Hkv=8 D=128",
             chunk_work(qc, Hkv, T, pos, bits, stats=True)))
+        # the stats' cost: the with-stats launch against its no-stats launch on
+        # the same inputs, in alternating pairs, the median of each
+        with_ms, without_ms = [], []
+        for i in range(STATS_PAIRS):
+            pair = (chunk_kernel, lambda: no_stats_kernel(False, bits, qc, row_ops, pos, scale))
+            t = [cuda_ms(f) for f in (pair if i % 2 == 0 else pair[::-1])]
+            with_ms.append(t[0] if i % 2 == 0 else t[1])
+            without_ms.append(t[1] if i % 2 == 0 else t[0])
+        stats_ms, no_stats_ms = median(with_ms), median(without_ms)
+        rows[-1]["no_stats_ms"] = no_stats_ms
+        rows[-1]["ms_over_no_stats"] = stats_ms / no_stats_ms
+        log("kernels", f"{names[1]}: {stats_ms:.4f} ms vs its no-stats launch {no_stats_ms:.4f} "
+                       f"ms on the same inputs (medians of {STATS_PAIRS} alternating pairs)")
     return rows
+
+
+# alternating pairs timing a with-stats launch against its no-stats launch
+STATS_PAIRS = 6
+
+
+def median(xs):
+    xs = sorted(xs)
+    return (xs[len(xs) // 2] + xs[(len(xs) - 1) // 2]) / 2
 
 
 def no_stats_kernel(decode: bool, bits, q, ops, idx, scale):
@@ -1144,7 +1303,7 @@ def sp_engine_run(lm, prompts, phase):
 def launches_per(model, label, kv_bits=None) -> None:
     """Log the kernels one B=1 decode step and one 256-token continuation
     chunk launch, read from the launch counters (outside any main-path
-    window)."""
+    window), and the chunk's device time (log_device_ms)."""
     import torch
 
     from crane_tpu_torch.ops import cuda as kernels
@@ -1164,6 +1323,40 @@ def launches_per(model, label, kv_bits=None) -> None:
     chunk = {k: n for k, n in kernels.launch_counts().items() if n}
     log("launches", f"{label}: per decode step {json.dumps(step)}, "
                     f"per 256-token chunk {json.dumps(chunk)}")
+    log_device_ms(label, "a 256-token chunk at 513 of a 2048-slot row",
+                  lambda: model.prefill(cache, [ids[:256]], [256], start=513))
+
+
+# kernel names of the attention kernels a prefill or chunk runs (K2/K3 in
+# bf16 and float32, K5)
+ATTENTION_KERNELS = ("flash_attention", "quant_cached")
+
+
+def log_device_ms(label, what, run) -> None:
+    """Log the device time of one call of ``run``: its kernels' own times
+    summed from ``torch.profiler`` (device-side events only), and the part in
+    the attention kernels, by kernel name; "not measured" where the
+    profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    total = attention = 0.0
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        ms = event.self_device_time_total / 1e3
+        total += ms
+        if any(name in event.key for name in ATTENTION_KERNELS):
+            attention += ms
+    log("profile", f"{label}, {what}: " + (
+        "device time not measured (the profiler saw no device time)" if total <= 0 else
+        f"{total:.3f} ms of kernel time (summed), {attention:.3f} ms in attention kernels"))
 
 
 def check_sp(lm, rows: list[dict]) -> None:
@@ -1282,6 +1475,14 @@ def main() -> int:
     build.lib()
     log("build", f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
                  f"({build.library_path().name})")
+    from crane_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS, mma_kernel_info
+
+    for D in HEAD_DIMS:
+        info = mma_kernel_info(D)
+        log("build", f"bf16 tensor-core K2/K3 at head_dim {D}: {info['registers']} registers "
+                     f"and {info['local_bytes']} local (spill) bytes a thread, "
+                     f"{info['smem_bytes']} shared-memory bytes and {info['threads']} threads "
+                     f"a block")
 
     rows = check_kernels()
     quant_rows = check_quant_kernels()

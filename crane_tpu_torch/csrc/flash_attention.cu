@@ -29,22 +29,33 @@
 // (4 * S^2/2 * D per head), which at scale belong on the tensor cores; K3 is
 // bound by the KV bytes of the live context it reads per chunk.
 //
-// What the design does about it: one block per (q-tile of 32 rows, q-head,
-// b); the block loops over key tiles only inside the causal/window band of
-// its rows (every tile when segments are given, since same-segment pairs
-// can sit above the diagonal), so a K3 chunk at context L reads O(L + S)
-// keys, never the whole allocated buffer. Each K/V tile is staged once in
+// Storage types: bfloat16 goes to the tensor-core kernel of
+// flash_attention_mma.cu; float32 stays on the CUDA-core kernel below, which
+// computes in full float32 (TF32 tensor cores would keep about three
+// digits). The split is by dtype alone: nothing retries one on the other.
+//
+// What the design of the float32 kernel does: one block per (q-tile of 32
+// rows, q-head, b); the block loops over key tiles only inside the
+// causal/window band of its rows (every tile when segments are given, since
+// same-segment pairs can sit above the diagonal), so a K3 chunk at context L
+// reads O(L + S) keys, never the whole allocated buffer. Each K/V tile is staged once in
 // shared memory (float32) and reused by all 32 rows; TPR threads share a
 // row, each owning the interleaved dims c, c+TPR, ... (conflict-free
 // shared-memory reads), and combine partial dots with log2(TPR) shuffles.
 // TPR and the tile size follow the head dim (common.cuh RowTile: 4 threads
 // and 32 keys up to D = 128, 8 and 16 at D = 256). The softmax is online in
-// float32. This is the simple, correct first form: it runs on the CUDA
-// cores; mma/wgmma tiles, TMA and KV sharing across the G heads of a group
-// are later work.
+// float32.
 #include "common.cuh"
 
 namespace crane {
+
+// flash_attention_mma.cu
+cudaError_t flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* out,
+                                     float* m_out, float* l_out, const int* positions,
+                                     const int* segments, int B, int S, int Tk, int Hq,
+                                     int Hkv, int D, float scale, int window, float softcap,
+                                     cudaStream_t stream);
+
 namespace {
 
 template <typename T, int D>
@@ -225,7 +236,8 @@ bool dispatch_dim(int D, const void* q, const void* k, const void* v,
 // buffer). segments [B,S] int32 or NULL (K2 only). window <= 0 and
 // softcap <= 0 mean "off". Returns the CUDA error of the launch (0 on
 // success), or cudaErrorInvalidValue for a dtype/head dim the kernel does
-// not take.
+// not take. bfloat16 runs flash_attention_mma.cu's kernel, float32 the one
+// above.
 extern "C" int crane_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* out, void* m_out,
                                      void* l_out, const void* positions,
@@ -243,13 +255,12 @@ extern "C" int crane_flash_attention(int dtype, const void* q, const void* k,
   float* ms = static_cast<float*>(m_out);
   float* ls = static_cast<float*>(l_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
   if (dtype == kBFloat16)
-    ok = dispatch_dim<__nv_bfloat16>(D, q, k, v, out, ms, ls, pos, seg, B, S,
-                                     Tk, Hq, Hkv, scale, window, softcap, s);
-  else if (dtype == kFloat32)
-    ok = dispatch_dim<float>(D, q, k, v, out, ms, ls, pos, seg, B, S, Tk, Hq,
-                             Hkv, scale, window, softcap, s);
-  if (!ok) return cudaErrorInvalidValue;
+    return flash_attention_mma_bf16(q, k, v, out, ms, ls, pos, seg, B, S, Tk, Hq,
+                                    Hkv, D, scale, window, softcap, s);
+  if (dtype != kFloat32 ||
+      !dispatch_dim<float>(D, q, k, v, out, ms, ls, pos, seg, B, S, Tk, Hq,
+                           Hkv, scale, window, softcap, s))
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

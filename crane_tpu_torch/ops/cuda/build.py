@@ -44,6 +44,7 @@ SIGNATURES = {
                                _I, _F, _I, _F, _P],
     "crane_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _F, _I, _F, _P],
+    "crane_flash_attention_mma_info": [_I, _P],
     "crane_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "crane_quant_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _F, _I, _F, _P],

@@ -16,10 +16,14 @@ Port of ``crane_tpu/ops/pallas/flash_attention.py``:
 
 On a CUDA tensor each wrapper launches the hand-written kernel or raises;
 on a CPU tensor it runs its ``*_plain`` counterpart, the same function in
-plain PyTorch.
+plain PyTorch. The kernel is chosen by dtype: bfloat16 runs the tensor-core
+kernel (``csrc/flash_attention_mma.cu``), float32 the CUDA-core kernel
+(``csrc/flash_attention.cu``), which keeps full float32 arithmetic.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -107,6 +111,10 @@ def _check(name, q, k, v, B, S, Tk, Hkv):
         raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{name}: dtype mismatch {q.dtype} {k.dtype} {v.dtype}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        # the tensor-core kernel stages rows with 16-byte copies (a row is
+        # H * D * 2 bytes, a multiple of 16 for every head dim it takes)
+        raise ValueError(f"{name}: bf16 q/k/v must start on a 16-byte boundary")
 
 
 def _launch(q, k, v, positions, segments, Tk, scale, window, softcap, stats=False):
@@ -210,6 +218,17 @@ def _launch_cached(name, q, k_cache, v_cache, positions, scale, window, softcap,
         raise TypeError("positions must be int32 [B, S]")
     build.require_cuda(name, q, k_cache, v_cache, positions)
     return _launch(q, k_cache, v_cache, positions, None, T, scale, window, softcap, stats)
+
+
+def mma_kernel_info(head_dim: int) -> dict[str, int]:
+    """The compiled form of the bf16 tensor-core kernel at ``head_dim``
+    (``cudaFuncGetAttributes``): registers and local (spill) bytes a
+    thread, shared memory bytes and threads a block. Builds the kernels on
+    first use; needs the card."""
+    info = (ctypes.c_int * 4)()
+    build.check_launch("crane_flash_attention_mma_info",
+                       build.lib().crane_flash_attention_mma_info(head_dim, info))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"), info))
 
 
 flash_attention_causal.launches = 0

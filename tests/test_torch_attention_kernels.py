@@ -53,6 +53,9 @@ def segments(B, S):
         (2, 96, 4, 2, 32, 24, 25.0, True),      # segments with window and softcap
         (1, 48, 8, 2, 256, None, None, False),  # head_dim 256, Qwen3.5's 8/2 heads
         (1, 48, 2, 1, 256, 16, 30.0, False),    # head_dim 256, window and softcap (Gemma3)
+        (1, 64, 8, 2, 128, None, None, False),  # G=4 at head_dim 128
+        (2, 48, 8, 2, 128, 5, None, False),     # G=4, a window inside one 16-row tile
+        (1, 96, 8, 2, 128, 3, 20.0, True),      # G=4, window 3, softcap, segments
     ],
 )
 def test_k2_plain_matches_pallas(B, S, Hq, Hkv, D, window, softcap, seg):
@@ -80,6 +83,8 @@ def test_k2_plain_matches_pallas(B, S, Hq, Hkv, D, window, softcap, seg):
         (1, 100, 32, 128, 2, 2, 16, None, None),  # padded tail: positions past T-1
         (1, 40, 32, 128, 8, 2, 256, None, None),  # head_dim 256, Qwen3.5's 8/2 heads
         (1, 100, 32, 128, 2, 1, 256, 24, 30.0),   # head_dim 256, window, softcap, tail
+        (1, 100, 48, 128, 8, 2, 128, None, None),  # G=4 at head_dim 128, a ragged tail
+        (2, 90, 48, 128, 8, 2, 128, 5, None),      # G=4, window 5, tail past T-1
     ],
 )
 def test_k3_plain_matches_pallas(B, ctx, S, T, Hq, Hkv, D, window, softcap):

@@ -19,6 +19,7 @@ from crane_tpu_torch.models.auto import map_hf_weights, quantize_params, transfo
 from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
 from crane_tpu_torch.models.init import QWEN3_TINY, hf_state_dict, init_params
 from crane_tpu_torch.ops import cuda as kernels
+from crane_tpu_torch.ops.cuda import build
 from crane_tpu_torch.ops.cuda import decode_attention as k1
 from crane_tpu_torch.ops.cuda import flash_attention as k23
 from crane_tpu_torch.ops.cuda import quant_attention as k45
@@ -72,6 +73,74 @@ def test_k2_k3_match_plain(dev, dtype, D, Hq, Hkv, opts):
     got = k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5, **opts)
     ref = k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5, **opts)
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 300])
+def test_k2_k3_edges_match_plain(dev, dtype, G, S):
+    """The edges of K2, K3 and K3-S (bf16: the tensor-core kernel; float32:
+    the CUDA-core one) against their plain versions: S around the 64-row
+    and 64-key tiles, G query heads per kv-head (16 / G positions a block
+    row set at G = 4), windows of 1 (inside one 16-row mma tile), 7 and 100,
+    softcap, segments with a run above the diagonal; K3 rows at other
+    offsets per batch row with a tail past T - 1; K3-S at negative
+    positions (out 0, m = -inf, l = 0) and bitwise K3's output."""
+    D, Hkv = 128, 2
+    Hq = G * Hkv
+    gen = torch.Generator(device=dev).manual_seed(S * 10 + G)
+    q, k, v = (rnd(gen, 2, S, h, D, dtype=dtype) for h in (Hq, Hkv, Hkv))
+    seg = torch.zeros(2, S, dtype=torch.int32, device=dev)
+    seg[1, S // 4:] = 5  # its early queries see keys far above their diagonal
+    for sg, opts in ((None, {}), (None, {"window": 1}), (None, {"window": 7}),
+                     (None, {"window": 100}), (None, {"softcap": 5.0}), (seg, {}),
+                     (seg, {"window": 7})):
+        got = k23.flash_attention_causal(q, k, v, sg, scale=D ** -0.5, **opts)
+        ref = k23.flash_attention_causal_plain(q, k, v, sg, scale=D ** -0.5, **opts)
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+    T = 400
+    kc, vc = rnd(gen, 2, T, Hkv, D, dtype=dtype), rnd(gen, 2, T, Hkv, D, dtype=dtype)
+    pos = torch.stack([torch.arange(S) + 40, torch.arange(S) + 350]).to(dev, torch.int32)
+    for opts in ({}, {"window": 1}, {"window": 7}, {"window": 100}, {"softcap": 5.0}):
+        got = k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5, **opts)
+        ref = k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5, **opts)
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+    pos = torch.stack([torch.arange(S) - 500, torch.arange(S) - S // 2]).to(dev, torch.int32)
+    out, m, l = k23.flash_attention_cached_with_stats(q, kc, vc, pos, scale=D ** -0.5)
+    r_out, r_m, r_l = k23.flash_attention_cached_with_stats_plain(
+        q.cpu().float(), kc.cpu().float(), vc.cpu().float(), pos.cpu(), scale=D ** -0.5)
+    assert torch.equal(out, k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5))
+    _check_stats(out, m, l, r_out, r_m, r_l, dtype)
+    assert (l[0] == 0).all() and (m[0] == -torch.inf).all() and (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_k2_k3_run_at_each_head_dim(dev, dtype, D):
+    """Each head dim launches (output over torch.empty's garbage agrees with
+    the plain version, one launch counted); a refused launch raises, as a
+    head dim the C entry does not take shows; bf16 rows must start on a
+    16-byte boundary."""
+    gen = torch.Generator(device=dev).manual_seed(D)
+    q, k, v = (rnd(gen, 1, 130, h, D, dtype=dtype) for h in (8, 2, 2))
+    kernels.reset_launch_counts()
+    got = k23.flash_attention_causal(q, k, v, scale=D ** -0.5)
+    assert kernels.launch_counts()["flash_attention_causal"] == 1
+    torch.testing.assert_close(got.float(), k23.flash_attention_causal_plain(
+        q, k, v, scale=D ** -0.5).float(), **TOL[dtype])
+    err = build.lib().crane_flash_attention(
+        build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), None,
+        None, None, None, 1, 130, 130, 8, 2, D + 32, 0.1, 0, 0.0, build.stream_ptr(q.device))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        build.check_launch("crane_flash_attention", err)
+    if dtype == torch.bfloat16:
+        info = k23.mma_kernel_info(D)
+        assert info["threads"] == 128 and 0 < info["registers"] <= 255, info
+        misaligned = torch.empty(q.numel() + 1, dtype=dtype, device=dev)[1:].view(q.shape)
+        with pytest.raises(ValueError, match="16-byte"):
+            k23.flash_attention_causal(misaligned, k, v, scale=0.1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
