@@ -10,18 +10,27 @@ requests are token ids. Phases, each reported on its own line:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``,
-   and log the compiled form of the bf16 K2/K3 kernel (registers, spill
-   bytes, shared memory) at each head dim;
+   and log the compiled form of each bf16 tensor-core instance (registers,
+   spill bytes, shared memory): K2/K3 and K5 at each head dim, K6 at each
+   output tile;
 3. kernels: K1 (decode), K2 (fresh prefill), K3 (continuation), K4
    (quantized decode), K5 (quantized continuation), K6 (quantized-weight
    matmul) and K7 (the GDN scan) against their plain PyTorch versions on
    the card, at the main paths' shapes (K1-K5 also at head_dim 256 with
    Qwen3.5's 8 query / 2 KV heads), each with its time beside the plain
    version's (K7 also beside the chunked route's, crane_tpu's default).
-   K2 and K3 run the bf16 tensor-core kernel; ragged cases (a two-row
+   K2, K3 and K5 run the bf16 tensor-core kernels, K6 too from 4 rows:
+   K6 is timed at M=8 (decode) and M=256 (a chunk's gate/up, and its down
+   projection), beside the bf16 ``torch.mm`` over the dequantized weight;
+   K5 beside K3 in bf16 on the same chunk. Ragged cases (a two-row
    300-token prefill, a two-row chunk at other offsets past the buffer's
-   end) join their checks, and their float32 route (the CUDA-core kernel)
-   is checked and timed beside them;
+   end) join K2/K3's checks, and their float32 route (the CUDA-core
+   kernel) is checked and timed beside them;
+   routes: a tiny model with head_dim 96 and one with 16 query heads on one
+   kv-head, whose attention the kernels do not take, run prefill, a chunk
+   and decode on the card through the plain versions (counted in
+   ``attention_block.plain_routes``) against the CPU, and a direct kernel
+   call with their heads raises;
 4. model: full-width Qwen3-0.6B; a 300-token prefill on the card agrees
    with the same prefill in float32 on the CPU; 64 greedy tokens through
    ``CausalLM.generate``; prefill ms and decode tok/s, and the prefill's
@@ -59,10 +68,17 @@ requests are token ids. Phases, each reported on its own line:
    with-stats kernels were each launched by this sp path, and K1 and K3
    never were; the decode step's time beside the unsharded one.
 
+Every model path (dense, quantized, hybrid, sp) must route no attention
+call to a plain version. ``[profile]`` lines split a chunk's and a
+prefill's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
+elementwise, reduce, index) and name the largest kernels.
+
 Every kernel row carries its time beside its plain version's, the library
 call's where one PyTorch call computes the same function
 (``F.scaled_dot_product_attention`` for K1-K3, ``torch._weight_int8pack_mm``
-for K6 w8 where the build has it) with ``ms_over_library``, and its bound:
+for K6 w8 and ``torch._weight_int4pack_mm`` for w4, each where the build
+has it and it agrees with the plain version) with ``ms_over_library``, and
+its bound:
 the least time for the bytes it must move at 3.35 TB/s or its operations at
 the peak of their type, whichever is larger. K3-S's row also carries its
 no-stats launch's time on the same inputs.
@@ -140,15 +156,23 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+# device cycles the card waits before a timed run (about 2.5 ms), so the host
+# has enqueued the launches before the first starts: the events then time
+# them back to back, not the host's rate of issuing a wrapper's launch (tens
+# of microseconds, as long as K5's or K6's kernel)
+BACKLOG_CYCLES = 5_000_000
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events),
-    after a warm-up."""
+    after a warm-up, the launches queued behind a device-side wait."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(BACKLOG_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -463,16 +487,9 @@ def check_quant_kernels() -> list[dict]:
                         lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
                         lambda: quant_matmul(x, w.codes, w.scales, bits=bits))]
                     log("kernels", f"K6 w{bits} M={M} I={I} O={O}: {t[1]:.4f} ms vs plain {t[0]:.4f} ms")
-        w = quantize_weight(rnd(1024, 3072) * 1024 ** -0.5, bits=bits)
-        x = rnd(8, 1024).to(torch.bfloat16)
-        M, I, O = 8, 1024, 3072
-        work = (M * I * 2 + I * O * bits // 8 + O * 4 + M * O * 2, 2 * M * I * O)
-        rows.append(timed_row(f"quant_matmul[w{bits}]", "quant_matmul.cu",
-                              "crane_tpu/ops/pallas/quant_matmul.py:" + ("102" if bits == 8 else "115"),
-                              errs, lambda: quant_matmul(x, w.codes, w.scales, bits=bits),
-                              lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
-                              "M=8 I=1024 O=3072 (gate/up at 8 slots)", work,
-                              int8pack_mm(x, w) if bits == 8 else None))
+        rows.append(k6_row(bits, 8, rnd, errs, "M=8 I=1024 O=3072 (gate/up at 8 slots)"))
+        rows.append(k6_row(bits, 256, rnd, errs, "M=256 I=1024 O=3072 (gate/up of a 256-token "
+                                                 "chunk)"))
 
     kws = (("plain", {}), ("window=256", {"window": 256}), ("softcap=30", {"logit_softcap": 30.0}))
     valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
@@ -482,8 +499,8 @@ def check_quant_kernels() -> list[dict]:
         # the last shape, D=128 with Qwen3-0.6B's 16/8 heads
         for D, Hq, Hkv in ((256, 8, 2), (64, 16, 8), (128, 16, 8)):
             cache = QuantLayerKVCache.empty(8, 2048, Hkv, D, bits=bits, device="cuda")
-            cache.update(rnd(8, 2048, Hkv, D).to(torch.bfloat16),
-                         rnd(8, 2048, Hkv, D).to(torch.bfloat16), 0)
+            kf, vf = rnd(8, 2048, Hkv, D).to(torch.bfloat16), rnd(8, 2048, Hkv, D).to(torch.bfloat16)
+            cache.update(kf, vf, 0)
             ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
             row = cache.row(3)
             row_ops = (row.k, row.v, row.k_scale, row.v_scale)
@@ -512,7 +529,7 @@ def check_quant_kernels() -> list[dict]:
                     "B=8 T=2048 ragged kv_valid, Hq=8 Hkv=2 D=256",
                     decode_work(qd, Hkv, valid, bits)))
                 rows.append(timed_row(
-                    f"quant_cached_attention[kv{bits}]" + D256, "quant_cached_attention.cu",
+                    f"quant_cached_attention[kv{bits}]" + D256, "quant_cached_attention_mma.cu",
                     "crane_tpu/ops/pallas/quant_attention.py:647", chunk_errs,
                     lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits,
                                                        scale=D ** -0.5),
@@ -520,6 +537,7 @@ def check_quant_kernels() -> list[dict]:
                                                              scale=D ** -0.5),
                     "B=1 S=256 at offset 1000, T=2048, Hq=8 Hkv=2 D=256",
                     chunk_work(qc, Hkv, 2048, pos, bits)))
+                k3_yardstick(rows[-1], qc, row_ops, kf[3:4], vf[3:4], pos, bits)
         rows.append(timed_row(
             f"quant_decode_attention[kv{bits}]", "quant_decode_attention.cu",
             "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
@@ -527,14 +545,85 @@ def check_quant_kernels() -> list[dict]:
             lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits, scale=D ** -0.5),
             "B=8 T=2048 ragged kv_valid, Hq=16 Hkv=8 D=128", decode_work(qd, Hkv, valid, bits)))
         rows.append(timed_row(
-            f"quant_cached_attention[kv{bits}]", "quant_cached_attention.cu",
+            f"quant_cached_attention[kv{bits}]", "quant_cached_attention_mma.cu",
             "crane_tpu/ops/pallas/quant_attention.py:647", chunk_errs,
             lambda: k45.quant_cached_attention(qc, *row_ops, pos, bits=bits, scale=D ** -0.5),
             lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, bits=bits,
                                                      scale=D ** -0.5),
             "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128",
             chunk_work(qc, Hkv, 2048, pos, bits)))
+        k3_yardstick(rows[-1], qc, row_ops, kf[3:4], vf[3:4], pos, bits)
     return rows
+
+
+def k3_yardstick(row, q, ops, k, v, pos, bits) -> None:
+    """K5's yardstick: K3 in bf16 on the same chunk over the bf16 K/V that
+    were quantized into ``ops``, timed in turns with K5 in this call (the
+    same tile loop over rows as stored instead of unpacked codes)."""
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+
+    scale = q.shape[-1] ** -0.5
+    ms, k3_ms, _ = paired_ms(lambda: k45.quant_cached_attention(q, *ops, pos, bits=bits,
+                                                                scale=scale),
+                             lambda: k23.flash_attention_cached(q, k, v, pos, scale=scale))
+    row["k3_bf16_ms"] = k3_ms
+    row["ms_over_k3"] = ms / k3_ms
+    log("kernels", f"{row['name']}: {ms:.4f} ms vs K3 in bf16 on the same chunk {k3_ms:.4f} ms "
+                   f"({ms / k3_ms:.2f}x)")
+
+
+# a K6 row at M=256 carries this suffix: read_launches reads the wrapper's
+# count (the chunk's K6 launches run at M=256)
+M256 = "[M256]"
+
+
+def k6_row(bits, M, rnd, errs, shape) -> dict:
+    """K6's JSON row at M rows of gate/up (I=1024, O=3072), timed against
+    the plain version and the library call (``int4pack_mm`` /
+    ``int8pack_mm``) where one computes the same function. At M=256 the
+    down projection (I=3072, O=1024) is timed too, and the tensor cores'
+    ceiling at both shapes (bf16 ``torch.mm`` over the weight dequantized
+    once; another function, so it is logged and kept out of library_ms)."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda.quant_matmul import (
+        MMA_MIN_M,
+        quant_matmul,
+        quant_matmul_plain,
+    )
+    from crane_tpu_torch.ops.linear import quantize_weight
+
+    def case(I, O):
+        w = quantize_weight(rnd(I, O) * I ** -0.5, bits=bits)
+        x = rnd(M, I).to(torch.bfloat16)
+        work = (M * I * 2 + I * O * bits // 8 + O * 4 + M * O * 2, 2 * M * I * O)
+        return w, x, work
+
+    w, x, work = case(1024, 3072)
+    library = int4pack_mm(x, w) if bits == 4 else int8pack_mm(x, w)
+    row = timed_row(f"quant_matmul[w{bits}]" + ("" if M == 8 else M256),
+                    "quant_matmul.cu" if M < MMA_MIN_M else "quant_matmul_mma.cu",
+                    "crane_tpu/ops/pallas/quant_matmul.py:" + ("102" if bits == 8 else "115"),
+                    errs, lambda: quant_matmul(x, w.codes, w.scales, bits=bits),
+                    lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits), shape, work,
+                    library)
+    if M == 8:
+        return row
+    dense = w.dequant(torch.float32).to(torch.bfloat16)
+    row["dense_mm_ms"] = cuda_ms(lambda: torch.mm(x, dense))
+    wd, xd, work = case(3072, 1024)
+    dense_d = wd.dequant(torch.float32).to(torch.bfloat16)
+    ms, plain_ms, mm_ms = paired_ms(lambda: quant_matmul(xd, wd.codes, wd.scales, bits=bits),
+                                    lambda: quant_matmul_plain(xd, wd.codes, wd.scales, bits=bits),
+                                    lambda: torch.mm(xd, dense_d))
+    bound_ms, _ = bound(*work)
+    row.update(down_ms=ms, down_plain_ms=plain_ms, down_bound_ms=bound_ms, down_dense_mm_ms=mm_ms)
+    log("kernels", f"K6 w{bits} M={M}: bf16 torch.mm over the dequantized weight (the tensor "
+                   f"cores' ceiling, not the same function) {row['dense_mm_ms']:.4f} ms at "
+                   f"I=1024 O=3072; down projection I=3072 O=1024: {ms:.4f} ms vs plain "
+                   f"{plain_ms:.4f} ms, torch.mm {mm_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return row
 
 
 def int8pack_mm(x, w):
@@ -543,8 +632,6 @@ def int8pack_mm(x, w):
     in x's dtype, where this build registers a CUDA kernel for it (checked
     against the plain version first); else None, and the log says so."""
     import torch
-
-    from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
 
     if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
         log("kernels", "K6 w8: this torch build has no CUDA kernel for "
@@ -556,9 +643,58 @@ def int8pack_mm(x, w):
     def fn():
         return torch._weight_int8pack_mm(x, codes_t, scales)
 
-    err = compare("K6 w8 library call (_weight_int8pack_mm)", fn(),
-                  quant_matmul_plain(x.float(), w.codes, w.scales, bits=8))
-    log("kernels", f"K6 w8 library call computes the same function: max|err| {err:.3g}")
+    return checked_library("w8", "_weight_int8pack_mm", fn, x, w, 8)
+
+
+def int4pack_mm(x, w):
+    """K6 w4's library yardstick (timed only, never used by the port):
+    ``torch._weight_int4pack_mm``, whose weight is unsigned 4-bit q with
+    ``(q - 8) * scale + zero`` per group: q = code + 8, the column's scale
+    repeated over 256-row groups, zero 0, so it computes ``(x @ codes) *
+    scales``. Where this build registers a CUDA kernel and the call agrees
+    with the plain version; else None, and the log says why."""
+    import torch
+
+    from crane_tpu_torch.ops.linear import unpack_int4_rows
+
+    if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int4pack_mm", "CUDA"):
+        log("kernels", "K6 w4: this torch build has no CUDA kernel for "
+                       "aten::_weight_int4pack_mm; no library time")
+        return None
+    I, O = 2 * w.codes.shape[0], w.codes.shape[1]
+    group = 256
+    q = (unpack_int4_rows(w.codes).to(torch.int32) + 8).t().contiguous()  # [O, I] in 0..15
+    try:
+        packed = torch._convert_weight_to_int4pack(
+            (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+    except RuntimeError as e:
+        log("kernels", f"K6 w4: _convert_weight_to_int4pack refused the codes ({e}); "
+                       f"no library time")
+        return None
+    scales = w.scales.reshape(1, O, 1).expand(I // group, O, 1)
+    scale_zeros = torch.cat([scales, torch.zeros_like(scales)], dim=2).to(x.dtype).contiguous()
+
+    def fn():
+        return torch._weight_int4pack_mm(x, packed, group, scale_zeros)
+
+    return checked_library("w4", "_weight_int4pack_mm", fn, x, w, 4)
+
+
+def checked_library(variant, op, fn, x, w, bits):
+    """``fn`` where it computes K6's function within the kernel bound of the
+    plain version (the library rounds the scale to bf16, so it may not);
+    else None, logged with the error."""
+    from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
+
+    try:
+        err = compare(f"K6 {variant} library call ({op})", fn(),
+                      quant_matmul_plain(x.float(), w.codes, w.scales, bits=bits))
+    except (AssertionError, RuntimeError) as e:
+        log("kernels", f"K6 {variant} at M={x.shape[0]}: {op} does not give the same function "
+                       f"here ({e}); no library time")
+        return None
+    log("kernels", f"K6 {variant} library call {op} computes the same function at "
+                   f"M={x.shape[0]}: max|err| {err:.3g}")
     return fn
 
 
@@ -1095,7 +1231,7 @@ def check_stats_kernels() -> list[dict]:
             ops, plain_q = (cache.k, cache.v, cache.k_scale, cache.v_scale), (lambda q: q.float())
             names = (f"quant_decode_attention_with_stats[kv{bits}]",
                      f"quant_cached_attention_with_stats[kv{bits}]")
-            srcs = ("quant_decode_attention.cu", "quant_cached_attention.cu")
+            srcs = ("quant_decode_attention.cu", "quant_cached_attention_mma.cu")
             lines = ("367", "647")
         row_ops = tuple(None if t is None else t[3:4] for t in ops)
 
@@ -1327,16 +1463,36 @@ def launches_per(model, label, kv_bits=None) -> None:
                   lambda: model.prefill(cache, [ids[:256]], [256], start=513))
 
 
-# kernel names of the attention kernels a prefill or chunk runs (K2/K3 in
-# bf16 and float32, K5)
-ATTENTION_KERNELS = ("flash_attention", "quant_cached")
+# device kernels by family, the first match of a name's words (the port's
+# kernels by their __global__ names; the rest PyTorch's own kernels)
+KERNEL_FAMILIES = (
+    ("K6", ("quant_matmul",)),
+    ("K5", ("quant_cached", "QuantTiles")),
+    ("K4", ("quant_decode",)),
+    ("K2/K3", ("flash_attention", "flash_mma")),
+    ("K1", ("decode_attention",)),
+    ("K7", ("gdn_scan",)),
+    ("cuBLAS", ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")),
+    ("aten copy", ("copy", "Copy")),
+    ("aten reduce", ("reduce", "softmax", "Softmax")),
+    ("aten index", ("index", "gather", "scatter", "Index")),
+    ("aten elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+# the attention families, summed as the chunk's attention time
+ATTENTION_FAMILIES = ("K5", "K4", "K2/K3", "K1")
 
 
-def log_device_ms(label, what, run) -> None:
+def kernel_family(name: str) -> str:
+    return next((fam for fam, words in KERNEL_FAMILIES if any(w in name for w in words)),
+                "other")
+
+
+def log_device_ms(label, what, run) -> dict[str, float]:
     """Log the device time of one call of ``run``: its kernels' own times
-    summed from ``torch.profiler`` (device-side events only), and the part in
-    the attention kernels, by kernel name; "not measured" where the
-    profiler saw no device time."""
+    summed from ``torch.profiler`` (device-side events only), by family
+    (KERNEL_FAMILIES), the attention kernels' part, and the largest kernels
+    by name; "not measured" where the profiler saw no device time. Returns
+    ms by family."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1346,17 +1502,27 @@ def log_device_ms(label, what, run) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    total = attention = 0.0
+    families: dict[str, float] = {}
+    names = []
     for event in prof.key_averages():
         if event.device_type != DeviceType.CUDA:
             continue
         ms = event.self_device_time_total / 1e3
-        total += ms
-        if any(name in event.key for name in ATTENTION_KERNELS):
-            attention += ms
-    log("profile", f"{label}, {what}: " + (
-        "device time not measured (the profiler saw no device time)" if total <= 0 else
-        f"{total:.3f} ms of kernel time (summed), {attention:.3f} ms in attention kernels"))
+        fam = kernel_family(event.key)
+        families[fam] = families.get(fam, 0.0) + ms
+        names.append((ms, event.count, event.key))
+    total = sum(families.values())
+    if total <= 0:
+        log("profile", f"{label}, {what}: device time not measured (the profiler saw no "
+                       f"device time)")
+        return {}
+    attention = sum(families.get(f, 0.0) for f in ATTENTION_FAMILIES)
+    by_family = ", ".join(f"{f} {ms:.3f}" for f, ms in sorted(families.items(),
+                                                               key=lambda kv: -kv[1]))
+    top = "; ".join(f"{ms:.3f} ms x{n} {key[:90]}" for ms, n, key in sorted(names)[::-1][:6])
+    log("profile", f"{label}, {what}: {total:.3f} ms of kernel time (summed), {attention:.3f} ms "
+                   f"in attention kernels; by family (ms): {by_family}; largest: {top}")
+    return families
 
 
 def check_sp(lm, rows: list[dict]) -> None:
@@ -1438,13 +1604,140 @@ def check_sp(lm, rows: list[dict]) -> None:
     launches_per(slm, "Qwen3-0.6B bf16, 4 slabs")
 
 
+def log_build_info() -> None:
+    """The [build] lines: the compiled form of each tensor-core instance
+    (cudaFuncGetAttributes): K2/K3 and K5 at each head dim, K5 at each bit
+    width, K6 at each output tile and bit width."""
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+    from crane_tpu_torch.ops.cuda.quant_matmul import MMA_TILES
+    from crane_tpu_torch.ops.cuda.quant_matmul import mma_kernel_info as k6_info
+
+    def line(what, info):
+        log("build", f"bf16 tensor-core {what}: {info['registers']} registers and "
+                     f"{info['local_bytes']} local (spill) bytes a thread, {info['smem_bytes']} "
+                     f"shared-memory bytes and {info['threads']} threads a block")
+
+    for D in k23.HEAD_DIMS:
+        line(f"K2/K3 at head_dim {D}", k23.mma_kernel_info(D))
+        for bits in (8, 4):
+            line(f"K5 kv{bits} at head_dim {D}", k45.mma_kernel_info(D, bits))
+    for tile, (rows, cols) in enumerate(MMA_TILES):
+        for bits in (8, 4):
+            line(f"K6 w{bits} at a {rows} x {cols} output tile", k6_info(tile, bits))
+
+
+def reset_counts() -> None:
+    """Zero the kernels' launch counters and the attention router's count of
+    calls routed to a plain version by shape."""
+    from crane_tpu_torch.models.modules.transformer import attention_block
+    from crane_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    for kind in attention_block.plain_routes:
+        attention_block.plain_routes[kind] = 0
+
+
+def no_plain_routes(path: str) -> None:
+    """Fail if the path routed any attention call to a plain version: every
+    model the smoke run drives has heads the kernels take."""
+    from crane_tpu_torch.models.modules.transformer import attention_block
+
+    if any(attention_block.plain_routes.values()):
+        raise AssertionError(f"the {path} routed attention to a plain version: "
+                             f"{attention_block.plain_routes}")
+    log("routes", f"{path}: every attention call went to a kernel (plain routes "
+                  f"{json.dumps(attention_block.plain_routes)})")
+
+
+# tiny llama-like configs whose heads the kernels do not take: head_dim 96,
+# and 16 query heads on one kv-head (over the decode kernels' group of 8),
+# with the kinds of attention call that go to a plain version
+ROUTED_CONFIGS = {
+    "head_dim 96": (dict(num_heads=4, num_kv_heads=2, head_dim=96), {"decode", "prefill", "chunk"}),
+    "16 query heads on 1 kv-head": (dict(num_heads=16, num_kv_heads=1, head_dim=64), {"decode"}),
+}
+
+
+def check_routed_configs() -> None:
+    """Phase 'routes': attention routed by shape. Each ROUTED_CONFIGS model,
+    float32 on the card and on the CPU with the same weights: a fresh
+    40-token prefill, a 12-token continuation chunk and a decode step agree
+    (hidden states to 1e-4), and generate gives the same 16 greedy tokens;
+    the attention calls of the kinds the kernels do not take went to the
+    plain versions (attention_block.plain_routes), and a direct kernel call
+    with those heads still raises."""
+    import dataclasses
+
+    import torch
+
+    from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
+    from crane_tpu_torch.models.init import QWEN3_TINY, init_params
+    from crane_tpu_torch.models.modules.transformer import (
+        attention_block,
+        forward_hidden,
+        make_cache,
+    )
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    for name, (fields, kinds) in ROUTED_CONFIGS.items():
+        cfg = dataclasses.replace(QWEN3_TINY, qk_norm=False, max_position_embeddings=512,
+                                  **fields)
+        params = init_params(cfg, torch.Generator().manual_seed(11), device="cpu",
+                             dtype=torch.float32)
+        models = (CausalLM(cfg, params, dtype=torch.float32),
+                  CausalLM(cfg, _tree(params, lambda t: t.to("cuda")), dtype=torch.float32))
+        gen = torch.Generator().manual_seed(5)
+        steps = [(torch.randint(1, 500, (2, 20), generator=gen), 0, False),
+                 (torch.randint(1, 500, (2, 12), generator=gen), 20, True),
+                 (torch.randint(1, 500, (2, 1), generator=gen), 32, True)]
+        reset_counts()
+        hidden = {}
+        for lm in models:
+            cache = make_cache(cfg, 2, 48, torch.float32, device=lm.device)
+            hidden[lm.device.type] = []
+            for toks, start, read in steps:
+                pos = torch.full((2,), start, dtype=torch.int32, device=lm.device) \
+                    if toks.shape[1] == 1 else start
+                h, cache = forward_hidden(cfg, lm.params, toks.to(lm.device, torch.int32),
+                                          cache, pos, lm.rope, read_cache=read)
+                hidden[lm.device.type].append(h)
+        for h_gpu, h_cpu in zip(hidden["cuda"], hidden["cpu"]):
+            compare(f"routes {name} hidden", h_gpu.cpu(), h_cpu, rtol=1e-4, atol=1e-4)
+        prompt = torch.randint(1, 500, (40,), generator=gen).tolist()
+        toks = [lm.generate(prompt, GenerationConfig.greedy(16)) for lm in models]
+        if toks[0] != toks[1]:
+            raise AssertionError(f"routes {name}: greedy tokens on the card {toks[1]} vs the "
+                                 f"CPU {toks[0]}")
+        routed = {k for k, n in attention_block.plain_routes.items() if n}
+        if routed != kinds:
+            raise AssertionError(f"routes {name}: plain routes {attention_block.plain_routes}, "
+                                 f"expected {sorted(kinds)}")
+        D, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        q = torch.zeros(1, 1, Hq, D, device="cuda")
+        kv = torch.zeros(1, 4, Hkv, D, device="cuda")
+        try:
+            if D in k23.HEAD_DIMS:
+                k1.fp_decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device="cuda"),
+                                       scale=0.1)
+            else:
+                k23.flash_attention_causal(q, kv[:, :1], kv[:, :1], scale=0.1)
+            raise AssertionError(f"routes {name}: a direct kernel call with these heads ran")
+        except ValueError:
+            pass
+        log("routes", f"{name} (head_dim {D}, {Hq}/{Hkv} heads), float32: prefill, chunk and "
+                      f"decode agree with the CPU, generate(16) tokens equal; plain routes "
+                      f"{json.dumps(attention_block.plain_routes)}; a direct kernel call raises")
+
+
 def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
-    """Each row's launches from the path that drove it (a head_dim 256 row
-    reads its wrapper's counter); fail for a kernel that path never
-    launched."""
+    """Each row's launches from the path that drove it (a head_dim 256 or an
+    M=256 row reads its wrapper's counter); fail for a kernel that path
+    never launched."""
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
-        row["launches"] = counts[row["name"].removesuffix(D256)]
+        row["launches"] = counts[row["name"].removesuffix(D256).removesuffix(M256)]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched by the {path}")
 
@@ -1475,50 +1768,48 @@ def main() -> int:
     build.lib()
     log("build", f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
                  f"({build.library_path().name})")
-    from crane_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS, mma_kernel_info
-
-    for D in HEAD_DIMS:
-        info = mma_kernel_info(D)
-        log("build", f"bf16 tensor-core K2/K3 at head_dim {D}: {info['registers']} registers "
-                     f"and {info['local_bytes']} local (spill) bytes a thread, "
-                     f"{info['smem_bytes']} shared-memory bytes and {info['threads']} threads "
-                     f"a block")
+    log_build_info()
 
     rows = check_kernels()
     quant_rows = check_quant_kernels()
     hybrid_rows = check_d256_kernels() + [check_gdn_kernel()]
+    check_routed_configs()
 
     # the dense main path: bf16 generation and serving (K1, K2, K3)
-    kernels.reset_launch_counts()
+    reset_counts()
     lm = check_model()
     check_engine(lm)
     read_launches("dense path", rows, kernels.launch_counts())
+    no_plain_routes("dense path")
 
     # the quantized main path: int4 and int8 ISQ weights on int8 and int4
     # KV caches (K2 for fresh prefills, K4, K5 and K6 at each bit width)
     from crane_tpu_torch.models.auto import quantize_params
     from crane_tpu_torch.models.causal_lm import CausalLM
 
-    kernels.reset_launch_counts()
+    reset_counts()
     params4 = check_quant_model(lm)
     lm8 = CausalLM(lm.config, quantize_params(lm.params, bits=8), dtype=torch.bfloat16)
     check_engine(lm8, "quant-engine w8 kv8", kv_quant_bits=8)
-    del lm8
     check_engine(CausalLM(lm.config, params4, dtype=torch.bfloat16), "quant-engine w4 kv4",
                  kv_quant_bits=4)
     counts = kernels.launch_counts()
     if counts["flash_attention_causal"] <= 0:
         raise AssertionError("the quantized path never launched K2")
     read_launches("quantized path", quant_rows, counts)
+    no_plain_routes("quantized path")
+    launches_per(lm8, "Qwen3-0.6B w8", kv_bits=8)
+    del lm8
     launches_per(CausalLM(lm.config, params4, dtype=torch.bfloat16), "Qwen3-0.6B w4", kv_bits=4)
     del params4
 
     # the hybrid main path: Qwen3.5-0.8B generation and serving (K1, K2, K3
     # at head_dim 256; K7 for every GDN prefill and continuation chunk)
-    kernels.reset_launch_counts()
+    reset_counts()
     lm35 = check_hybrid_model()
     check_engine(lm35, "hybrid-engine")
     read_launches("hybrid path", hybrid_rows, kernels.launch_counts())
+    no_plain_routes("hybrid path")
     launches_per(lm35, "Qwen3.5-0.8B bf16")
     del lm35
 
@@ -1526,7 +1817,9 @@ def main() -> int:
     # (K2 for fresh prompts; K1-S, K3-S, K4-S and K5-S over the slabs)
     sp_rows = check_stats_kernels()
     t_sp = time.perf_counter()
+    reset_counts()
     check_sp(lm, sp_rows)
+    no_plain_routes("sp path")
     log("sp", f"phase 10 ran in {time.perf_counter() - t_sp:.1f} s")
 
     rows += quant_rows + hybrid_rows + sp_rows

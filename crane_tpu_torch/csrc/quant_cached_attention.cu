@@ -1,6 +1,7 @@
 // K5: GQA continuation-chunk attention over an int8 / packed-int4 KV
 // cache, with the dequantization folded into the logits and the output
-// sums.
+// sums: the float32 route. bfloat16 queries go to the tensor-core kernel
+// (quant_cached_attention_mma.cu), chosen here by dtype.
 //
 // Replaces crane_tpu/ops/pallas/quant_attention.py::_cached_attention
 // (kernel _cached_kernel), reached through quant_cached_attention with
@@ -21,14 +22,14 @@
 // What bounds it on an H100: the KV bytes of the live context each chunk
 // reads, as for K3.
 //
-// What the design does about it: K3's design. One block per (32 queries,
-// q-head, row), looping over key tiles only inside the causal/window band
-// of its rows; each tile's codes are unpacked once into float32 shared
-// memory, the scales beside them, and read by all 32 rows; TPR threads
-// share a query row (common.cuh RowTile, as K3). Positions past the buffer
-// (bucket-padded tail rows) are clamped to T - 1 (quant_attention.py:589).
-// A row with no key to attend writes zeros (:553-555). mma/wgmma tiles and
-// TMA are later work.
+// What the design does about it: one block per (32 queries, q-head, row),
+// looping over key tiles only inside the causal/window band of its rows;
+// each tile's codes are unpacked once into float32 shared memory, the
+// scales beside them, and read by all 32 rows; TPR threads share a query
+// row (common.cuh RowTile). Positions past the buffer (bucket-padded tail
+// rows) are clamped to T - 1 (quant_attention.py:589). A row with no key to
+// attend writes zeros (:553-555). Float32 stays on the CUDA cores in full
+// float32, as K2/K3's float32 route does.
 #include "common.cuh"
 
 namespace crane {
@@ -184,17 +185,16 @@ void launch_cached(const void* q, const int8_t* kc, const int8_t* vc,
       l_out, positions, S, Tk, Hkv, Hq / Hkv, scale, window, softcap);
 }
 
-template <typename T>
-bool cached_dispatch(int bits, int D, const void* q, const int8_t* kc,
-                     const int8_t* vc, const float* ks, const float* vs,
-                     void* out, float* m_out, float* l_out, const int* pos,
-                     int B, int S, int Tk, int Hq, int Hkv, float scale,
-                     int window, float softcap, cudaStream_t st) {
-#define CRANE_CACHED(d, bb)                                                 \
-  if (D == d && bits == bb) {                                               \
-    launch_cached<T, d, bb>(q, kc, vc, ks, vs, out, m_out, l_out, pos, B, S, \
-                            Tk, Hq, Hkv, scale, window, softcap, st);       \
-    return true;                                                            \
+bool cached_dispatch_f32(int bits, int D, const void* q, const int8_t* kc,
+                        const int8_t* vc, const float* ks, const float* vs,
+                        void* out, float* m_out, float* l_out, const int* pos,
+                        int B, int S, int Tk, int Hq, int Hkv, float scale,
+                        int window, float softcap, cudaStream_t st) {
+#define CRANE_CACHED(d, bb)                                                      \
+  if (D == d && bits == bb) {                                                    \
+    launch_cached<float, d, bb>(q, kc, vc, ks, vs, out, m_out, l_out, pos, B, S, \
+                                Tk, Hq, Hkv, scale, window, softcap, st);        \
+    return true;                                                                 \
   }
   CRANE_CACHED(64, 8) CRANE_CACHED(64, 4) CRANE_CACHED(128, 8)
   CRANE_CACHED(128, 4) CRANE_CACHED(256, 8) CRANE_CACHED(256, 4)
@@ -203,6 +203,14 @@ bool cached_dispatch(int bits, int D, const void* q, const int8_t* kc,
 }
 
 }  // namespace
+
+// quant_cached_attention_mma.cu
+cudaError_t quant_cached_attention_mma_bf16(int bits, int D, const void* q, const int8_t* kc,
+                                            const int8_t* vc, const float* ks, const float* vs,
+                                            void* out, float* m_out, float* l_out,
+                                            const int* positions, int B, int S, int Tk, int Hq,
+                                            int Hkv, float scale, int window, float softcap,
+                                            cudaStream_t stream);
 }  // namespace crane
 
 // q [B,S,Hq,D] at absolute positions [B,S] int32; k/v codes
@@ -229,14 +237,13 @@ extern "C" int crane_quant_cached_attention(
   float* ms = static_cast<float*>(m_out);
   float* ls = static_cast<float*>(l_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
   if (dtype == kBFloat16)
-    ok = cached_dispatch<__nv_bfloat16>(bits, D, q, k8, v8, kss, vss, out, ms,
-                                        ls, pos, B, S, Tk, Hq, Hkv, scale,
-                                        window, softcap, st);
-  else if (dtype == kFloat32)
-    ok = cached_dispatch<float>(bits, D, q, k8, v8, kss, vss, out, ms, ls, pos,
-                                B, S, Tk, Hq, Hkv, scale, window, softcap, st);
+    return quant_cached_attention_mma_bf16(bits, D, q, k8, v8, kss, vss, out, ms, ls, pos, B, S,
+                                           Tk, Hq, Hkv, scale, window, softcap, st);
+  bool ok = false;
+  if (dtype == kFloat32)
+    ok = cached_dispatch_f32(bits, D, q, k8, v8, kss, vss, out, ms, ls, pos,
+                             B, S, Tk, Hq, Hkv, scale, window, softcap, st);
   if (!ok) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

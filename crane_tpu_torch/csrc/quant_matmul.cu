@@ -7,6 +7,11 @@
 // decode steps of up to 256 slots, continuation chunks of up to 256
 // tokens, and the int4 lm head.
 //
+// This file is the CUDA-core route: float32 x, and bfloat16 x at fewer than
+// kMmaMinM rows (decode at batch 1 to 3), where the weight bytes bound the
+// call. bfloat16 x at kMmaMinM rows or more goes to the tensor-core kernel
+// (quant_matmul_mma.cu); crane_quant_matmul chooses by dtype and M.
+//
 // Layouts: x [M, I] (float32 or bfloat16); codes [I, O] int8 (bits 8) or
 // [I/2, O] packed int4 (bits 4: byte (i, o) = 16 * code[i + I/2, o] +
 // code[i, o], each code in [-7, 7]); scales [O] float32; y [M, O] in x's
@@ -29,8 +34,7 @@
 // x[:, i + I/2], pair with the low and high code of byte i), and read as
 // broadcasts. int4 unpacks with integer shifts (common.cuh int4_hi). The
 // per-thread partial sums over rows are reduced by warp shuffles and
-// across warps in shared memory. Tensor-core tiles (mma/wgmma), TMA and
-// split-K across blocks are later work.
+// across warps in shared memory.
 #include "common.cuh"
 
 namespace crane {
@@ -198,6 +202,17 @@ void dispatch(int bits, bool vec, const void* x, const int8_t* codes,
 }
 
 }  // namespace
+
+// bf16 x with at least this many rows takes the tensor-core kernel: in a
+// same-call A/B on an H100 over the path's twelve (bits, I, O) shapes, this
+// file's kernel won every one at 1 row and the tensor-core kernel every one
+// at 4, 8, 12 and 16 (PERF.md section 5)
+constexpr int kMmaMinM = 4;
+
+// quant_matmul_mma.cu
+cudaError_t quant_matmul_mma_bf16(int bits, const void* x, const int8_t* codes,
+                                  const float* scales, void* out, int M, int I, int O,
+                                  cudaStream_t stream);
 }  // namespace crane
 
 // x [M, I], codes [I, O] (bits 8) or [I/2, O] (bits 4) int8, scales [O]
@@ -217,6 +232,12 @@ extern "C" int crane_quant_matmul(int dtype, int bits, const void* x,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // 16-byte code loads need every row start 16-byte aligned
   const bool vec = O % 16 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  // the tensor-core kernel's 16-byte copies need x's rows (and for int4 its
+  // second half) and the code rows on 16-byte boundaries
+  const int Ip = bits == 4 ? I / 2 : I;
+  if (dtype == kBFloat16 && M >= kMmaMinM && vec && Ip % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return quant_matmul_mma_bf16(bits, x, c, s, out, M, I, O, st);
   if (dtype == kBFloat16)
     dispatch<__nv_bfloat16>(bits, vec, x, c, s, out, M, I, O, st);
   else if (dtype == kFloat32)

@@ -32,6 +32,13 @@ its slab and, reading the cache, runs the with-stats kernel per slab and
 merges the partials exactly: decode through K1-S / K4-S, continuation chunks
 through K3-S / K5-S. A fresh prefill still attends its own K/V through K2.
 
+Each route takes its kernel only where the kernel takes the heads
+(:func:`~crane_tpu_torch.ops.cuda.attention_kernel_takes`: a head dim in
+{64, 128, 256}, and for decode at most 8 query heads per kv-head); other
+shapes go to the kernel's plain version, as crane_tpu sends them to
+``gqa_attention``, and each such call counts in
+``attention_block.plain_routes[kind]`` (:func:`attention_route`).
+
 Quantized linear weights go through :func:`~crane_tpu_torch.ops.linear.linear`
 (K6 at M <= 256). Each wrapper launches its CUDA kernel on a CUDA tensor and
 runs its plain PyTorch version on a CPU tensor. MoE and short-conv branches
@@ -48,14 +55,22 @@ import torch
 import torch.nn.functional as F
 
 from crane_tpu_torch.models.modules.gdn_layer import gdn_block
-from crane_tpu_torch.ops.cuda.decode_attention import fp_decode_attention
+from crane_tpu_torch.ops.cuda import ATTENTION_KINDS, attention_kernel_takes
+from crane_tpu_torch.ops.cuda.decode_attention import (
+    fp_decode_attention,
+    fp_decode_attention_plain,
+)
 from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_cached,
+    flash_attention_cached_plain,
     flash_attention_causal,
+    flash_attention_causal_plain,
 )
 from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_cached_attention,
+    quant_cached_attention_plain,
     quant_decode_attention,
+    quant_decode_attention_plain,
 )
 from crane_tpu_torch.ops.cuda.quant_matmul import matmul_f32
 from crane_tpu_torch.ops.kv_cache import (
@@ -278,9 +293,14 @@ def attention_block(
     new_cache = layer_cache.update(k, v, cache_positions, row=cache_row)
     scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
     softcap = cfg.attn_logit_softcap
+    kind = "prefill" if not read_cache else ("decode" if S == 1 else "chunk")
+
+    def route(kernel, plain):
+        return attention_route(kind, kernel, plain, D, H, Hkv)
 
     if not read_cache:
-        out = flash_attention_causal(q, k, v, scale=scale, window=window, softcap=softcap)
+        out = route(flash_attention_causal, flash_attention_causal_plain)(
+            q, k, v, scale=scale, window=window, softcap=softcap)
     elif isinstance(new_cache, SequenceShardedKVCache):
         # only full-attention layers shard (a sliding window's KV is bounded)
         if window is not None:
@@ -297,21 +317,38 @@ def attention_block(
         args = (q, new_cache.k, new_cache.v, new_cache.k_scale, new_cache.v_scale)
         kw = dict(bits=new_cache.bits, scale=scale, window=window, logit_softcap=softcap)
         if S == 1:
-            out = quant_decode_attention(*args, positions[:, 0] + 1, **kw)
+            out = route(quant_decode_attention, quant_decode_attention_plain)(
+                *args, positions[:, 0] + 1, **kw)
         else:
-            out = quant_cached_attention(*args, positions, **kw)
+            out = route(quant_cached_attention, quant_cached_attention_plain)(
+                *args, positions, **kw)
     elif S == 1:
-        out = fp_decode_attention(
+        out = route(fp_decode_attention, fp_decode_attention_plain)(
             q, new_cache.k, new_cache.v, positions[:, 0] + 1, scale=scale,
             window=window, logit_softcap=softcap)
     else:
-        out = flash_attention_cached(
+        out = route(flash_attention_cached, flash_attention_cached_plain)(
             q, new_cache.k, new_cache.v, positions, scale=scale, window=window,
             softcap=softcap)
 
     if gate is not None:
         out = out * torch.sigmoid(gate.float()).to(out.dtype)
     return linear(out.reshape(B, S, H * D), p["wo"], p.get("bo")), new_cache
+
+
+def attention_route(kind: str, kernel, plain, head_dim: int, n_heads: int, n_kv_heads: int):
+    """``kernel`` (a wrapper) where the ``kind`` kernels take these heads,
+    else ``plain``, its plain version, counted once in
+    ``attention_block.plain_routes[kind]``. The route is chosen by shape,
+    never by a failed launch."""
+    if attention_kernel_takes(kind, head_dim, n_heads, n_kv_heads):
+        return kernel
+    attention_block.plain_routes[kind] += 1
+    return plain
+
+
+# attention calls routed to a plain version by shape, per kind
+attention_block.plain_routes = dict.fromkeys(ATTENTION_KINDS, 0)
 
 
 def decoder_layer(

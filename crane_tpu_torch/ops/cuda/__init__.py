@@ -7,15 +7,21 @@ through the kernels. The quantized kernels count per bit width
 (``launches`` is a dict, ``{"w8": n, "w4": n}`` or ``{"kv8": n, "kv4": n}``),
 so a run can show each variant was launched. A with-stats form (K1-S, K3-S,
 K4-S, K5-S) shares its kernel's launch path but counts on its own wrapper.
+
+:func:`attention_kernel_takes` says which attention shapes the kernels take,
+so a caller routes the others to the plain versions by shape, as crane_tpu
+routes them to ``gqa_attention``; the wrappers themselves raise on them.
 """
 
 from __future__ import annotations
 
 from crane_tpu_torch.ops.cuda.decode_attention import (
+    MAX_GROUP,
     fp_decode_attention,
     fp_decode_attention_with_stats,
 )
 from crane_tpu_torch.ops.cuda.flash_attention import (
+    HEAD_DIMS,
     flash_attention_cached,
     flash_attention_cached_with_stats,
     flash_attention_causal,
@@ -28,6 +34,24 @@ from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_decode_attention_with_stats,
 )
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul
+
+
+# what an attention call is: one query per row over the cache (K1/K4, their
+# -S forms), a fresh prefill over its own K/V (K2), a continuation chunk
+# over the cache (K3/K5, their -S forms)
+ATTENTION_KINDS = ("decode", "prefill", "chunk")
+
+
+def attention_kernel_takes(kind: str, head_dim: int, n_heads: int, n_kv_heads: int) -> bool:
+    """True exactly when the ``kind`` attention kernels accept these heads:
+    a head dim in ``HEAD_DIMS``, and for decode also at most ``MAX_GROUP``
+    query heads per kv-head (the decode kernels keep a group's heads in
+    registers)."""
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(f"attention kind must be one of {ATTENTION_KINDS}, got {kind!r}")
+    if head_dim not in HEAD_DIMS or n_heads % n_kv_heads:
+        return False
+    return kind != "decode" or n_heads // n_kv_heads <= MAX_GROUP
 
 
 def _variants(name, fn):

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
 Every ``*.cu`` under ``crane_tpu_torch/csrc/`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``), one ``nvcc`` process per source, all started together,
+Hopper (``sm_90a``), one ``nvcc`` process per source, all started together
+(the ``*.cuh`` headers they include count in the hash below),
 and the objects are linked into ONE shared library with a plain C
 interface, at first use. The library is named by a hash of the sources and
 the flags and lives under ``build/kernels/`` at the repository root (listed
@@ -46,10 +47,12 @@ SIGNATURES = {
                               _I, _I, _I, _F, _I, _F, _P],
     "crane_flash_attention_mma_info": [_I, _P],
     "crane_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "crane_quant_matmul_mma_info": [_I, _I, _P],
     "crane_quant_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _F, _I, _F, _P],
     "crane_quant_cached_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
+    "crane_quant_cached_attention_mma_info": [_I, _I, _P],
     "crane_gdn_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

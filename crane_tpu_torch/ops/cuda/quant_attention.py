@@ -23,10 +23,15 @@ stores it: flat codes ``[B, T, Hkv * stored]`` int8 and scales
 hand-written kernel or raises; on a CPU tensor it runs its ``*_plain``
 counterpart, which dequantizes the buffer (in q's dtype) and runs K1's or
 K3's plain version. Launches are counted per ``bits`` (``launches["kv8"]``,
-``["kv4"]``), each wrapper on its own counter.
+``["kv4"]``), each wrapper on its own counter. K5 and K5-S are chosen by
+dtype inside the one C entry: bfloat16 runs the tensor-core kernel
+(``csrc/quant_cached_attention_mma.cu``, K3's tile loop over unpacked
+codes), float32 the CUDA-core kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -167,6 +172,10 @@ def _launch_cached(name, q, k_codes, v_codes, k_scale, v_scale, positions, bits,
     if positions.dtype != torch.int32 or positions.shape != (B, S):
         raise TypeError("positions must be int32 [B, S]")
     build.require_cuda(name, q, k_codes, v_codes, k_scale, v_scale, positions)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k_codes, v_codes)):
+        # the tensor-core kernel stages q rows and code rows with 16-byte
+        # copies (a row is a multiple of 16 bytes at every head dim it takes)
+        raise ValueError(f"{name}: bf16 q and the codes must start on a 16-byte boundary")
     out = torch.empty_like(q)
     m, l = _stats(q, stats, (B, Hq, S))
     err = build.lib().crane_quant_cached_attention(
@@ -177,6 +186,17 @@ def _launch_cached(name, q, k_codes, v_codes, k_scale, v_scale, positions, bits,
     )
     build.check_launch("crane_quant_cached_attention", err)
     return (out, m, l) if stats else out
+
+
+def mma_kernel_info(head_dim: int, bits: int) -> dict[str, int]:
+    """The compiled form of the bf16 tensor-core K5 at ``head_dim`` and
+    ``bits`` (``cudaFuncGetAttributes``), as
+    :func:`~crane_tpu_torch.ops.cuda.flash_attention.mma_kernel_info` gives
+    K2/K3's. Builds the kernels on first use; needs the card."""
+    info = (ctypes.c_int * 4)()
+    build.check_launch("crane_quant_cached_attention_mma_info",
+                       build.lib().crane_quant_cached_attention_mma_info(head_dim, bits, info))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"), info))
 
 
 def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,
@@ -274,6 +294,32 @@ def cached_attention_with_stats(q, k, v, k_scale, v_scale, positions, *, bits: i
     return quant_cached_attention_with_stats(q, k, v, k_scale, v_scale, positions, bits=bits,
                                              scale=scale, window=window,
                                              logit_softcap=logit_softcap)
+
+
+def decode_attention_with_stats_plain(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,
+                                      bits: int, scale: float, window: int | None = None,
+                                      logit_softcap: float | None = None):
+    """The plain version of :func:`decode_attention_with_stats`, for heads
+    the kernels do not take."""
+    if bits == 16:
+        return fp_decode_attention_with_stats_plain(q, k_codes, v_codes, kv_valid, scale=scale,
+                                                    window=window, logit_softcap=logit_softcap)
+    return quant_decode_attention_with_stats_plain(q, k_codes, v_codes, k_scale, v_scale,
+                                                   kv_valid, bits=bits, scale=scale,
+                                                   window=window, logit_softcap=logit_softcap)
+
+
+def cached_attention_with_stats_plain(q, k, v, k_scale, v_scale, positions, *, bits: int,
+                                      scale: float, window: int | None = None,
+                                      logit_softcap: float | None = None):
+    """The plain version of :func:`cached_attention_with_stats`, for heads
+    the kernels do not take."""
+    if bits == 16:
+        return flash_attention_cached_with_stats_plain(q, k, v, positions, scale=scale,
+                                                       window=window, softcap=logit_softcap)
+    return quant_cached_attention_with_stats_plain(q, k, v, k_scale, v_scale, positions,
+                                                   bits=bits, scale=scale, window=window,
+                                                   logit_softcap=logit_softcap)
 
 
 quant_decode_attention.launches = {f"kv{b}": 0 for b in BITS}

@@ -7,10 +7,16 @@ int8 (``bits=8``) or ``[I/2, O]`` packed int4 (``bits=4``: byte ``(i, o)``
 holds code ``i`` low and code ``i + I/2`` high) and ``scales [1, O]``
 float32. On a CUDA tensor :func:`quant_matmul` launches the hand-written
 kernel or raises; on a CPU tensor it runs :func:`quant_matmul_plain`. Unlike
-the TPU kernel, neither rounds a float32 ``x`` to bf16.
+the TPU kernel, neither rounds a float32 ``x`` to bf16. The one C entry
+chooses the kernel by dtype and M: bfloat16 ``x`` with at least
+``MMA_MIN_M`` rows (and 16-byte-aligned rows) runs the tensor-core kernel
+(``csrc/quant_matmul_mma.cu``), everything else the CUDA-core kernel
+(``csrc/quant_matmul.cu``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -18,6 +24,11 @@ from crane_tpu_torch.ops.cuda import build
 from crane_tpu_torch.ops.kv_cache import unpack_int4
 
 BITS = (8, 4)
+# bf16 rows from which the C entry takes the tensor-core kernel (quant_matmul.cu
+# kMmaMinM)
+MMA_MIN_M = 4
+# the tensor-core kernel's output tiles, by the index its info entry takes
+MMA_TILES = ((64, 128), (64, 64), (32, 64))
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,6 +84,17 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     build.check_launch("crane_quant_matmul", err)
     quant_matmul.launches[f"w{bits}"] += 1
     return out
+
+
+def mma_kernel_info(tile: int, bits: int) -> dict[str, int]:
+    """The compiled form of the bf16 tensor-core K6 at output tile ``tile``
+    (an index of ``MMA_TILES``) and ``bits``: registers and local (spill)
+    bytes a thread, shared memory bytes and threads a block, the tile's rows
+    and columns. Builds the kernels on first use; needs the card."""
+    info = (ctypes.c_int * 6)()
+    build.check_launch("crane_quant_matmul_mma_info",
+                       build.lib().crane_quant_matmul_mma_info(tile, bits, info))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "rows", "cols"), info))
 
 
 quant_matmul.launches = {f"w{b}": 0 for b in BITS}

@@ -31,10 +31,12 @@ import dataclasses
 import torch
 
 from crane_tpu_torch.models.causal_lm import CausalLM
-from crane_tpu_torch.models.modules.transformer import make_layer_cache
+from crane_tpu_torch.models.modules.transformer import attention_route, make_layer_cache
 from crane_tpu_torch.ops.cuda.quant_attention import (
     cached_attention_with_stats,
+    cached_attention_with_stats_plain,
     decode_attention_with_stats,
+    decode_attention_with_stats_plain,
 )
 from crane_tpu_torch.ops.kv_cache import KVCache, SequenceShardedKVCache
 from crane_tpu_torch.utils.device import default_device
@@ -86,6 +88,15 @@ def _operands(slab, bits):
     return slab.k, slab.v, slab.k_scale, slab.v_scale
 
 
+def _slab_route(kind, kernel, plain, q, cache: SequenceShardedKVCache):
+    """The with-stats kernel for the slabs of ``cache``, or, for heads the
+    kernels do not take, its plain version (counted once per attention call
+    in ``attention_block.plain_routes``)."""
+    slab = cache.slabs[0]
+    n_kv = slab.k.shape[2] if cache.bits == 16 else slab.n_kv_heads
+    return attention_route(kind, kernel, plain, q.shape[3], q.shape[2], n_kv)
+
+
 def sp_decode_attention(q, cache: SequenceShardedKVCache, lengths, *, scale: float,
                         logit_softcap: float | None = None) -> torch.Tensor:
     """Decode (q ``[B, 1, Hq, D]``) over a sequence-sharded cache whose rows
@@ -93,10 +104,12 @@ def sp_decode_attention(q, cache: SequenceShardedKVCache, lengths, *, scale: flo
     kernel per slab at its local lengths (a slab past a row's end has local
     length 0 and reads nothing), merged on q's device."""
     T = cache.slab_len
+    attend = _slab_route("decode", decode_attention_with_stats,
+                         decode_attention_with_stats_plain, q, cache)
     parts = []
     for i, (slab, dev) in enumerate(zip(cache.slabs, cache.devices)):
         local = (lengths - i * T).clamp(0, T).to(device=dev, dtype=torch.int32)
-        out, m, l = decode_attention_with_stats(
+        out, m, l = attend(
             q.to(dev), *_operands(slab, cache.bits), local, bits=cache.bits, scale=scale,
             logit_softcap=logit_softcap)
         parts.append((out.to(q.device), m.to(q.device)[..., None], l.to(q.device)[..., None]))
@@ -113,10 +126,12 @@ def sp_chunk_attention(q, cache: SequenceShardedKVCache, positions, *, scale: fl
     cost is one chunk against one slab, as ring attention's, with no
     rotation of KV slabs: the chunk is small, so it goes to every slab."""
     T = cache.slab_len
+    attend = _slab_route("chunk", cached_attention_with_stats,
+                         cached_attention_with_stats_plain, q, cache)
     parts = []
     for i, (slab, dev) in enumerate(zip(cache.slabs, cache.devices)):
         local = (positions - i * T).to(device=dev, dtype=torch.int32)
-        out, m, l = cached_attention_with_stats(
+        out, m, l = attend(
             q.to(dev), *_operands(slab, cache.bits), local, bits=cache.bits, scale=scale,
             logit_softcap=logit_softcap)
         parts.append((out.to(q.device), m.to(q.device), l.to(q.device)))

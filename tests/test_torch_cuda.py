@@ -268,6 +268,117 @@ def test_with_stats_kernels_match_plain(dev, dtype, bits, D, Hq, Hkv):
     assert (l[0] == 0).all() and (out[0] == 0).all()  # a chunk wholly before the slab
 
 
+def _kernel_names(fn) -> set[str]:
+    """The device kernels one call of ``fn`` runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_k5_bf16_edges_match_plain(dev, bits, G, D):
+    """The tensor-core K5 and K5-S in bf16 against their plain versions run
+    in float32 on the same codes: G query heads per kv-head (G = 16 gives 4
+    positions a 64-row tile), S around the 64-row tile, T = 333 (no multiple
+    of the key tile), rows at other offsets with a tail past T - 1, windows
+    of 1, 7 and 100 and a softcap; K5-S at positions wholly before the
+    buffer (out 0, m = -inf, l = 0) and into it, bitwise K5's output."""
+    Hkv, T = 2, 333
+    Hq = G * Hkv
+    gen = torch.Generator(device=dev).manual_seed(D * G + bits)
+    cache = QuantLayerKVCache.empty(2, T, Hkv, D, bits=bits, device=dev)
+    cache.update(rnd(gen, 2, T, Hkv, D, dtype=torch.bfloat16),
+                 rnd(gen, 2, T, Hkv, D, dtype=torch.bfloat16), 0)
+    ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    for S in (1, 63, 65, 130):
+        q = rnd(gen, 2, S, Hq, D, dtype=torch.bfloat16)
+        pos = torch.stack([torch.arange(S) + 40, torch.arange(S) + T - 30]).to(dev, torch.int32)
+        for opts in ({}, {"window": 1}, {"window": 7}, {"window": 100}, {"logit_softcap": 5.0}):
+            got = k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=D ** -0.5, **opts)
+            ref = k45.quant_cached_attention_plain(q.float(), *ops, pos, bits=bits,
+                                                   scale=D ** -0.5, **opts)
+            torch.testing.assert_close(got.float(), ref, **TOL[torch.bfloat16])
+    q = rnd(gen, 2, 77, Hq, D, dtype=torch.bfloat16)
+    pos = torch.stack([torch.arange(77) - 500, torch.arange(77) - 40]).to(dev, torch.int32)
+    out, m, l = k45.quant_cached_attention_with_stats(q, *ops, pos, bits=bits, scale=D ** -0.5)
+    r_out, r_m, r_l = k45.quant_cached_attention_with_stats_plain(
+        q.cpu().float(), *(t.cpu() for t in ops), pos.cpu(), bits=bits, scale=D ** -0.5)
+    assert torch.equal(out, k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=D ** -0.5))
+    _check_stats(out, m, l, r_out, r_m, r_l, torch.bfloat16)
+    assert (l[0] == 0).all() and (m[0] == -torch.inf).all() and (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [3, 4, 17, 100, 256])
+@pytest.mark.parametrize("I,O", [(1024, 3072), (3072, 1024), (1008, 1040)])
+def test_k6_bf16_edges_match_plain(dev, bits, M, I, O):
+    """K6 in bf16 at M around the tensor-core route's threshold (M0 - 1
+    takes the CUDA-core kernel), the chunk's shapes, an I that is no
+    multiple of 32 and an O that is no multiple of the output tile; the
+    kernel that ran is the one the route names."""
+    from crane_tpu_torch.ops.cuda.quant_matmul import MMA_MIN_M
+
+    assert MMA_MIN_M == 4
+    gen = torch.Generator(device=dev).manual_seed(M * 7 + I + O + bits)
+    w = quantize_weight(rnd(gen, I, O, dtype=torch.float32) * I ** -0.5, bits=bits)
+    x = rnd(gen, M, I, dtype=torch.bfloat16)
+    got = quant_matmul(x, w.codes, w.scales, bits=bits)
+    torch.testing.assert_close(got.float(), quant_matmul_plain(x.float(), w.codes, w.scales,
+                                                               bits=bits),
+                               **TOL[torch.bfloat16])
+    names = _kernel_names(lambda: quant_matmul(x, w.codes, w.scales, bits=bits))
+    mma = any("quant_matmul_mma_kernel" in n for n in names)
+    assert mma == (M >= MMA_MIN_M), names
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_float32_stays_on_the_cuda_cores(dev, bits):
+    """float32 K5 and K6 (at M = 256) run the CUDA-core kernels, in full
+    float32: held to the float32 tolerance, which a bf16-operand product
+    would miss."""
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    w = quantize_weight(rnd(gen, 1024, 1024, dtype=torch.float32) * 1024 ** -0.5, bits=bits)
+    x = rnd(gen, 256, 1024, dtype=torch.float32)
+    torch.testing.assert_close(quant_matmul(x, w.codes, w.scales, bits=bits),
+                               quant_matmul_plain(x, w.codes, w.scales, bits=bits),
+                               **TOL[torch.float32])
+    names = _kernel_names(lambda: quant_matmul(x, w.codes, w.scales, bits=bits))
+    assert any("quant_matmul_kernel<float" in n for n in names), names
+    cache = QuantLayerKVCache.empty(1, 300, 2, 128, bits=bits, device=dev)
+    cache.update(rnd(gen, 1, 300, 2, 128, dtype=torch.float32),
+                 rnd(gen, 1, 300, 2, 128, dtype=torch.float32), 0)
+    ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    q = rnd(gen, 1, 77, 8, 128, dtype=torch.float32)
+    pos = (torch.arange(77, device=dev) + 200).to(torch.int32)[None]
+    torch.testing.assert_close(k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=0.1),
+                               k45.quant_cached_attention_plain(q, *ops, pos, bits=bits,
+                                                                scale=0.1),
+                               **TOL[torch.float32])
+    names = _kernel_names(lambda: k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=0.1))
+    assert any("quant_cached_kernel<float" in n for n in names), names
+    names = _kernel_names(lambda: k45.quant_cached_attention(q.bfloat16(), *ops, pos, bits=bits,
+                                                             scale=0.1))
+    assert any("flash_mma_kernel" in n and "QuantTiles" in n for n in names), names
+
+
+def test_quant_mma_kernels_compile_without_spills(dev):
+    """The compiled tensor-core K5 and K6 instances: 128 threads, within the
+    register file, no local (spill) memory."""
+    from crane_tpu_torch.ops.cuda.quant_matmul import MMA_TILES, mma_kernel_info
+
+    infos = [k45.mma_kernel_info(D, bits) for D in (64, 128, 256) for bits in (8, 4)]
+    infos += [mma_kernel_info(t, bits) for t in range(len(MMA_TILES)) for bits in (8, 4)]
+    for info in infos:
+        assert info["threads"] == 128 and 0 < info["registers"] <= 255, info
+        assert info["local_bytes"] == 0, infos
+
+
 def _check_stats(out, m, l, r_out, r_m, r_l, dtype):
     """The kernel's (out, m, l) against the plain float32 run: out to the
     dtype's tolerance; m and l to 1e-5 + 1e-5 |plain| where l > 0, and
@@ -464,3 +575,63 @@ def test_hybrid_generate_on_card_matches_cpu(hybrid_lms):
 
 def test_hybrid_engine_on_card_matches_cpu(hybrid_lms):
     assert _engine_tokens(hybrid_lms[0]) == _engine_tokens(hybrid_lms[1])
+
+
+# tiny llama-like configs whose heads the kernels do not take, and the kinds
+# of attention call that go to a plain version by shape
+ROUTED = {
+    "head_dim 96": (dict(num_heads=4, num_kv_heads=2, head_dim=96), {"decode", "prefill", "chunk"}),
+    "16 on 1": (dict(num_heads=16, num_kv_heads=1, head_dim=64), {"decode"}),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_routed_heads_on_card_match_cpu(dev, name):
+    """Heads the kernels do not take serve on the card through the plain
+    versions: a fresh prefill, a continuation chunk and a decode step agree
+    with the port on the CPU in float32, generate and the engine give the
+    same tokens, and attention_block.plain_routes counts the routed kinds;
+    a direct kernel call with those heads still raises."""
+    from crane_tpu_torch.models.modules.transformer import (
+        attention_block,
+        forward_hidden,
+        make_cache,
+    )
+
+    fields, kinds = ROUTED[name]
+    cfg = dataclasses.replace(QWEN3_TINY, qk_norm=False, max_position_embeddings=512, **fields)
+    params = init_params(cfg, torch.Generator().manual_seed(11), device="cpu", dtype=torch.float32)
+    cpu = CausalLM(cfg, params, dtype=torch.float32)
+    gpu = CausalLM(cfg, {k: _to(v, dev) for k, v in params.items()}, dtype=torch.float32)
+    for kind in attention_block.plain_routes:
+        attention_block.plain_routes[kind] = 0
+    kernels.reset_launch_counts()
+    gen = torch.Generator().manual_seed(5)
+    steps = [(torch.randint(1, 500, (2, 20), generator=gen), 0, False),
+             (torch.randint(1, 500, (2, 12), generator=gen), 20, True),
+             (torch.randint(1, 500, (2, 1), generator=gen), 32, True)]
+    hidden = []
+    for lm in (cpu, gpu):
+        cache = make_cache(cfg, 2, 48, torch.float32, device=lm.device)
+        hs = []
+        for toks, start, read in steps:
+            pos = torch.full((2,), start, dtype=torch.int32, device=lm.device) \
+                if toks.shape[1] == 1 else start
+            h, cache = forward_hidden(cfg, lm.params, toks.to(lm.device, torch.int32), cache, pos,
+                                      lm.rope, read_cache=read)
+            hs.append(h.cpu())
+        hidden.append(hs)
+    for h_cpu, h_gpu in zip(*hidden):
+        torch.testing.assert_close(h_gpu, h_cpu, rtol=1e-4, atol=1e-4)
+    assert {k for k, n in attention_block.plain_routes.items() if n} == kinds
+    counts = kernels.launch_counts()
+    assert counts["fp_decode_attention"] == 0  # every decode of these heads is routed
+    assert (counts["flash_attention_causal"] > 0) == ("prefill" not in kinds)
+    prompt = list(range(3, 60, 2))
+    gen_cfg = GenerationConfig.greedy(16)
+    assert gpu.generate(prompt, gen_cfg) == cpu.generate(prompt, gen_cfg)
+    assert _engine_tokens(cpu) == _engine_tokens(gpu)
+    q = torch.zeros(1, 1, cfg.num_heads, cfg.head_dim, device=dev)
+    kv = torch.zeros(1, 4, cfg.num_kv_heads, cfg.head_dim, device=dev)
+    with pytest.raises(ValueError):
+        k1.fp_decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device=dev), scale=0.1)
