@@ -12,7 +12,8 @@ requests are token ids. Phases, each reported on its own line:
 2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``,
    and log the compiled form of each bf16 tensor-core instance (registers,
    spill bytes, shared memory): K2/K3 and K5 at each head dim, K6 at each
-   output tile;
+   output tile; and of every split-KV decode instance (K1, K4 kv8/kv4 at
+   each dtype, head dim and group);
 3. kernels: K1 (decode), K2 (fresh prefill), K3 (continuation), K4
    (quantized decode), K5 (quantized continuation), K6 (quantized-weight
    matmul) and K7 (the GDN scan) against their plain PyTorch versions on
@@ -25,7 +26,11 @@ requests are token ids. Phases, each reported on its own line:
    K5 beside K3 in bf16 on the same chunk. Ragged cases (a two-row
    300-token prefill, a two-row chunk at other offsets past the buffer's
    end) join K2/K3's checks, and their float32 route (the CUDA-core
-   kernel) is checked and timed beside them;
+   kernel) is checked and timed beside them. One stream at a long
+   context: K1, K4 (kv8, kv4) and K1-S/K4-S over one row of 16,000 live
+   tokens in a 16,384-slot cache, where the decode kernels split each
+   kv-head's range over many blocks (the split count is logged), with a
+   window across the splits;
    routes: a tiny model with head_dim 96 and one with 16 query heads on one
    kv-head, whose attention the kernels do not take, run prefill, a chunk
    and decode on the card through the plain versions (counted in
@@ -69,16 +74,19 @@ requests are token ids. Phases, each reported on its own line:
    never were; the decode step's time beside the unsharded one.
 
 Every model path (dense, quantized, hybrid, sp) must route no attention
-call to a plain version. ``[profile]`` lines split a chunk's and a
-prefill's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
-elementwise, reduce, index) and name the largest kernels.
+call to a plain version. ``[profile]`` lines split a chunk's, a prefill's
+and a decode step's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
+elementwise, reduce, index) and name the largest kernels; the decode steps
+(bf16 and w4 kv4 at B=1 and B=8 after 300 tokens, and B=1 after 16,000)
+also give their wall time on the host clock.
 
 Every kernel row carries its time beside its plain version's, the library
 call's where one PyTorch call computes the same function
-(``F.scaled_dot_product_attention`` for K1-K3, ``torch._weight_int8pack_mm``
-for K6 w8 and ``torch._weight_int4pack_mm`` for w4, each where the build
-has it and it agrees with the plain version) with ``ms_over_library``, and
-its bound:
+(``F.scaled_dot_product_attention`` for K1-K3,
+``aten._scaled_dot_product_efficient_attention`` with its log-sum-exp for
+K1-S and K3-S, ``torch._weight_int8pack_mm`` for K6 w8 and
+``torch._weight_int4pack_mm`` for w4, each where the build has it and it
+agrees with the plain version) with ``ms_over_library``, and its bound:
 the least time for the bytes it must move at 3.35 TB/s or its operations at
 the peak of their type, whichever is larger. K3-S's row also carries its
 no-stats launch's time on the same inputs.
@@ -97,13 +105,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(HERE, "crane_tpu_torch")):
+    sys.exit("chip_smoke.py runs from the root of a crane-tpu checkout")
+sys.path.insert(0, HERE)
 
-# bf16 tolerance of a kernel against its plain version on the same inputs:
-# both round the output to bf16 (at most half an ulp each, 2**-9 relative)
-# and sum in float32 in other orders, so |kernel - plain| <= ATOL + RTOL*|plain|
-# with RTOL two bf16 ulps and ATOL for outputs near zero.
-KERNEL_RTOL = 2.0 ** -6
-KERNEL_ATOL = 1e-3
+# the kernel bound: a bf16 kernel against its plain version on the same inputs
+from crane_tpu_torch.ops.cuda.build import KERNEL_ATOL, KERNEL_RTOL  # noqa: E402
 
 # a float32 kernel against its plain version: the same float32 sums in
 # another order, with __expf (as tests/test_torch_cuda.py holds them)
@@ -150,6 +157,11 @@ SP_TIE = 1e-3
 # the tensor cores; float32 outside them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+# the source of K4's instances at each cache bit width (the C entries are in
+# the int8 one)
+K4_SOURCE = {8: "quant_decode_attention.cu", 4: "quant_decode_attention_int4.cu"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -520,7 +532,7 @@ def check_quant_kernels() -> list[dict]:
                     chunk_errs.append(compare(f"K5 kv{bits} D={D} offset={off} {label}", got, ref))
             if D == 256:
                 rows.append(timed_row(
-                    f"quant_decode_attention[kv{bits}]" + D256, "quant_decode_attention.cu",
+                    f"quant_decode_attention[kv{bits}]" + D256, K4_SOURCE[bits],
                     "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
                     lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits,
                                                        scale=D ** -0.5),
@@ -539,7 +551,7 @@ def check_quant_kernels() -> list[dict]:
                     chunk_work(qc, Hkv, 2048, pos, bits)))
                 k3_yardstick(rows[-1], qc, row_ops, kf[3:4], vf[3:4], pos, bits)
         rows.append(timed_row(
-            f"quant_decode_attention[kv{bits}]", "quant_decode_attention.cu",
+            f"quant_decode_attention[kv{bits}]", K4_SOURCE[bits],
             "crane_tpu/ops/pallas/quant_attention.py:367", dec_errs,
             lambda: k45.quant_decode_attention(qd, *ops, valid, bits=bits, scale=D ** -0.5),
             lambda: k45.quant_decode_attention_plain(qd, *ops, valid, bits=bits, scale=D ** -0.5),
@@ -776,6 +788,105 @@ def check_d256_kernels() -> list[dict]:
                           "B=8 T=2048 ragged kv_valid, Hq=8 Hkv=2 D=256",
                           decode_work(qd, Hkv, valid),
                           lambda: sdpa(qd, kc, vc, mask=decode_mask(valid, 2048))))
+    return rows
+
+
+# the one-stream decode rows: one row of 16,000 live tokens in a 16,384-slot
+# cache (the split route); each row's name carries this suffix, and
+# read_launches reads the wrapper's count on the row's path
+LONG = "[B1-16K]"
+LONG_T, LONG_LIVE = 16384, 16000
+
+
+def check_long_decode() -> dict[str, list[dict]]:
+    """Phase 3, one stream at a long context: K1 (Qwen3-0.6B's 16/8 heads of
+    128 and Qwen3.5-0.8B's 8/2 of 256), K4 (kv8, kv4, at both) and K1-S/K4-S
+    (16/8 heads) in bf16 over one row of LONG_LIVE live tokens in a
+    LONG_T-slot cache, where the decode kernels split each kv-head's range
+    over many blocks (decode_splits, logged); a window of 1000 across the
+    splits is checked too. Each against its plain version (K4 on the same
+    codes in float32), timed beside it and, for K1, SDPA (K1-S: the
+    efficient-attention call with its log-sum-exp, stats_library). Returns
+    the JSON rows by the path whose launches they read: dense (K1 at 128),
+    hybrid (K1 at 256), quantized (K4) and sp (the -S forms)."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+    from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(16000)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = {"dense": [], "hybrid": [], "quantized": [], "sp": []}
+    valid = torch.tensor([LONG_LIVE], dtype=torch.int32, device="cuda")
+    for D, Hq, Hkv in ((128, 16, 8), (256, 8, 2)):
+        scale = D ** -0.5
+        d256 = D256 if D == 256 else ""
+        shape = f"B=1 T={LONG_T} live {LONG_LIVE}, Hq={Hq} Hkv={Hkv} D={D}"
+        q, k, v = rnd(1, 1, Hq, D), rnd(1, LONG_T, Hkv, D), rnd(1, LONG_T, Hkv, D)
+        splits = {bits: k1.decode_split_count(q, Hkv, LONG_T, bits) for bits in (16, 8, 4)}
+        if min(splits.values()) <= 1:
+            raise AssertionError(f"{shape}: the decode kernels did not split ({splits})")
+        log("kernels", f"{shape}: n_split by cache bits {json.dumps(splits)} on "
+                       f"{k1.sm_count(0)} SMs (Hkv = {Hkv} blocks a split)")
+        errs = [compare(f"K1 {shape}{label}",
+                        k1.fp_decode_attention(q, k, v, valid, scale=scale, **kw),
+                        k1.fp_decode_attention_plain(q, k, v, valid, scale=scale, **kw))
+                for label, kw in (("", {}), (" window=1000", {"window": 1000}))]
+        rows["dense" if D == 128 else "hybrid"].append(timed_row(
+            "fp_decode_attention" + d256 + LONG, "decode_attention.cu",
+            "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+            lambda: k1.fp_decode_attention(q, k, v, valid, scale=scale),
+            lambda: k1.fp_decode_attention_plain(q, k, v, valid, scale=scale), shape,
+            decode_work(q, Hkv, valid), lambda: sdpa(q, k, v, mask=decode_mask(valid, LONG_T))))
+        if D == 128:
+            got = k1.fp_decode_attention_with_stats(q, k, v, valid, scale=scale)
+            ref = k1.fp_decode_attention_with_stats_plain(q, k, v, valid, scale=scale)
+            err = check_with_stats(f"K1-S {shape}", got, ref,
+                                   k1.fp_decode_attention(q, k, v, valid, scale=scale))
+            visible = (torch.arange(LONG_T, device="cuda")[None] < valid[:, None])[:, None]
+            rows["sp"].append(timed_row(
+                "fp_decode_attention_with_stats" + LONG, "decode_attention.cu",
+                "crane_tpu/ops/pallas/quant_attention.py:266", [err],
+                lambda: k1.fp_decode_attention_with_stats(q, k, v, valid, scale=scale),
+                lambda: k1.fp_decode_attention_with_stats_plain(q, k, v, valid, scale=scale),
+                shape, decode_work(q, Hkv, valid, stats=True),
+                stats_library(f"K1-S {shape}", q, k, v, visible, ref)))
+        for bits in (8, 4):
+            cache = QuantLayerKVCache.empty(1, LONG_T, Hkv, D, bits=bits, device="cuda")
+            cache.update(k, v, 0)
+            ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+            errs = [compare(f"K4 kv{bits} {shape}{label}",
+                            k45.quant_decode_attention(q, *ops, valid, bits=bits, scale=scale,
+                                                       **kw),
+                            k45.quant_decode_attention_plain(q.float(), *ops, valid, bits=bits,
+                                                             scale=scale, **kw))
+                    for label, kw in (("", {}), (" window=1000", {"window": 1000}))]
+            rows["quantized"].append(timed_row(
+                f"quant_decode_attention[kv{bits}]" + d256 + LONG, K4_SOURCE[bits],
+                "crane_tpu/ops/pallas/quant_attention.py:367", errs,
+                lambda: k45.quant_decode_attention(q, *ops, valid, bits=bits, scale=scale),
+                lambda: k45.quant_decode_attention_plain(q, *ops, valid, bits=bits, scale=scale),
+                shape, decode_work(q, Hkv, valid, bits)))
+            if D == 128:
+                got = k45.quant_decode_attention_with_stats(q, *ops, valid, bits=bits,
+                                                            scale=scale)
+                ref = k45.quant_decode_attention_with_stats_plain(q.float(), *ops, valid,
+                                                                  bits=bits, scale=scale)
+                err = check_with_stats(f"K4-S kv{bits} {shape}", got, ref,
+                                       k45.quant_decode_attention(q, *ops, valid, bits=bits,
+                                                                  scale=scale))
+                rows["sp"].append(timed_row(
+                    f"quant_decode_attention_with_stats[kv{bits}]" + LONG,
+                    K4_SOURCE[bits], "crane_tpu/ops/pallas/quant_attention.py:367",
+                    [err], lambda: k45.quant_decode_attention_with_stats(
+                        q, *ops, valid, bits=bits, scale=scale),
+                    lambda: k45.quant_decode_attention_with_stats_plain(
+                        q, *ops, valid, bits=bits, scale=scale),
+                    shape, decode_work(q, Hkv, valid, bits, stats=True)))
     return rows
 
 
@@ -1231,7 +1342,7 @@ def check_stats_kernels() -> list[dict]:
             ops, plain_q = (cache.k, cache.v, cache.k_scale, cache.v_scale), (lambda q: q.float())
             names = (f"quant_decode_attention_with_stats[kv{bits}]",
                      f"quant_cached_attention_with_stats[kv{bits}]")
-            srcs = ("quant_decode_attention.cu", "quant_cached_attention_mma.cu")
+            srcs = (K4_SOURCE[bits], "quant_cached_attention_mma.cu")
             lines = ("367", "647")
         row_ops = tuple(None if t is None else t[3:4] for t in ops)
 
@@ -1241,11 +1352,15 @@ def check_stats_kernels() -> list[dict]:
         ref = plain_with_stats(True, bits, plain_q(qd), ops, valid, scale)
         errs = [check_with_stats(f"{names[0]} B=8 T=4096", dec_kernel(), ref,
                                  no_stats_kernel(True, bits, qd, ops, valid, scale))]
+        library = None
+        if bits == 16:
+            visible = (torch.arange(T, device="cuda")[None] < valid[:, None])[:, None]
+            library = stats_library(names[0], qd, k, v, visible, ref)
         rows.append(timed_row(
             names[0], srcs[0], f"crane_tpu/ops/pallas/quant_attention.py:{lines[0]}", errs,
             dec_kernel, lambda: plain_with_stats(True, bits, plain_q(qd), ops, valid, scale),
             "B=8 slab T=4096, local lengths 0..4096, Hq=16 Hkv=8 D=128",
-            decode_work(qd, Hkv, valid, bits, stats=True)))
+            decode_work(qd, Hkv, valid, bits, stats=True), library))
 
         errs = []
         for start in CHUNK_STARTS:
@@ -1259,11 +1374,16 @@ def check_stats_kernels() -> list[dict]:
         def chunk_kernel():
             return k45.cached_attention_with_stats(qc, *row_ops, pos, bits=bits, scale=scale)
 
+        library = None
+        if bits == 16:
+            visible = torch.arange(T, device="cuda")[None, None] <= pos.clamp(max=T - 1)[..., None]
+            library = stats_library(names[1], qc, k[3:4], v[3:4], visible,
+                                    plain_with_stats(False, bits, qc, row_ops, pos, scale))
         rows.append(timed_row(
             names[1], srcs[1], f"crane_tpu/ops/pallas/quant_attention.py:{lines[1]}", errs,
             chunk_kernel, lambda: plain_with_stats(False, bits, plain_q(qc), row_ops, pos, scale),
             "B=1 S=256 at slab-local 1000, slab T=4096, Hq=16 Hkv=8 D=128",
-            chunk_work(qc, Hkv, T, pos, bits, stats=True)))
+            chunk_work(qc, Hkv, T, pos, bits, stats=True), library))
         # the stats' cost: the with-stats launch against its no-stats launch on
         # the same inputs, in alternating pairs, the median of each
         with_ms, without_ms = [], []
@@ -1278,6 +1398,58 @@ def check_stats_kernels() -> list[dict]:
         log("kernels", f"{names[1]}: {stats_ms:.4f} ms vs its no-stats launch {no_stats_ms:.4f} "
                        f"ms on the same inputs (medians of {STATS_PAIRS} alternating pairs)")
     return rows
+
+
+# the library's log-sum-exp against the plain m + log l of a with-stats
+# kernel: both float32 over the same bf16 logits, summed in other orders
+LSE_RTOL = 1e-4
+LSE_ATOL = 1e-4
+
+
+def stats_library(label, q, k, v, visible, ref):
+    """The library yardstick of K1-S and K3-S (timed only, never used by
+    the port): ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp=True``, whose log-sum-exp is m + log l. The G query
+    heads of a kv-head enter as G * S query rows of that head (q reordered
+    once, outside the timing), so K/V are views, never copied; ``visible
+    [B, S, T]`` becomes an additive mask. Returns the call where its output
+    and log-sum-exp agree with the plain with-stats ``ref`` (out to the
+    kernel bound and the log-sum-exp to LSE_ATOL + LSE_RTOL |ref| where a
+    row saw a slot; the library gives no defined result for a row that saw
+    none), else None, logged with the reason."""
+    import torch
+
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, D).permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * G, D)
+    bias = torch.zeros(B, 1, S, T, dtype=q.dtype, device=q.device)
+    bias = bias.masked_fill(~visible[:, None], -torch.inf).repeat_interleave(G, dim=2)
+    bias = bias.expand(B, Hkv, S * G, T)
+
+    def fn():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qg, k.transpose(1, 2), v.transpose(1, 2), bias, True, scale=D ** -0.5)
+
+    try:
+        out, lse = fn()[:2]
+        out = out.reshape(B, Hkv, S, G, D).permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
+        lse = lse[:, :, :S * G].reshape(B, Hkv, S, G).permute(0, 1, 3, 2).reshape(B, Hq, S)
+        r_out, r_m, r_l = ref
+        r_m, r_l = (x.reshape(B, Hq, S) for x in (r_m, r_l))
+        seen = r_l > 0
+        rows_seen = seen.transpose(1, 2)  # [B, S, Hq]
+        err = compare(f"{label} library out", out[rows_seen], r_out[rows_seen])
+        compare(f"{label} library log-sum-exp", lse[seen], (r_m + torch.log(r_l))[seen],
+                rtol=LSE_RTOL, atol=LSE_ATOL)
+    except (AssertionError, RuntimeError) as e:
+        log("kernels", f"{label}: _scaled_dot_product_efficient_attention does not give the same "
+                       f"function here ({e}); no library time")
+        return None
+    log("kernels", f"{label}: _scaled_dot_product_efficient_attention with compute_log_sumexp "
+                   f"gives the same out (max|err| {err:.3g}) and m + log l on the rows that saw "
+                   f"a slot")
+    return fn
 
 
 # alternating pairs timing a with-stats launch against its no-stats launch
@@ -1463,14 +1635,53 @@ def launches_per(model, label, kv_bits=None) -> None:
                   lambda: model.prefill(cache, [ids[:256]], [256], start=513))
 
 
+def log_decode_steps(model, label, kv_bits=None) -> None:
+    """[profile] lines of a decode step: its kernels' device time by family
+    (log_device_ms) and its wall time on the host clock (the mean of 8
+    steps after a synchronize), at B=1 and B=8 after a 300-token prefill
+    into 2048-slot rows, and at B=1 after LONG_LIVE tokens in a LONG_T-slot
+    row, where the decode kernels split."""
+    import torch
+
+    from crane_tpu_torch.ops.sampling import SamplingParams
+
+    dev = model.device
+    for B, T, ctx in ((1, 2048, 300), (8, 2048, 300), (1, LONG_T, LONG_LIVE)):
+        ids = [i % model.config.vocab_size for i in range(1, ctx + 1)]
+        _, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), [ids] * B, [ctx] * B)
+        tokens = torch.ones(B, dtype=torch.int32, device=dev)
+        recent = torch.full((B, 8), -1, dtype=torch.int32, device=dev)
+        sp = SamplingParams.make(B, do_sample=False, device=dev)
+        gen = torch.Generator(device=dev)
+        state = [cache]
+
+        def step():
+            _, state[0], _ = model.decode_steps(state[0], tokens, recent, sp, gen, 1)
+
+        what = f"a decode step at B={B} after {ctx} tokens in {T}-slot rows"
+        families = log_device_ms(label, what, step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 8 * 1e3
+        busy = sum(families.values())
+        idle = f", device idle {1 - busy / wall:.1%}" if busy else ""
+        log("profile", f"{label}, {what}: {wall:.3f} ms a step on the host clock{idle}; "
+                       f"K1 + K4 {families.get('K1', 0.0) + families.get('K4', 0.0):.4f} ms of "
+                       f"{busy:.4f} ms kernel time")
+        del state, cache
+
+
 # device kernels by family, the first match of a name's words (the port's
 # kernels by their __global__ names; the rest PyTorch's own kernels)
 KERNEL_FAMILIES = (
     ("K6", ("quant_matmul",)),
     ("K5", ("quant_cached", "QuantTiles")),
-    ("K4", ("quant_decode",)),
+    ("K4", ("quant_decode", "QuantRows")),
     ("K2/K3", ("flash_attention", "flash_mma")),
-    ("K1", ("decode_attention",)),
+    ("K1", ("decode_attention", "FpRows")),
     ("K7", ("gdn_scan",)),
     ("cuBLAS", ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")),
     ("aten copy", ("copy", "Copy")),
@@ -1625,6 +1836,35 @@ def log_build_info() -> None:
     for tile, (rows, cols) in enumerate(MMA_TILES):
         for bits in (8, 4):
             line(f"K6 w{bits} at a {rows} x {cols} output tile", k6_info(tile, bits))
+    log_decode_build_info()
+
+
+def log_decode_build_info() -> None:
+    """The [build] lines of the split-KV decode kernels: for K1 and K4 (kv8,
+    kv4) at each dtype and head dim, the registers of the instances at
+    G = 1..8, their largest local (spill) bytes and shared memory."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+
+    spills = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in k1.HEAD_DIMS:
+            for bits in (16, 8, 4):
+                infos = [k1.kernel_info(dtype, D, G) if bits == 16 else
+                         k45.decode_kernel_info(dtype, bits, D, G)
+                         for G in range(1, k1.MAX_GROUP + 1)]
+                name = "K1" if bits == 16 else f"K4 kv{bits}"
+                local = max(i["local_bytes"] for i in infos)
+                if local:
+                    spills.append(f"{name} {dtype} D={D}")
+                log("build", f"{name} {str(dtype).removeprefix('torch.')} at head_dim {D}: "
+                             f"registers at G=1..8 {[i['registers'] for i in infos]}, local "
+                             f"(spill) bytes at most {local}, shared memory "
+                             f"{[i['smem_bytes'] for i in infos]} bytes, "
+                             f"{infos[0]['threads']} threads a block")
+    log("build", f"decode instances that spill: {spills or 'none'}")
 
 
 def reset_counts() -> None:
@@ -1737,16 +1977,13 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     never launched."""
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
-        row["launches"] = counts[row["name"].removesuffix(D256).removesuffix(M256)]
+        row["launches"] = counts[row["name"].removesuffix(LONG).removesuffix(D256)
+                                 .removesuffix(M256)]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched by the {path}")
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "crane_tpu_torch")):
-        print("chip_smoke.py runs from the root of a crane-tpu checkout", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
     import torch
 
     if not torch.cuda.is_available():
@@ -1773,6 +2010,10 @@ def main() -> int:
     rows = check_kernels()
     quant_rows = check_quant_kernels()
     hybrid_rows = check_d256_kernels() + [check_gdn_kernel()]
+    long_rows = check_long_decode()
+    rows += long_rows["dense"]
+    quant_rows += long_rows["quantized"]
+    hybrid_rows += long_rows["hybrid"]
     check_routed_configs()
 
     # the dense main path: bf16 generation and serving (K1, K2, K3)
@@ -1781,6 +2022,7 @@ def main() -> int:
     check_engine(lm)
     read_launches("dense path", rows, kernels.launch_counts())
     no_plain_routes("dense path")
+    log_decode_steps(lm, "Qwen3-0.6B bf16")
 
     # the quantized main path: int4 and int8 ISQ weights on int8 and int4
     # KV caches (K2 for fresh prefills, K4, K5 and K6 at each bit width)
@@ -1800,8 +2042,10 @@ def main() -> int:
     no_plain_routes("quantized path")
     launches_per(lm8, "Qwen3-0.6B w8", kv_bits=8)
     del lm8
-    launches_per(CausalLM(lm.config, params4, dtype=torch.bfloat16), "Qwen3-0.6B w4", kv_bits=4)
-    del params4
+    lm4 = CausalLM(lm.config, params4, dtype=torch.bfloat16)
+    launches_per(lm4, "Qwen3-0.6B w4", kv_bits=4)
+    log_decode_steps(lm4, "Qwen3-0.6B w4 kv4", kv_bits=4)
+    del params4, lm4
 
     # the hybrid main path: Qwen3.5-0.8B generation and serving (K1, K2, K3
     # at head_dim 256; K7 for every GDN prefill and continuation chunk)
@@ -1815,7 +2059,7 @@ def main() -> int:
 
     # the sequence-parallel main path: Qwen3-0.6B in four slabs on the card
     # (K2 for fresh prompts; K1-S, K3-S, K4-S and K5-S over the slabs)
-    sp_rows = check_stats_kernels()
+    sp_rows = check_stats_kernels() + long_rows["sp"]
     t_sp = time.perf_counter()
     reset_counts()
     check_sp(lm, sp_rows)

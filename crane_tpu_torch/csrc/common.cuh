@@ -1,14 +1,15 @@
 // Helpers shared by the kernels: element conversion between the storage
 // types (float32, bfloat16) and the float32 the kernels compute in, the
 // int8 / packed-int4 code arithmetic, the head-dim tiling of the prefill
-// and decode kernels, and the cross-warp softmax merge of the decode
-// kernels.
+// kernels, and the log-sum-exp merge of the split-KV decode kernels.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace crane {
 
@@ -50,25 +51,6 @@ __device__ __forceinline__ int int4_lo(int byte) {
   return byte - 16 * int4_hi(byte);
 }
 
-// N (1, 2, 4 or 8) consecutive bytes as the low bytes of (N + 3) / 4
-// words; p is N-aligned.
-template <int N>
-__device__ __forceinline__ void load_bytes(const int8_t* p,
-                                           uint32_t (&w)[(N + 3) / 4]) {
-  static_assert(N == 1 || N == 2 || N == 4 || N == 8, "1, 2, 4 or 8 bytes");
-  if constexpr (N == 8) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-  } else if constexpr (N == 4) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else if constexpr (N == 2) {
-    w[0] = *reinterpret_cast<const uint16_t*>(p);
-  } else {
-    w[0] = *reinterpret_cast<const uint8_t*>(p);
-  }
-}
-
 // The head-dim policy of the prefill kernels (K2, K3, K5): a block owns
 // kBlockQ query rows, kTPR threads share a row (each owning the dims c,
 // c + kTPR, ...) and kBlockK keys are staged per tile. Up to D = 128 that
@@ -83,83 +65,92 @@ struct RowTile {
   static constexpr int kThreads = kBlockQ * kTPR;
 };
 
-// Tokens a decode warp (K1, K4) has in flight: 4, or 2 at D = 256, where a
-// lane already holds 8 dims of q and of the accumulator per head.
-template <int D>
-__host__ __device__ constexpr int decode_unroll() {
-  return D > 128 ? 2 : 4;
-}
-
-// Dynamic shared memory of a decode kernel's cross-warp merge: m and l
-// [kWarps][G] and acc [kWarps][G][D], float32. At D = 256 and G >= 6 this
-// passes the 48 KB a block gets without opting in.
-template <int G, int D, int kWarps>
-constexpr size_t merge_smem_bytes() {
-  return sizeof(float) * kWarps * G * (D + 2);
-}
-
-// Opt a kernel into `bytes` of dynamic shared memory when that passes the
-// default 48 KB (a refusal shows in cudaGetLastError, as a failed launch).
+// Opt a kernel into `bytes` of dynamic shared memory when that, with up to
+// 1 KB of static shared memory beside it, may pass the default 48 KB (a
+// refusal shows in cudaGetLastError, as a failed launch).
 template <typename Kernel>
 inline void allow_dynamic_smem(Kernel kernel, size_t bytes) {
-  if (bytes > 48 * 1024)
+  if (bytes + 1024 > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(bytes));
 }
 
-// The end of a decode kernel: kWarps warps each hold a partial online
-// softmax state (max m, sum l, unnormalised output acc) for the G query
-// heads of one (row, kv-head). Each warp stores its state into the dynamic
-// shared memory `smem` (merge_smem_bytes), then the block merges them and
-// writes out[g * D + d]; acc_at(e) is the head dim of the lane's e-th
-// value. A head no warp saw (every m = -inf: an empty row) writes zeros.
-// With stats (m_out, l_out non-null, the with-stats form) the merged
-// running max M and sum L of head g go to m_out[g] and l_out[g]: M in
-// natural-log units of the scaled, softcapped logits, L = sum exp(s - M).
-// An empty head keeps M = -INFINITY (the TPU kernel writes -1e30) and
-// L = 0; a merge across slabs weighs it by l > 0 ? ... : 0, never by M.
-template <typename T, int G, int D, int E, int kWarps, typename DimOf>
-__device__ __forceinline__ void merge_warp_states(
-    float* smem, const float (&m)[G], const float (&l)[G],
-    const float (&acc)[G][E], DimOf acc_at, T* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out) {
-  float(&sm_m)[kWarps][G] = *reinterpret_cast<float(*)[kWarps][G]>(smem);
-  float(&sm_l)[kWarps][G] =
-      *reinterpret_cast<float(*)[kWarps][G]>(smem + kWarps * G);
-  float(&sm_acc)[kWarps][G][D] =
-      *reinterpret_cast<float(*)[kWarps][G][D]>(smem + 2 * kWarps * G);
+// allow_dynamic_smem once per device for a kernel launched on the host's
+// hot path: `devices` (one per kernel) holds a bit for each device the
+// attribute is set on, which lasts for the process.
+template <typename Kernel>
+inline void allow_dynamic_smem_once(Kernel kernel, size_t bytes, std::atomic<uint64_t>& devices) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit != 0 && (devices.load(std::memory_order_relaxed) & bit)) return;
+  allow_dynamic_smem(kernel, bytes);
+  devices.fetch_or(bit, std::memory_order_relaxed);
+}
+
+// The log-sum-exp combine of the split-KV decode kernels (as
+// parallel/sequence.py merge_partials combines slabs), by one block of at
+// least 32 * G threads: head g's n partial states are max m[g * n + s], sum
+// l[g * n + s] and unnormalised output acc[(g * n + s) * D + d], float32.
+// With M = max_s m and c_s = exp(m_s - M), out[g * D + d] = sum_s acc_s c_s
+// / L, L = sum_s l_s c_s. A part that saw no key (m = -inf, l = 0, acc = 0)
+// weighs 0; a head no part saw writes 0, and with stats (m_out non-null)
+// M = -inf and L = 0 to m_out[g] and l_out[g]. Warp g finds head g's M, L
+// and weights c_s (into smem: G * (n + 2) floats), then every thread sums
+// the parts of four (head, dim)s in split order. The parts are read through
+// L2 (__ldcg): other blocks wrote them during this launch.
+template <typename T>
+__device__ void merge_split_states(const float* acc, const float* m, const float* l, int n,
+                                   int G, int D, T* out, float* m_out, float* l_out,
+                                   float* smem) {
+  float* sm_M = smem;
+  float* sm_L = smem + G;
+  float* weight = smem + 2 * G;  // [G][n]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  if (warp < G) {
+    const float* mg = m + warp * n;
+    float M = -INFINITY;
+    for (int s = lane; s < n; s += 32) M = fmaxf(M, __ldcg(mg + s));
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float L = 0.f;
+    for (int s = lane; s < n; s += 32) {
+      const float c = M == -INFINITY ? 0.f : __expf(__ldcg(mg + s) - M);
+      weight[warp * n + s] = c;
+      L += __ldcg(l + warp * n + s) * c;
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][g][acc_at(e)] = acc[g][e];
+    for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
+    if (lane == 0) {
+      sm_M[warp] = M;
+      sm_L[warp] = L;
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += kWarps * 32) {
+  // four dims a thread, one 16-byte load a part (D is a multiple of 4 and
+  // acc 16-byte aligned)
+  for (int i = 4 * threadIdx.x; i < G * D; i += 4 * blockDim.x) {
     const int g = i / D;
-    const int d = i % D;
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float res = 0.f, L = 0.f;
-    if (M != -INFINITY) {
-      float A = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float c = __expf(sm_m[w][g] - M);  // 0 for an idle warp
-        L += sm_l[w][g] * c;
-        A += sm_acc[w][g][d] * c;
-      }
-      res = A / L;
+    const float4* a = reinterpret_cast<const float4*>(acc + (size_t)g * n * D + i % D);
+    const float* w = weight + g * n;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int s = 0; s < n; ++s) {
+      const float4 x = __ldcg(a + (size_t)s * (D / 4));
+      A.x += x.x * w[s];
+      A.y += x.y * w[s];
+      A.z += x.z * w[s];
+      A.w += x.w * w[s];
     }
-    out[g * D + d] = from_float<T>(res);
-    if (m_out != nullptr && d == 0) {
-      m_out[g] = M;
+    const bool empty = sm_M[g] == -INFINITY;
+    const float L = sm_L[g];
+    out[i] = from_float<T>(empty ? 0.f : A.x / L);
+    out[i + 1] = from_float<T>(empty ? 0.f : A.y / L);
+    out[i + 2] = from_float<T>(empty ? 0.f : A.z / L);
+    out[i + 3] = from_float<T>(empty ? 0.f : A.w / L);
+    if (m_out != nullptr && i % D == 0) {
+      m_out[g] = sm_M[g];
       l_out[g] = L;
     }
   }

@@ -1,6 +1,6 @@
-"""Same-call A/B of the port's kernels on one card, in device time.
+"""Same-call A/B of the port's kernels and decode step on one card.
 
-    python -m crane_tpu_torch.ops.cuda.ab [--other DIR] [--json PATH]
+    python -m crane_tpu_torch.ops.cuda.ab [--other DIR] [--only CASES] [--json PATH]
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
 It compiles the kernels it compares into small libraries of their own
@@ -18,19 +18,36 @@ of each side and their ratio.
 - With ``--other DIR`` (another checkout, such as the parent commit
   unpacked with ``git archive`` into a directory ``.gitignore`` lists): K2
   and K3 in bf16 and K5 in bf16 (kv8, kv4) at the main path's shapes, that
-  checkout's kernels against this one's.
+  checkout's kernels against this one's; and the decode kernels K1, K4
+  (kv8, kv4) and their with-stats forms in bf16 at the decode shapes (8
+  ragged rows of a 2048-slot cache, one row of 16,000 live tokens in a
+  16,384-slot cache without and with stats, 8 rows of a 4096-token sp slab
+  with stats), each also split (``decode_splits``) against one block per
+  (row, kv-head), and the split count the wrapper takes against half, one
+  more and twice as many. Each decode call is first held to the kernel
+  bound against its plain version.
+- With ``--other DIR``, the wall time of a decode step of full-width
+  Qwen3-0.6B (random weights from a seed, bf16 and w4 kv4, B=1 and B=8
+  after a 300-token prefill into 2048-slot rows) on the host clock: one
+  process per run, each importing one checkout's package, in turns other,
+  this, this, other, ... (STEP_SCRIPT). The host sets the pace of a decode
+  step, so this is where a wrapper's host work shows.
 
-``--json PATH`` also writes every case as ``[label, ms_a, ms_b]``.
+``--only`` takes a comma-separated subset of ``k6,attention,decode,step``
+(default all; the last three need ``--other``). ``--json PATH`` also writes
+every case as ``[label, ms_a, ms_b]``.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import torch
@@ -47,6 +64,22 @@ LINEAR_SHAPES = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 
 K6_ROWS = (1, 4, 8, 16, 64, 256)
 # (D, Hq, Hkv): Qwen3-0.6B's heads, Qwen3.5-0.8B's, and head dim 64
 HEADS = ((64, 16, 8), (128, 16, 8), (256, 8, 2))
+# the decode cases: (label, B, T, kv_valid, with stats); each at Qwen3-0.6B's
+# and Qwen3.5-0.8B's heads (the sp slab at Qwen3-0.6B's only)
+DECODE_SHAPES = (
+    ("B=8 T=2048 ragged", 8, 2048, (0, 1, 17, 300, 1000, 1500, 2047, 2048), False),
+    ("B=1 T=16384 live 16000", 1, 16384, (16000,), False),
+    ("B=1 T=16384 live 16000 with stats", 1, 16384, (16000,), True),
+    ("B=8 sp slab T=4096 with stats", 8, 4096, (0, 1, 17, 300, 1000, 2048, 4095, 4096), True),
+)
+# the decode C entries before the split-KV redesign took no scratch and no
+# n_split (a checkout whose csrc/decode_attention.cu has no "n_split")
+OLD_DECODE_SIGNATURES = {
+    "crane_decode_attention": [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "crane_quant_decode_attention": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+}
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -78,15 +111,14 @@ def ab_ms(a, b) -> tuple[float, float]:
 
 def _library(tag: str, csrc: Path, sources: tuple[str, ...], edit=None):
     """Start compiling ``sources`` of ``csrc`` (with the headers beside
-    them; ``edit`` maps a file name to a (pattern, replacement) regular
-    expression substitution) into ``build/ab/<tag>/lib.so``. Returns
+    them; ``edit`` maps a source or header name to a (pattern, replacement)
+    regular expression substitution) into ``build/ab/<tag>/lib.so``, a path
+    of its own per checkout (a process loads a path once). Returns
     (process, library path)."""
     d = AB_DIR / tag
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    for f in csrc.glob("*.cuh"):
-        shutil.copy(f, d)
-    for name in sources:
+    for name in [f.name for f in csrc.glob("*.cuh")] + list(sources):
         text = (csrc / name).read_text()
         if edit and name in edit:
             text, n = re.subn(*edit[name], text)
@@ -99,9 +131,9 @@ def _library(tag: str, csrc: Path, sources: tuple[str, ...], edit=None):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
 
 
-def _entry(path: Path, name: str):
+def _entry(path: Path, name: str, signatures=build.SIGNATURES):
     fn = getattr(ctypes.CDLL(str(path)), name)
-    fn.argtypes = build.SIGNATURES[name]
+    fn.argtypes = signatures[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -183,11 +215,193 @@ def attention_vs_other(lib_other: Path, lib_this: Path, gen, log, results) -> No
             log(results[-1])
 
 
+def decode_vs_other(lib_other: Path, lib_this: Path, other_splits: bool, gen, log,
+                    results) -> None:
+    """K1/K4 (and -S) cases: the other checkout's kernel against this one's
+    as the wrappers launch it, and this one's split against n_split = 1 and
+    other counts. ``other_splits``: the other checkout's entries take the
+    split-KV arguments too."""
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+    from crane_tpu_torch.ops.cuda.decode_attention import decode_split_count
+    from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+
+    names = {16: "crane_decode_attention", 8: "crane_quant_decode_attention",
+             4: "crane_quant_decode_attention"}
+    stream = build.stream_ptr(torch.device("cuda"))
+    other_sigs = build.SIGNATURES if other_splits else OLD_DECODE_SIGNATURES
+    for label, B, T, valid_list, stats in DECODE_SHAPES:
+        for D, Hq, Hkv in ((128, 16, 8), (256, 8, 2))[:1 if stats else 2]:
+            valid = torch.tensor(valid_list, dtype=torch.int32, device="cuda")
+            q = torch.randn(B, 1, Hq, D, generator=gen, device="cuda").to(torch.bfloat16)
+            k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            out = torch.empty_like(q)
+            m, l = (torch.empty(B, Hq, device="cuda") for _ in range(2))
+            counters = torch.zeros(B * Hkv, dtype=torch.int32, device="cuda")
+            for bits in (16, 8, 4):
+                n = decode_split_count(q, Hkv, T, bits)  # as the wrapper launches it
+                scratch = torch.empty(B * Hq * 2 * n * (D + 2), device="cuda")
+                if bits == 16:
+                    ops = (k, v)
+                    plain = (lambda: k45.decode_attention_with_stats_plain(
+                        q, k, v, None, None, valid, bits=16, scale=D ** -0.5)[0])
+                else:
+                    c = QuantLayerKVCache.empty(B, T, Hkv, D, bits=bits, device="cuda")
+                    c.update(k, v, 0)
+                    ops = (c.k, c.v, c.k_scale, c.v_scale)
+                    plain = (lambda ops=ops: k45.quant_decode_attention_plain(
+                        q.float(), *ops, valid, bits=bits, scale=D ** -0.5))
+                head = [1] + ([bits] if bits != 16 else []) + [q.data_ptr()] + [
+                    t.data_ptr() for t in ops] + [valid.data_ptr(), out.data_ptr(),
+                                                  m.data_ptr() if stats else None,
+                                                  l.data_ptr() if stats else None]
+                shape = [B, T, Hq, Hkv, D, D ** -0.5, 0, 0.0]
+
+                def call(fn, splits, n_split=n, head=head, scratch=scratch):
+                    if not splits:
+                        return lambda: fn(*head, *shape, stream)
+                    acc = scratch.data_ptr()
+                    ml = acc + B * Hq * n_split * D * 4
+                    return lambda: fn(*head, acc, ml, counters.data_ptr(), *shape, n_split,
+                                      stream)
+
+                this = _checked(_entry(lib_this, names[bits]))
+                other = _checked(_entry(lib_other, names[bits], other_sigs))
+                ref = plain().float()
+                for fn in (call(other, other_splits), call(this, True), call(this, True, 1),
+                           call(this, True, 2 * n)):
+                    fn()
+                    torch.testing.assert_close(out.float(), ref, rtol=build.KERNEL_RTOL,
+                                               atol=build.KERNEL_ATOL)
+                kind = ("K1" if bits == 16 else f"K4 kv{bits}") + ("-S" if stats else "")
+                case = f"{kind} bf16 {label}, D={D} {Hq}/{Hkv}"
+                results.append((f"{case}: other vs this (n_split {n})",
+                                *ab_ms(call(other, other_splits), call(this, True))))
+                log(results[-1])
+                if n > 1:
+                    results.append((f"{case}: n_split 1 vs {n}",
+                                    *ab_ms(call(this, True, 1), call(this, True))))
+                    log(results[-1])
+                    # the wrapper's count against half, one more and twice as many
+                    for other_n in (n // 2, n + 1, 2 * n):
+                        results.append((f"{case}: n_split {n} vs {other_n}",
+                                        *ab_ms(call(this, True), call(this, True, other_n))))
+                        log(results[-1])
+
+
+# one run of the decode-step timing, in a process of its own that imports
+# the package of the checkout it starts in; the last line it prints is
+# "STEP" and {case: ms}: a step's wall time on the host clock, and the host
+# time a K1 or K4 wrapper call takes to return (its launch queued) at a
+# step's attention shapes
+STEP_SCRIPT = '''
+import json, time
+import torch
+from crane_tpu_torch.models.auto import quantize_params
+from crane_tpu_torch.models.causal_lm import CausalLM
+from crane_tpu_torch.models.init import QWEN3_0_6B as cfg, init_params
+from crane_tpu_torch.ops.cuda import decode_attention as k1
+from crane_tpu_torch.ops.cuda import quant_attention as k45
+from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+from crane_tpu_torch.ops.sampling import SamplingParams
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+times = {}
+D, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+for B in (1, 8):
+    q = torch.randn(B, 1, Hq, D, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(B, 2048, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    valid = torch.full((B,), 300, dtype=torch.int32, device="cuda")
+    c = QuantLayerKVCache.empty(B, 2048, Hkv, D, bits=4, device="cuda")
+    c.update(k, v, 0)
+    for name, call in (("K1", lambda: k1.fp_decode_attention(q, k, v, valid, scale=0.1)),
+                       ("K4 kv4", lambda: k45.quant_decode_attention(
+                           q, c.k, c.v, c.k_scale, c.v_scale, valid, bits=4, scale=0.1))):
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            call()
+        times[f"{name} wrapper B={B}: host time a call"] = (time.perf_counter() - t0) / CALLS * 1e3
+        torch.cuda.synchronize()
+params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+for label, kv_bits in (("bf16", None), ("w4 kv4", 4)):
+    lm = CausalLM(cfg, params if kv_bits is None else quantize_params(params, bits=4),
+                  dtype=torch.bfloat16)
+    for B in (1, 8):
+        ids = [i % cfg.vocab_size for i in range(1, 301)]
+        _, cache = lm.prefill(lm.init_cache(B, 2048, quant_bits=kv_bits), [ids] * B, [300] * B)
+        state = [cache]
+        args = (torch.ones(B, dtype=torch.int32, device="cuda"),
+                torch.full((B, 8), -1, dtype=torch.int32, device="cuda"),
+                SamplingParams.make(B, do_sample=False, device="cuda"),
+                torch.Generator(device="cuda"), 1)
+        def step():
+            _, state[0], _ = lm.decode_steps(state[0], *args)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step()
+        torch.cuda.synchronize()
+        times[f"{label} B={B}"] = (time.perf_counter() - t0) / STEPS * 1e3
+        del state, cache
+    del lm
+print("STEP " + json.dumps(times), flush=True)
+'''
+# decode steps a run times (after 3 warm ones), wrapper calls, and pairs of
+# runs (the host clock spreads more than device time)
+STEPS = 20
+CALLS = 200
+STEP_PAIRS = 5
+
+
+def steps_vs_other(other_root: Path, log, results) -> None:
+    """Wall time of a decode step, the other checkout's package against
+    this one's: each checkout's kernels built side by side first, then
+    STEP_PAIRS pairs of runs in turns (other, this, this, other, ...), one
+    process a run, each run logged; the median of each side per case."""
+    roots = {"other": other_root.resolve(), "this": build.CSRC.parents[1]}
+
+    def start(root, code):
+        return subprocess.Popen([sys.executable, "-c", code], cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    builds = [start(root, "from crane_tpu_torch.ops.cuda import build; build.lib()")
+              for root in roots.values()]
+    for proc in builds:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"building a checkout's kernels failed:\n{text}")
+    runs = {"other": [], "this": []}
+    for i in range(STEP_PAIRS):
+        for side in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            proc = start(roots[side], f"STEPS, CALLS = {STEPS}, {CALLS}\n" + STEP_SCRIPT)
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"the decode-step run in {roots[side]} failed:\n{text}")
+            runs[side].append(json.loads(text.strip().splitlines()[-1].removeprefix("STEP ")))
+            print(f"[ab] step run {i} {side}: {json.dumps(runs[side][-1])}", flush=True)
+    for case in runs["this"][0]:
+        other_ms, this_ms = (sorted(r[case] for r in runs[side])[STEP_PAIRS // 2]
+                             for side in ("other", "this"))
+        what = case if "wrapper" in case else f"decode step of Qwen3-0.6B {case} after 300 " \
+                                              f"tokens, host clock"
+        results.append((f"{what}: other vs this", other_ms, this_ms))
+        log(results[-1])
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, help="another checkout to compare K2/K3/K5 with")
+    parser.add_argument("--only", default="k6,attention,decode,step",
+                        help="comma-separated subset of k6,attention,decode,step")
     parser.add_argument("--json", type=Path, help="write the cases here as JSON")
     args = parser.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("the A/B needs a CUDA device")
 
@@ -197,19 +411,27 @@ def main(argv=None) -> int:
 
     mma_src = ("quant_matmul.cu", "quant_matmul_mma.cu")
     attn_src = ("flash_attention.cu", "flash_attention_mma.cu", "quant_cached_attention.cu")
-    jobs = {
-        "k6_cores": _library("k6_cores", build.CSRC, mma_src, {
+    decode_src = ("decode_attention.cu", "quant_decode_attention.cu",
+                  "quant_decode_attention_int4.cu")
+    jobs = {}
+    if "k6" in only:
+        jobs["k6_cores"] = _library("k6_cores", build.CSRC, mma_src, {
             "quant_matmul.cu": (r"constexpr int kMmaMinM = \d+;",
-                                "constexpr int kMmaMinM = 1 << 30;")}),
-        "k6_mma": _library("k6_mma", build.CSRC, mma_src, {
-            "quant_matmul.cu": (r"constexpr int kMmaMinM = \d+;", "constexpr int kMmaMinM = 1;")}),
-    }
-    if args.other is not None:
-        other = args.other / "crane_tpu_torch" / "csrc"
-        jobs["attn_other"] = _library("attn_other", other, tuple(
+                                "constexpr int kMmaMinM = 1 << 30;")})
+        jobs["k6_mma"] = _library("k6_mma", build.CSRC, mma_src, {
+            "quant_matmul.cu": (r"constexpr int kMmaMinM = \d+;", "constexpr int kMmaMinM = 1;")})
+    other = args.other / "crane_tpu_torch" / "csrc" if args.other is not None else None
+    side = ("other_" + hashlib.sha1(str(other.resolve()).encode()).hexdigest()[:8]
+            if other is not None else "")
+    if other is not None and "attention" in only:
+        jobs["attn_other"] = _library(f"attn_{side}", other, tuple(
             f for f in attn_src + ("quant_cached_attention_mma.cu",) if (other / f).exists()))
         jobs["attn_this"] = _library("attn_this", build.CSRC,
                                      attn_src + ("quant_cached_attention_mma.cu",))
+    if other is not None and "decode" in only:
+        jobs["dec_other"] = _library(f"dec_{side}", other,
+                                     tuple(f for f in decode_src if (other / f).exists()))
+        jobs["dec_this"] = _library("dec_this", build.CSRC, decode_src)
     libs = {}
     for tag, (proc, path) in jobs.items():
         text = proc.communicate()[0]
@@ -221,9 +443,16 @@ def main(argv=None) -> int:
     print(f"[ab] {smi}; medians of {PAIRS} alternating pairs, device time", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(6)
     results: list = []
-    k6_routes(libs["k6_cores"], libs["k6_mma"], gen, log, results)
-    if args.other is not None:
+    if "k6" in only:
+        k6_routes(libs["k6_cores"], libs["k6_mma"], gen, log, results)
+    if "attn_other" in libs:
         attention_vs_other(libs["attn_other"], libs["attn_this"], gen, log, results)
+    if "dec_other" in libs:
+        decode_vs_other(libs["dec_other"], libs["dec_this"],
+                        "n_split" in (other / "decode_attention.cu").read_text(), gen, log,
+                        results)
+    if other is not None and "step" in only:
+        steps_vs_other(args.other, log, results)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(results, indent=0))

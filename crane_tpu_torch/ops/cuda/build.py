@@ -35,21 +35,30 @@ NVCC_FLAGS = (
 # storage type codes understood by csrc/common.cuh (crane::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# bf16 tolerance of a kernel against its plain version on the same inputs:
+# both round the output to bf16 (at most half an ulp each, 2**-9 relative)
+# and sum in float32 in other orders, so |kernel - plain| <= ATOL + RTOL*|plain|
+# with RTOL two bf16 ulps and ATOL for outputs near zero.
+KERNEL_RTOL = 2.0 ** -6
+KERNEL_ATOL = 1e-3
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points: name -> argtypes (restype is int, the
 # CUDA error of the launch)
 SIGNATURES = {
-    "crane_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _F, _I, _F, _P],
+    "crane_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _F, _I, _F, _I, _P],
+    "crane_decode_attention_info": [_I, _I, _I, _P],
     "crane_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _F, _I, _F, _P],
     "crane_flash_attention_mma_info": [_I, _P],
     "crane_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "crane_quant_matmul_mma_info": [_I, _I, _P],
     "crane_quant_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _F, _I, _F, _P],
+                                     _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P],
+    "crane_quant_decode_attention_info": [_I, _I, _I, _I, _P],
     "crane_quant_cached_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
     "crane_quant_cached_attention_mma_info": [_I, _I, _P],

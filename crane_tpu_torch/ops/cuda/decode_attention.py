@@ -9,9 +9,17 @@ tensor :func:`fp_decode_attention` and :func:`fp_decode_attention_with_stats`
 launch the hand-written kernel (one launch, the stats pointers null or set)
 or raise; on a CPU tensor they run their ``*_plain`` versions, the same
 functions in plain PyTorch.
+
+The kernel splits each (row, kv-head)'s live range over
+:func:`decode_splits` blocks, a count taken from shapes alone, and merges
+the float32 partials in scratch this module allocates
+(:func:`split_operands`); K4 (``quant_attention.py``) shares both.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -20,6 +28,90 @@ from crane_tpu_torch.ops.cuda import build
 
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
+# the split-KV grid (csrc/decode_attention.cuh): the fewest slots of the
+# allocated T a split may be given (eight warps, 16 slots each), and the
+# most splits a launch takes (kMaxSplits)
+MIN_SPLIT_SLOTS = 128
+MAX_SPLITS = 512
+INFO_KEYS = ("registers", "local_bytes", "smem_bytes", "threads", "blocks_per_sm")
+
+
+def decode_splits(B: int, Hkv: int, T: int, n_sms: int, blocks_per_sm: int = 2) -> int:
+    """Blocks per (row, kv-head) of the decode kernels K1/K4 and their -S
+    forms: the most n whose grid of ``n * B * Hkv`` blocks the card holds at
+    once (``blocks_per_sm`` on each of ``n_sms`` SMs), at most ``T //
+    MIN_SPLIT_SLOTS`` and MAX_SPLITS, and 1 when ``B * Hkv`` blocks already
+    give every SM one. One block more than the card holds waits for a
+    second wave that takes as long as the first. From shapes alone: the
+    live lengths would need a read from the device, and a CUDA graph
+    replays the launch with new ones."""
+    blocks = B * Hkv
+    if blocks >= n_sms:
+        return 1
+    return max(1, min(blocks_per_sm * n_sms // blocks, T // MIN_SPLIT_SLOTS, MAX_SPLITS))
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _blocks_per_sm(index: int, dtype: torch.dtype, bits: int, D: int, G: int) -> int:
+    with torch.cuda.device(index):
+        if bits == 16:
+            info = kernel_info(dtype, D, G)
+        else:
+            from crane_tpu_torch.ops.cuda.quant_attention import decode_kernel_info
+
+            info = decode_kernel_info(dtype, bits, D, G)
+    return max(1, info["blocks_per_sm"])
+
+
+def decode_split_count(q: torch.Tensor, Hkv: int, T: int, bits: int = 16) -> int:
+    """The n_split the wrappers launch q ``[B, 1, Hq, D]`` with over a T-slot
+    cache (``bits`` 16: K1; 8 or 4: K4): :func:`decode_splits` at the
+    device's SM count and the blocks an SM holds of the instance that runs
+    (its registers and shared memory, asked of the runtime once)."""
+    B, _, Hq, D = q.shape
+    index = q.device.index
+    return decode_splits(B, Hkv, T, sm_count(index),
+                         _blocks_per_sm(index, q.dtype, bits, D, Hq // Hkv))
+
+
+# per device: int32 zeros, one ticket counter per (row, kv-head) of a split
+# launch, which has fewer (row, kv-head)s than the device has SMs
+# (decode_splits); the block that merges a (row, kv-head) resets its
+# counter, so they stay zero between launches (the port launches on one
+# stream per device). Allocated once, so a captured CUDA graph's pointer
+# stays valid.
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_counters(device: torch.device) -> torch.Tensor:
+    buf = _counters.get(device)
+    if buf is None:
+        buf = _counters[device] = torch.zeros(sm_count(device.index), dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+def split_operands(q: torch.Tensor, Hkv: int, T: int, bits: int = 16):
+    """``(n_split, part_acc, part_ml, counters, scratch)`` for a decode
+    launch of q ``[B, 1, Hq, D]`` over a T-slot cache with Hkv kv-heads:
+    the split count (:func:`decode_split_count`) and, above 1, the pointers
+    of the float32 partials (``[B, Hq, n, D]`` acc, ``[2, B, Hq, n]`` m and
+    l) in ``scratch`` and of the ticket counters, so the last block of each
+    (row, kv-head) merges in the one launch; at n = 1 the pointers are None
+    (NULL)."""
+    B, _, Hq, D = q.shape
+    n = decode_split_count(q, Hkv, T, bits)
+    if n == 1:
+        return 1, None, None, None, None
+    scratch = torch.empty(B * Hq * n * (D + 2), dtype=torch.float32, device=q.device)
+    acc = scratch.data_ptr()
+    counters = _ticket_counters(q.device).data_ptr()
+    return n, acc, acc + B * Hq * n * D * 4, counters, scratch
 
 
 def _decode_mask(kv_valid, T, window, device):
@@ -82,20 +174,37 @@ def _launch(q, k, v, kv_valid, scale, window, logit_softcap, stats: bool):
     if kv_valid.dtype != torch.int32 or kv_valid.shape != (B,):
         raise TypeError("kv_valid must be int32 [B]")
     build.require_cuda("fp_decode_attention", q, k, v, kv_valid)
+    dtype = build.dtype_code(q)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("fp_decode_attention: k and v must start on a 16-byte boundary")
     out = torch.empty_like(q)
     m = l = None
     if stats:
         m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
+    n, acc, ml, counters, _scratch = split_operands(q, Hkv, T)
     err = build.lib().crane_decode_attention(
-        build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_valid.data_ptr(), out.data_ptr(),
-        m.data_ptr() if stats else None, l.data_ptr() if stats else None,
-        B, T, Hq, Hkv, D, float(scale), int(window or 0), float(logit_softcap or 0.0),
+        m.data_ptr() if stats else None, l.data_ptr() if stats else None, acc, ml, counters,
+        B, T, Hq, Hkv, D, float(scale), int(window or 0), float(logit_softcap or 0.0), n,
         build.stream_ptr(q.device),
     )
     build.check_launch("crane_decode_attention", err)
     return (out, m, l) if stats else out
+
+
+def kernel_info(dtype: torch.dtype, head_dim: int, group: int) -> dict[str, int]:
+    """The compiled form of K1's instance at ``dtype``, ``head_dim`` and
+    ``group`` query heads per kv-head (``cudaFuncGetAttributes``):
+    registers and local (spill) bytes a thread, shared-memory bytes and
+    threads a block, and the blocks an SM holds at once (the runtime's
+    occupancy calculator). Builds the kernels on first use; needs the
+    card."""
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    build.check_launch("crane_decode_attention_info", build.lib().crane_decode_attention_info(
+        build.DTYPE_CODES[dtype], head_dim, group, info))
+    return dict(zip(INFO_KEYS, info))
 
 
 def fp_decode_attention(

@@ -1,5 +1,6 @@
 """K4, K5 and their with-stats forms K4-S and K5-S: GQA attention over an int8
-/ packed-int4 KV cache (``csrc/quant_decode_attention.cu``,
+/ packed-int4 KV cache (``csrc/quant_decode_attention.cu`` and its int4
+instances in ``csrc/quant_decode_attention_int4.cu``,
 ``csrc/quant_cached_attention.cu``).
 
 Port of ``crane_tpu/ops/pallas/quant_attention.py`` with ``bits`` 8 and 4:
@@ -40,7 +41,9 @@ from crane_tpu_torch.ops.cuda.decode_attention import (
     MAX_GROUP,
     fp_decode_attention_plain,
     fp_decode_attention_with_stats,
+    INFO_KEYS,
     fp_decode_attention_with_stats_plain,
+    split_operands,
 )
 from crane_tpu_torch.ops.cuda.flash_attention import (
     HEAD_DIMS,
@@ -153,13 +156,19 @@ def _launch_decode(name, q, k_codes, v_codes, k_scale, v_scale, kv_valid, bits, 
     if kv_valid.dtype != torch.int32 or kv_valid.shape != (B,):
         raise TypeError("kv_valid must be int32 [B]")
     build.require_cuda(name, q, k_codes, v_codes, k_scale, v_scale, kv_valid)
+    dtype = build.dtype_code(q)
+    if k_codes.data_ptr() % 16 or v_codes.data_ptr() % 16:
+        # a lane loads up to 16 bytes of a code row (every row is a
+        # multiple of 16 bytes at the head dims the kernel takes)
+        raise ValueError(f"{name}: the codes must start on a 16-byte boundary")
     out = torch.empty_like(q)
     m, l = _stats(q, stats, (B, Hq))
+    n, acc, ml, counters, _scratch = split_operands(q, Hkv, T, bits)
     err = build.lib().crane_quant_decode_attention(
-        build.dtype_code(q), bits, q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
+        dtype, bits, q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
-        _ptr(m), _ptr(l), B, T, Hq, Hkv, D, float(scale), int(window or 0),
-        float(logit_softcap or 0.0), build.stream_ptr(q.device),
+        _ptr(m), _ptr(l), acc, ml, counters, B, T, Hq, Hkv, D, float(scale), int(window or 0),
+        float(logit_softcap or 0.0), n, build.stream_ptr(q.device),
     )
     build.check_launch("crane_quant_decode_attention", err)
     return (out, m, l) if stats else out
@@ -197,6 +206,19 @@ def mma_kernel_info(head_dim: int, bits: int) -> dict[str, int]:
     build.check_launch("crane_quant_cached_attention_mma_info",
                        build.lib().crane_quant_cached_attention_mma_info(head_dim, bits, info))
     return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"), info))
+
+
+def decode_kernel_info(dtype: torch.dtype, bits: int, head_dim: int,
+                       group: int) -> dict[str, int]:
+    """The compiled form of K4's instance at ``dtype``, ``bits``,
+    ``head_dim`` and ``group``, as
+    :func:`~crane_tpu_torch.ops.cuda.decode_attention.kernel_info` gives
+    K1's. Builds the kernels on first use; needs the card."""
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    build.check_launch("crane_quant_decode_attention_info",
+                       build.lib().crane_quant_decode_attention_info(
+                           build.DTYPE_CODES[dtype], bits, head_dim, group, info))
+    return dict(zip(INFO_KEYS, info))
 
 
 def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,

@@ -158,6 +158,40 @@ def test_k1_matches_plain(dev, dtype, D, Hq, Hkv, opts):
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # the empty row
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
 
+    for q, kc, vc, valid, kw in _split_cases(gen, dtype, Hq, Hkv, D, 16, opts):
+        got = k1.fp_decode_attention(q, kc, vc, valid, scale=D ** -0.5, **kw)
+        ref = k1.fp_decode_attention_plain(q, kc, vc, valid, scale=D ** -0.5, **kw)
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+        out, m, l = k1.fp_decode_attention_with_stats(q, kc, vc, valid, scale=D ** -0.5, **kw)
+        assert torch.equal(out, got)
+        _check_stats(out, m, l, *k1.fp_decode_attention_with_stats_plain(
+            q.cpu().float(), kc.cpu().float(), vc.cpu().float(), valid.cpu(), scale=D ** -0.5,
+            **kw), dtype)
+
+
+def _split_cases(gen, dtype, Hq, Hkv, D, bits, opts):
+    """(q, k, v, kv_valid, options) of the split-KV route's edges, each
+    checked to take the split count it names (``decode_split_count``, the
+    count the wrapper launches at ``bits``): one row of a 4096-slot cache
+    with 4000 live slots (split), with ``opts`` and with a window of 1000
+    across the shares; two rows with fewer live slots than splits (0 and
+    3); and a batch whose B * Hkv blocks already fill the card (one block
+    per (row, kv-head), no scratch)."""
+    sms = k1.sm_count(gen.device.index or 0)
+    fill = -(-sms // Hkv)
+    for B, T, valid in ((1, 4096, [4000]), (2, 4096, [0, 3]), (fill, 300, None)):
+        q = rnd(gen, B, 1, Hq, D, dtype=dtype)
+        n = k1.decode_split_count(q, Hkv, T, bits)
+        assert (n == 1) == (B == fill), (B, T, n)
+        assert B != 2 or max(valid) < n  # fewer live slots than splits
+        if valid is None:
+            valid = torch.randint(0, T + 1, (B,), generator=gen, device=gen.device).tolist()
+        k, v = (rnd(gen, B, T, Hkv, D, dtype=dtype) for _ in range(2))
+        valid = torch.tensor(valid, dtype=torch.int32, device=gen.device)
+        yield q, k, v, valid, opts
+        if B == 1:
+            yield q, k, v, valid, {**opts, "window": 1000}
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
@@ -193,6 +227,21 @@ def test_k4_k5_match_plain(dev, dtype, bits, D, Hq, Hkv, opts):
                                            **opts)
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # the empty row
     torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+
+    for qs, k, v, valid, kw in _split_cases(gen, dtype, Hq, Hkv, D, bits, opts):
+        c = QuantLayerKVCache.empty(k.shape[0], k.shape[1], Hkv, D, bits=bits, device=dev)
+        c.update(k, v, 0)
+        sops = (c.k, c.v, c.k_scale, c.v_scale)
+        got = k45.quant_decode_attention(qs, *sops, valid, bits=bits, scale=D ** -0.5, **kw)
+        ref = k45.quant_decode_attention_plain(qs.float(), *sops, valid, bits=bits,
+                                               scale=D ** -0.5, **kw)
+        torch.testing.assert_close(got.float(), ref, **TOL[dtype])
+        out, m, l = k45.quant_decode_attention_with_stats(qs, *sops, valid, bits=bits,
+                                                          scale=D ** -0.5, **kw)
+        assert torch.equal(out, got)
+        _check_stats(out, m, l, *k45.quant_decode_attention_with_stats_plain(
+            qs.cpu().float(), *(t.cpu() for t in sops), valid.cpu(), bits=bits,
+            scale=D ** -0.5, **kw), dtype)
 
     S = 77  # a ragged last q-tile
     q = rnd(gen, 6, S, Hq, D, dtype=dtype)
@@ -266,6 +315,97 @@ def test_with_stats_kernels_match_plain(dev, dtype, bits, D, Hq, Hkv):
     assert torch.equal(out, no_stats)
     _check_stats(out, m, l, r_out, r_m, r_l, dtype)
     assert (l[0] == 0).all() and (out[0] == 0).all()  # a chunk wholly before the slab
+
+
+def _decode_call(bits, dtype, dev, B, T, Hq, Hkv, D, seed):
+    """A K1 (bits 16) or K4 call on random operands: (fn(kv_valid) ->
+    out, kv_valid)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = rnd(gen, B, 1, Hq, D, dtype=dtype)
+    k, v = (rnd(gen, B, T, Hkv, D, dtype=dtype) for _ in range(2))
+    valid = torch.full((B,), T // 2, dtype=torch.int32, device=dev)
+    if bits == 16:
+        return (lambda kv_valid: k1.fp_decode_attention(q, k, v, kv_valid, scale=D ** -0.5)), valid
+    c = QuantLayerKVCache.empty(B, T, Hkv, D, bits=bits, device=dev)
+    c.update(k, v, 0)
+    ops = (c.k, c.v, c.k_scale, c.v_scale)
+    return (lambda kv_valid: k45.quant_decode_attention(q, *ops, kv_valid, bits=bits,
+                                                        scale=D ** -0.5)), valid
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 16, 8), (256, 8, 2)])
+def test_decode_graph_replay_equals_eager(dev, bits, D, Hq, Hkv):
+    """K1 and K4 captured in a CUDA graph at one stream over a 16K cache
+    (the split route, its ticket counters and scratch) and replayed with new
+    kv_valid values, 0 and T included, give the eager call's bits: the split
+    comes from shapes alone."""
+    fn, valid = _decode_call(bits, torch.bfloat16, dev, 1, 16384, Hq, Hkv, D, D + bits)
+    assert k1.decode_splits(1, Hkv, 16384, k1.sm_count(0)) > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(valid)  # warm on the capture's stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(valid)
+    for n in (16000, 1, 0, 9999, 16384, 300):
+        valid.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn(valid)), n
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_ticket_merge_repeats_and_resets(dev, bits, dtype):
+    """The ticket merge of the split partials gives the same bits launch
+    after launch and leaves the counters at zero; the C entries refuse a
+    split launch given no counters (cudaErrorInvalidValue)."""
+    B, T, Hq, Hkv, D = 2, 8192, 16, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    q = rnd(gen, B, 1, Hq, D, dtype=dtype)
+    k, v = (rnd(gen, B, T, Hkv, D, dtype=dtype) for _ in range(2))
+    valid = torch.tensor([7, 8000], dtype=torch.int32, device=dev)
+    if bits == 16:
+        ops, entry = (k, v), build.lib().crane_decode_attention
+        ticket = k1.fp_decode_attention(q, k, v, valid, scale=D ** -0.5)
+    else:
+        c = QuantLayerKVCache.empty(B, T, Hkv, D, bits=bits, device=dev)
+        c.update(k, v, 0)
+        ops, entry = (c.k, c.v, c.k_scale, c.v_scale), build.lib().crane_quant_decode_attention
+        ticket = k45.quant_decode_attention(q, *ops, valid, bits=bits, scale=D ** -0.5)
+    n, acc, ml, _, scratch = k1.split_operands(q, Hkv, T, bits)
+    assert n > 1
+    refused = torch.zeros_like(q)
+    cuda_error_invalid_value = 1
+    assert entry(
+        build.dtype_code(q), *([bits] if bits != 16 else []), q.data_ptr(),
+        *(t.data_ptr() for t in ops), valid.data_ptr(), refused.data_ptr(), None, None, acc,
+        ml, None, B, T, Hq, Hkv, D, D ** -0.5, 0, 0.0, n,
+        build.stream_ptr(dev)) == cuda_error_invalid_value
+    assert (refused == 0).all()
+    for _ in range(3):
+        again = (k1.fp_decode_attention(q, k, v, valid, scale=D ** -0.5) if bits == 16 else
+                 k45.quant_decode_attention(q, *ops, valid, bits=bits, scale=D ** -0.5))
+        assert torch.equal(again, ticket)
+    torch.cuda.synchronize()
+    assert (k1._counters[q.device] == 0).all()
+
+
+def test_decode_kernels_compile_without_spills(dev):
+    """Every K1 and K4 instance: 256 threads, within the register file, no
+    local (spill) memory."""
+    infos = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (64, 128, 256):
+            for G in range(1, 9):
+                infos.append(k1.kernel_info(dtype, D, G))
+                infos += [k45.decode_kernel_info(dtype, bits, D, G) for bits in (8, 4)]
+    for info in infos:
+        assert info["threads"] == 256 and 0 < info["registers"] <= 255, info
+        assert info["local_bytes"] == 0, info
 
 
 def _kernel_names(fn) -> set[str]:

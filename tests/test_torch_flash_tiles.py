@@ -18,8 +18,8 @@ import math
 import pytest
 import torch
 
-from chip_smoke import KERNEL_ATOL, KERNEL_RTOL
 from crane_tpu_torch.ops.cuda import flash_attention as k23
+from crane_tpu_torch.ops.cuda.build import KERNEL_ATOL, KERNEL_RTOL
 
 torch.set_num_threads(2)
 

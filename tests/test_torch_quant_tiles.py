@@ -27,8 +27,8 @@ import math
 import pytest
 import torch
 
-from chip_smoke import KERNEL_ATOL, KERNEL_RTOL
 from crane_tpu_torch.ops.cuda import quant_attention as k45
+from crane_tpu_torch.ops.cuda.build import KERNEL_ATOL, KERNEL_RTOL
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul_plain
 from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache, dequant_codes
 from crane_tpu_torch.ops.linear import quantize_weight, unpack_int4_rows
