@@ -12,14 +12,19 @@ requests are token ids. Phases, each reported on its own line:
 2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``,
    and log the compiled form of each bf16 tensor-core instance (registers,
    spill bytes, shared memory): K2/K3 and K5 at each head dim, K6 at each
-   output tile; and of every split-KV decode instance (K1, K4 kv8/kv4 at
-   each dtype, head dim and group);
+   output tile; of every split-KV decode instance (K1, K4 kv8/kv4 at each
+   dtype, head dim and group); and of K7's chunkwise kernels (the chunk
+   preparation and the state pass at 16 and 32 columns a block);
 3. kernels: K1 (decode), K2 (fresh prefill), K3 (continuation), K4
    (quantized decode), K5 (quantized continuation), K6 (quantized-weight
    matmul) and K7 (the GDN scan) against their plain PyTorch versions on
    the card, at the main paths' shapes (K1-K5 also at head_dim 256 with
    Qwen3.5's 8 query / 2 KV heads), each with its time beside the plain
-   version's (K7 also beside the chunked route's, crane_tpu's default).
+   version's. K7's two routes, the chunkwise kernels on the tensor cores
+   and the sequential scan, are each forced at S on both sides of the
+   64-step chunk and of the route threshold (128), at B=1 and 8, and held
+   to the same tolerances; the route the wrapper takes is timed beside the
+   other, the plain scan and the chunked PyTorch route.
    K2, K3 and K5 run the bf16 tensor-core kernels, K6 too from 4 rows:
    K6 is timed at M=8 (decode) and M=256 (a chunk's gate/up, and its down
    projection), beside the bf16 ``torch.mm`` over the dequantized weight;
@@ -57,10 +62,12 @@ requests are token ids. Phases, each reported on its own line:
    layout, mapped by ``map_hf_weights``; the 300-token prefill run in
    float32 on the card (the kernels in float32) agrees with the same
    prefill in float32 on the CPU, and the bf16 prefill's distance from it
-   is reported beside the CPU's own bf16 distance; 64 greedy tokens
+   is reported beside the CPU's own bf16 distance (both prefills, and the
+   engine below, must launch K7's chunkwise route); 64 greedy tokens
    through ``generate`` in bf16; prefill ms and decode tok/s;
 9. hybrid engine: the six-request mix on the hybrid model (prefix reuse
-   off); K1, K2, K3 (at head_dim 256) and K7 were each launched by this
+   off); K1, K2, K3 (at head_dim 256) and both K7 routes (the scan for
+   the prompts bucketed at 64 tokens) were each launched by this
    hybrid path;
 10. sp: sequence-parallel serving of full-width Qwen3-0.6B in four slabs on
    the one card (``make_sp_mesh(4, ["cuda:0"] * 4)``). The with-stats
@@ -120,7 +127,8 @@ F32_ATOL = 1e-5
 # K7 against the plain scan: y is written in v's dtype (bf16 here), so it is
 # held to the kernel bound above; the final state stays float32 in both and
 # differs only by the order of float32 sums over a few hundred steps of a
-# contractive update, so it is held to STATE_ATOL + STATE_RTOL * |plain|.
+# contractive update (the chunkwise route's 3xTF32 products are float32 to
+# about 2^-21), so it is held to STATE_ATOL + STATE_RTOL * |plain|.
 STATE_RTOL = 1e-4
 STATE_ATOL = 1e-4
 
@@ -156,7 +164,7 @@ SP_TIE = 1e-3
 # HBM bytes/s, and FLOP/s by the type the operations are done in (bf16 on
 # the tensor cores; float32 outside them)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 # the source of K4's instances at each cache bit width (the C entries are in
@@ -890,22 +898,45 @@ def check_long_decode() -> dict[str, list[dict]]:
     return rows
 
 
-def check_gdn_kernel() -> dict:
-    """Phase 3, K7: the GDN scan against its plain version (the step-by-
-    step recurrence) at the hybrid path's shape, H=16 and K=V=128, bf16 q,
-    k, v and float32 g, beta: batch 1 at S = 1, 300 and 1000, each from zero
-    and from a random initial state, and batch 8 at S=256. Each case is
-    timed against the plain scan and the chunked route (crane_tpu's
-    default). Returns the JSON row, timed at B=1 S=1000, launches 0."""
+# K7's cases: (B, S) at H=16, K=V=128 (Qwen3.5-0.8B's GDN heads), bf16 q, k,
+# v: S on both sides of the chunk (64) and of the route threshold (128)
+GDN_CASES = ((1, 1), (1, 64), (1, 65), (1, 128), (1, 256), (1, 300), (1, 1000),
+             (8, 64), (8, 65), (8, 256))
+
+
+def gdn_work(B, S, H, K, V) -> tuple[float, float]:
+    """(bytes, operations) of a K7 call with bf16 q, k, v: q, k, v read and
+    y written (2 bytes each), g and beta read and the final state written
+    (float32); per step and head about 7 K V operations (decay, k.S, the
+    rank-1 update, q.S)."""
+    return (B * S * H * (2 * K + V) * 2 + 2 * B * S * H * 4 + B * S * H * V * 2
+            + B * H * K * V * 4, 7 * B * S * H * K * V)
+
+
+def check_gdn_kernel() -> list[dict]:
+    """Phase 3, K7: both routes, the chunkwise kernels and the sequential
+    scan, each forced at every GDN_CASES shape, against the plain version
+    (the step-by-step recurrence), zero and random initial states at B=1:
+    y to the kernel bound, the state to STATE_ATOL + STATE_RTOL |plain|. The
+    route the wrapper takes is timed at each shape beside the other route,
+    the plain scan and the chunked route. Returns the two JSON rows
+    (launches 0): the chunkwise route timed at B=1 S=1000, the scan at B=1
+    S=64 (the bucket of a 17- or 64-token prompt)."""
     import torch
 
-    from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan, gdn_scan_plain
+    from crane_tpu_torch.ops.cuda.gdn_scan import (
+        ROUTES,
+        gdn_route,
+        gdn_scan_plain,
+        gdn_scan_route,
+    )
     from crane_tpu_torch.ops.gdn import gdn_recurrence_chunked
 
     gen = torch.Generator(device="cuda").manual_seed(77)
     H, K, V = 16, 128, 128
-    errs, row = [], None
-    for B, S in ((1, 1), (1, 300), (1, 1000), (8, 256)):
+    errs = {route: [] for route in ROUTES}
+    rows = {}
+    for B, S in GDN_CASES:
         q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").to(torch.bfloat16)
                    for d in (K, K, V))
         g = -torch.rand(B, S, H, generator=gen, device="cuda") * 0.5
@@ -913,39 +944,46 @@ def check_gdn_kernel() -> dict:
         inits = (None, torch.randn(B, H, K, V, generator=gen, device="cuda") * 0.3) \
             if B == 1 else (None,)
         for s0 in inits:
-            label = f"K7 B={B} S={S} {'init state' if s0 is not None else 'zero state'}"
-            y, st = gdn_scan(q, k, v, g, beta, s0)
             yr, sr = gdn_scan_plain(q, k, v, g, beta, s0)
-            errs.append(compare(f"{label} y", y, yr))
-            compare(f"{label} state", st, sr, rtol=STATE_RTOL, atol=STATE_ATOL)
+            for route in ROUTES:
+                label = f"K7 {route} B={B} S={S} {'init state' if s0 is not None else 'zero state'}"
+                y, st = gdn_scan_route(route, q, k, v, g, beta, s0)
+                errs[route].append(compare(f"{label} y", y, yr))
+                compare(f"{label} state", st, sr, rtol=STATE_RTOL, atol=STATE_ATOL)
+        route = gdn_route(S)
+        other = next(r for r in ROUTES if r != route)
         it = 2 if S >= 300 else 5  # the plain scan runs S steps of small launches
-        p1, ch1, k1_ms, k2_ms, ch2, p2 = (
+        p1, ch1, o1, k1_ms, k2_ms, o2, ch2, p2 = (
             cuda_ms(f, n, warmup=1) for f, n in (
                 (lambda: gdn_scan_plain(q, k, v, g, beta), it),
                 (lambda: gdn_recurrence_chunked(q, k, v, g, beta), 5),
-                (lambda: gdn_scan(q, k, v, g, beta), 20),
-                (lambda: gdn_scan(q, k, v, g, beta), 20),
+                (lambda: gdn_scan_route(other, q, k, v, g, beta), 20),
+                (lambda: gdn_scan_route(route, q, k, v, g, beta), 20),
+                (lambda: gdn_scan_route(route, q, k, v, g, beta), 20),
+                (lambda: gdn_scan_route(other, q, k, v, g, beta), 20),
                 (lambda: gdn_recurrence_chunked(q, k, v, g, beta), 5),
                 (lambda: gdn_scan_plain(q, k, v, g, beta), it)))
         ms, plain_ms, chunked_ms = (k1_ms + k2_ms) / 2, (p1 + p2) / 2, (ch1 + ch2) / 2
-        log("kernels", f"K7 B={B} S={S} H={H} K=V={K}: {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-                       f"chunked route {chunked_ms:.4f} ms")
-        if (B, S) == (1, 1000):
-            # q, k, v (bf16) and g, beta (float32) read, y (bf16) and the
-            # float32 state written; per step and head about 7 K V float32
-            # operations (decay, k.S, the rank-1 update, q.S)
-            work = (B * S * H * (2 * K + V) * 2 + 2 * B * S * H * 4 + B * S * H * V * 2
-                    + B * H * K * V * 4, 7 * B * S * H * K * V)
-            bound_ms, bound_by = bound(*work, peak="f32")
-            log("kernels", f"K7 bound {bound_ms:.4f} ms ({bound_by}, float32 operations)")
-            row = {"name": "gdn_scan", "route": "cuda", "source": "crane_tpu_torch/csrc/gdn_scan.cu",
-                   "replaces": "crane_tpu/ops/pallas/gdn_scan.py:126", "launches": 0,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None, "chunked_ms": chunked_ms}
-    row["max_abs_err"] = max(errs)
-    log("kernels", f"gdn_scan: max|err| of y {max(errs):.3g} (bound {KERNEL_ATOL:g} + 2^-6*|ref|), "
-                   f"state within {STATE_ATOL:g} + {STATE_RTOL:g}*|ref|")
-    return row
+        bound_ms, bound_by = bound(*gdn_work(B, S, H, K, V), peak="tf32")
+        f32_ms, _ = bound(*gdn_work(B, S, H, K, V), peak="f32")
+        log("kernels", f"K7 B={B} S={S} H={H} K=V={K}: the {route} route {ms:.4f} ms, the "
+                       f"{other} route {(o1 + o2) / 2:.4f} ms, plain {plain_ms:.4f} ms, chunked "
+                       f"route {chunked_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, TF32 "
+                       f"tensor-core rate), {f32_ms:.4f} ms at the float32 CUDA-core rate")
+        if (B, S) in ((1, 1000), (1, 64)):
+            src = "gdn_chunk.cu" if route == "chunk" else "gdn_scan.cu"
+            rows[route] = {"name": f"gdn_scan[{route}]", "route": "cuda",
+                           "source": f"crane_tpu_torch/csrc/{src}",
+                           "replaces": "crane_tpu/ops/pallas/gdn_scan.py:126", "launches": 0,
+                           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": None, "chunked_ms": chunked_ms,
+                           "f32_bound_ms": f32_ms, "shape": f"B={B} S={S} H={H} K=V={K}"}
+    for route in ROUTES:
+        rows[route]["max_abs_err"] = max(errs[route])
+        log("kernels", f"gdn_scan[{route}]: max|err| of y {max(errs[route]):.3g} (bound "
+                       f"{KERNEL_ATOL:g} + 2^-6*|ref|), state within {STATE_ATOL:g} + "
+                       f"{STATE_RTOL:g}*|ref| at every case")
+    return [rows["chunk"], rows["scan"]]
 
 
 def check_model():
@@ -1030,8 +1068,10 @@ def check_hybrid_model():
     def prefill(model):
         return model.prefill(model.init_cache(1, 512), [prompt], [300])[0][0]
 
-    logits_bf16 = prefill(lm)
-    logits_f32 = prefill(CausalLM(cfg, _tree(params, lambda t: t.float()), dtype=torch.float32))
+    logits_bf16 = k7_routes_launched("Qwen3.5-0.8B bf16 prefill", lambda: prefill(lm))
+    logits_f32 = k7_routes_launched(
+        "Qwen3.5-0.8B float32 prefill on the card",
+        lambda: prefill(CausalLM(cfg, _tree(params, lambda t: t.float()), dtype=torch.float32)))
     cpu_params = _tree(params, lambda t: t.to("cpu", torch.float32))
     logits_cpu = prefill(CausalLM(cfg, cpu_params, dtype=torch.float32))
     logits_cpu_bf16 = prefill(CausalLM(cfg, _tree(params, lambda t: t.cpu()), dtype=torch.bfloat16))
@@ -1049,6 +1089,21 @@ def check_hybrid_model():
                         f"parameters): prefill 300 tokens (bucket 512) {prefill_ms:.2f} ms, "
                         f"decode 63 tokens at batch 1 {decode_tps:.1f} tok/s; generate(64) matches")
     return lm
+
+
+def k7_routes_launched(label, run):
+    """Run ``run``, log the K7 launches it made by route, and fail unless
+    the chunkwise route was among them. Returns what ``run`` returns."""
+    from crane_tpu_torch.ops import cuda as kernels
+
+    before = kernels.launch_counts()
+    out = run()
+    after = kernels.launch_counts()
+    made = {r: after[f"gdn_scan[{r}]"] - before[f"gdn_scan[{r}]"] for r in ("chunk", "scan")}
+    log("launches", f"{label}: K7 launches by route {json.dumps(made)}")
+    if made["chunk"] <= 0:
+        raise AssertionError(f"{label} never launched K7's chunkwise route")
+    return out
 
 
 def _leaves(tree):
@@ -1682,7 +1737,7 @@ KERNEL_FAMILIES = (
     ("K4", ("quant_decode", "QuantRows")),
     ("K2/K3", ("flash_attention", "flash_mma")),
     ("K1", ("decode_attention", "FpRows")),
-    ("K7", ("gdn_scan",)),
+    ("K7", ("gdn_scan", "gdn_chunk")),
     ("cuBLAS", ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")),
     ("aten copy", ("copy", "Copy")),
     ("aten reduce", ("reduce", "softmax", "Softmax")),
@@ -1837,6 +1892,17 @@ def log_build_info() -> None:
         for bits in (8, 4):
             line(f"K6 w{bits} at a {rows} x {cols} output tile", k6_info(tile, bits))
     log_decode_build_info()
+    import torch
+
+    from crane_tpu_torch.ops.cuda.gdn_scan import KEY_DIMS, chunk_kernel_info
+
+    for K in KEY_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kernel, info in chunk_kernel_info(dtype, K).items():
+                log("build", f"K7 chunkwise {kernel} at K={K}, v {str(dtype).removeprefix('torch.')}: "
+                             f"{info['registers']} registers and {info['local_bytes']} local (spill) "
+                             f"bytes a thread, {info['smem_bytes']} shared-memory bytes and "
+                             f"{info['threads']} threads a block")
 
 
 def log_decode_build_info() -> None:
@@ -2009,7 +2075,7 @@ def main() -> int:
 
     rows = check_kernels()
     quant_rows = check_quant_kernels()
-    hybrid_rows = check_d256_kernels() + [check_gdn_kernel()]
+    hybrid_rows = check_d256_kernels() + check_gdn_kernel()
     long_rows = check_long_decode()
     rows += long_rows["dense"]
     quant_rows += long_rows["quantized"]
@@ -2051,7 +2117,7 @@ def main() -> int:
     # at head_dim 256; K7 for every GDN prefill and continuation chunk)
     reset_counts()
     lm35 = check_hybrid_model()
-    check_engine(lm35, "hybrid-engine")
+    k7_routes_launched("Qwen3.5-0.8B engine", lambda: check_engine(lm35, "hybrid-engine"))
     read_launches("hybrid path", hybrid_rows, kernels.launch_counts())
     no_plain_routes("hybrid path")
     launches_per(lm35, "Qwen3.5-0.8B bf16")

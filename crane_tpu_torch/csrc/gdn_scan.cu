@@ -9,9 +9,11 @@
 // (the initial state, or zeros), for t = 0 .. S_len - 1:
 //   S  *= exp(g[t]);  kv = k[t] . S;  delta = (v[t] - kv) * beta[t];
 //   S  += k[t] (x) delta;  y[t] = q[t] . S
-// q and k arrive l2-normalized, q scaled by K^-1/2 (the wrapper does that,
-// as the JAX wrapper does), all float32; v in float32 or bf16. y is written
-// in v's dtype, the final state in float32. A pad step with g = 0 and
+// q, k and v arrive in float32 or bf16, as the model gives them; q and k
+// are l2-normalized here as the plain version does (x rsqrt(sum x^2 +
+// 1e-6), q also scaled by K^-1/2; the JAX wrapper does that before its
+// kernel) when a tile of timesteps is staged. y is written in v's dtype,
+// the final state in float32. A pad step with g = 0 and
 // beta = 0 leaves the state as it was, so callers mask bucket padding
 // without any chunk padding here.
 //
@@ -66,9 +68,20 @@ __device__ __forceinline__ float sum_lanes(float x) {
   return x;
 }
 
+// Four consecutive elements of a float32 or bf16 row as float32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-gdn_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
+gdn_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ g,
                 const float* __restrict__ beta,
                 const float* __restrict__ s0, T* __restrict__ y,
@@ -112,8 +125,8 @@ gdn_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int tt = idx / K4;
       const int e = idx % K4;
       const size_t row = ((size_t)b * S + t0 + tt) * H + h;
-      qs[tt][e] = reinterpret_cast<const float4*>(q + row * K)[e];
-      ks[tt][e] = reinterpret_cast<const float4*>(k + row * K)[e];
+      qs[tt][e] = load4(q + row * K + 4 * e);
+      ks[tt][e] = load4(k + row * K + 4 * e);
     }
     for (int idx = tid; idx < n * kCols; idx += kThreads) {
       const int tt = idx / kCols;
@@ -125,6 +138,22 @@ gdn_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const size_t row = ((size_t)b * S + t0 + tt) * H + h;
       decay[tt] = expf(g[row]);
       bt[tt] = beta[row];
+    }
+    __syncthreads();
+    // l2-normalize the tile's rows of q and k (q also by K^-1/2), a warp a row
+    for (int r = tid / 32; r < 2 * n; r += kThreads / 32) {
+      float4* row = r < n ? ks[r] : qs[r - n];
+      float ss = 0.f;
+      for (int e = tid % 32; e < K4; e += 32) ss += dot4(row[e], row[e]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      const float scale = rsqrtf(ss + 1e-6f) * (r < n ? 1.f : rsqrtf(static_cast<float>(K)));
+      for (int e = tid % 32; e < K4; e += 32) {
+        row[e].x *= scale;
+        row[e].y *= scale;
+        row[e].z *= scale;
+        row[e].w *= scale;
+      }
     }
     __syncthreads();
 
@@ -175,17 +204,17 @@ gdn_scan_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <typename T, int K>
-void launch(const float* q, const float* k, const void* v, const float* g,
+void launch(const void* q, const void* k, const void* v, const float* g,
             const float* beta, const float* s0, void* y, float* s_out,
             int B, int S, int H, int V, cudaStream_t stream) {
   dim3 grid(B * H, (V + kCols - 1) / kCols);
   gdn_scan_kernel<T, K><<<grid, kThreads, 0, stream>>>(
-      q, k, static_cast<const T*>(v), g, beta, s0, static_cast<T*>(y), s_out,
-      S, H, V);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), g, beta,
+      s0, static_cast<T*>(y), s_out, S, H, V);
 }
 
 template <typename T>
-bool dispatch_k(int K, const float* q, const float* k, const void* v,
+bool dispatch_k(int K, const void* q, const void* k, const void* v,
                 const float* g, const float* beta, const float* s0, void* y,
                 float* s_out, int B, int S, int H, int V,
                 cudaStream_t stream) {
@@ -204,9 +233,10 @@ bool dispatch_k(int K, const float* q, const float* k, const void* v,
 }  // namespace
 }  // namespace crane
 
-// q, k [B,S,H,K] float32 (l2-normalized; q scaled by K^-1/2); v [B,S,H,V]
-// in `dtype`; g, beta [B,S,H] float32 (g the log decay); s0 [B,H,K,V]
-// float32 or NULL (zeros); y [B,S,H,V] in `dtype`; s_out [B,H,K,V] float32.
+// q, k [B,S,H,K] in `dtype`, as the model gives them (8-byte aligned rows;
+// l2-normalized here, q also scaled by K^-1/2); v [B,S,H,V] in `dtype`;
+// g, beta [B,S,H] float32 (g the log decay); s0 [B,H,K,V] float32 or NULL
+// (zeros); y [B,S,H,V] in `dtype`; s_out [B,H,K,V] float32.
 // All contiguous, on the device of `stream`; s_out may not alias s0.
 // Returns the CUDA error of the launch (0 on success), or
 // cudaErrorInvalidValue for a dtype or K the kernel does not take.
@@ -217,8 +247,6 @@ extern "C" int crane_gdn_scan(int dtype, const void* q, const void* k,
   using namespace crane;
   if (B == 0 || H == 0 || V == 0) return 0;
   if (S < 0 || V < 0) return cudaErrorInvalidValue;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
   const float* gf = static_cast<const float*>(g);
   const float* bf = static_cast<const float*>(beta);
   const float* sf = static_cast<const float*>(s0);
@@ -226,10 +254,9 @@ extern "C" int crane_gdn_scan(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == kBFloat16)
-    ok = dispatch_k<__nv_bfloat16>(K, qf, kf, v, gf, bf, sf, y, so, B, S, H, V,
-                                   st);
+    ok = dispatch_k<__nv_bfloat16>(K, q, k, v, gf, bf, sf, y, so, B, S, H, V, st);
   else if (dtype == kFloat32)
-    ok = dispatch_k<float>(K, qf, kf, v, gf, bf, sf, y, so, B, S, H, V, st);
+    ok = dispatch_k<float>(K, q, k, v, gf, bf, sf, y, so, B, S, H, V, st);
   if (!ok) return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

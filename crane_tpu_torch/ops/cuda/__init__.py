@@ -70,7 +70,7 @@ KERNELS = {
     **_variants("quant_decode_attention_with_stats", quant_decode_attention_with_stats),
     **_variants("quant_cached_attention", quant_cached_attention),
     **_variants("quant_cached_attention_with_stats", quant_cached_attention_with_stats),
-    "gdn_scan": gdn_scan,
+    **_variants("gdn_scan", gdn_scan),
 }
 
 

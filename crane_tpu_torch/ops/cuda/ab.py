@@ -33,8 +33,21 @@ of each side and their ratio.
   this, this, other, ... (STEP_SCRIPT). The host sets the pace of a decode
   step, so this is where a wrapper's host work shows.
 
-``--only`` takes a comma-separated subset of ``k6,attention,decode,step``
-(default all; the last three need ``--other``). ``--json PATH`` also writes
+- K7's two routes in this checkout, the sequential scan against the
+  chunkwise kernels, at H=16, K=V=128 (Qwen3.5-0.8B's GDN heads) in bf16,
+  B in {1, 8} and S in {1, 8, 17, 32, 63, 64, 65, 128, 256, 300, 512,
+  1000}: the measurement behind ``CHUNK_MIN_S``; with ``--other``, that
+  checkout's K7 (its sequential scan before the chunkwise route) against
+  the route this checkout's wrapper takes at each shape (this checkout's
+  kernels normalize q and k themselves; the other's scan is given them
+  normalized, so its row leaves out the wrapper's normalization). Each call
+  is first held to the plain scan (S <= 300) or to the scan (longer). The
+  chunkwise route's state pass at 16 columns a block against 32, each
+  forced by a copy built with the choice fixed (the measurement behind
+  taking 32 once B H V / 32 blocks fill the card).
+
+``--only`` takes a comma-separated subset of ``k6,attention,decode,step,gdn``
+(default all; attention, decode and step need ``--other``). ``--json PATH`` also writes
 every case as ``[label, ms_a, ms_b]``.
 """
 
@@ -72,6 +85,10 @@ DECODE_SHAPES = (
     ("B=1 T=16384 live 16000 with stats", 1, 16384, (16000,), True),
     ("B=8 sp slab T=4096 with stats", 8, 4096, (0, 1, 17, 300, 1000, 2048, 4095, 4096), True),
 )
+# K7's shapes: (B, S) at H=16, K=V=128
+GDN_B = (1, 8)
+GDN_S = (1, 8, 17, 32, 63, 64, 65, 128, 256, 300, 512, 1000)
+
 # the decode C entries before the split-KV redesign took no scratch and no
 # n_split (a checkout whose csrc/decode_attention.cu has no "n_split")
 OLD_DECODE_SIGNATURES = {
@@ -289,6 +306,72 @@ def decode_vs_other(lib_other: Path, lib_this: Path, other_splits: bool, gen, lo
                         log(results[-1])
 
 
+def gdn_routes(lib_this: Path, lib_other: Path | None, libs_cols: tuple[Path, Path], gen, log,
+               results) -> None:
+    """K7: this checkout's scan against its chunkwise kernels at every
+    (B, S), the chunkwise state pass at 16 columns a block against 32
+    (``libs_cols``) from S = 128, and with another checkout the route this
+    wrapper takes against that checkout's K7, each call checked first."""
+    from crane_tpu_torch.ops.cuda.gdn_scan import (
+        chunk_scratch_floats,
+        gdn_route,
+        gdn_scan_plain,
+    )
+    from crane_tpu_torch.ops.gdn import l2norm
+
+    stream = build.stream_ptr(torch.device("cuda"))
+    scan = _checked(_entry(lib_this, "crane_gdn_scan"))
+    chunk = _checked(_entry(lib_this, "crane_gdn_chunk"))
+    other = _checked(_entry(lib_other, "crane_gdn_scan")) if lib_other is not None else None
+    narrow, wide = (_checked(_entry(p, "crane_gdn_chunk")) for p in libs_cols)
+    H, K, V = 16, 128, 128
+    for B in GDN_B:
+        for S in GDN_S:
+            q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").to(torch.bfloat16)
+                       for d in (K, K, V))
+            g = -torch.rand(B, S, H, generator=gen, device="cuda") * 0.5
+            beta = torch.rand(B, S, H, generator=gen, device="cuda")
+            y = torch.empty_like(v)
+            st = torch.empty(B, H, K, V, device="cuda")
+            n = chunk_scratch_floats(B, S, H, K, V)
+            scratch = torch.empty(n, device="cuda")
+            head = (1, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                    beta.data_ptr(), None, y.data_ptr(), st.data_ptr())
+            # the other checkout's scan takes q and k normalized by its wrapper
+            qn, kn = (l2norm(q) * K ** -0.5).contiguous(), l2norm(k).contiguous()
+            normed = (1, qn.data_ptr(), kn.data_ptr(), *head[3:])
+            calls = {"scan": lambda: scan(*head, B, S, H, K, V, stream),
+                     "chunk": lambda: chunk(*head, scratch.data_ptr(), n, B, S, H, K, V, stream)}
+            if other is not None:
+                calls["other"] = lambda: other(*normed, B, S, H, K, V, stream)
+            if S >= 128:
+                for cols, fn in ((16, narrow), (32, wide)):
+                    calls[f"{cols} columns"] = (lambda fn=fn: fn(*head, scratch.data_ptr(), n, B,
+                                                                  S, H, K, V, stream))
+            ref = gdn_scan_plain(q, k, v, g, beta) if S <= 300 else None
+            for name, fn in calls.items():
+                fn()
+                if ref is None:  # the chunkwise route against the scan
+                    ref = (y.clone(), st.clone())
+                    continue
+                torch.testing.assert_close(y.float(), ref[0].float(), rtol=build.KERNEL_RTOL,
+                                           atol=build.KERNEL_ATOL, msg=f"K7 {name} y")
+                torch.testing.assert_close(st, ref[1], rtol=1e-4, atol=1e-4, msg=f"K7 {name} state")
+            results.append((f"K7 bf16 B={B} S={S} H={H} K=V={K}: scan vs chunk",
+                            *ab_ms(calls["scan"], calls["chunk"])))
+            log(results[-1])
+            if S >= 128:
+                results.append((f"K7 bf16 B={B} S={S} H={H} K=V={K}: chunk state pass at 16 "
+                                f"vs 32 columns a block", *ab_ms(calls["16 columns"],
+                                                                 calls["32 columns"])))
+                log(results[-1])
+            if other is not None:
+                route = gdn_route(S)
+                results.append((f"K7 bf16 B={B} S={S} H={H} K=V={K}: other vs this ({route})",
+                                 *ab_ms(calls["other"], calls[route])))
+                log(results[-1])
+
+
 # one run of the decode-step timing, in a process of its own that imports
 # the package of the checkout it starts in; the last line it prints is
 # "STEP" and {case: ms}: a step's wall time on the host clock, and the host
@@ -397,8 +480,8 @@ def steps_vs_other(other_root: Path, log, results) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, help="another checkout to compare K2/K3/K5 with")
-    parser.add_argument("--only", default="k6,attention,decode,step",
-                        help="comma-separated subset of k6,attention,decode,step")
+    parser.add_argument("--only", default="k6,attention,decode,step,gdn",
+                        help="comma-separated subset of k6,attention,decode,step,gdn")
     parser.add_argument("--json", type=Path, help="write the cases here as JSON")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
@@ -432,6 +515,13 @@ def main(argv=None) -> int:
         jobs["dec_other"] = _library(f"dec_{side}", other,
                                      tuple(f for f in decode_src if (other / f).exists()))
         jobs["dec_this"] = _library("dec_this", build.CSRC, decode_src)
+    if "gdn" in only:
+        jobs["gdn_this"] = _library("gdn_this", build.CSRC, ("gdn_scan.cu", "gdn_chunk.cu"))
+        for tag, test in (("gdn_narrow", "< 0"), ("gdn_wide", ">= 0")):
+            jobs[tag] = _library(tag, build.CSRC, ("gdn_chunk.cu",), {
+                "gdn_chunk.cu": (r">= sm_count\(\)\)", test + ")")})
+        if other is not None:
+            jobs["gdn_other"] = _library(f"gdn_{side}", other, ("gdn_scan.cu",))
     libs = {}
     for tag, (proc, path) in jobs.items():
         text = proc.communicate()[0]
@@ -451,6 +541,9 @@ def main(argv=None) -> int:
         decode_vs_other(libs["dec_other"], libs["dec_this"],
                         "n_split" in (other / "decode_attention.cu").read_text(), gen, log,
                         results)
+    if "gdn_this" in libs:
+        gdn_routes(libs["gdn_this"], libs.get("gdn_other"), (libs["gdn_narrow"], libs["gdn_wide"]),
+                   gen, log, results)
     if other is not None and "step" in only:
         steps_vs_other(args.other, log, results)
     if args.json is not None:

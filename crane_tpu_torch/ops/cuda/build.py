@@ -45,6 +45,7 @@ KERNEL_ATOL = 1e-3
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points: name -> argtypes (restype is int, the
 # CUDA error of the launch)
 SIGNATURES = {
@@ -63,6 +64,8 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _F, _I, _F, _P],
     "crane_quant_cached_attention_mma_info": [_I, _I, _P],
     "crane_gdn_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "crane_gdn_chunk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    "crane_gdn_chunk_info": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

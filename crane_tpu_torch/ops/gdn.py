@@ -11,9 +11,10 @@ as the reference's do.
 
 :func:`gdn_recurrence` dispatches between three routes, as in the reference:
 
-- ``"pallas"``: K7, the hand-written CUDA scan
-  (:func:`~crane_tpu_torch.ops.cuda.gdn_scan.gdn_scan`), the default on a
-  CUDA tensor;
+- ``"pallas"``: K7, the hand-written CUDA kernels
+  (:func:`~crane_tpu_torch.ops.cuda.gdn_scan.gdn_scan`: the chunkwise
+  kernels on the tensor cores from 128 steps, the sequential scan below),
+  the default on a CUDA tensor;
 - ``"chunked"``: :func:`gdn_recurrence_chunked`, plain matmuls, the default
   on a CPU tensor (the reference's default on every device);
 - ``"scan"``: :func:`gdn_recurrence_ref`, the step-by-step reference.

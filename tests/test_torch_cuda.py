@@ -23,7 +23,15 @@ from crane_tpu_torch.ops.cuda import build
 from crane_tpu_torch.ops.cuda import decode_attention as k1
 from crane_tpu_torch.ops.cuda import flash_attention as k23
 from crane_tpu_torch.ops.cuda import quant_attention as k45
-from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan, gdn_scan_plain
+from crane_tpu_torch.ops.cuda.gdn_scan import (
+    CHUNK_MIN_S,
+    ROUTES,
+    chunk_kernel_info,
+    gdn_route,
+    gdn_scan,
+    gdn_scan_plain,
+    gdn_scan_route,
+)
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
 from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight, quantize_weight
@@ -267,11 +275,75 @@ def test_k7_matches_plain(dev, dtype, B, S, H, K, V, init):
     g = -torch.rand(B, S, H, generator=gen, device=dev) * 0.5
     beta = torch.rand(B, S, H, generator=gen, device=dev)
     s0 = torch.randn(B, H, K, V, generator=gen, device=dev) * 0.3 if init else None
+    kernels.reset_launch_counts()
     y, s = gdn_scan(q, k, v, g, beta, s0)
+    assert kernels.launch_counts()[f"gdn_scan[{gdn_route(S)}]"] == 1
     yr, sr = gdn_scan_plain(q, k, v, g, beta, s0)
     assert y.dtype == dtype and s.dtype == torch.float32
     torch.testing.assert_close(y.float(), yr.float(), **TOL[dtype])
     torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
+
+
+def _k7_inputs(gen, B, S, H, K, V, dtype, case):
+    """q, k, v, g, beta of an adversarial K7 case: "random" (g in [-0.5,
+    0]), "g-40" (g down to -40), "beta1" (beta = 1, keys sharing most of one
+    direction, where T's entries grow) and "pad" (g = 0 and beta = 0 over a
+    run of steps across a chunk boundary)."""
+    q, k = rnd(gen, B, S, H, K, dtype=dtype), rnd(gen, B, S, H, K, dtype=dtype)
+    v = rnd(gen, B, S, H, V, dtype=dtype)
+    g = -torch.rand(B, S, H, generator=gen, device=gen.device) * (40.0 if case == "g-40" else 0.5)
+    beta = torch.rand(B, S, H, generator=gen, device=gen.device)
+    if case == "beta1":
+        k = (4.0 * rnd(gen, 1, 1, H, K, dtype=torch.float32) + 0.3 * k.float()).to(dtype)
+        beta = torch.ones_like(beta)
+    if case == "pad":
+        g[:, S // 3:2 * S // 3] = 0.0
+        beta[:, S // 3:2 * S // 3] = 0.0
+    return q, k, v, g, beta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["random", "g-40", "beta1", "pad"])
+@pytest.mark.parametrize("S", [1, 8, CHUNK_MIN_S - 1, CHUNK_MIN_S, 63, 64, 65, 130, 1000])
+def test_k7_routes_match_plain(dev, dtype, case, S):
+    """Both K7 routes (the sequential scan and the chunkwise kernels),
+    each forced at every S on both sides of S0 and of
+    the 64-step chunk, against the plain scan: y in its dtype, the state to
+    chip_smoke's 1e-4 + 1e-4 |plain|, with and without an initial state."""
+    gen = torch.Generator(device=dev).manual_seed(S + len(case))
+    # S = 130 at B=8, H=16, V=128: a grid that fills the card, 32 state columns a block
+    B, H, K, V = {1000: (1, 4, 128, 128), 130: (8, 16, 128, 128)}.get(S, (2, 3, 128, 40))
+    q, k, v, g, beta = _k7_inputs(gen, B, S, H, K, V, dtype, case)
+    s0 = torch.randn(B, H, K, V, generator=gen, device=dev) * 0.3
+    kernels.reset_launch_counts()
+    for init in (None, s0):
+        yr, sr = gdn_scan_plain(q, k, v, g, beta, init)
+        for route in ROUTES:
+            y, s = gdn_scan_route(route, q, k, v, g, beta, init)
+            torch.testing.assert_close(y.float(), yr.float(), **TOL[dtype], msg=route)
+            torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4, msg=route)
+    assert kernels.launch_counts()["gdn_scan[chunk]"] == kernels.launch_counts()["gdn_scan[scan]"] == 2
+
+
+@pytest.mark.parametrize("K", [64, 128, 256])
+def test_k7_chunk_route_key_dims_and_info(dev, K):
+    """The chunkwise route at each key dim (dynamic shared memory above 48
+    KB) from the wrapper, with a V that fills no state block; neither
+    kernel spills."""
+    gen = torch.Generator(device=dev).manual_seed(K)
+    q, k, v, g, beta = _k7_inputs(gen, 2, CHUNK_MIN_S + 44, 2, K, 40, torch.float32, "random")
+    s0 = torch.randn(2, 2, K, 40, generator=gen, device=dev) * 0.3
+    kernels.reset_launch_counts()
+    y, s = gdn_scan(q, k, v, g, beta, s0)
+    assert kernels.launch_counts()["gdn_scan[chunk]"] == 1
+    assert kernels.launch_counts()["gdn_scan[scan]"] == 0
+    yr, sr = gdn_scan_plain(q, k, v, g, beta, s0)
+    torch.testing.assert_close(y, yr, **TOL[torch.float32])
+    torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
+    for dtype in (torch.float32, torch.bfloat16):
+        info = chunk_kernel_info(dtype, K)
+        assert ("state32" in info) == (K <= 128), info
+        assert all(kernel["local_bytes"] == 0 for kernel in info.values()), info
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -550,7 +622,9 @@ def test_launch_counts_and_refusals(dev):
         k45.cached_attention_with_stats(q, *ops, pos, bits=bits, scale=0.1)
         w = quantize_weight(torch.ones(64, 16, device=dev), bits=bits)
         quant_matmul(q[0, 0], w.codes, w.scales, bits=bits)
-    gdn_scan(q, q, q, q[..., 0], q[..., 0])
+    gdn_scan(q, q, q, q[..., 0], q[..., 0])  # S = 4: the sequential scan
+    qs = torch.zeros(1, CHUNK_MIN_S, 2, 64, device=dev)
+    gdn_scan(qs, qs, qs, qs[..., 0], qs[..., 0])  # the chunkwise route
     assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
     odd = torch.zeros(1, 4, 2, 96, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -702,13 +776,20 @@ def hybrid_lms(dev):
 
 
 def test_hybrid_generate_on_card_matches_cpu(hybrid_lms):
+    """Prefills of 127 and 300 steps (K7's sequential scan and its
+    chunkwise route) and greedy generation, the card against the CPU."""
     cpu, gpu = hybrid_lms
     prompt = list(range(3, 200, 2))
-    kernels.reset_launch_counts()
-    logits_c, _ = cpu.prefill(cpu.init_cache(1, 128), [prompt + [0] * 28], [len(prompt)])
-    logits_g, _ = gpu.prefill(gpu.init_cache(1, 128), [prompt + [0] * 28], [len(prompt)])
-    assert kernels.launch_counts()["gdn_scan"] == 3
-    torch.testing.assert_close(logits_g.cpu(), logits_c, rtol=1e-4, atol=1e-4)
+    for ids, S, T in ((prompt, 127, 128), ([3 + 7 * i % 250 for i in range(280)], 300, 512)):
+        kernels.reset_launch_counts()
+        padded = [ids + [0] * (S - len(ids))]
+        logits_c, _ = cpu.prefill(cpu.init_cache(1, T), padded, [len(ids)])
+        logits_g, _ = gpu.prefill(gpu.init_cache(1, T), padded, [len(ids)])
+        counts = kernels.launch_counts()
+        assert counts[f"gdn_scan[{gdn_route(S)}]"] == 3  # one a GDN layer
+        assert counts["gdn_scan[chunk]"] + counts["gdn_scan[scan]"] == 3
+        torch.testing.assert_close(logits_g.cpu(), logits_c, rtol=1e-4, atol=1e-4)
+    assert gdn_route(127) == "scan" and gdn_route(300) == "chunk"
     gen = GenerationConfig.greedy(24)
     assert gpu.generate(prompt, gen) == cpu.generate(prompt, gen)
 
