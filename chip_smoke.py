@@ -78,14 +78,42 @@ requests are token ids. Phases, each reported on its own line:
    int4 caches; the bf16 engine with two 16,384-token slots serving a
    12,000- and a 300-token prompt against the unsharded engine; the
    with-stats kernels were each launched by this sp path, and K1 and K3
-   never were; the decode step's time beside the unsharded one.
+   never were; the decode step's time beside the unsharded one;
+11. graphs (within each path above): the path's greedy tokens through CUDA
+   graphs (``models/graphs.py``, one replay a decode block) against the
+   eager loop on the card, 8 rows with every fourth idle, for Qwen3-0.6B
+   bf16, w8 kv8 and w4 kv4, Qwen3.5-0.8B and four sp slabs;
+12. spec: speculative decoding on full-width Qwen3-0.6B, bf16 and w4 kv4:
+   ``generate(speculative="ngram")`` against plain greedy generate, and the
+   8-slot engine with ``speculative="ngram"`` on eight repetitive prompts
+   against the plain engine (the engine must run speculative blocks), with
+   tokens a weight pass and each run's time a token; the bf16 engine in
+   four slabs against the unsharded plain engine, and generate on an int8
+   cache in four slabs. A control (w4 kv4 generate whose verify forwards
+   write only their first row's K/V) must fail the tie rule below; the
+   sound margin shifts (one context's K/V written by decode steps and by
+   one chunk) are logged for the bf16, int8 and int4 caches. K3, K5 kv4,
+   K3-S and K5-S kv8 are launched there only by verify forwards; the rows
+   of K3 and K5 kv4 at 8 slots x 9 rows and K6 w4 at M=72 and M=9 (timed
+   in phase 3, ``check_verify_kernels``) take the launches of the verify
+   forwards alone.
+
+Where two paths' greedy tokens part (graphs against eager, speculative
+against plain), the first difference must be a tie on the reference path's
+own state: its step is replayed over the cache it left, must choose its
+token again, and the other token must lie within LOGIT_TIE of it.
+
+Decode blocks run as CUDA graphs on every path; ``graphs.eager()`` gives
+the eager loop they are held against. The decode-step lines time both in
+this one process, 4 blocks of 8 steps each. Each phase logs its seconds.
 
 Every model path (dense, quantized, hybrid, sp) must route no attention
 call to a plain version. ``[profile]`` lines split a chunk's, a prefill's
 and a decode step's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
 elementwise, reduce, index) and name the largest kernels; the decode steps
 (bf16 and w4 kv4 at B=1 and B=8 after 300 tokens, and B=1 after 16,000)
-also give their wall time on the host clock.
+also give their wall time on the host clock and the device's idle share,
+eager and as graphs.
 
 Every kernel row carries its time beside its plain version's, the library
 call's where one PyTorch call computes the same function
@@ -105,6 +133,7 @@ and so does a run with no CUDA device, or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -140,6 +169,13 @@ STATE_ATOL = 1e-4
 # (then either token is a correct greedy choice within the error bound).
 LOGIT_REL_L2 = 5e-2
 LOGIT_TIE = 0.05
+
+# Where a path's greedy tokens part from a reference path's (CUDA graphs
+# against the eager loop, speculative against plain decoding), the first
+# difference must be a tie on the state the reference path itself wrote
+# (ties_on_reference_state): the step that chose the reference's token,
+# replayed over that path's cache, chooses it again, and the other token
+# lies within LOGIT_TIE of it, on every cache.
 
 # the with-stats kernels' softmax max m and sum l against their plain
 # versions, where the plain row saw a slot (l > 0): float32 sums of the same
@@ -573,6 +609,81 @@ def check_quant_kernels() -> list[dict]:
             "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128",
             chunk_work(qc, Hkv, 2048, pos, bits)))
         k3_yardstick(rows[-1], qc, row_ops, kf[3:4], vf[3:4], pos, bits)
+    return rows
+
+
+VERIFY = "[B8-S9]"  # a verify chunk: 8 slots of spec_k + 1 = 9 rows
+M72, M9 = "[M72]", "[M9]"  # a verify forward's rows: 8 slots x 9, and generate's 9
+
+
+def check_verify_kernels() -> list[dict]:
+    """Phase 3, verify shapes: K3 (bf16) and K5 (kv8, kv4) at a speculative
+    verify chunk, B=8 rows of S=9 at a different start on each row over
+    2048-slot rows (one row ending at the last slot, one at slot 0),
+    Qwen3-0.6B's heads (16 on 8, D=128); K6 (w8, w4) at M=72 (eight slots'
+    verify) and M=9 (generate's) on gate/up (I=1024, O=3072). Each against
+    its plain version (the quantized ones computed in float32 on the same
+    codes); rows for K3, K5 kv4, and K6 w4 at both M (the verify shapes the
+    spec phase launches), launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+    from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+    from crane_tpu_torch.ops.linear import quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    B, S, T, Hq, Hkv, D = 8, 9, 2048, 16, 8, 128
+    starts = torch.tensor([T - S, 0, 17, 300, 640, 1000, 1500, 1999], device="cuda")
+    pos = (starts[:, None] + torch.arange(S, device="cuda")[None]).to(torch.int32)
+    q = rnd(B, S, Hq, D).to(torch.bfloat16)
+    k, v = rnd(B, T, Hkv, D).to(torch.bfloat16), rnd(B, T, Hkv, D).to(torch.bfloat16)
+    shape = "B=8 S=9 at ragged starts (one ending at T-1), T=2048, Hq=16 Hkv=8 D=128"
+    errs = [compare("K3 verify chunk", k23.flash_attention_cached(q, k, v, pos, scale=D ** -0.5),
+                    k23.flash_attention_cached_plain(q, k, v, pos, scale=D ** -0.5))]
+    rows = [timed_row("flash_attention_cached" + VERIFY, "flash_attention_mma.cu",
+                      "crane_tpu/ops/pallas/flash_attention.py:384", errs,
+                      lambda: k23.flash_attention_cached(q, k, v, pos, scale=D ** -0.5),
+                      lambda: k23.flash_attention_cached_plain(q, k, v, pos, scale=D ** -0.5),
+                      shape, chunk_work(q, Hkv, T, pos),
+                      lambda: sdpa(q, k, v, mask=chunk_mask(pos, T)))]
+    for bits in (8, 4):
+        cache = QuantLayerKVCache.empty(B, T, Hkv, D, bits=bits, device="cuda")
+        cache.update(k, v, 0)
+        ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+        errs = [compare(f"K5 kv{bits} verify chunk",
+                        k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=D ** -0.5),
+                        k45.quant_cached_attention_plain(q.float(), *ops, pos, bits=bits,
+                                                         scale=D ** -0.5))]
+        if bits == 4:
+            rows.append(timed_row(
+                f"quant_cached_attention[kv{bits}]" + VERIFY, "quant_cached_attention_mma.cu",
+                "crane_tpu/ops/pallas/quant_attention.py:647", errs,
+                lambda: k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=D ** -0.5),
+                lambda: k45.quant_cached_attention_plain(q, *ops, pos, bits=bits,
+                                                         scale=D ** -0.5),
+                shape, chunk_work(q, Hkv, T, pos, bits)))
+    for bits in (8, 4):
+        w = quantize_weight(rnd(1024, 3072) * 1024 ** -0.5, bits=bits)
+        for M, tag in ((72, M72), (9, M9)):
+            x = rnd(M, 1024).to(torch.bfloat16)
+            errs = [compare(f"K6 w{bits} M={M}", quant_matmul(x, w.codes, w.scales, bits=bits),
+                            quant_matmul_plain(x.float(), w.codes, w.scales, bits=bits))]
+            if bits == 4:
+                library = int4pack_mm(x, w)
+                rows.append(timed_row(
+                    f"quant_matmul[w{bits}]" + tag, "quant_matmul_mma.cu",
+                    "crane_tpu/ops/pallas/quant_matmul.py:115", errs,
+                    lambda: quant_matmul(x, w.codes, w.scales, bits=bits),
+                    lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
+                    f"M={M} I=1024 O=3072 (gate/up of a verify forward)",
+                    (M * 1024 * 2 + 1024 * 3072 * bits // 8 + 3072 * 4 + M * 3072 * 2,
+                     2 * M * 1024 * 3072), library))
     return rows
 
 
@@ -1146,29 +1257,32 @@ def compare_logits(phase: str, label: str, got, ref) -> None:
 
 def time_generate(lm, prompt, gen_cfg) -> tuple[float, float]:
     """The generate path's own steps, timed: prefill ms and decode tok/s at
-    batch 1 (host clock, synchronised); then ``generate`` must return the
-    same greedy tokens."""
+    batch 1 (host clock, synchronised), the decode as one block of n - 1
+    steps (one CUDA-graph replay; the first run captures it, the second is
+    the measurement); then ``generate`` must return the same greedy
+    tokens."""
     import torch
 
     from crane_tpu_torch.ops.sampling import SamplingParams
 
     n = gen_cfg.max_new_tokens
     padded = [prompt + [0] * (512 - len(prompt))]
+    cache = lm.init_cache(1, 512, quant_bits=gen_cfg.kv_quant_bits)
+    sp = SamplingParams.make(1, do_sample=False, device=lm.device)
+    gen_dec = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(2):  # the second run is the measurement
-        cache = lm.init_cache(1, 512, quant_bits=gen_cfg.kv_quant_bits)
+        cache.lengths.zero_()  # a fresh prefill from 0: the same cache, the same graph
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = lm.prefill(cache, padded, [len(prompt)])
         first = logits.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-    sp = SamplingParams.make(1, do_sample=False, device=lm.device)
-    recent = torch.full((1, 64), -1, dtype=torch.int32, device="cuda")
-    gen_dec = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    toks, _, _ = lm.decode_steps(cache, first, recent, sp, gen_dec, n - 1)
-    manual = [int(first[0])] + toks[0].tolist()
-    decode_s = time.perf_counter() - t0
+        recent = torch.full((1, 64), -1, dtype=torch.int32, device="cuda")
+        t0 = time.perf_counter()
+        toks, _, _ = lm.decode_steps(cache, first, recent, sp, gen_dec, n - 1)
+        manual = [int(first[0])] + toks[0].tolist()
+        decode_s = time.perf_counter() - t0
     out = lm.generate(prompt, gen_cfg)
     if out != manual or len(out) != n or not all(0 <= t < lm.config.vocab_size for t in out):
         raise AssertionError("generate() disagrees with its own prefill + decode steps")
@@ -1690,17 +1804,27 @@ def launches_per(model, label, kv_bits=None) -> None:
                   lambda: model.prefill(cache, [ids[:256]], [256], start=513))
 
 
-def log_decode_steps(model, label, kv_bits=None) -> None:
-    """[profile] lines of a decode step: its kernels' device time by family
-    (log_device_ms) and its wall time on the host clock (the mean of 8
-    steps after a synchronize), at B=1 and B=8 after a 300-token prefill
-    into 2048-slot rows, and at B=1 after LONG_LIVE tokens in a LONG_T-slot
-    row, where the decode kernels split."""
+STEP_BLOCK = 8  # decode steps a timed block runs (the engine's decode_tokens_per_seq)
+
+
+def log_decode_steps(model, label, kv_bits=None) -> dict:
+    """[profile] lines of a decode step, the eager loop beside the CUDA
+    graph, in this one process: the kernels' device time by family
+    (log_device_ms, over one block of STEP_BLOCK steps) and the wall time a
+    step on the host clock (4 blocks after a synchronize, ended by one), at
+    B=1 and B=8 after a 300-token prefill into 2048-slot rows, and at B=1
+    after LONG_LIVE tokens in a LONG_T-slot row, where the decode kernels
+    split. The device idle share is 1 - busy / wall. Where the profiler
+    sees no device time inside a graph replay, the graph's busy time is the
+    eager block's (the same kernels), and the line says so. Returns
+    {(B, T): {mode: (wall ms, busy ms)}}."""
     import torch
 
+    from crane_tpu_torch.models import graphs
     from crane_tpu_torch.ops.sampling import SamplingParams
 
     dev = model.device
+    table = {}
     for B, T, ctx in ((1, 2048, 300), (8, 2048, 300), (1, LONG_T, LONG_LIVE)):
         ids = [i % model.config.vocab_size for i in range(1, ctx + 1)]
         _, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), [ids] * B, [ctx] * B)
@@ -1708,25 +1832,500 @@ def log_decode_steps(model, label, kv_bits=None) -> None:
         recent = torch.full((B, 8), -1, dtype=torch.int32, device=dev)
         sp = SamplingParams.make(B, do_sample=False, device=dev)
         gen = torch.Generator(device=dev)
-        state = [cache]
-
-        def step():
-            _, state[0], _ = model.decode_steps(state[0], tokens, recent, sp, gen, 1)
-
         what = f"a decode step at B={B} after {ctx} tokens in {T}-slot rows"
-        families = log_device_ms(label, what, step)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(8):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 8 * 1e3
-        busy = sum(families.values())
-        idle = f", device idle {1 - busy / wall:.1%}" if busy else ""
-        log("profile", f"{label}, {what}: {wall:.3f} ms a step on the host clock{idle}; "
-                       f"K1 + K4 {families.get('K1', 0.0) + families.get('K4', 0.0):.4f} ms of "
-                       f"{busy:.4f} ms kernel time")
-        del state, cache
+        table[(B, T)] = {}
+        for mode in ("eager", "graph"):
+            def block():
+                model.decode_steps(cache, tokens, recent, sp, gen, STEP_BLOCK)
+
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                families = log_device_ms(label, f"{what}, {mode}, a block of {STEP_BLOCK} steps",
+                                         block)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    block()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / (4 * STEP_BLOCK) * 1e3
+            busy = sum(families.values()) / STEP_BLOCK
+            source = ""
+            if not busy and mode == "graph":
+                busy, source = table[(B, T)]["eager"][1], " (busy: the eager block's kernels)"
+            table[(B, T)][mode] = (wall, busy)
+            idle = (f", device busy {busy:.4f} ms, idle {1 - busy / wall:.1%}{source}"
+                    if busy else "")
+            log("profile", f"{label}, {what}, {mode}: {wall:.3f} ms a step on the host "
+                           f"clock{idle}; K1 + K4 "
+                           f"{(families.get('K1', 0.0) + families.get('K4', 0.0)) / STEP_BLOCK:.4f}"
+                           f" ms a step")
+        eager, graph = table[(B, T)]["eager"], table[(B, T)]["graph"]
+        log("profile", f"{label}, {what}: graph {graph[0]:.3f} ms vs eager {eager[0]:.3f} ms a "
+                       f"step ({eager[0] / graph[0]:.2f}x)")
+        del cache
+    return table
+
+
+def clone_layers(layers) -> list:
+    """A copy of a cache's layers (each tensor field cloned)."""
+    import dataclasses
+
+    import torch
+
+    return [dataclasses.replace(layer, **{
+        f.name: getattr(layer, f.name).clone() for f in dataclasses.fields(layer)
+        if isinstance(getattr(layer, f.name), torch.Tensor)}) for layer in layers]
+
+
+def replay_logits(model, layers, B, steps: dict):
+    """One decode step over ``layers``, B rows of a cache as a path left
+    them: row r (a key of ``steps``, mapped to its context) decodes its
+    context's last token at that token's position, over the row's earlier
+    K/V as they are; the other rows are inactive. Returns float32 logits
+    ``[B, V]``."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits
+    from crane_tpu_torch.ops.kv_cache import KVCache
+
+    dev = model.device
+    toks = torch.zeros((B, 1), dtype=torch.int32)
+    pos = torch.zeros((B,), dtype=torch.int32)
+    active = torch.zeros((B,), dtype=torch.bool)
+    for r, ctx in steps.items():
+        toks[r, 0], pos[r], active[r] = ctx[-1], len(ctx) - 1, True
+    toks, pos, active = toks.to(dev), pos.to(dev), active.to(dev)
+    hidden, _ = forward_hidden(model.config, model.params, toks,
+                               KVCache(layers=layers, lengths=pos.clone()), pos, model.rope,
+                               active=active)
+    return lm_logits(model.config, model.params, hidden)[:, 0].float()
+
+
+def ties_on_reference_state(model, label, layers, B, parts: dict, bound: float) -> dict:
+    """Where two paths' greedy tokens part, a tie on the reference path's
+    own state. ``parts`` maps a row of the reference path's cache
+    (``layers``, B rows, as that path left them) to (context, tokens,
+    reference tokens): the two lists that followed the context, each token
+    chosen by a decode step of the one before (the first by the context's
+    prefill). Where a row's lists part, at step j, that step of the
+    reference path is replayed (:func:`replay_logits`): it must choose the
+    reference's token again, and the other token's logit must lie within
+    ``bound`` of it. Returns {row: (j, gap)} for the rows that part."""
+    steps, firsts = {}, {}
+    for r, (ctx, got, ref) in parts.items():
+        j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+        if j is None:
+            if len(got) != len(ref):
+                raise AssertionError(f"{label} row {r}: {len(got)} tokens vs {len(ref)}")
+            continue
+        steps[r] = list(ctx) + list(ref[:j])
+        firsts[r] = (j, got[j], ref[j])
+    if not steps:
+        return {}
+    logits = replay_logits(model, layers, B, steps)
+    ties = {}
+    for r, (j, got_j, ref_j) in firsts.items():
+        row = logits[r]
+        gap = (row[ref_j] - row[got_j]).item()
+        top = int(row.argmax())
+        if top != ref_j:
+            raise AssertionError(f"{label} row {r}: step {j}: the replayed step chose {top}, "
+                                 f"the reference path {ref_j}")
+        if gap >= bound:
+            raise AssertionError(f"{label} row {r}: step {j}: token {got_j} vs {ref_j}, logit "
+                                 f"gap {gap:.4g} on the reference path's state is no tie "
+                                 f"(bound {bound})")
+        ties[r] = (j, round(gap, 4))
+    return ties
+
+
+def sound_shifts(model, layers, B, rows: dict, steps) -> list[float]:
+    """How far two sound states of one context move a step's top-two
+    margin. ``rows`` maps a row of ``layers`` (a cache as the reference
+    path left it) to (prompt, tokens): the prompt's K/V written by its
+    prefill, token i's at position len(prompt) + i by the decode step of
+    token i + 1. At each step j of ``steps`` (2 <= j < len(tokens)) the
+    step choosing token j is replayed on that state (P), then on the same
+    rows with tokens 0..j-2 rewritten by one chunk (C: a verify or a
+    continuation writes so, K3/K5 and K6 at M = B (j - 1)); the shift is
+    |margin_P - margin_C| for P's top two. Overwrites the rows' decoded
+    positions. Returns the shifts, every row at every step."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import forward_hidden
+    from crane_tpu_torch.ops.kv_cache import KVCache
+
+    dev = model.device
+    margins = {}
+    for j in steps:
+        logits = replay_logits(model, layers, B, {r: p + t[:j] for r, (p, t) in rows.items()})
+        top = logits.topk(2)
+        margins[j] = (top.indices, top.values[:, 0] - top.values[:, 1])
+    live = torch.tensor(sorted(rows), device=dev)
+    active = torch.zeros((B,), dtype=torch.bool, device=dev)
+    active[live] = True
+    starts = torch.zeros((B,), dtype=torch.int32)
+    for r, (p, _) in rows.items():
+        starts[r] = len(p)
+    starts = starts.to(dev)
+    shifts = []
+    for j in steps:
+        chunk = torch.zeros((B, j - 1), dtype=torch.int32)
+        for r, (_, t) in rows.items():
+            chunk[r] = torch.tensor(t[:j - 1], dtype=torch.int32)
+        forward_hidden(model.config, model.params, chunk.to(dev),
+                       KVCache(layers=layers, lengths=starts.clone()), starts, model.rope,
+                       active=active)
+        logits = replay_logits(model, layers, B, {r: p + t[:j] for r, (p, t) in rows.items()})
+        idx, m_p = margins[j]
+        pair = logits.gather(1, idx)
+        shifts += (m_p - (pair[:, 0] - pair[:, 1]))[live].abs().tolist()
+    return shifts
+
+
+def log_sound_shifts(label, shifts) -> None:
+    """Log the shifts of :func:`sound_shifts`: how much of LOGIT_TIE two
+    sound states of one context use up on this cache."""
+    shifts = sorted(shifts)
+    log("spec", f"{label}: sound margin shifts (decode-step vs chunk-written K/V), "
+                f"{len(shifts)} steps: median {shifts[len(shifts) // 2]:.4f}, max "
+                f"{shifts[-1]:.4f} (LOGIT_TIE {LOGIT_TIE})")
+
+
+@contextlib.contextmanager
+def verify_writes_first_row_only():
+    """The control's fault: a per-row write of several tokens (a verify
+    chunk's K/V) stores only its first token's, so accepted drafts leave
+    their slots as they were."""
+    import torch
+
+    from crane_tpu_torch.ops.kv_cache import LayerKVCache, QuantLayerKVCache
+
+    saved ={cls: cls.update for cls in (LayerKVCache, QuantLayerKVCache)}
+
+    def first_row(update):
+        def wrapper(self, k_new, v_new, positions, row=None):
+            if isinstance(positions, torch.Tensor) and k_new.shape[1] > 1:
+                k_new, v_new = k_new[:, :1], v_new[:, :1]
+            return update(self, k_new, v_new, positions, row)
+        return wrapper
+
+    for cls, update in saved.items():
+        cls.update = first_row(update)
+    try:
+        yield
+    finally:
+        for cls, update in saved.items():
+            cls.update = update
+
+
+def graph_vs_eager(model, label, kv_bits=None, B=8, T=2048, blocks=2) -> None:
+    """Phase 'graphs': one served decode path's greedy tokens through CUDA
+    graphs against the eager loop on the card. B rows after a ragged
+    prefill (300 - 29 i tokens), every fourth row idle, ``blocks`` masked
+    blocks of STEP_BLOCK steps each way. Where a row's tokens part, the
+    first difference must be a tie within LOGIT_TIE on the eager loop's
+    own state (:func:`ties_on_reference_state`): the two write the same
+    K/V, on every cache."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.ops.sampling import SamplingParams
+
+    dev, vocab = model.device, model.config.vocab_size
+    lens = [300 - 29 * i for i in range(B)]
+    rows = [[(7919 * i + 104729 * j) % vocab for j in range(n)] for i, n in enumerate(lens)]
+    padded = [r + [0] * (512 - len(r)) for r in rows]
+
+    def run(eager):
+        logits, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), padded, lens)
+        toks = logits.argmax(-1).to(torch.int32)
+        first = toks.tolist()
+        recent = torch.full((B, 64), -1, dtype=torch.int32, device=dev)
+        sp = SamplingParams.make(B, do_sample=False, device=dev)
+        active = torch.tensor([i % 4 != 3 for i in range(B)], device=dev)
+        gen = torch.Generator(device=dev)
+        outs = []
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for _ in range(blocks):
+                out, cache, recent = model.decode_active(cache, toks, recent, sp, gen, active,
+                                                         STEP_BLOCK)
+                toks = out[:, -1]
+                outs.append(out)
+        return first, torch.cat(outs, dim=1).cpu(), cache
+
+    t0 = time.perf_counter()
+    first, got, got_cache = run(False)
+    got_len = got_cache.lengths.cpu()
+    del got_cache
+    _, ref, ref_cache = run(True)
+    if not torch.equal(got_len, ref_cache.lengths.cpu()):
+        raise AssertionError(f"graphs {label}: lengths {got_len.tolist()} vs eager "
+                             f"{ref_cache.lengths.tolist()}")
+    parted = ties_on_reference_state(
+        model, f"graphs {label}", ref_cache.layers, B,
+        {r: (rows[r] + [first[r]], got[r].tolist(), ref[r].tolist()) for r in range(B)},
+        LOGIT_TIE)
+    log("graphs", f"{label}: {B} rows (every fourth idle) x {blocks} blocks of {STEP_BLOCK} greedy "
+                  f"steps, CUDA graphs vs the eager loop: "
+                  f"{'tokens identical' if not parted else f'first differences at ties {parted}'}"
+                  f"; lengths equal ({time.perf_counter() - t0:.1f} s)")
+
+
+def serve_greedy(engine, prompts: dict, n: int) -> tuple[dict, float]:
+    """Serve greedy requests of ``n`` tokens on a warmed engine: (tokens by
+    request, wall seconds, synchronised)."""
+    import torch
+
+    from crane_tpu_torch.serve.engine import EngineRequest, FinishReason, SamplingOptions
+
+    greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    queues = {rid: engine.submit(EngineRequest(rid, p, n, greedy)) for rid, p in prompts.items()}
+    toks, done = {rid: [] for rid in prompts}, {}
+    for _ in range(50000):
+        busy = engine.step()
+        for rid, q in queues.items():
+            while not q.empty():
+                r = q.get_nowait()
+                if r.error is not None:
+                    raise AssertionError(f"{rid}: {r.error}")
+                if r.token is not None:
+                    toks[rid].append(r.token)
+                if r.finished:
+                    done[rid] = r.finish_reason
+        if len(done) == len(prompts) and not busy and engine.request_q.empty():
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(done.get(rid) != FinishReason.LENGTH or len(toks[rid]) != n for rid in prompts):
+        raise AssertionError(f"requests did not finish with {n} tokens: {done}")
+    return toks, wall
+
+
+def repetitive_prompts(vocab, seed, count, base=120):
+    """``count`` prompts, each a random 24 + 8 i token segment repeated to
+    base + 16 i tokens: prompt lookup finds n-grams to draft from."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for i in range(count):
+        seg = torch.randint(0, vocab, (24 + 8 * i,), generator=gen).tolist()
+        out[f"r{i}"] = (seg * 16)[:base + 16 * i]
+    return out
+
+
+def counted_calls(obj, name, launches: dict, calls: list | None = None):
+    """Wrap ``obj.name`` (an instance attribute over the method) to add each
+    call's kernel launches to ``launches`` and count it in ``calls``; undo
+    with ``del obj.name``."""
+    from crane_tpu_torch.ops import cuda as kernels
+
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        before = kernels.launch_counts()
+        out = fn(*a, **kw)
+        for k, v in kernels.launch_counts().items():
+            if v != before[k]:
+                launches[k] = launches.get(k, 0) + v - before[k]
+        if calls is not None:
+            calls.append(1)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def spec_generate(model, label, kv_bits=None, reference=None, n=128, calibrate=False,
+                  control=False) -> dict:
+    """generate(speculative="ngram") against plain greedy generate (of
+    ``reference``, by default the same model) on a repetitive 180-token
+    prompt: equal tokens, or a first difference at a tie on plain's own
+    state (:func:`ties_on_reference_state`, LOGIT_TIE). Logs
+    the tokens a weight pass (decode tokens over verify forwards) and each
+    run's decode wall time a token (from the prefill's end, synchronised,
+    to generate's return; the second of two runs, so no capture is timed).
+    ``calibrate`` logs the sound shifts on plain's state
+    (:func:`sound_shifts`); ``control`` runs speculation again with its
+    verify forwards writing only their first row's K/V, which must fail the
+    tie check. Returns the timed run's verify forwards' launches (M = k + 1
+    = 9 rows each)."""
+    import torch
+
+    from crane_tpu_torch.models.causal_lm import GenerationConfig
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    reference = reference or model
+    prompt = repetitive_prompts(model.config.vocab_size, 21, 1, base=180)["r0"]
+    plain_key = (bucket_length(len(prompt) + n, floor=256), kv_bits)  # generate's cache
+    prefilled = []
+
+    def prefill_done(fn):
+        def wrapper(*a, **kw):
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            prefilled.append(time.perf_counter())
+            return out
+        return wrapper
+
+    for m in {id(model): model, id(reference): reference}.values():
+        m.prefill = prefill_done(m.prefill)
+    try:
+        for _ in range(2):
+            calls, launches, runs = [], {}, {}
+            counted_calls(model, "verify_step", launches, calls)
+            for name, m, spec in (("plain", reference, None), ("spec", model, "ngram")):
+                out = m.generate(prompt, GenerationConfig.greedy(n, kv_quant_bits=kv_bits,
+                                                                 speculative=spec))
+                runs[name] = (out, (time.perf_counter() - prefilled[-1]) / (len(out) - 1) * 1e3)
+                if name == "plain":
+                    state = clone_layers(reference._generate_caches[plain_key][0].layers)
+            del model.verify_step
+    finally:
+        for m in (model, reference):
+            m.__dict__.pop("prefill", None)
+            m.__dict__.pop("verify_step", None)
+    (plain, plain_ms), (spec, spec_ms) = runs["plain"], runs["spec"]
+    tie = ties_on_reference_state(reference, f"spec generate {label}", state, 1,
+                                  {0: (prompt, spec, plain)}, LOGIT_TIE).get(0)
+    log("spec", f"{label}: generate({n}) speculative vs plain greedy: "
+                f"{'tokens equal' if tie is None else f'first difference at a tie {tie}'}; "
+                f"{(len(spec) - 1) / max(len(calls), 1):.3f} tokens a weight pass "
+                f"({len(spec) - 1} decode tokens, {len(calls)} verify forwards); decode "
+                f"{spec_ms:.3f} ms a token speculative vs {plain_ms:.3f} ms plain (host clock, "
+                f"batch 1)")
+    if control:
+        model.release_graphs()
+        with verify_writes_first_row_only():
+            bad = model.generate(prompt, GenerationConfig.greedy(n, kv_quant_bits=kv_bits,
+                                                                 speculative="ngram"))
+        model.release_graphs()
+        caught = ties_on_reference_state(reference, f"control {label}", state, 1,
+                                         {0: (prompt, bad, plain)}, float("inf")).get(0)
+        if caught is None or caught[1] < LOGIT_TIE:
+            raise AssertionError(f"control {label}: speculation whose verify forwards write "
+                                 f"only their first row's K/V passes the tie check ({caught})")
+        log("spec", f"{label}: control, verify forwards that write only their first row's "
+                    f"K/V: first difference {caught} is no tie, as it must not be")
+    if calibrate:
+        log_sound_shifts(f"{label} generate",
+                         sound_shifts(reference, state, 1, {0: (prompt, plain)}, range(2, n, 4)))
+    return launches
+
+
+def spec_engine(model, label, kv_bits=None, reference=None, n=96, calibrate=False) -> dict:
+    """The 8-slot engine with speculative="ngram" on eight repetitive greedy
+    prompts against the plain engine (of ``reference``, by default the same
+    model): each request's tokens equal, or part at a tie on the plain
+    engine's own state (LOGIT_TIE); spec_steps > 0. Logs
+    tokens a weight pass (spec_tokens / spec_steps, all streams of a
+    batched verify, and a stream), each engine's wall time and decode time
+    a token, and the kernels the served speculative blocks launched (their
+    verify forwards, 8 slots x 9 rows). ``calibrate`` measures the sound
+    shifts on the plain engine's state. Returns those launches."""
+    import torch
+
+    from crane_tpu_torch.serve.engine import InferenceEngine
+
+    reference = reference or model
+    prompts = repetitive_prompts(model.config.vocab_size, 8, 8)
+    runs, launches = {}, {}
+    for name, m, kw in (("plain", reference, {}), ("spec", model, {"speculative": "ngram"})):
+        engine = InferenceEngine(m, max_slots=8, max_seq_len=2048, kv_quant_bits=kv_bits, **kw)
+        engine.warmup()
+        slots, emit = {}, engine._emit
+
+        def emit_noting_slot(seq, token, slots=slots, emit=emit):
+            slots[seq.request_id] = seq.slot
+            return emit(seq, token)
+
+        engine._emit = emit_noting_slot
+        if name == "spec":
+            counted_calls(m, "spec_rounds", launches)
+        try:
+            toks, wall = serve_greedy(engine, prompts, n)
+        finally:
+            m.__dict__.pop("spec_rounds", None)
+        runs[name] = (engine, toks, wall, slots)
+    (plain, ref_toks, plain_wall, at), (spec, got_toks, spec_wall, _) = runs["plain"], runs["spec"]
+    by_slot = {at[rid]: rid for rid in prompts}
+    ties = ties_on_reference_state(
+        reference, f"spec engine {label}", plain.cache.layers, 8,
+        {at[rid]: (p, got_toks[rid], ref_toks[rid]) for rid, p in prompts.items()},
+        LOGIT_TIE)
+    ties = {by_slot[s]: tie for s, tie in ties.items()}
+    s = spec.stats
+    if s.spec_steps <= 0:
+        raise AssertionError(f"spec engine {label}: no speculative block ran")
+    tokens = 8 * n
+    log("spec", f"{label}: 8-slot engine, 8 greedy requests x {n} tokens, speculative vs plain: "
+                f"{'tokens equal' if not ties else f'first differences at ties {ties}'}; "
+                f"spec_steps {s.spec_steps}, spec_tokens {s.spec_tokens}: "
+                f"{s.spec_tokens / s.spec_steps:.3f} tokens a weight pass over the batch, "
+                f"{s.spec_tokens / s.spec_steps / 8:.3f} a stream; wall {spec_wall:.3f} s vs "
+                f"{plain_wall:.3f} s plain ({spec_wall / tokens * 1e3:.3f} vs "
+                f"{plain_wall / tokens * 1e3:.3f} ms a token); decode time "
+                f"{s.decode_time_s / tokens * 1e3:.3f} vs "
+                f"{plain.stats.decode_time_s / tokens * 1e3:.3f} ms a token (host clock)")
+    log("launches", f"spec {label}: the served speculative blocks ({s.spec_steps} verify "
+                    f"forwards of 8 x {spec.spec_k + 1} rows) launched {json.dumps(launches)}")
+    attention = ("flash_attention_cached_with_stats" if getattr(model, "mesh", None) and
+                 kv_bits is None else "flash_attention_cached" if kv_bits is None else
+                 f"quant_cached_attention[kv{kv_bits}]")
+    if launches.get(attention, 0) <= 0:
+        raise AssertionError(f"spec {label}: the verify forwards never launched {attention}")
+    if calibrate:
+        log_sound_shifts(f"{label} engine",
+                         sound_shifts(reference, plain.cache.layers, 8,
+                                      {at[rid]: (p, ref_toks[rid]) for rid, p in prompts.items()},
+                                      range(2, n, 3)))
+    del runs, plain, spec
+    torch.cuda.synchronize()
+    return launches
+
+
+def check_spec(lm, lm4, rows: list[dict]) -> None:
+    """Phase 'spec': speculative decoding on full-width Qwen3-0.6B, bf16 and
+    w4 kv4 (spec_generate, spec_engine), and in four sequence slabs on the
+    card (the bf16 engine against the unsharded plain engine, and generate
+    on an int8 cache). The sound shifts are logged once for each cache (the
+    bf16 and w4 kv4 engines, the int8 generate), and the w4 kv4 generate
+    runs the control. ``rows`` (the verify-shape rows) get
+    the launches of the verify forwards alone: K3 and K5 kv4 at 8 slots x 9
+    rows and K6 w4 at M=72 from the served speculative blocks, K6 w4 at M=9
+    from generate's verify forwards."""
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
+
+    reset_counts()
+    spec_generate(lm, "Qwen3-0.6B bf16")
+    bf16_blocks = spec_engine(lm, "Qwen3-0.6B bf16", calibrate=True)
+    lm.release_graphs()
+    w4_verify = spec_generate(lm4, "Qwen3-0.6B w4 kv4", 4, control=True)
+    w4_blocks = spec_engine(lm4, "Qwen3-0.6B w4 kv4", 4, calibrate=True)
+    lm4.release_graphs()
+    slm = sp_shard_lm(lm, make_sp_mesh(4, ["cuda:0"] * 4))
+    spec_engine(slm, "Qwen3-0.6B bf16, 4 slabs", None, reference=lm)
+    spec_generate(slm, "Qwen3-0.6B bf16 on an int8 cache, 4 slabs", 8, reference=lm,
+                  calibrate=True)
+    slm.release_graphs()
+    lm.release_graphs()
+    counts = kernels.launch_counts()
+    log("launches", f"spec path: {json.dumps(counts)}")
+    for name in ("flash_attention_cached_with_stats", "quant_cached_attention_with_stats[kv8]"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the sp verify forwards never launched {name}")
+    verify = {"flash_attention_cached" + VERIFY: bf16_blocks.get("flash_attention_cached", 0),
+              "quant_cached_attention[kv4]" + VERIFY: w4_blocks.get("quant_cached_attention[kv4]",
+                                                                    0),
+              "quant_matmul[w4]" + M72: w4_blocks.get("quant_matmul[w4]", 0),
+              "quant_matmul[w4]" + M9: w4_verify.get("quant_matmul[w4]", 0)}
+    for row in rows:
+        row["launches"] = verify[row["name"]]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was never launched by a verify forward")
+    no_plain_routes("spec path")
 
 
 # device kernels by family, the first match of a name's words (the port's
@@ -2043,8 +2642,10 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     never launched."""
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
-        row["launches"] = counts[row["name"].removesuffix(LONG).removesuffix(D256)
-                                 .removesuffix(M256)]
+        name = row["name"]
+        for tag in (LONG, D256, M256):
+            name = name.removesuffix(tag)
+        row["launches"] = counts[name]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched by the {path}")
 
@@ -2073,14 +2674,25 @@ def main() -> int:
                  f"({build.library_path().name})")
     log_build_info()
 
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(phase):
+        nonlocal t_phase
+        phase_s[phase] = time.perf_counter() - t_phase
+        log("time", f"phase {phase} ran in {phase_s[phase]:.1f} s")
+        t_phase = time.perf_counter()
+
     rows = check_kernels()
     quant_rows = check_quant_kernels()
     hybrid_rows = check_d256_kernels() + check_gdn_kernel()
     long_rows = check_long_decode()
+    verify_rows = check_verify_kernels()
     rows += long_rows["dense"]
     quant_rows += long_rows["quantized"]
     hybrid_rows += long_rows["hybrid"]
     check_routed_configs()
+    phase_done("kernels")
 
     # the dense main path: bf16 generation and serving (K1, K2, K3)
     reset_counts()
@@ -2088,7 +2700,10 @@ def main() -> int:
     check_engine(lm)
     read_launches("dense path", rows, kernels.launch_counts())
     no_plain_routes("dense path")
+    graph_vs_eager(lm, "Qwen3-0.6B bf16")
     log_decode_steps(lm, "Qwen3-0.6B bf16")
+    lm.release_graphs()
+    phase_done("dense")
 
     # the quantized main path: int4 and int8 ISQ weights on int8 and int4
     # KV caches (K2 for fresh prefills, K4, K5 and K6 at each bit width)
@@ -2099,19 +2714,21 @@ def main() -> int:
     params4 = check_quant_model(lm)
     lm8 = CausalLM(lm.config, quantize_params(lm.params, bits=8), dtype=torch.bfloat16)
     check_engine(lm8, "quant-engine w8 kv8", kv_quant_bits=8)
-    check_engine(CausalLM(lm.config, params4, dtype=torch.bfloat16), "quant-engine w4 kv4",
-                 kv_quant_bits=4)
+    lm4 = CausalLM(lm.config, params4, dtype=torch.bfloat16)
+    check_engine(lm4, "quant-engine w4 kv4", kv_quant_bits=4)
     counts = kernels.launch_counts()
     if counts["flash_attention_causal"] <= 0:
         raise AssertionError("the quantized path never launched K2")
     read_launches("quantized path", quant_rows, counts)
     no_plain_routes("quantized path")
+    graph_vs_eager(lm8, "Qwen3-0.6B w8 kv8", kv_bits=8)
     launches_per(lm8, "Qwen3-0.6B w8", kv_bits=8)
     del lm8
-    lm4 = CausalLM(lm.config, params4, dtype=torch.bfloat16)
+    graph_vs_eager(lm4, "Qwen3-0.6B w4 kv4", kv_bits=4)
     launches_per(lm4, "Qwen3-0.6B w4", kv_bits=4)
     log_decode_steps(lm4, "Qwen3-0.6B w4 kv4", kv_bits=4)
-    del params4, lm4
+    lm4.release_graphs()
+    phase_done("quantized")
 
     # the hybrid main path: Qwen3.5-0.8B generation and serving (K1, K2, K3
     # at head_dim 256; K7 for every GDN prefill and continuation chunk)
@@ -2120,19 +2737,31 @@ def main() -> int:
     k7_routes_launched("Qwen3.5-0.8B engine", lambda: check_engine(lm35, "hybrid-engine"))
     read_launches("hybrid path", hybrid_rows, kernels.launch_counts())
     no_plain_routes("hybrid path")
+    graph_vs_eager(lm35, "Qwen3.5-0.8B bf16")
     launches_per(lm35, "Qwen3.5-0.8B bf16")
     del lm35
+    phase_done("hybrid")
 
     # the sequence-parallel main path: Qwen3-0.6B in four slabs on the card
     # (K2 for fresh prompts; K1-S, K3-S, K4-S and K5-S over the slabs)
+    from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
+
     sp_rows = check_stats_kernels() + long_rows["sp"]
-    t_sp = time.perf_counter()
     reset_counts()
     check_sp(lm, sp_rows)
     no_plain_routes("sp path")
-    log("sp", f"phase 10 ran in {time.perf_counter() - t_sp:.1f} s")
+    graph_vs_eager(sp_shard_lm(lm, make_sp_mesh(4, ["cuda:0"] * 4)), "Qwen3-0.6B bf16, 4 slabs")
+    lm.release_graphs()
+    phase_done("sp")
 
-    rows += quant_rows + hybrid_rows + sp_rows
+    # speculative decoding: verify forwards (K3, K5, K3-S, K5-S; K6 at
+    # B (k + 1) rows) inside chained propose/verify graphs
+    check_spec(lm, lm4, verify_rows)
+    del lm4, params4
+    phase_done("spec")
+    log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
+
+    rows += quant_rows + hybrid_rows + sp_rows + verify_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
 """Generic causal-LM driver: prefill, decode steps and generate.
 
 Port of ``crane_tpu/models/causal_lm.py``. JAX ran each step as one jitted
-program over donated buffers; PyTorch runs eagerly, and the cache buffers are
-written in place by the layers (the returned cache shares them and carries
+program over donated buffers; the port runs prefills eagerly and decode blocks
+as CUDA graphs (below), and the cache buffers are written in place by the
+layers (the returned cache shares them and carries
 the new lengths). Forward, logits, repetition penalty and sampling stay on
 the device; only sampled token ids cross to the host, for streaming and EOS
 checks.
@@ -14,12 +15,21 @@ length and are causally masked until decode overwrites them; every prefill
 hands the true lengths to ``forward_hidden``, so GDN layers keep the pad
 steps out of their recurrent state and conv window.
 
-Speculative decoding (``GenerationConfig.speculative``) is not ported yet
-(ROADMAP Queue 1 item 6) and raises.
+Decode blocks (``decode_steps``, ``decode_active``, ``decode_active_hist``)
+and speculative decoding (``ngram_propose`` / ``device_ngram_propose``,
+``verify_step`` / ``verify_active`` / ``verify_slot``, ``spec_rounds``)
+port crane_tpu's functions of the same names. On the card each block is one
+CUDA-graph replay, the counterpart of one jitted ``lax.scan``
+(:mod:`crane_tpu_torch.models.graphs`); on the CPU the same block functions
+run eagerly. A block updates the cache's ``lengths``, the ``recent`` rings
+and the ``history`` rows in place. ``generate(speculative="ngram")`` runs
+only for greedy, penalty-free configs on models without recurrent layers,
+as crane_tpu's gate says; any other config takes plain decoding.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Sequence
 
@@ -27,6 +37,7 @@ import numpy as np
 import torch
 
 from crane_tpu_torch.generation.config import GenerationConfig
+from crane_tpu_torch.models import graphs
 from crane_tpu_torch.utils.buckets import bucket_length
 from crane_tpu_torch.models.modules.transformer import (
     TransformerConfig,
@@ -37,6 +48,75 @@ from crane_tpu_torch.models.modules.transformer import (
 )
 from crane_tpu_torch.ops.kv_cache import KVCache
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
+
+# block inputs that the block also writes, copied back to the caller's
+# tensors after a graph replay
+_IN_OUT = ("lengths", "recent", "history")
+
+
+def _greedy_accept(logits: torch.Tensor, tokens: torch.Tensor):
+    """(model_tok ``[B, K+1]``, n_accept ``[B]``) int32: the argmax at each
+    position, and the longest prefix where it equals the next draft."""
+    model_tok = logits.argmax(-1).to(torch.int32)
+    match = (model_tok[:, :-1] == tokens[:, 1:]).to(torch.int32)
+    return model_tok, match.cumprod(dim=1).sum(dim=1).to(torch.int32)
+
+
+def ngram_propose(history: list, n: int, k: int, pad: int = 0) -> list:
+    """Prompt-lookup draft: continuation of the most recent earlier
+    occurrence of the trailing ``n``-gram of ``history`` whose full k-token
+    continuation exists, else the most recent occurrence of any kind;
+    ``pad``-filled to exactly ``k`` tokens (the verify forward is
+    fixed-shape; unmatched pads are simply rejected). The full-window
+    preference mirrors :func:`device_ngram_propose`: on a period-p cycle the
+    most recent occurrence only carries p real continuation tokens."""
+    if len(history) > n:
+        tail = history[-n:]
+        best = None
+        for i in range(len(history) - n - 1, -1, -1):
+            if history[i: i + n] == tail:
+                if best is None:
+                    best = i  # most recent match of any kind (fallback)
+                if i + n + k <= len(history):
+                    best = i  # most recent full-window match wins
+                    break
+        if best is not None:
+            cont = history[best + n: best + n + k]
+            return cont + [pad] * (k - len(cont))
+    return [pad] * k
+
+
+def device_ngram_propose(history: torch.Tensor, hist_len: torch.Tensor, n: int,
+                         k: int) -> torch.Tensor:
+    """Vectorized prompt lookup over a device history buffer, the
+    counterpart of :func:`ngram_propose` (the same draft for the same
+    history). ``history [B, H]`` int32 token rows, ``hist_len [B]`` valid
+    counts. Returns drafts ``[B, k]`` int32: the continuation of the most
+    recent strictly earlier occurrence of each row's trailing ``n``-gram
+    whose full k-token continuation lies inside the valid region, else the
+    most recent occurrence of any kind (0-padded past the valid end), else
+    zeros. ``n`` shifted compares over ``[B, H]``, with no host read."""
+    B, H = history.shape
+    dev = history.device
+    hist_len = hist_len.long()[:, None]
+    pos = hist_len - n + torch.arange(n, device=dev)[None, :]
+    tail = history.gather(1, pos.clamp(0, H - 1))
+    W = H - n + 1
+    match = torch.ones((B, W), dtype=torch.bool, device=dev)
+    for i in range(n):
+        match &= history[:, i:W + i] == tail[:, i:i + 1]
+    p_idx = torch.arange(W, device=dev)[None, :]
+    # strictly earlier: the window ending at the tail itself (p = L - n) and
+    # anything past the valid region never match
+    match &= p_idx <= hist_len - n - 1
+    full = match & (p_idx <= hist_len - n - k)  # continuation fully valid
+    cand = torch.where(full.any(dim=1, keepdim=True), full, match)
+    has = match.any(dim=1, keepdim=True)
+    p = torch.where(cand, p_idx, -1).argmax(dim=1, keepdim=True)  # most recent
+    didx = p + n + torch.arange(k, device=dev)[None, :]
+    drafts = history.gather(1, didx.clamp(0, H - 1))
+    ok = has & (didx < hist_len) & (hist_len > n)
+    return torch.where(ok, drafts, 0).to(torch.int32)
 
 
 class CausalLM:
@@ -58,6 +138,8 @@ class CausalLM:
         self.dtype = dtype
         self.device = params["embed"].device
         self.rope = make_rope_tables(config, device=self.device)
+        self._programs: dict = {}  # captured decode blocks (models/graphs.py)
+        self._generate_caches: dict = {}
 
     def _ids(self, token_ids) -> torch.Tensor:
         if isinstance(token_ids, torch.Tensor):
@@ -122,46 +204,253 @@ class CausalLM:
         logits = lm_logits(self.config, self.params, last[None, None])[:, 0]
         return logits, KVCache(layers=cache.layers, lengths=lengths)
 
-    def _decode_one(self, cache, toks, recent, sp, generator, active=None):
-        hidden, cache = forward_hidden(
-            self.config, self.params, toks[:, None], cache, cache.lengths,
-            self.rope, active=active,
-        )
-        logits = lm_logits(self.config, self.params, hidden)[:, 0]
-        nxt = sample(logits, sp, recent, generator)
+    # -- decode blocks -------------------------------------------------------
+    # Each block is one function of tensors (the ``_*_body`` methods below):
+    # it reads its inputs, writes its outputs and the in/out state in place,
+    # and closes over the cache layers. On the card ``_dispatch`` runs it as
+    # a CUDA graph program (``models/graphs.py``), elsewhere eagerly.
+
+    def _mask(self, active, batch: int) -> torch.Tensor:
+        """``active`` as a device bool ``[B]`` (``None``: every row)."""
         if active is None:
-            return nxt, cache, update_recent(recent, nxt)
-        nxt = torch.where(active, nxt, toks)
-        recent = torch.where(active[:, None], update_recent(recent, nxt), recent)
-        return nxt, cache, recent
+            return torch.ones((batch,), dtype=torch.bool, device=self.device)
+        if isinstance(active, torch.Tensor):
+            return active.to(device=self.device, dtype=torch.bool)
+        return torch.as_tensor(np.asarray(active, bool), device=self.device)
+
+    def _dispatch(self, kind: str, body, cache: KVCache, inputs: dict, outputs: dict,
+                  generator=None, copy_out: bool = True, **static) -> dict:
+        """Run block ``body`` over ``cache``: ``inputs`` are read (and its
+        ``lengths``, ``recent`` and ``history`` written back in place),
+        ``outputs`` (name -> shape, dtype) come back as fresh tensors (with
+        ``copy_out=False`` on the card: the program's static outputs, which
+        its next replay overwrites).
+
+        On the card this is one replay of a CUDA graph program keyed, as a
+        jit is, by ``kind``, the ``static`` sizes, the generator, the cache
+        layers' buffers (address and shape) and the inputs' shapes; the
+        first call of a key captures it, and the program holds the
+        generator and the layers. Elsewhere (and under ``graphs.eager()``)
+        the body runs eagerly on the caller's tensors."""
+        fn = functools.partial(body, layers=cache.layers, **static)
+        if generator is not None:
+            fn = functools.partial(fn, generator=generator)
+        if not graphs.takes_graphs(self):
+            outs = {name: torch.empty(shape, dtype=dt, device=self.device)
+                    for name, (shape, dt) in outputs.items()}
+            fn(**inputs, **outs)
+            return outs
+        key = (kind, tuple(sorted(static.items())), id(generator),
+               tuple((t.data_ptr(), tuple(t.shape)) for layer in cache.layers
+                     for t in layer.tensors()),
+               tuple((name, tuple(t.shape), t.dtype) for name, t in sorted(inputs.items())))
+        program = self._programs.get(key)
+        if program is None:
+            statics = {name: t.clone() for name, t in inputs.items()}
+            statics.update({name: torch.empty(shape, dtype=dt, device=self.device)
+                            for name, (shape, dt) in outputs.items()})
+            program = self._programs[key] = graphs.Program(fn, statics, generator,
+                                                           keep=cache.layers)
+        res = program(**inputs)
+        for name in _IN_OUT:
+            if name in inputs:
+                inputs[name].copy_(res[name])
+        # the next replay overwrites the static outputs
+        return {name: res[name].clone() if copy_out else res[name] for name in outputs}
+
+    def release_graphs(self) -> None:
+        """Drop the captured programs, their graphs' memory pools and the
+        caches and generators they hold, ``generate``'s own included. Every
+        new cache or generator a caller hands a decode block captures new
+        programs, kept until this call."""
+        self._programs.clear()
+        self._generate_caches.clear()
+
+    def _decode_body(self, *, layers, generator, n_steps, tokens, lengths, recent, active,
+                     out, temperature, top_k, top_p, repetition_penalty, do_sample,
+                     history=None):
+        """``n_steps`` masked decode rounds (``_decode_active``; with
+        ``history``, ``_decode_active_hist``): inactive rows compute garbage
+        that is masked out, their KV writes are dropped and their lengths,
+        recent rings, current tokens and history stay put. Each sampled
+        token goes to ``out[:, i]`` and, at the row's post-step length, to
+        its history row."""
+        sp = SamplingParams(temperature, top_k, top_p, repetition_penalty, do_sample)
+        cache = KVCache(layers=layers, lengths=lengths)
+        toks, rec, hist = tokens, recent, history
+        for i in range(n_steps):
+            hidden, cache = forward_hidden(self.config, self.params, toks[:, None], cache,
+                                           cache.lengths, self.rope, active=active)
+            logits = lm_logits(self.config, self.params, hidden)[:, 0]
+            nxt = torch.where(active, sample(logits, sp, rec, generator), toks)
+            rec = torch.where(active[:, None], update_recent(rec, nxt), rec)
+            if hist is not None:
+                col = cache.lengths.clamp(0, hist.shape[1] - 1).long()[:, None]
+                hist = torch.where(active[:, None], hist.scatter(1, col, nxt[:, None]), hist)
+            out[:, i] = nxt
+            toks = nxt
+        lengths.copy_(cache.lengths)
+        recent.copy_(rec)
+        if history is not None:
+            history.copy_(hist)
+
+    def _verify_body(self, *, layers, tokens, lengths, active, model_tok, n_accept):
+        """Speculative verify (``_verify_body`` / ``_verify_active``):
+        ``tokens [B, K+1]`` = [cur, d1..dK] written and attended at positions
+        ``lengths..lengths+K``. One forward scores every draft; greedy
+        acceptance is the longest prefix where the model's argmax equals the
+        next draft. Emitted tokens are ``model_tok[:n_accept+1]``, what K+1
+        sequential greedy steps give; active rows' lengths roll to
+        ``lengths + n_accept + 1`` (rejected drafts' KV lies past it, masked
+        and later overwritten), inactive rows' stay and write nothing."""
+        hidden, _ = forward_hidden(self.config, self.params, tokens,
+                                   KVCache(layers=layers, lengths=lengths), lengths,
+                                   self.rope, active=active)
+        tok, acc = _greedy_accept(lm_logits(self.config, self.params, hidden), tokens)
+        lengths.copy_(torch.where(active, lengths + acc + 1, lengths))
+        model_tok.copy_(tok)
+        n_accept.copy_(acc)
+
+    def _spec_body(self, *, layers, n_rounds, k, ngram_n, lengths, history, active, out_tok,
+                   out_acc):
+        """``n_rounds`` chained speculative rounds (``_spec_rounds``): each
+        drafts on the device from the history rows
+        (:func:`device_ngram_propose`), verifies with one forward, accepts
+        the longest matching prefix and appends all ``k + 1`` scored tokens
+        to the history at ``lengths + 1`` (the columns past the acceptance
+        point lie beyond the new valid count). Row b of ``history`` holds
+        ``lengths[b] + 1`` valid tokens; the caller guarantees
+        ``lengths + n_rounds * (k + 1) + 1`` fits the cache and the history
+        for every active row."""
+        H = history.shape[1]
+        cols = torch.arange(k + 1, device=history.device)[None, :]
+        cur_len, hist = lengths, history
+        for r in range(n_rounds):
+            hist_len = cur_len + 1
+            drafts = device_ngram_propose(hist, hist_len, ngram_n, k)
+            cur = hist.gather(1, cur_len.clamp(0, H - 1).long()[:, None])
+            toks = torch.cat([cur, drafts], dim=1)
+            hidden, _ = forward_hidden(self.config, self.params, toks,
+                                       KVCache(layers=layers, lengths=cur_len), cur_len,
+                                       self.rope, active=active)
+            tok, acc = _greedy_accept(lm_logits(self.config, self.params, hidden), toks)
+            cur_len = torch.where(active, cur_len + acc + 1, cur_len)
+            # dynamic_update_slice's start: clamped so the k + 1 columns fit
+            at = hist_len.clamp(0, H - (k + 1)).long()[:, None] + cols
+            hist = torch.where(active[:, None], hist.scatter(1, at, tok), hist)
+            out_tok[r] = tok
+            out_acc[r] = acc
+        lengths.copy_(cur_len)
+        history.copy_(hist)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, recent, sp: SamplingParams, generator):
         """One batched decode step: ``tokens [B]`` -> sampled next ``[B]``."""
-        return self._decode_one(cache, self._ids(tokens), recent, sp, generator)
+        out, cache, recent = self.decode_steps(cache, tokens, recent, sp, generator, 1)
+        return out[:, 0], cache, recent
 
     @torch.no_grad()
     def decode_steps(self, cache, tokens, recent, sp: SamplingParams, generator,
                      n_steps: int):
-        """``n_steps`` decode rounds; returns (tokens ``[B, n_steps]``,
-        cache, recent). EOS is checked on the host after the block."""
+        """``n_steps`` decode rounds over every row; returns (tokens
+        ``[B, n_steps]``, cache, recent). EOS is checked on the host after
+        the block. The cache's lengths and ``recent`` are updated in place."""
         return self.decode_active(cache, tokens, recent, sp, generator, None, n_steps)
 
     @torch.no_grad()
     def decode_active(self, cache, tokens, recent, sp, generator, active,
                       n_steps: int):
         """``n_steps`` batched decode rounds over all slots with an activity
-        mask ``active [B]`` (or ``None``: every row). Inactive rows compute
-        garbage that is masked out: their KV writes are dropped, their
-        lengths, recent rings and current tokens stay put."""
+        mask ``active [B]`` (a device bool tensor, or ``None``: every row).
+        Inactive rows compute garbage that is masked out: their KV writes are
+        dropped, their lengths, recent rings and current tokens stay put.
+        Returns (tokens ``[B, n_steps]``, cache, recent); the cache's lengths
+        and ``recent`` are updated in place."""
+        out, cache, recent, _ = self._decode(cache, tokens, recent, sp, generator, active,
+                                             n_steps, None)
+        return out, cache, recent
+
+    @torch.no_grad()
+    def decode_active_hist(self, cache, tokens, recent, sp, generator, active,
+                           n_steps: int, history):
+        """:meth:`decode_active` that also writes each sampled token into the
+        speculative history rows ``history [B, H]`` at the row's post-step
+        length (row b keeps ``lengths[b] + 1`` valid tokens), so speculative
+        rounds after plain blocks draft from current history. Returns
+        (tokens, cache, recent, history), ``history`` updated in place."""
+        return self._decode(cache, tokens, recent, sp, generator, active, n_steps, history)
+
+    def _decode(self, cache, tokens, recent, sp, generator, active, n_steps, history,
+                copy_out=True):
         toks = self._ids(tokens)
-        if active is not None:
-            active = torch.as_tensor(np.asarray(active), dtype=torch.bool, device=self.device)
-        out = []
-        for _ in range(n_steps):
-            toks, cache, recent = self._decode_one(cache, toks, recent, sp, generator, active)
-            out.append(toks)
-        return torch.stack(out, dim=1), cache, recent
+        B = toks.shape[0]
+        inputs = dict(tokens=toks, lengths=cache.lengths, recent=recent,
+                      active=self._mask(active, B), **vars(sp))
+        if history is not None:
+            inputs["history"] = history
+        out = self._dispatch("decode", self._decode_body, cache, inputs,
+                             {"out": ((B, n_steps), torch.int32)}, generator,
+                             copy_out=copy_out, n_steps=n_steps)["out"]
+        return out, cache, recent, history
+
+    @torch.no_grad()
+    def verify_step(self, cache, tokens):
+        """Speculative verify of ``tokens [B, K+1]`` over every row; returns
+        (model_tok ``[B, K+1]``, n_accept ``[B]``, cache)."""
+        return self.verify_active(cache, tokens, None)
+
+    @torch.no_grad()
+    def verify_active(self, cache, tokens, active):
+        """Batched speculative verify over all slots with an activity mask:
+        ``tokens [B, K+1]`` = per-row [cur, d1..dK]. Returns (model_tok
+        ``[B, K+1]``, n_accept ``[B]``, cache); the cache's lengths roll in
+        place."""
+        toks = self._ids(tokens)
+        B, S = toks.shape
+        inputs = dict(tokens=toks, lengths=cache.lengths, active=self._mask(active, B))
+        res = self._dispatch("verify", self._verify_body, cache, inputs,
+                             {"model_tok": ((B, S), torch.int32),
+                              "n_accept": ((B,), torch.int32)})
+        return res["model_tok"], res["n_accept"], cache
+
+    @torch.no_grad()
+    def verify_slot(self, cache, tokens, slot: int):
+        """Speculative verify of ``tokens [1, K+1]`` for row ``slot`` of a
+        multi-slot cache: the batched verify with only that row active.
+        Returns (model_tok ``[1, K+1]``, n_accept ``[1]``, cache)."""
+        toks = self._ids(tokens)
+        B = cache.lengths.shape[0]
+        rows = torch.zeros((B, toks.shape[1]), dtype=torch.int32, device=self.device)
+        rows[slot] = toks[0]
+        active = torch.arange(B, device=self.device) == slot
+        model_tok, n_acc, cache = self.verify_active(cache, rows, active)
+        return model_tok[slot:slot + 1], n_acc[slot:slot + 1], cache
+
+    @torch.no_grad()
+    def spec_rounds(self, cache, history, active, n_rounds: int, k: int, ngram_n: int):
+        """``n_rounds`` chained propose/verify rounds in one block (see
+        :meth:`_spec_body`). Returns (model_tok ``[n_rounds, B, k+1]``,
+        n_accept ``[n_rounds, B]``, cache, history); the host emits
+        ``model_tok[r, b, :n_accept[r, b] + 1]`` per round, byte-identical to
+        sequential greedy decoding. Lengths and ``history`` roll in place."""
+        B = history.shape[0]
+        inputs = dict(lengths=cache.lengths, history=history, active=self._mask(active, B))
+        res = self._dispatch("spec", self._spec_body, cache, inputs,
+                             {"out_tok": ((n_rounds, B, k + 1), torch.int32),
+                              "out_acc": ((n_rounds, B), torch.int32)},
+                             n_rounds=n_rounds, k=k, ngram_n=ngram_n)
+        return res["out_tok"], res["out_acc"], cache, history
+
+    def _generate_cache(self, max_seq: int, quant_bits: int | None):
+        """``generate``'s batch-1 cache and generator for this shape, kept
+        across calls (so a second call of the same shape replays the
+        programs the first captured, as a jitted function compiles once)."""
+        key = (max_seq, quant_bits)
+        if key not in self._generate_caches:
+            self._generate_caches[key] = (
+                self.init_cache(1, max_seq, quant_bits=quant_bits),
+                torch.Generator(device=self.device))
+        return self._generate_caches[key]
 
     # -- high-level generate (single sequence, streaming) --------------------
     def generate(
@@ -170,14 +459,29 @@ class CausalLM:
         gen: GenerationConfig | None = None,
         streamer=None,
     ) -> list[int]:
+        """Greedy or sampled generation of one sequence, streamed in decode
+        blocks of ``gen.decode_block`` tokens. The batch-1 cache (and on the
+        card the captured blocks) is kept per (max_seq, kv bits) across
+        calls, so calls on one model must not overlap; these caches stay on
+        the device until :meth:`release_graphs`, outside any engine's
+        memory budget."""
         gen = gen or GenerationConfig()
-        if gen.speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP Queue 1 item 6)")
         eos = set(gen.eos_token_ids) | set(self.eos_token_ids)
+        # speculative decoding is exact only for greedy, penalty-free configs
+        # on purely positional caches (a recurrent state cannot roll back
+        # past rejected drafts); any other config takes plain decoding
+        use_spec = (
+            gen.speculative == "ngram"
+            and not gen.do_sample
+            and gen.repetition_penalty == 1.0
+            and not self.config.has_recurrent_layers
+        )
         prompt_len = len(input_ids)
-        max_seq = bucket_length(prompt_len + gen.max_new_tokens, floor=256)
-        cache = self.init_cache(1, max_seq, quant_bits=gen.kv_quant_bits)
+        total = prompt_len + gen.max_new_tokens + (gen.spec_k + 1 if use_spec else 0)
+        max_seq = bucket_length(total, floor=256)
+        cache, generator = self._generate_cache(max_seq, gen.kv_quant_bits)
+        cache.lengths.zero_()  # a fresh prefill from position 0 overwrites the rest
+        generator.manual_seed(gen.seed)
 
         sp = SamplingParams.make(
             1, temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
@@ -194,7 +498,6 @@ class CausalLM:
         padded = np.zeros((1, s_bucket), np.int32)
         padded[0, :prompt_len] = input_ids
 
-        generator = torch.Generator(device=self.device).manual_seed(gen.seed)
         t0 = time.perf_counter()
         logits, cache = self.prefill(cache, padded, [prompt_len])
         first = sample(logits, sp, recent, generator)
@@ -202,18 +505,28 @@ class CausalLM:
         tok = int(first[0])
         t_prefill = time.perf_counter() - t0
 
-        # decode in blocks of `decode_block` tokens: one host round trip per
-        # block, EOS checked after it
+        # decode in blocks of `decode_block` tokens: one dispatch and one host
+        # round trip per block, EOS checked after it
         block = max(1, gen.decode_block)
         out: list[int] = [tok]
         stopped = tok in eos or (streamer is not None and streamer.append(tok) is False)
         t1 = time.perf_counter()
         cur = first
+        history = list(input_ids) + out
         while not stopped and len(out) < gen.max_new_tokens:
-            toks, cache, recent = self.decode_steps(cache, cur, recent, sp, generator, block)
-            cur = toks[:, -1]
-            for t in toks[0].tolist():
+            if use_spec:
+                # prompt-lookup speculative step: K drafts verified in one
+                # forward; emits 1..K+1 tokens for one weight pass
+                drafts = ngram_propose(history, gen.spec_ngram, gen.spec_k)
+                model_tok, n_acc, cache = self.verify_step(cache, [[history[-1]] + drafts])
+                emitted = model_tok[0, : int(n_acc[0]) + 1].tolist()
+            else:
+                toks, cache, recent = self.decode_steps(cache, cur, recent, sp, generator, block)
+                emitted = toks[0].tolist()
+                cur = toks[:, -1]
+            for t in emitted:
                 out.append(t)
+                history.append(t)
                 if streamer is not None and streamer.append(t) is False:
                     stopped = True
                     break

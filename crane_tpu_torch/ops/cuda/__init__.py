@@ -7,6 +7,9 @@ through the kernels. The quantized kernels count per bit width
 (``launches`` is a dict, ``{"w8": n, "w4": n}`` or ``{"kv8": n, "kv4": n}``),
 so a run can show each variant was launched. A with-stats form (K1-S, K3-S,
 K4-S, K5-S) shares its kernel's launch path but counts on its own wrapper.
+A launch captured into a CUDA graph counts once for each replay of the
+graph (:func:`add_launch_counts`), so the counts read the same as the eager
+loop's for the same work.
 
 :func:`attention_kernel_takes` says which attention shapes the kernels take,
 so a caller routes the others to the plain versions by shape, as crane_tpu
@@ -93,3 +96,14 @@ def reset_launch_counts() -> None:
             fn.launches = 0
         else:
             fn.launches[v] = 0
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta[name]`` to each named counter (a CUDA graph's replay adds
+    the launches its capture recorded, :mod:`crane_tpu_torch.models.graphs`)."""
+    for name, n in delta.items():
+        fn, v = KERNELS[name], _variant(name)
+        if v is None:
+            fn.launches += n
+        else:
+            fn.launches[v] += n

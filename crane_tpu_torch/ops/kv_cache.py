@@ -64,18 +64,20 @@ class LayerKVCache:
         place.
 
         ``positions`` is either an ``int`` start shared by all rows (prefill)
-        or a ``[B]`` tensor of per-row starts (batched decode). ``row``
-        offsets the batch row of an ``int``-start write (slot prefill into a
-        multi-slot cache). Per-row positions ``>= max_seq`` are dropped
-        (inactive-slot masking in the serving engine). Returns ``self``."""
+        or a ``[B]`` tensor of per-row starts (batched decode, speculative
+        verify). ``row`` offsets the batch row of an ``int``-start write
+        (slot prefill into a multi-slot cache). Per-row positions outside
+        ``[0, max_seq)`` are dropped (inactive-slot masking in the serving
+        engine; a sequence-sharded slab's positions of other slabs).
+        Returns ``self``."""
         if not isinstance(positions, torch.Tensor):
             r, t = _slab(int(positions), k_new.shape[1], self.max_seq, row)
             self.k[r, t] = k_new.to(self.k.dtype)
             self.v[r, t] = v_new.to(self.v.dtype)
             return self
-        b, idx, keep = _row_writes(positions, k_new.shape[0], k_new.shape[1], self.max_seq)
-        _put(self.k, b, idx, keep, k_new)
-        _put(self.v, b, idx, keep, v_new)
+        w = _row_writes(positions, k_new.shape[0], k_new.shape[1], self.max_seq)
+        _put(self.k, *w, k_new)
+        _put(self.v, *w, v_new)
         return self
 
 
@@ -90,23 +92,31 @@ def _slab(start: int, s: int, max_seq: int, row: int | None) -> tuple[slice, sli
 
 
 def _row_writes(positions: torch.Tensor, B: int, s: int, max_seq: int):
-    """Indices of a per-row write: (``b [B, 1]``, ``idx [B, s]`` clamped into
-    the buffer, ``keep [B, s]``, False where the position is ``>= max_seq``)."""
+    """Indices of a per-row write of ``s`` tokens from ``positions [B]``:
+    (``b [B, 1]``, ``idx [B, s]`` clamped into the buffer, ``src [B, s]``,
+    ``hit [B, 1]``). A position outside ``[0, max_seq)`` is dropped: its
+    clamped slot is the nearest slot the row does write, and it carries that
+    slot's token (``src``), so no two writes to a slot disagree and the
+    order of an ``index_put`` cannot matter. A row that writes no slot
+    (``hit`` False) stores back what its clamped slot held."""
     if positions.ndim != 1:
         raise ValueError(f"per-row positions must be [B], got {tuple(positions.shape)}")
     device = positions.device
     b = torch.arange(B, device=device)[:, None]
-    idx = positions.to(torch.long)[:, None] + torch.arange(s, device=device)[None, :]
-    keep = idx < max_seq
-    return b, idx.clamp(max=max_seq - 1), keep
+    start = positions.to(torch.long)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    first = (-start).clamp(min=0)  # the row's first and last kept token
+    last = (max_seq - start).clamp(max=s) - 1
+    src = torch.minimum(torch.maximum(j, first), last.clamp(min=0))
+    return b, (start + j).clamp(0, max_seq - 1), src, first <= last
 
 
-def _put(buf: torch.Tensor, b, idx, keep, new: torch.Tensor) -> None:
-    """``buf[b, idx] = new`` along dims 0 and 1 where ``keep``. A dropped
-    write stores back what the slot already held, so no host-side filtering
-    (and no device sync) is needed."""
-    keep = keep.reshape(*keep.shape, *([1] * (new.ndim - 2)))
-    buf[b, idx] = torch.where(keep, new.to(buf.dtype), buf[b, idx])
+def _put(buf: torch.Tensor, b, idx, src, hit, new: torch.Tensor) -> None:
+    """``buf[b, idx] = new[b, src]`` along dims 0 and 1, a row with no kept
+    token storing back what the slot already held, so no host-side
+    filtering (and no device sync) is needed."""
+    hit = hit.reshape(*hit.shape, *([1] * (new.ndim - 2)))
+    buf[b, idx] = torch.where(hit, new[b, src].to(buf.dtype), buf[b, idx])
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
@@ -212,8 +222,8 @@ class QuantLayerKVCache:
         """Quantize ``k_new/v_new`` ``[B, S_new, H, D]`` and write codes and
         scales at ``positions``, in place, with :meth:`LayerKVCache.update`'s
         contract: an ``int`` start (with ``row``) or ``[B]`` per-row starts,
-        whose writes at ``>= max_seq`` are dropped for codes and scales
-        alike. Returns ``self``."""
+        whose writes outside ``[0, max_seq)`` are dropped for codes and
+        scales alike. Returns ``self``."""
         kq, ks = self._encode(k_new)
         vq, vs = self._encode(v_new)
         if not isinstance(positions, torch.Tensor):
@@ -223,12 +233,12 @@ class QuantLayerKVCache:
             self.k_scale[r, :, t] = ks
             self.v_scale[r, :, t] = vs
             return self
-        b, idx, keep = _row_writes(positions, k_new.shape[0], k_new.shape[1], self.max_seq)
-        _put(self.k, b, idx, keep, kq)
-        _put(self.v, b, idx, keep, vq)
+        w = _row_writes(positions, k_new.shape[0], k_new.shape[1], self.max_seq)
+        _put(self.k, *w, kq)
+        _put(self.v, *w, vq)
         # scales [B, H, T] are written through a [B, T, H] view of themselves
-        _put(self.k_scale.transpose(1, 2), b, idx, keep, ks.transpose(1, 2))
-        _put(self.v_scale.transpose(1, 2), b, idx, keep, vs.transpose(1, 2))
+        _put(self.k_scale.transpose(1, 2), *w, ks.transpose(1, 2))
+        _put(self.v_scale.transpose(1, 2), *w, vs.transpose(1, 2))
         return self
 
     def dequant(self, dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
@@ -344,8 +354,9 @@ class SequenceShardedKVCache:
                row: int | None = None) -> "SequenceShardedKVCache":
         """:meth:`LayerKVCache.update`'s contract over the whole sequence
         axis, in place: an ``int`` start (with ``row``) writes each slab its
-        part of the span; ``[B]`` per-row starts (decode, one token per row)
-        write each row into the slab that holds its position, and drop a
+        part of the span; ``[B]`` per-row starts (decode; a verify chunk of
+        several tokens a row) write each token into the slab that holds its
+        position, a chunk across a slab boundary into both, and drop a
         position ``>= max_seq`` in every slab. Returns ``self``."""
         T = self.slab_len
         if not isinstance(positions, torch.Tensor):
@@ -359,15 +370,10 @@ class SequenceShardedKVCache:
                     slab.update(k_new[:, span].to(dev), v_new[:, span].to(dev), lo - i * T,
                                 row=row)
             return self
-        if k_new.shape[1] != 1:
-            raise ValueError("a sequence-sharded cache takes per-row writes of one token "
-                             f"(decode), got {k_new.shape[1]}")
         for i, (slab, dev) in enumerate(zip(self.slabs, self.devices)):
-            local = positions - i * T
-            # a row whose position lies in another slab writes nowhere here:
-            # T is past this slab's end, which the slab's update drops
-            local = torch.where((local >= 0) & (local < T), local, T)
-            slab.update(k_new.to(dev), v_new.to(dev), local.to(dev))
+            # a token whose position lies in another slab is outside this
+            # slab's [0, T) and dropped here
+            slab.update(k_new.to(dev), v_new.to(dev), (positions - i * T).to(dev))
         return self
 
 

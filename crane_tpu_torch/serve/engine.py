@@ -19,15 +19,24 @@ What the engine keeps from the reference:
   off for hybrid models, whose GDN states cannot be re-entered mid-way;
 - longest-first preempt-and-requeue under slot starvation;
 - the depth-1 decode pipeline: block N's tokens are read back and streamed
-  while the device runs block N+1.
+  while the device runs block N+1;
+- speculative decoding (``speculative="ngram"``): when every running
+  sequence decodes greedy and penalty-free, one block runs ``spec_rounds``
+  chained propose/verify rounds on the device
+  (:meth:`~crane_tpu_torch.models.causal_lm.CausalLM.spec_rounds`) over a
+  per-slot token ``history``, gated by the acceptance EMA
+  (``spec_min_gain``, ``spec_cooldown``) as crane_tpu gates it.
+
+On the card every decode block, plain or speculative, is one CUDA-graph
+replay (:mod:`crane_tpu_torch.models.graphs`), and ``warmup`` captures each
+one serving reaches: the block sizes 1 and ``decode_tokens_per_seq``, with
+the history rows when speculation can engage, and the speculative rounds.
 
 ``kv_quant_bits`` 8 or 4 keeps the slots in an int8 or int4 cache
 (decode through K4, continuation chunks through K5). A sequence-parallel
 model (:func:`~crane_tpu_torch.parallel.sequence.sp_shard_lm`) is served the
 same way: its slots' rows are split into slabs, and every admission, chunk,
-preemption and prefix reuse works on the sharded rows. Speculative decoding
-(``speculative="ngram"``) is not ported yet and raises (ROADMAP Queue 1
-item 6).
+preemption, prefix reuse and speculative verify works on the sharded rows.
 """
 
 from __future__ import annotations
@@ -104,7 +113,7 @@ def _device_bytes(lm, cache) -> dict:
 
 
 def _check_hbm_budget(lm, max_slots: int, max_seq_len: int,
-                      kv_quant_bits: int | None) -> None:
+                      kv_quant_bits: int | None, history_cols: int = 0) -> None:
     """Fail fast at startup if weights + the fully committed KV slots can't
     fit device memory (the reference's memory governor, reduced to one
     inequality per device because static slots commit the whole budget up
@@ -114,9 +123,10 @@ def _check_hbm_budget(lm, max_slots: int, max_seq_len: int,
     the engine makes next runs on the ``meta`` device, which allocates
     nothing. A sequence-parallel model counts its lead device as the weights
     plus what it holds of the cache, and every other device as its slabs
-    (slabs on a repeated device add up). 15% headroom covers activations and
-    allocator slack. The limit is the device's total memory
-    (``torch.cuda.mem_get_info``) on a CUDA model; ``CRANE_HBM_BYTES``
+    (slabs on a repeated device add up); the speculative ``history`` rows
+    (``history_cols`` int32 tokens a slot) count on the lead device. 15%
+    headroom covers activations and allocator slack. The limit is the
+    device's total memory (``torch.cuda.mem_get_info``) on a CUDA model; ``CRANE_HBM_BYTES``
     overrides it for every device, and on the CPU the check runs only when
     that variable is set."""
     env = os.environ.get("CRANE_HBM_BYTES")
@@ -125,7 +135,9 @@ def _check_hbm_budget(lm, max_slots: int, max_seq_len: int,
     cache = lm.init_cache(max_slots, max_seq_len, quant_bits=kv_quant_bits, device="meta")
     weights = _tree_bytes(lm.params)
     gib = 1024 ** 3
-    for dev, held in _device_bytes(lm, cache).items():
+    held_by = _device_bytes(lm, cache)
+    held_by[lm.device] += max_slots * history_cols * 4
+    for dev, held in held_by.items():
         limit = int(env) if env else torch.cuda.mem_get_info(dev)[1]
         need = int(held * 1.15)
         w = weights if dev == lm.device else 0
@@ -153,13 +165,15 @@ class InferenceEngine:
         preempt_after_s: float | None = 30.0,
         prefill_chunk: int | None = None,
         speculative: str | None = None,
+        spec_k: int = 8,
+        spec_ngram: int = 3,
+        spec_rounds: int | None = None,
+        spec_min_gain: float = 1.1,
+        spec_cooldown: int = 32,
         prefix_cache: bool = True,
         prefix_reuse_min: int = 64,
         bucket_align: int = BUCKET_ALIGN,
     ):
-        if speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP Queue 1 item 6)")
         self.lm = lm
         self.max_slots = max_slots
         # round the buffer up to an align multiple: admission offsets are
@@ -179,6 +193,20 @@ class InferenceEngine:
         if prefill_chunk is not None:
             prefill_chunk = -(-prefill_chunk // self.align) * self.align
         self.prefill_chunk = prefill_chunk
+        # speculative decoding ("ngram" = prompt-lookup drafts): when every
+        # running sequence decodes greedy and penalty-free, one block runs
+        # ``spec_rounds`` chained propose/verify rounds on the device, each
+        # emitting 1..spec_k+1 tokens a stream for one weight pass. After a
+        # block whose tokens-per-pass EMA falls below spec_min_gain, plain
+        # blocks run for spec_cooldown blocks before the next probe. The gate
+        # counts tokens per pass and not time, as crane_tpu's does.
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self.spec_rounds_n = spec_rounds or decode_tokens_per_seq
+        self.spec_min_gain = spec_min_gain
+        self.spec_cooldown = spec_cooldown
+        self._spec_ema: Optional[float] = None
+        self._spec_wait = 0  # plain blocks remaining until the next probe
         # depth-1 decode pipeline: the dispatched-but-unprocessed block
         # (device tokens + n_steps + the slot->seq snapshot at dispatch)
         self._inflight: Optional[tuple] = None
@@ -196,13 +224,24 @@ class InferenceEngine:
         # (recorded at finish/preemption; None once a new occupant writes)
         self._resident: list[Optional[np.ndarray]] = [None] * max_slots
 
-        _check_hbm_budget(lm, max_slots, self.max_seq_len, kv_quant_bits)
+        # per-slot token history for the on-device draft proposal (row b holds
+        # lengths[b] + 1 valid tokens; spec_k + 2 columns of margin absorb the
+        # last round's k + 1 appended tokens), only when speculation can
+        # engage: recurrent-state models never speculate
+        spec_on = speculative == "ngram" and not cfg.has_recurrent_layers
+        history_cols = self.max_seq_len + spec_k + 2 if spec_on else 0
+        _check_hbm_budget(lm, max_slots, self.max_seq_len, kv_quant_bits, history_cols)
         device = lm.device
         self.cache = lm.init_cache(max_slots, self.max_seq_len, quant_bits=kv_quant_bits)
+        self.history = (torch.zeros((max_slots, history_cols), dtype=torch.int32, device=device)
+                        if spec_on else None)
         self.recent = torch.full((max_slots, RECENT_WINDOW), -1, dtype=torch.int32, device=device)
         self.sp = SamplingParams.make(max_slots, device=device)
         self.cur_tokens = torch.zeros((max_slots,), dtype=torch.int32, device=device)
+        # the activity mask on the host (scheduling) and its device mirror
+        # (the decode blocks' input), changed together by _set_active
         self.active = np.zeros((max_slots,), bool)
+        self.active_mask = torch.zeros((max_slots,), dtype=torch.bool, device=device)
         self.slots: list[Optional[Sequence]] = [None] * max_slots
 
         self.scheduler = Scheduler(max_running=max_slots)
@@ -236,22 +275,30 @@ class InferenceEngine:
 
     def warmup(self):
         """Run each program serving reaches once (slot prefill, continuation
-        chunk, decode block, admission sampling), so the first request pays
-        no one-time cost: on a CUDA model that includes building and loading
-        the kernels. State touched here is reset after."""
+        chunk, admission sampling, the decode blocks of 1 and
+        ``decode_tokens_per_seq`` steps, with the history rows when
+        speculation can engage, and the speculative rounds), so the first
+        request pays no one-time cost: on a CUDA model that includes
+        building the kernels and capturing every decode block's graph, so
+        none is captured while serving. Every slot is inactive here, so the
+        blocks write nothing; state touched by the prefills is reset after."""
         t0 = time.perf_counter()
         tok = np.zeros((1, self.align), np.int32)
         logits, self.cache = self.lm.prefill_slot(self.cache, tok, 0, 1)
         if self.max_seq_len >= 2 * self.align:
             _, self.cache = self.lm.prefill_slot_continue(self.cache, tok, 0, self.align, 1)
-        out, self.cache, self.recent = self.lm.decode_active(
-            self.cache, self.cur_tokens, self.recent, self.sp, self.generator,
-            self.active, 1)
+        for n in sorted({1, self.decode_tokens_per_seq}):
+            out = self._run_decode(n)
+        if self.history is not None:
+            self.lm.spec_rounds(self.cache, self.history, self.active_mask,
+                                self.spec_rounds_n, self.spec_k, self.spec_ngram)
         sample(logits, self.sp.row(0), self.recent[:1], self.generator)
         self.cache.lengths.zero_()
         for layer in self.cache.layers:
             for t in layer.tensors():
                 t.zero_()
+        if self.history is not None:
+            self.history.zero_()
         self.recent.fill_(-1)
         self.cur_tokens.zero_()
         out.cpu()  # a real sync: no warmup work lands on the first request
@@ -311,6 +358,16 @@ class InferenceEngine:
                 # only the trailing block is left: drain it and go idle
                 self._flush_inflight()
                 return True
+            if self._spec_candidate() is not None:
+                # the speculative budget check reads host-visible positions,
+                # which lag by the inflight block: flush and re-validate
+                self._flush_inflight()
+                spec_seqs = self._spec_candidate()
+                if spec_seqs is not None:
+                    self._spec_block(spec_seqs)
+                    return True
+                if not any(self.active):
+                    return True
             n = self.decode_tokens_per_seq
             if self.scheduler.waiting and (
                 any(s is None for s in self.slots) or self._preempt_imminent()
@@ -388,7 +445,7 @@ class InferenceEngine:
             self._resident[victim.slot] = np.asarray(
                 list(victim.request.prompt_ids) + victim.generated[:-1], np.int32
             )
-        self.active[victim.slot] = False
+        self._set_active(victim.slot, False)
         self.slots[victim.slot] = None
         victim.slot = -1
         victim.preempted = True
@@ -555,8 +612,10 @@ class InferenceEngine:
         first = sample(logits, self.sp.row(slot), rrow, self.generator)
         self.recent[slot] = update_recent(rrow, first)[0]
         self.cur_tokens[slot] = first[0]
+        if self.history is not None:
+            self._hist_admit(slot, ctx, first)
 
-        self.active[slot] = True
+        self._set_active(slot, True)
         self.stats.prompt_tokens += len(ctx)
         if seq.detok is None and self.lm.tokenizer is not None:
             seq.detok = TokenOutputStream(self.lm.tokenizer)  # survives preemption
@@ -595,7 +654,7 @@ class InferenceEngine:
                 self._resident[seq.slot] = np.asarray(
                     list(seq.request.prompt_ids) + seq.generated[:-1], np.int32
                 )
-            self.active[seq.slot] = False
+            self._set_active(seq.slot, False)
             self.slots[seq.slot] = None
         self.scheduler.finish(seq)
         if seq.detok is not None:
@@ -620,31 +679,122 @@ class InferenceEngine:
         self.stats.generated_tokens += len(seq.generated)
         seq.send_finished(reason)
 
+    def _set_active(self, slot: int, flag: bool) -> None:
+        self.active[slot] = flag
+        self.active_mask[slot] = flag
+
+    def _hist_admit(self, slot: int, ctx, first: torch.Tensor) -> None:
+        """Install an admitted sequence's token history in row ``slot``: the
+        context at columns 0.., the first sampled token (``first [1]``, on
+        the device) at ``len(ctx)``, zeros beyond."""
+        row = np.zeros((self.history.shape[1],), np.int32)
+        row[:len(ctx)] = ctx
+        self.history[slot] = torch.from_numpy(row).to(self.history.device)
+        self.history[slot, len(ctx)] = first[0]
+
+    def _spec_candidate(self):
+        """The running sequences eligible for a chained speculative block,
+        or None. Exact only when every active slot decodes greedy and
+        penalty-free with ``spec_rounds * (spec_k + 1)`` slots of cache
+        headroom (a mixed batch takes the plain block: verifying a subset
+        would cost a second full weight stream for the rest). Models with
+        recurrent layers never speculate (``history`` is None). After a block
+        whose tokens-per-pass EMA fell below ``spec_min_gain``, plain blocks
+        run for ``spec_cooldown`` calls before the next probe."""
+        if self.history is None:
+            return None
+        if self.scheduler.waiting and (
+            any(s is None for s in self.slots) or self._preempt_imminent()
+        ):
+            # let the plain path's block shortening admit the waiting head
+            return None
+        if self._spec_wait > 0:
+            self._spec_wait -= 1
+            return None
+        running = [s for s in self.slots if s is not None and self.active[s.slot]]
+        if not running:
+            return None
+        budget = self.spec_rounds_n * (self.spec_k + 1)
+        for seq in running:
+            samp = seq.request.sampling
+            if samp.do_sample or samp.repetition_penalty != 1.0:
+                return None
+            pos = len(seq.request.prompt_ids) + len(seq.generated)
+            if pos + budget > self.max_seq_len:
+                return None
+        return running
+
+    def _spec_block(self, running):
+        """One chained speculative block over every running stream:
+        ``spec_rounds`` propose/verify rounds back to back on the device,
+        drafts from each slot's history, one device-to-host copy for
+        1..spec_rounds*(spec_k+1) tokens a stream, byte-identical to
+        sequential greedy decoding."""
+        t0 = time.perf_counter()
+        R, K = self.spec_rounds_n, self.spec_k
+        out_tok, out_acc, self.cache, self.history = self.lm.spec_rounds(
+            self.cache, self.history, self.active_mask, R, K, self.spec_ngram)
+        tok_np = out_tok.cpu().numpy()  # [R, B, K+1]
+        acc_np = out_acc.cpu().numpy()  # [R, B]
+        self.stats.spec_steps += R
+        for seq in running:
+            slot = seq.slot
+            done = False
+            for r in range(R):
+                for t in tok_np[r, slot, : int(acc_np[r, slot]) + 1].tolist():
+                    # count only tokens delivered: an early finish must not
+                    # inflate the acceptance reported
+                    self.stats.spec_tokens += 1
+                    if not self._emit(seq, int(t)):
+                        done = True
+                        break
+                if done:
+                    break
+            if self.slots[slot] is seq:  # still running: the next block continues
+                self.cur_tokens[slot] = seq.generated[-1]
+        # the device's acceptance (tokens the host dropped past EOS or
+        # max_tokens included: they cost weight passes either way)
+        m = float((acc_np[:, [s.slot for s in running]] + 1).mean())
+        self._spec_ema = m if self._spec_ema is None else 0.5 * self._spec_ema + 0.5 * m
+        if self._spec_ema < self.spec_min_gain:
+            self._spec_wait = self.spec_cooldown
+        self.stats.decode_time_s += time.perf_counter() - t0
+
+    def _run_decode(self, n_steps: int) -> torch.Tensor:
+        """One masked decode block over every slot (with the history rows
+        when speculation can engage); returns its tokens ``[B, n_steps]``.
+        On the card these are the block program's static output, which the
+        next replay overwrites: :meth:`_decode_block` copies them out on the
+        stream before it."""
+        out, self.cache, self.recent, self.history = self.lm._decode(
+            self.cache, self.cur_tokens, self.recent, self.sp, self.generator,
+            self.active_mask, n_steps, self.history, copy_out=False)
+        return out
+
     def _decode_block(self, n_steps: int):
         """Dispatch one masked decode block, then process the PREVIOUS
         block's tokens while the device computes this one (depth-1
-        pipeline). A finish can therefore surface one block late; the junk
-        block after it writes past the finished prefix, which the length
-        reset at reuse time masks, and ``max_new_tokens``'s slot-capacity
-        clamp keeps it inside the buffer."""
+        pipeline). The block's tokens start for the host at once, on the
+        stream, so reading them waits for this block only and not for the
+        next. A finish can surface one block late; the junk block after it
+        writes past the finished prefix, which the length reset at reuse
+        time masks, and ``max_new_tokens``'s slot-capacity clamp keeps it
+        inside the buffer."""
         t0 = time.perf_counter()
-        out, self.cache, self.recent = self.lm.decode_active(
-            self.cache, self.cur_tokens, self.recent, self.sp, self.generator,
-            self.active, n_steps,
-        )
+        out = self._run_decode(n_steps)
         self.cur_tokens = out[:, -1].clone()
         seqs = [s if self.active[i] else None for i, s in enumerate(self.slots)]
-        prev, self._inflight = self._inflight, (out, n_steps, seqs)
+        prev, self._inflight = self._inflight, (_start_host_copy(out), n_steps, seqs)
         if prev is not None:
             self._process_block(*prev)
         self.stats.decode_time_s += time.perf_counter() - t0
 
     def _process_block(self, out, n_steps: int, seqs):
-        """Emit a decode block's tokens: one device-to-host copy for the
-        block, then per-stream detok + queue puts. ``seqs`` is the slot
-        snapshot at dispatch; a slot whose occupant changed since is
-        skipped."""
-        tokens = out.cpu().numpy()
+        """Emit a decode block's tokens (``out`` from :func:`_start_host_copy`):
+        wait for its device-to-host copy, then per-stream detok and queue
+        puts. ``seqs`` is the slot snapshot at dispatch; a slot whose
+        occupant changed since is skipped."""
+        tokens = _host_tokens(out)
         for slot, seq in enumerate(seqs):
             if seq is None or self.slots[slot] is not seq:
                 continue
@@ -658,3 +808,23 @@ class InferenceEngine:
             prev, self._inflight = self._inflight, None
             self._process_block(*prev)
             self.stats.decode_time_s += time.perf_counter() - t0
+
+
+def _start_host_copy(out: torch.Tensor):
+    """Start ``out``'s copy to the host (on the card into pinned memory,
+    behind the block on the stream, with an event that marks its end). The
+    copy outlives the next replay of the block's program."""
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=out.is_cuda)
+    host.copy_(out, non_blocking=out.is_cuda)
+    if not out.is_cuda:
+        return host, None
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_tokens(copy) -> np.ndarray:
+    host, done = copy
+    if done is not None:
+        done.synchronize()
+    return host.numpy()

@@ -9,6 +9,7 @@ machine with the card has no jax, and tests/conftest.py imports it, so run:
 This file imports neither jax nor crane_tpu's jax modules.
 """
 
+import contextlib
 import dataclasses
 import os
 
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from crane_tpu_torch.models.auto import map_hf_weights, quantize_params, transformer_config_from_hf
+from crane_tpu_torch.models import graphs
 from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
 from crane_tpu_torch.models.init import QWEN3_TINY, hf_state_dict, init_params
 from crane_tpu_torch.ops import cuda as kernels
@@ -35,6 +37,7 @@ from crane_tpu_torch.ops.cuda.gdn_scan import (
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
 from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight, quantize_weight
+from crane_tpu_torch.ops.sampling import SamplingParams
 from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
 from crane_tpu_torch.serve.engine import EngineRequest, InferenceEngine, SamplingOptions
 
@@ -856,3 +859,222 @@ def test_routed_heads_on_card_match_cpu(dev, name):
     kv = torch.zeros(1, 4, cfg.num_kv_heads, cfg.head_dim, device=dev)
     with pytest.raises(ValueError):
         k1.fp_decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device=dev), scale=0.1)
+
+
+# -- decode blocks as CUDA graphs, and speculation (models/graphs.py) ---------
+
+GRAPH_PATHS = ["bf16", "f32", "w8kv8", "w4kv4", "hybrid", "sp"]
+
+
+def _path_lm(dev, path):
+    """(model on the card, KV bits) of one served decode path, tiny and
+    with heads the kernels take."""
+    if path == "hybrid":
+        cfg = transformer_config_from_hf(TINY_HYBRID)
+        sd = hf_state_dict(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+        return CausalLM(cfg, map_hf_weights(cfg, sd, torch.bfloat16, dev),
+                        dtype=torch.bfloat16), None
+    dtype = torch.float32 if path == "f32" else torch.bfloat16
+    cfg = dataclasses.replace(QWEN3_TINY, head_dim=64)
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=dtype),
+                 dev)
+    bits = {"w8kv8": 8, "w4kv4": 4}.get(path)
+    if bits is not None:
+        params = quantize_params(params, bits=bits)
+    lm = CausalLM(cfg, params, dtype=dtype)
+    return (sp_shard_lm(lm, make_sp_mesh(4, ["cuda:0"] * 4)) if path == "sp" else lm), bits
+
+
+def _ragged_state(lm, B, bits, sampled=False, T=256):
+    """A B-row cache after a ragged prefill (rows of 5 + 11 i tokens), the
+    first tokens, recent rings, sampling params (greedy, or with half the
+    rows sampling) and a ragged active mask (every third row idle at B=8)."""
+    dev = lm.device
+    lens = [5 + 11 * i for i in range(B)]
+    padded = [[(7 * i + 3 * j) % 200 + 1 for j in range(n)] + [0] * (128 - n)
+              for i, n in enumerate(lens)]
+    logits, cache = lm.prefill(lm.init_cache(B, T, quant_bits=bits), padded, lens)
+    sp = SamplingParams.make(B, do_sample=False, device=dev)
+    if sampled:
+        for r in range(0, B, 2):
+            sp.set_row(r, temperature=0.9, top_k=0, top_p=0.9, repetition_penalty=1.1,
+                       do_sample=True)
+    active = torch.tensor([i % 3 != 2 for i in range(B)], device=dev)
+    recent = torch.full((B, 16), -1, dtype=torch.int32, device=dev)
+    return cache, logits.argmax(-1).to(torch.int32), recent, sp, active
+
+
+def _blocks(lm, B, bits, eager, sampled=False, seed=0, n_blocks=3, steps=4):
+    """n_blocks masked decode blocks from _ragged_state, as graphs or as the
+    eager loop; their tokens and the lengths after, on the host."""
+    cache, toks, recent, sp, active = _ragged_state(lm, B, bits, sampled)
+    gen = torch.Generator(device=lm.device).manual_seed(seed)
+    outs = []
+    with graphs.eager() if eager else contextlib.nullcontext():
+        for _ in range(n_blocks):
+            out, cache, recent = lm.decode_active(cache, toks, recent, sp, gen, active, steps)
+            toks = out[:, -1]
+            outs.append(out)
+    return torch.cat(outs, dim=1).cpu(), cache.lengths.cpu()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graph_blocks_equal_eager(dev, path, B):
+    """Three masked blocks of four greedy steps, replayed as CUDA graphs,
+    give the eager loop's tokens and lengths on every served decode path
+    (dense bf16 and float32, w8 kv8, w4 kv4, the GDN hybrid, four sp slabs
+    on the card), at B=1 and at B=8 with every third row idle."""
+    lm, bits = _path_lm(dev, path)
+    start = graphs.captures
+    got = _blocks(lm, B, bits, eager=False)
+    assert graphs.captures == start + 1  # one program, replayed three times
+    ref = _blocks(lm, B, bits, eager=True)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_graph_sampling_reproducible(dev):
+    """Half the rows sampling (top-p, penalty) from one seed: two graph runs
+    give the same tokens, and so does the eager loop (the generator is
+    registered with the graph, and a replay draws what the loop draws)."""
+    lm, _ = _path_lm(dev, "bf16")
+    runs = [_blocks(lm, 8, None, eager=False, sampled=True, seed=11) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][0], _blocks(lm, 8, None, eager=True, sampled=True, seed=11)[0])
+
+
+@pytest.mark.parametrize("path", ["bf16", "w4kv4", "sp"])
+def test_graph_counts_equal_eager(dev, path):
+    """The launch counts and plain-route counts after N graph replays equal
+    the eager loop's for the same blocks (the capture's launches are added
+    once a replay, and the capture's own taken back)."""
+    lm, bits = _path_lm(dev, path)
+    counts = {}
+    for eager in (True, False):
+        cache, toks, recent, sp, active = _ragged_state(lm, 8, bits)
+        gen = torch.Generator(device=dev)
+        kernels.reset_launch_counts()
+        launches, routes = graphs.counts()
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for _ in range(3):
+                lm.decode_active(cache, toks, recent, sp, gen, active, 4)
+        after = graphs.counts()
+        counts[eager] = ({k: n - launches[k] for k, n in after[0].items()},
+                         {k: n - routes[k] for k, n in after[1].items()})
+    assert counts[False] == counts[True]
+    assert sum(counts[False][0].values()) > 0
+
+
+@pytest.mark.parametrize("path", ["bf16", "w8kv8", "w4kv4", "sp"])
+def test_spec_graphs_equal_eager(dev, path):
+    """Speculation's blocks as graphs against the eager loop: two blocks of
+    three chained rounds of k=8 drafts (verify chunks of 9 rows at ragged
+    starts), then a plain block that writes the history rows: tokens,
+    accepted counts, lengths and history equal."""
+    lm, bits = _path_lm(dev, path)
+    B, k = 8, 8
+    res = {}
+    for eager in (True, False):
+        cache, toks, recent, sp, active = _ragged_state(lm, B, bits)
+        lens = cache.lengths.tolist()
+        history = torch.zeros((B, 256 + k + 2), dtype=torch.int32, device=dev)
+        for i, n in enumerate(lens):
+            history[i, :n] = torch.tensor([(7 * i + 3 * j) % 200 + 1 for j in range(n)])
+            history[i, n] = toks[i]
+        outs = []
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for _ in range(2):
+                t, a, cache, history = lm.spec_rounds(cache, history, active, 3, k, 3)
+                outs += [t.cpu(), a.cpu()]
+            cur = history.gather(1, cache.lengths.long()[:, None])[:, 0]
+            o, cache, recent, history = lm.decode_active_hist(
+                cache, cur, recent, sp, torch.Generator(device=dev), active, 4, history)
+            outs.append(o.cpu())
+        res[eager] = outs + [cache.lengths.cpu(), history.cpu()]
+    for got, ref in zip(res[False], res[True]):
+        assert torch.equal(got, ref)
+
+
+def test_speculative_generate_on_card_matches_plain(dev):
+    """generate(speculative="ngram") through the verify graph equals plain
+    greedy generate on the card (bf16, w4 kv4), for spec_k 1 and 8."""
+    for path in ("bf16", "w4kv4"):
+        lm, bits = _path_lm(dev, path)
+        prompt = [5, 6, 7, 8] * 10 + [3, 14, 15]
+        plain = lm.generate(prompt, GenerationConfig.greedy(40, kv_quant_bits=bits))
+        for spec_k in (1, 8):
+            assert lm.generate(prompt, GenerationConfig.greedy(
+                40, kv_quant_bits=bits, speculative="ngram", spec_k=spec_k)) == plain
+
+
+def test_engine_captures_nothing_after_warmup(dev):
+    """warmup captures every decode program serving reaches; then a mix of
+    speculative greedy streams and a sampled request is served with no
+    capture, and the greedy tokens equal the plain engine's."""
+    lm, _ = _path_lm(dev, "bf16")
+    greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
+    sampled = SamplingOptions(temperature=0.8, top_p=0.9, repetition_penalty=1.1)
+    prompts = [[5, 6, 7, 8] * 6, list(range(3, 40)), [9, 8, 7, 9, 8, 7]]
+
+    def serve(engine, with_sampled):
+        engine.warmup()
+        captured = graphs.captures
+        qs = [engine.submit(EngineRequest(f"g{i}", p, 40, greedy)) for i, p in enumerate(prompts)]
+        if with_sampled:  # a short sampled request: speculation engages once it is done
+            qs.append(engine.submit(EngineRequest("s", [1, 2, 3], 4, sampled)))
+        for _ in range(2000):
+            if not engine.step() and engine.request_q.empty():
+                break
+        return [_drain(q) for q in qs], graphs.captures - captured
+
+    spec = InferenceEngine(lm, max_slots=4, max_seq_len=256, speculative="ngram", spec_rounds=4)
+    got, captured = serve(spec, True)
+    assert captured == 0 and spec.stats.spec_steps > 0 and len(got[3]) == 4
+    plain, captured = serve(InferenceEngine(lm, max_slots=4, max_seq_len=256), False)
+    assert captured == 0 and got[:3] == plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("S", [5, 9])
+@pytest.mark.parametrize("B", [1, 8])
+def test_verify_chunk_attention_matches_plain(dev, dtype, bits, S, B):
+    """K3 (bits 16) and K5 (kv8, kv4) and their -S forms at a verify
+    chunk's shapes: S = k + 1 rows at a different start on every row of the
+    batch, Qwen3-0.6B's heads (16 on 8, D=128) over a 512-slot cache, one
+    row ending at the buffer's last slot."""
+    gen = torch.Generator(device=dev).manual_seed(S * B + bits)
+    T, Hq, Hkv, D = 512, 16, 8, 128
+    k, v = rnd(gen, B, T, Hkv, D, dtype=dtype), rnd(gen, B, T, Hkv, D, dtype=dtype)
+    q = rnd(gen, B, S, Hq, D, dtype=dtype)
+    starts = torch.tensor([T - S, 0, 1, 63, 64, 200, 301, 450][:B], device=dev)
+    pos = (starts[:, None] + torch.arange(S, device=dev)[None]).to(torch.int32)
+    if bits == 16:
+        ops = (k, v)
+        got = k23.flash_attention_cached(q, k, v, pos, scale=D ** -0.5)
+        ref = k23.flash_attention_cached_plain(q, k, v, pos, scale=D ** -0.5)
+    else:
+        c = QuantLayerKVCache.empty(B, T, Hkv, D, bits=bits, device=dev)
+        c.update(k, v, 0)
+        ops = (c.k, c.v, c.k_scale, c.v_scale)
+        got = k45.quant_cached_attention(q, *ops, pos, bits=bits, scale=D ** -0.5)
+        ref = k45.quant_cached_attention_plain(q.float(), *ops, pos, bits=bits, scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    out, m, l = k45.cached_attention_with_stats(q, *ops, *([None, None] if bits == 16 else []),
+                                                pos, bits=bits, scale=D ** -0.5)
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [9, 72])
+@pytest.mark.parametrize("I,O", [(1024, 2048), (1024, 3072), (3072, 1024)])
+def test_k6_verify_rows_match_plain(dev, dtype, bits, M, I, O):
+    """K6 at a verify forward's rows: M = B (k + 1), 9 for generate and 72
+    for eight engine slots, at Qwen3-0.6B's projections."""
+    gen = torch.Generator(device=dev).manual_seed(M + I + O + bits)
+    w = quantize_weight(rnd(gen, I, O, dtype=torch.float32) * I ** -0.5, bits=bits)
+    x = rnd(gen, M, I, dtype=dtype)
+    got = quant_matmul(x, w.codes, w.scales, bits=bits)
+    torch.testing.assert_close(got.float(), quant_matmul_plain(x.float(), w.codes, w.scales,
+                                                               bits=bits), **TOL[dtype])

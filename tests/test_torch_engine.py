@@ -158,16 +158,15 @@ def test_abort_mid_admission_frees_the_slot(lms):
 
 
 def test_memory_budget_and_unported_options(lms, quant_lms, monkeypatch):
-    """The budget counts the fp or quantized cache (codes and scale planes)
-    and QuantizedWeight leaves (codes and scales), and names the KV bits."""
+    """The budget counts the fp or quantized cache (codes and scale planes),
+    QuantizedWeight leaves (codes and scales) and, with speculation, the
+    history rows, and names the KV bits."""
     _, tl = lms
     monkeypatch.setenv("CRANE_HBM_BYTES", str(1024 * 1024))
     with pytest.raises(RuntimeError, match="HBM budget exceeded"):
         InferenceEngine(tl, max_slots=4, max_seq_len=512)
     monkeypatch.setenv("CRANE_HBM_BYTES", str(64 * 1024 ** 3))
     InferenceEngine(tl, max_slots=4, max_seq_len=512)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        InferenceEngine(tl, speculative="ngram")
 
     _, tq = quant_lms[4]
     cfg = QWEN3_TINY
@@ -187,6 +186,14 @@ def test_memory_budget_and_unported_options(lms, quant_lms, monkeypatch):
     monkeypatch.setenv("CRANE_HBM_BYTES", str(need - 1))
     with pytest.raises(RuntimeError, match="4-bit KV"):
         InferenceEngine(tq, max_slots=slots, max_seq_len=seq, kv_quant_bits=4)
+    # speculation adds the int32 history rows, spec_k + 2 columns past the slot
+    need = int((weights + kv + slots * (seq + 8 + 2) * 4) * 1.15)
+    monkeypatch.setenv("CRANE_HBM_BYTES", str(need))
+    InferenceEngine(tq, max_slots=slots, max_seq_len=seq, kv_quant_bits=4, speculative="ngram")
+    monkeypatch.setenv("CRANE_HBM_BYTES", str(need - 1))
+    with pytest.raises(RuntimeError, match="4-bit KV"):
+        InferenceEngine(tq, max_slots=slots, max_seq_len=seq, kv_quant_bits=4,
+                        speculative="ngram")
 
 
 def test_threaded_run(lms):
@@ -199,3 +206,119 @@ def test_threaded_run(lms):
         engine.stop()
     assert not engine._thread.is_alive()
     assert len(toks) == 5 and reason == FinishReason.LENGTH
+
+
+def one_stream(engine, prompt, n, sampling=GREEDY):
+    q = engine.submit(req(engine, "a", prompt, n, sampling))
+    run_until_idle(engine)
+    return [drain(q)[0]]
+
+
+def spec_single(engine):
+    """One greedy stream on a repetitive prompt: drafts are accepted."""
+    return one_stream(engine, [5, 6, 7, 8] * 6, 12)
+
+
+def spec_eight(engine):
+    """Eight greedy streams with repetitive tails: one batched verify a
+    round serves all of them."""
+    rng = np.random.default_rng(3)
+    prompts = [(rng.integers(1, 40, 4).tolist() * 5)[: 4 + 4 * i] + [5, 6, 7, 8] * 3
+               for i in range(8)]
+    qs = [engine.submit(req(engine, f"s{i}", p, 10)) for i, p in enumerate(prompts)]
+    run_until_idle(engine)
+    return [drain(q)[0] for q in qs]
+
+
+def spec_mixed(engine):
+    """A sampled request beside a greedy one: no block is speculative."""
+    sampled = SamplingOptions(do_sample=True, temperature=0.9, repetition_penalty=1.0)
+    qs = [engine.submit(req(engine, "g", [5, 6, 7, 8] * 6, 8)),
+          engine.submit(req(engine, "s", [9, 8, 7], 6, sampled))]
+    run_until_idle(engine)
+    return [drain(q)[0] for q in qs]
+
+
+def spec_sampled(engine):
+    """One sampled request alone on a repetitive prompt: never speculated,
+    the tokens of the plain engine from the same seed."""
+    sampled = SamplingOptions(do_sample=True, temperature=0.8, repetition_penalty=1.0)
+    return one_stream(engine, [5, 6, 7, 8] * 2, 8, sampled)
+
+
+def spec_headroom(engine):
+    """52 tokens in a 64-slot cache: no room for a block of rounds, so the
+    engine declines speculation near the end and decodes plainly."""
+    return one_stream(engine, [5, 6, 7, 8] * 13, 10)
+
+
+def spec_low_acceptance(engine):
+    """Random prompts: after the first probe the acceptance EMA falls below
+    spec_min_gain and plain blocks take over for the cooldown."""
+    rng = np.random.default_rng(9)
+    qs = [engine.submit(req(engine, f"s{i}", rng.integers(1, 500, 24).tolist(), 24))
+          for i in range(4)]
+    run_until_idle(engine)
+    return [drain(q)[0] for q in qs]
+
+
+def spec_alternating(engine):
+    """An unattainable spec_min_gain with a cooldown of one: probes and
+    plain blocks alternate, and the plain blocks keep the history rows
+    current."""
+    return one_stream(engine, [5, 6, 7, 8] * 6, 24)
+
+
+@pytest.mark.parametrize("scenario,kw,kv_quant_bits", [
+    (spec_single, dict(max_slots=2, max_seq_len=128), None),
+    (spec_eight, dict(max_slots=8, max_seq_len=128), None),
+    (spec_eight, dict(max_slots=8, max_seq_len=128), 8),
+    (spec_eight, dict(max_slots=8, max_seq_len=128), 4),
+    (spec_mixed, dict(max_slots=2, max_seq_len=128), None),
+    (spec_sampled, dict(max_slots=1, max_seq_len=128), None),
+    (spec_headroom, dict(max_slots=1, max_seq_len=64), None),
+    (spec_low_acceptance, dict(max_slots=4, max_seq_len=256, spec_rounds=4), None),
+    (spec_alternating, dict(max_slots=2, max_seq_len=256, spec_rounds=2, spec_min_gain=100.0,
+                            spec_cooldown=1), None),
+], ids=["single", "eight", "eight-w8kv8", "eight-w4kv4", "mixed", "sampled", "headroom",
+        "cooldown", "alternating"])
+def test_speculative_engine_matches_crane_tpu(lms, quant_lms, scenario, kw, kv_quant_bits):
+    """speculative="ngram" against crane_tpu's speculative engine (the
+    greedy tokens, spec_steps and spec_tokens, the gate's wait) and against
+    the port's plain engine (the tokens, a sampled request's included)."""
+    jl, tl = lms if kv_quant_bits is None else quant_lms[kv_quant_bits]
+    kw = dict(kw, kv_quant_bits=kv_quant_bits)
+    jeng = JEngine(jl, speculative="ngram", **kw)
+    teng = InferenceEngine(tl, speculative="ngram", **kw)
+    plain = InferenceEngine(tl, **{k: v for k, v in kw.items() if not k.startswith("spec_")})
+    got = scenario(teng)
+    assert got == scenario(plain)
+    # a sampled stream draws another package's random numbers: crane_tpu's
+    # tokens are compared for the greedy streams, which come first
+    greedy = {spec_mixed: 1, spec_sampled: 0}.get(scenario, len(got))
+    assert got[:greedy] == scenario(jeng)[:greedy]
+    for key in ("spec_steps", "spec_tokens"):
+        assert getattr(teng.stats, key) == getattr(jeng.stats, key), key
+    assert teng._spec_wait == jeng._spec_wait
+    speculated = scenario not in (spec_mixed, spec_sampled, spec_headroom)
+    assert (teng.stats.spec_steps > 0) == speculated
+    if scenario is spec_low_acceptance:
+        assert teng.stats.spec_steps == 4 and teng._spec_wait > 0
+
+
+def test_speculative_engine_budget_edge(lms):
+    """_spec_candidate's headroom at its edge: a stream whose position plus
+    spec_rounds * (spec_k + 1) equals max_seq_len is speculated, one past it
+    is not; the tokens equal plain decoding's either way."""
+    _, tl = lms
+    k, rounds, seq = 4, 2, 64
+    for prompt_len, expect in ((seq - rounds * (k + 1) - 1, True), (seq - rounds * (k + 1), False)):
+        prompt = ([5, 6, 7, 8] * 16)[:prompt_len]
+        spec = InferenceEngine(tl, max_slots=1, max_seq_len=seq, speculative="ngram",
+                               spec_k=k, spec_rounds=rounds)
+        q = spec.submit(req(spec, "e", prompt, 2))
+        spec.step()  # admission: one token generated, position prompt_len + 1
+        assert (spec._spec_candidate() is not None) == expect, prompt_len
+        run_until_idle(spec)
+        plain = InferenceEngine(tl, max_slots=1, max_seq_len=seq)
+        assert drain(q)[0] == one_stream(plain, prompt, 2)[0]

@@ -257,6 +257,20 @@ def test_engine_matches_crane_tpu(pair, scenario, kw):
                            for p in (ids(5, 10), ids(40, 11), ids(70, 12))]
 
 
+def test_recurrent_models_never_speculate(pair):
+    """crane_tpu's gate: a model with GDN layers takes plain decoding under
+    speculative="ngram", in generate (quietly) and in the engine (no
+    history rows, no speculative block), with crane_tpu's greedy tokens."""
+    jl, tl = pair
+    prompt = [5, 6, 7, 8] * 6
+    expected = jl.generate(prompt, JGenerationConfig.greedy(8))
+    assert tl.generate(prompt, GenerationConfig.greedy(8, speculative="ngram")) == expected
+    engine = InferenceEngine(tl, max_slots=2, max_seq_len=128, speculative="ngram")
+    assert engine.history is None
+    [got] = [_drain(q) for q in _after(engine, [engine.submit(request(engine, "h", prompt, 8))])]
+    assert got == expected and engine.stats.spec_steps == 0
+
+
 def test_memory_budget_counts_gdn_states(pair, monkeypatch):
     """The budget sizes the cache on the meta device: one KV layer plus
     three GDN layers' conv windows and float32 states."""

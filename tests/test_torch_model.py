@@ -257,8 +257,6 @@ def test_entry_points_default_to_the_card():
 
 def test_unported_branches_raise(tiny_pair):
     _, tl = tiny_pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tl.generate([1, 2], GenerationConfig.greedy(4, speculative="ngram"))
     for bits in (8, 4):  # int8/int4 caches, once refused, are allocated
         cache = tl.init_cache(1, 64, quant_bits=bits)
         assert all(layer.bits == bits for layer in cache.layers)

@@ -86,8 +86,8 @@ def _imported_roots(path):
 def test_chip_smoke_imports_and_refusals(tmp_path):
     roots = _imported_roots(ROOT / "chip_smoke.py")
     assert "jax" not in roots and "crane_tpu" not in roots
-    assert roots <= {"__future__", "dataclasses", "json", "os", "subprocess", "sys", "time",
-                     "torch", "crane_tpu_torch"}
+    assert roots <= {"__future__", "contextlib", "dataclasses", "json", "os", "subprocess",
+                     "sys", "time", "torch", "crane_tpu_torch"}
     # this interpreter's torch has no CUDA device: no result, non-zero exit
     res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -5,8 +5,10 @@ into four slabs on ``["cpu"] * 4`` (the counterpart of the virtual devices
 ``tests/test_sequence_parallel.py`` runs on), runs the with-stats kernels'
 plain versions per slab and merges the partials. Test for test it mirrors
 that file: its greedy tokens must equal crane_tpu's single-device tokens,
-and its continuation-chunk outputs must lie within 2e-4 of them. The
-speculative case has no counterpart: speculation is not ported yet.
+and its continuation-chunk outputs must lie within 2e-4 of them. With
+speculation the verify chunks (k + 1 tokens a row at per-row positions) are
+written across slab boundaries and attend through the with-stats chunk
+path.
 
 The op-level cases hold ``decode_attention_with_stats`` and
 ``cached_attention_with_stats`` (plain versions on a CPU tensor) against the
@@ -228,6 +230,34 @@ def test_sp_chunked_prefill_matches_single_device(lms):
     expected = jl.generate(prompt, JGenerationConfig.greedy(5))
     engine = InferenceEngine(slm, max_slots=1, max_seq_len=64, prefill_chunk=16)
     assert run(engine, "r", prompt, 5) == expected
+
+
+def test_sp_with_engine_speculative_matches(lms):
+    """tests/test_sequence_parallel.py's case: the sp engine with
+    speculative="ngram" (k=4, 4 rounds) on a repetitive prompt gives
+    crane_tpu's single-device greedy tokens, and speculated."""
+    jl, tl = lms
+    prompt = [5, 6, 7, 8] * 6
+    engine = InferenceEngine(sp_shard_lm(tl, make_sp_mesh(4, CPU4)), max_slots=1,
+                             max_seq_len=64, speculative="ngram", spec_k=4, spec_rounds=4)
+    assert run(engine, "r", prompt, 10) == jl.generate(prompt, JGenerationConfig.greedy(10))
+    assert engine.stats.spec_steps > 0
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+def test_sp_generate_speculative_across_slabs(lms, bits):
+    """Speculative generate over four 64-slot slabs, a 60-token repetitive
+    prompt: the verify chunks straddle the first slab boundary, and the
+    tokens equal crane_tpu's single-device greedy tokens on the same cache
+    width (the port's slabs write each token of a chunk into its own slab)."""
+    jl, tl = lms
+    prompt = ([5, 6, 7, 8, 9] * 12)[:60]
+    gen = dict(kv_quant_bits=bits)
+    expected = jl.generate(prompt, JGenerationConfig.greedy(12, **gen))
+    slm = sp_shard_lm(tl, make_sp_mesh(4, CPU4))
+    assert slm.generate(prompt, GenerationConfig.greedy(12, speculative="ngram", **gen)) == expected
+    cache = slm._generate_caches[(256, bits)][0]
+    assert isinstance(cache.layers[0], SequenceShardedKVCache) and cache.layers[0].slab_len == 64
 
 
 def test_sp_prefix_reuse_matches_single_device(lms):
