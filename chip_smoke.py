@@ -6,7 +6,8 @@
 Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It needs no network, no checkpoint and no
 tokenizer: weights are random, drawn from a seeded ``torch.Generator``, and
-requests are token ids. Phases, each reported on its own line:
+requests are token ids (the HTTP phases use a stand-in tokenizer). Phases,
+each reported on its own line:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: compile the kernels under ``crane_tpu_torch/csrc/`` with ``nvcc``,
@@ -96,10 +97,36 @@ requests are token ids. Phases, each reported on its own line:
    K3-S and K5-S kv8 are launched there only by verify forwards; the rows
    of K3 and K5 kv4 at 8 slots x 9 rows and K6 w4 at M=72 and M=9 (timed
    in phase 3, ``check_verify_kernels``) take the launches of the verify
-   forwards alone.
+   forwards alone;
+13. http: the port's server (``serve/api.py`` over the standard-library
+   transport of ``serve/transport.py``) in this process on 127.0.0.1, over
+   a threaded engine of phase 5's shape, bf16 and then w4 kv4, with a
+   stand-in tokenizer (pure Python; each id decodes to a word of its own,
+   so text maps back to ids). Phase 5's greedy prompts go to /generate
+   with ``input_ids`` all at once, and their ids equal those of the same
+   requests through ``engine.submit``, or part at a tie (the rule below);
+   /v1/chat/completions streamed and not (the deltas add up to the
+   content), /v1/completions, a stream aborted by /abort_request and one
+   whose client closes its socket (/v1/stats counts both aborts and the
+   slots come free), 9 concurrent streams on 8 slots, /health_generate.
+   K1-K3 (bf16) and K2, K4, K5, K6 (w4 kv4) were launched by the HTTP
+   traffic. Logged on the host clock: the time to the first SSE chunk of
+   the 300- and the 1000-token prompt over HTTP and through
+   ``engine.submit``, and the aggregate tokens/s of 8 HTTP streams against
+   8 direct ones;
+14. gguf: the bf16 model's weights written as a q8_0 GGUF file (linears
+   q8_0, the rest f32, about 1.1 GB) with this script's own writer,
+   loaded by ``loaders/gguf_model.py`` ``from_gguf`` on the card (bf16,
+   q8_0 kept as blockwise weights) and on the CPU in float32 as the
+   reference (dequantized, by the native or the NumPy route, logged); the
+   300-token prefill's logits and 32 greedy tokens against the CPU; 4
+   requests served over HTTP; K1-K3 launched and K6 never (blockwise
+   linears are plain products); load times, prefill ms and the graph
+   decode step beside the bf16 model's.
 
 Where two paths' greedy tokens part (graphs against eager, speculative
-against plain), the first difference must be a tie on the reference path's
+against plain, HTTP against ``engine.submit``, the GGUF model on the card
+against the CPU), the first difference must be a tie on the reference path's
 own state: its step is replayed over the cache it left, must choose its
 token again, and the other token must lie within LOGIT_TIE of it.
 
@@ -2328,6 +2355,668 @@ def check_spec(lm, lm4, rows: list[dict]) -> None:
     no_plain_routes("spec path")
 
 
+# ── phases 'http' and 'gguf': the server over HTTP, and a GGUF file ──────
+
+class StandInTokenizer:
+    """The smoke run's tokenizer (the machine with the card has none): pure
+    Python, and invertible on ids. Each id decodes to the word ``t<id>``
+    after a space, so text from the server maps back to its ids exactly
+    (:meth:`ids`); a word of that form encodes to its id, any other word to
+    a fixed id of its characters. ``apply_chat_template`` writes a
+    ``role: content`` line a message, then ``assistant:``."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
+        out = []
+        for w in text.split():
+            if w[0] == "t" and w[1:].isdigit() and int(w[1:]) < self.vocab:
+                out.append(int(w[1:]))
+            else:
+                out.append(sum((i + 1) * ord(c) for i, c in enumerate(w)) % self.vocab)
+        return out
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return "".join(f" t{int(i)}" for i in ids)
+
+    def apply_chat_template(self, messages, tools=None, add_generation_prompt=True, **kw) -> str:
+        text = "".join(f"{m['role']}: {m['content']}\n" for m in messages)
+        return text + ("assistant:" if add_generation_prompt else "")
+
+    @staticmethod
+    def ids(text: str) -> list[int]:
+        return [int(w[1:]) for w in text.split()]
+
+
+def http_json(port: int, method: str, path: str, body=None) -> tuple[int, dict]:
+    """One request to the server on 127.0.0.1:``port``: (status, JSON body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def http_stream(port: int, path: str, body: dict, hang_up_after: int | None = None,
+                on_event=None) -> dict:
+    """A streamed request: its SSE events, the seconds from sending it to
+    the first ``data:`` line (host clock), and whether ``[DONE]`` came.
+    ``hang_up_after`` events, the client closes its socket mid-stream;
+    ``on_event`` is called after each event."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    events, t_first, done = [], None, False
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200 or not r.getheader("Content-Type", "").startswith("text/event-stream"):
+            raise AssertionError(f"{path}: status {r.status}, {r.read()[:300]!r}")
+        while line := r.readline():
+            if not line.startswith(b"data: "):
+                continue
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            if line.strip() == b"data: [DONE]":
+                done = True
+                break
+            events.append(json.loads(line[6:]))
+            if on_event is not None:
+                on_event()
+            if hang_up_after is not None and len(events) >= hang_up_after:
+                break
+    finally:
+        conn.close()
+    return {"events": events, "t_first": t_first, "done": done,
+            "wall": time.perf_counter() - t0}
+
+
+def chat_text(events) -> str:
+    return "".join(e["choices"][0]["delta"].get("content", "")
+                   for e in events if e.get("choices"))
+
+
+def wait_stats(port: int, cond, what: str, timeout: float = 60.0) -> dict:
+    """Poll /v1/stats until ``cond(stats)``; fail after ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while True:
+        _, stats = http_json(port, "GET", "/v1/stats")
+        if cond(stats):
+            return stats
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: /v1/stats never showed it: {stats}")
+        time.sleep(0.05)
+
+
+def check_engine_prompts(vocab: int) -> tuple[dict, list[int]]:
+    """check_engine's greedy prompts ({rid: (ids, max new tokens)}) and the
+    300 ids its follow-up appends, drawn from its generator in its order."""
+    import torch
+
+    gen = torch.Generator().manual_seed(7)
+
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+
+    prompts = {"p17": (ids(17), 32), "p64": (ids(64), 32), "p300": (ids(300), 32),
+               "p1000": (ids(1000), 24)}
+    ids(120)  # check_engine's sampled request, not sent here
+    return prompts, ids(300)
+
+
+def slot_rows(layers, slot: int) -> list:
+    """A copy of one slot's row of a cache's layers (every tensor field
+    leads with the slot axis)."""
+    import dataclasses
+
+    import torch
+
+    return [dataclasses.replace(layer, **{
+        f.name: getattr(layer, f.name)[slot:slot + 1].clone()
+        for f in dataclasses.fields(layer)
+        if isinstance(getattr(layer, f.name), torch.Tensor)}) for layer in layers]
+
+
+GREEDY_HTTP = {"temperature": 0, "repetition_penalty": 1.0}
+
+
+def direct_engine_run(lm, kv_bits, prompts: dict, tail: list[int]):
+    """The reference for the HTTP run: check_engine's greedy requests through
+    ``engine.submit`` on a fresh engine of its shape, stepped inline; when
+    p300 finishes, the follow-up (its prompt, its tokens and ``tail``) is
+    submitted. Returns the tokens by request and, for each request, its
+    slot's cache row as the request left it (copied when it finished)."""
+    import torch
+
+    from crane_tpu_torch.serve.engine import (
+        EngineRequest,
+        FinishReason,
+        InferenceEngine,
+        SamplingOptions,
+    )
+
+    greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
+    engine = InferenceEngine(lm, max_slots=8, max_seq_len=2048, prefill_chunk=256,
+                             kv_quant_bits=kv_bits)
+    engine.warmup()
+    slots, emit = {}, engine._emit
+
+    def emit_noting_slot(seq, token):
+        slots[seq.request_id] = seq.slot
+        return emit(seq, token)
+
+    engine._emit = emit_noting_slot
+    asked = {rid: n for rid, (_, n) in prompts.items()}
+    queues = {rid: engine.submit(EngineRequest(rid, p, n, greedy))
+              for rid, (p, n) in prompts.items()}
+    toks, rows = {rid: [] for rid in queues}, {}
+    for _ in range(20000):
+        busy = engine.step()
+        for rid, q in list(queues.items()):
+            while not q.empty():
+                r = q.get_nowait()
+                if r.error is not None:
+                    raise AssertionError(f"direct {rid}: {r.error}")
+                if r.token is not None:
+                    toks[rid].append(r.token)
+                if r.finished:
+                    if r.finish_reason != FinishReason.LENGTH or len(toks[rid]) != asked[rid]:
+                        raise AssertionError(f"direct {rid}: {len(toks[rid])} tokens, "
+                                             f"{r.finish_reason}")
+                    rows[rid] = slot_rows(engine.cache.layers, slots[rid])
+        if "p300" in rows and "followup" not in queues:
+            follow = prompts["p300"][0] + toks["p300"] + tail
+            asked["followup"] = 16
+            queues["followup"] = engine.submit(EngineRequest("followup", follow, 16, greedy))
+            toks["followup"] = []
+        if len(rows) == len(prompts) + 1 and not busy and engine.request_q.empty():
+            break
+    torch.cuda.synchronize()
+    if len(rows) != len(prompts) + 1:
+        raise AssertionError(f"direct run: finished {sorted(rows)}")
+    del engine
+    lm.release_graphs()
+    return toks, rows
+
+
+def http_generate_run(port: int, prompts: dict, tail: list[int], direct: dict) -> dict:
+    """check_engine's greedy requests to /generate with ``input_ids``, all at
+    once (a thread each); p300's thread sends the follow-up when its answer
+    comes, built from the direct run's p300 tokens so both runs serve one
+    follow-up prompt. Returns the token ids of each answer (the stand-in
+    tokenizer's text mapped back)."""
+    import concurrent.futures
+
+    def ask(rid, ids, n):
+        status, body = http_json(port, "POST", "/generate", {
+            "input_ids": ids, "rid": f"http-{rid}",
+            "sampling_params": {"max_new_tokens": n, **GREEDY_HTTP}})
+        got = StandInTokenizer.ids(body.get("text", "")) if status == 200 else None
+        meta = body.get("meta_info", {}) if status == 200 else {}
+        if got is None or len(got) != n or meta.get("completion_tokens") != n \
+                or meta.get("finish_reason") != {"type": "length"} \
+                or meta.get("prompt_tokens") != len(ids):
+            raise AssertionError(f"/generate {rid}: status {status}, {str(body)[:300]}")
+        return got
+
+    def ask_then_follow(rid, ids, n):
+        out = {rid: ask(rid, ids, n)}
+        if rid == "p300":
+            out["followup"] = ask("followup", ids + direct["p300"] + tail, 16)
+        return out
+
+    toks = {}
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        for fut in [pool.submit(ask_then_follow, rid, p, n) for rid, (p, n) in prompts.items()]:
+            toks.update(fut.result(timeout=600))
+    return toks
+
+
+def ttft_direct(engine, ids: list[int], n: int) -> float:
+    """Seconds (host clock) from ``engine.submit`` to the first token of a
+    greedy request on a running engine; drains the request."""
+    import uuid
+
+    from crane_tpu_torch.serve.engine import EngineRequest, SamplingOptions
+
+    t0 = time.perf_counter()
+    q = engine.submit(EngineRequest(f"direct-{uuid.uuid4().hex[:8]}", ids, n,
+                                    SamplingOptions(do_sample=False, repetition_penalty=1.0)))
+    t_first = None
+    while True:
+        r = q.get(timeout=300)
+        if r.error is not None:
+            raise AssertionError(f"direct request failed: {r.error}")
+        if t_first is None and r.token is not None:
+            t_first = time.perf_counter() - t0
+        if r.finished:
+            return t_first
+
+
+def throughput_direct(engine, prompts: list[list[int]], n: int) -> float:
+    """Aggregate tokens/s (host clock) of greedy requests of ``n`` tokens
+    submitted together to a running engine, until the last finishes."""
+    import uuid
+
+    from crane_tpu_torch.serve.engine import EngineRequest, SamplingOptions
+
+    greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
+    t0 = time.perf_counter()
+    queues = [engine.submit(EngineRequest(f"tp-{uuid.uuid4().hex[:8]}", p, n, greedy))
+              for p in prompts]
+    total = 0
+    for q in queues:
+        while True:
+            r = q.get(timeout=300)
+            if r.error is not None:
+                raise AssertionError(f"direct request failed: {r.error}")
+            total += r.token is not None
+            if r.finished:
+                break
+    wall = time.perf_counter() - t0
+    if total != n * len(prompts):
+        raise AssertionError(f"direct streams gave {total} tokens, not {n * len(prompts)}")
+    return total / wall
+
+
+def throughput_http(port: int, prompts: list[list[int]], n: int) -> float:
+    """Aggregate tokens/s (host clock) of streamed /generate requests of
+    ``n`` tokens sent together, a thread each, until the last [DONE]."""
+    import concurrent.futures
+
+    body = {"stream": True, "sampling_params": {"max_new_tokens": n, **GREEDY_HTTP}}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        runs = [f.result(timeout=600) for f in [
+            pool.submit(http_stream, port, "/generate", {**body, "input_ids": p})
+            for p in prompts]]
+    wall = time.perf_counter() - t0
+    total = sum(len(StandInTokenizer.ids(r["events"][-1]["text"])) for r in runs if r["events"])
+    if total != n * len(prompts) or not all(r["done"] for r in runs):
+        raise AssertionError(f"HTTP streams gave {total} tokens, not {n * len(prompts)}")
+    return total / wall
+
+
+def serve_http(lm, kv_bits=None):
+    """A warmed engine of check_engine's shape on its own thread, and the
+    port's server over it on a free local port. Returns (engine, server)."""
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.engine import InferenceEngine
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    engine = InferenceEngine(lm, max_slots=8, max_seq_len=2048, prefill_chunk=256,
+                             kv_quant_bits=kv_bits)
+    engine.warmup()
+    engine.start()
+    return engine, BackgroundServer(build_app(Server(engine, model_name="qwen3-0.6b-random")))
+
+
+def check_http(lm, label: str, kv_bits=None) -> dict[str, int]:
+    """Phase 'http' on one model: the port's server in this process on
+    127.0.0.1 (a free port) over a threaded engine of check_engine's shape
+    (8 slots, 2048 tokens, 256-token chunks), with the stand-in tokenizer.
+
+    - check_engine's greedy prompts (17, 64, 300 and 1000 tokens, and the
+      follow-up that reuses 320) go to /generate with ``input_ids`` all at
+      once; their ids equal those of the same requests through
+      ``engine.submit`` on a fresh engine (direct_engine_run), or part at a
+      tie on that engine's own cache rows (ties_on_reference_state);
+    - /v1/chat/completions streamed and not: the deltas add up to the
+      content; /v1/completions; a stream aborted by /abort_request and one
+      whose client closes its socket: /v1/stats counts both aborts and the
+      slots come free; 9 concurrent streams on 8 slots all finish;
+      /health_generate; the statistics reconcile.
+
+    The kernel counts cover the HTTP traffic only (returned). Then, on the
+    host clock: the time to the first SSE chunk of the 300- and the
+    1000-token prompt over HTTP and through ``engine.submit`` on the same
+    engine (the prefix cache flushed before each, median of 5 in turns),
+    and the aggregate tokens/s of 8 HTTP streams against 8 direct ones."""
+    import concurrent.futures
+    import threading
+
+    import torch
+
+    from crane_tpu_torch.ops import cuda as kernels
+
+    vocab = lm.config.vocab_size
+    lm.tokenizer = StandInTokenizer(vocab)
+    prompts, tail = check_engine_prompts(vocab)
+    t0 = time.perf_counter()
+    direct, rows = direct_engine_run(lm, kv_bits, prompts, tail)
+    engine, srv = serve_http(lm, kv_bits)
+    port = srv.port
+    try:
+        reset_counts()
+        got = http_generate_run(port, prompts, tail, direct)
+        contexts = {rid: p for rid, (p, _) in prompts.items()}
+        contexts["followup"] = contexts["p300"] + direct["p300"] + tail
+        ties = {}
+        for rid, ctx in contexts.items():
+            tie = ties_on_reference_state(lm, f"http {label} {rid}", rows[rid], 1,
+                                          {0: (ctx, got[rid], direct[rid])}, LOGIT_TIE)
+            if tie:
+                ties[rid] = tie[0]
+        log("http", f"{label}: /generate with input_ids, {len(got)} concurrent greedy requests "
+                    f"(17, 64, 300, 1000 tokens and the follow-up), ids vs engine.submit: "
+                    f"{'identical' if not ties else f'first differences at ties {ties}'}")
+
+        chat = {"messages": [{"role": "user", "content": "t11 t12 t13 hello"}],
+                "max_tokens": 24, **GREEDY_HTTP}
+        streamed = http_stream(port, "/v1/chat/completions",
+                               {**chat, "stream": True, "stream_options": {"include_usage": True}})
+        status, whole = http_json(port, "POST", "/v1/chat/completions", chat)
+        content = whole["choices"][0]["message"]["content"] if status == 200 else None
+        usage = [e["usage"] for e in streamed["events"] if e.get("usage")]
+        if content is None or chat_text(streamed["events"]) != content \
+                or len(StandInTokenizer.ids(content)) != 24 or not streamed["done"] \
+                or whole["choices"][0]["finish_reason"] != "length" \
+                or usage != [whole["usage"]] or usage[0]["completion_tokens"] != 24:
+            raise AssertionError(f"chat {label}: streamed {streamed['events'][:3]} ... vs "
+                                 f"{status} {str(whole)[:300]}")
+        status, comp = http_json(port, "POST", "/v1/completions",
+                                 {"prompt": "t5 t6 t7 t8", "max_tokens": 8, **GREEDY_HTTP})
+        if status != 200 or comp["usage"]["completion_tokens"] != 8 \
+                or len(StandInTokenizer.ids(comp["choices"][0]["text"])) != 8 \
+                or comp["choices"][0]["finish_reason"] != "length":
+            raise AssertionError(f"completions {label}: {status} {str(comp)[:300]}")
+
+        # two streams aborted mid-way: by /abort_request, and by the client
+        # closing its socket
+        _, before = http_json(port, "GET", "/v1/stats")
+        first = threading.Event()
+        out = {}
+
+        def long_stream():
+            out["run"] = http_stream(port, "/generate", {
+                "input_ids": contexts["p17"], "rid": "http-abort", "stream": True,
+                "sampling_params": {"max_new_tokens": 1500, **GREEDY_HTTP}}, on_event=first.set)
+
+        reader = threading.Thread(target=long_stream)
+        reader.start()
+        if not first.wait(120):
+            raise AssertionError("the stream to abort never began")
+        status, body = http_json(port, "POST", "/abort_request", {"rid": "http-abort"})
+        reader.join(120)
+        run = out.get("run")
+        if reader.is_alive() or status != 200 or run is None or not run["done"] \
+                or len(StandInTokenizer.ids(run["events"][-1]["text"])) >= 1500:
+            raise AssertionError(f"abort_request {label}: {status} {body}, stream {run and len(run['events'])}")
+        wait_stats(port, lambda s: s["requests_aborted"] == before["requests_aborted"] + 1
+                   and s["running"] == 0, f"{label} /abort_request")
+        cut = http_stream(port, "/v1/chat/completions",
+                          {**chat, "max_tokens": 1500, "stream": True}, hang_up_after=2)
+        stats = wait_stats(port, lambda s: s["requests_aborted"] == before["requests_aborted"] + 2
+                           and s["running"] == 0, f"{label} client hang-up")
+        log("http", f"{label}: chat streamed == not streamed (24 tokens), completions; a stream "
+                    f"aborted by /abort_request after {len(run['events'])} chunks and one whose "
+                    f"client hung up after {len(cut['events'])}: aborted "
+                    f"{stats['requests_aborted']}, running {stats['running']}")
+
+        def nth(i):
+            return http_stream(port, "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": f"t{100 + i} t{200 + i} stream {i}"}],
+                "max_tokens": 48, "stream": True, "stream_options": {"include_usage": True},
+                **GREEDY_HTTP})
+
+        with concurrent.futures.ThreadPoolExecutor(9) as pool:
+            nine = [f.result(timeout=600) for f in [pool.submit(nth, i) for i in range(9)]]
+        for i, run in enumerate(nine):
+            usage = [e["usage"] for e in run["events"] if e.get("usage")]
+            if not run["done"] or not usage or usage[0]["completion_tokens"] != 48 \
+                    or len(StandInTokenizer.ids(chat_text(run["events"]))) != 48:
+                raise AssertionError(f"stream {i} of 9 on 8 slots: {run['events'][-2:]}")
+        status, health = http_json(port, "GET", "/health_generate")
+        if status != 200 or health != {"status": "ok"}:
+            raise AssertionError(f"/health_generate: {status} {health}")
+        stats = wait_stats(port, lambda s: s["running"] == 0 and s["waiting"] == 0, "idle")
+        if stats["requests_failed"] or stats["requests_received"] != stats["requests_completed"] \
+                + stats["requests_aborted"]:
+            raise AssertionError(f"{label}: server statistics do not reconcile: {stats}")
+        counts = kernels.launch_counts()
+        log("http", f"{label}: 9 concurrent streams on 8 slots finished (48 tokens each); "
+                    f"/health_generate ok; stats {json.dumps(stats)}; HTTP traffic "
+                    f"{time.perf_counter() - t0:.1f} s with the direct run")
+
+        gen = torch.Generator().manual_seed(12)
+        ttft = {}
+        for rid in ("p300", "p1000"):
+            ids = contexts[rid]
+            h, d = [], []
+            for _ in range(5):
+                http_json(port, "POST", "/flush_cache")
+                h.append(http_stream(port, "/generate", {
+                    "input_ids": ids, "stream": True,
+                    "sampling_params": {"max_new_tokens": 4, **GREEDY_HTTP}})["t_first"])
+                engine.clear_prefix_cache()
+                d.append(ttft_direct(engine, ids, 4))
+            ttft[rid] = (median(h) * 1e3, median(d) * 1e3)
+        streams = [torch.randint(0, vocab, (128,), generator=gen).tolist() for _ in range(8)]
+        tps = {"http": [], "direct": []}
+        for way in ("http", "direct", "direct", "http"):
+            tps[way].append(throughput_http(port, streams, 128) if way == "http"
+                            else throughput_direct(engine, streams, 128))
+        log("http", f"{label}: time to the first chunk (host clock, median of 5, prefix cache "
+                    f"flushed): 300 tokens {ttft['p300'][0]:.2f} ms over HTTP vs "
+                    f"{ttft['p300'][1]:.2f} ms through engine.submit; 1000 tokens "
+                    f"{ttft['p1000'][0]:.2f} vs {ttft['p1000'][1]:.2f} ms; 8 streams x 128 "
+                    f"tokens: {', '.join(f'{x:.1f}' for x in tps['http'])} tok/s over HTTP vs "
+                    f"{', '.join(f'{x:.1f}' for x in tps['direct'])} tok/s direct "
+                    f"(runs http, direct, direct, http)")
+    finally:
+        srv.close()
+        engine.stop()
+        lm.release_graphs()
+        lm.tokenizer = None
+    return counts
+
+
+def require_launched(path: str, counts: dict[str, int], names) -> None:
+    """Fail if a kernel of ``names`` was not launched on ``path``."""
+    log("launches", f"{path}: {json.dumps({k: n for k, n in counts.items() if n})}")
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched by the {path}")
+
+
+def gguf_value(v) -> bytes:
+    import struct
+
+    if isinstance(v, int):
+        return struct.pack("<II", 4, v)
+    if isinstance(v, float):
+        return struct.pack("<If", 6, v)
+    if isinstance(v, str):
+        b = v.encode()
+        return struct.pack("<IQ", 8, len(b)) + b
+    raise TypeError(type(v))
+
+
+def write_gguf(path: str, metadata: dict, tensors: dict) -> int:
+    """A GGUF v3 file: ``tensors`` maps a name to (ggml type, row-major
+    shape, raw bytes); data aligned to 32 bytes. Returns its size."""
+    import struct
+
+    align = 32
+
+    def text(s):
+        b = s.encode()
+        return struct.pack("<Q", len(b)) + b
+
+    head = struct.pack("<IIQQ", 0x46554747, 3, len(tensors), len(metadata))
+    head += b"".join(text(k) + gguf_value(v) for k, v in metadata.items())
+    off = 0
+    for name, (ggml_type, shape, raw) in tensors.items():
+        head += text(name) + struct.pack("<I", len(shape))
+        head += b"".join(struct.pack("<Q", d) for d in reversed(shape))
+        head += struct.pack("<IQ", ggml_type, off)
+        off += -(-len(raw) // align) * align
+    size = 0
+    with open(path, "wb") as f:
+        for part in [head + b"\0" * (-len(head) % align)] + [
+                r for _, _, raw in tensors.values() for r in (raw, b"\0" * (-len(raw) % align))]:
+            f.write(part)
+            size += len(part)
+    return size
+
+
+def qwen3_gguf(lm, path: str) -> int:
+    """``lm``'s weights as a llama.cpp ``qwen3`` GGUF (tests/test_gguf_model.py's
+    layout): the 2-D linears q8_0, everything else f32. Returns its size."""
+    import torch
+
+    from crane_tpu_torch.loaders.gguf import GGML_F32, GGML_Q8_0, quantize_q8_0
+
+    cfg, p = lm.config, lm.params
+    tensors = {}
+
+    def put(name, t, q8=False):
+        a = t.detach().to("cpu", torch.float32).contiguous().numpy()
+        tensors[name] = ((GGML_Q8_0, a.shape, quantize_q8_0(a).tobytes()) if q8
+                         else (GGML_F32, a.shape, a.tobytes()))
+
+    put("token_embd.weight", p["embed"])
+    put("output_norm.weight", p["final_norm"])
+    for i, layer in enumerate(p["layers"]):
+        b, attn, mlp = f"blk.{i}.", layer["attn"], layer["mlp"]
+        for name, w in (("attn_q", attn["wq"]), ("attn_k", attn["wk"]), ("attn_v", attn["wv"]),
+                        ("attn_output", attn["wo"]), ("ffn_gate", mlp["gate"]),
+                        ("ffn_up", mlp["up"]), ("ffn_down", mlp["down"])):
+            put(f"{b}{name}.weight", w.T, q8=True)  # GGUF keeps HF's [out, in]
+        put(b + "attn_q_norm.weight", attn["q_norm"])
+        put(b + "attn_k_norm.weight", attn["k_norm"])
+        put(b + "attn_norm.weight", layer["input_ln"])
+        put(b + "ffn_norm.weight", layer["post_ln"])
+    a = "qwen3."
+    metadata = {
+        "general.architecture": "qwen3", a + "block_count": cfg.num_layers,
+        a + "embedding_length": cfg.hidden_size, a + "feed_forward_length": cfg.intermediate_size,
+        a + "attention.head_count": cfg.num_heads, a + "attention.head_count_kv": cfg.num_kv_heads,
+        a + "attention.key_length": cfg.head_dim,
+        a + "attention.layer_norm_rms_epsilon": float(cfg.rms_norm_eps),
+        a + "rope.freq_base": float(cfg.rope_theta),
+        a + "context_length": cfg.max_position_embeddings, a + "vocab_size": cfg.vocab_size,
+    }
+    return write_gguf(path, metadata, tensors)
+
+
+def check_gguf(lm) -> None:
+    """Phase 'gguf': full-width Qwen3-0.6B (``lm``'s weights) written as a
+    q8_0 GGUF (qwen3_gguf, about 1.1 GB) under ``build/``, loaded with the
+    port's ``from_gguf`` on the card in bf16 (the q8_0 linears kept as
+    blockwise QuantizedWeights) and on the CPU in float32 as the reference
+    (dequantized, by the route ``dequant_route`` names). The 300-token
+    prefill's logits by compare_logits; 32 greedy tokens by the tie rule on
+    the CPU's own cache; then 4 requests over HTTP from the card model, and
+    the load times, prefill ms and graph decode step beside the bf16
+    model's. The path launches K1-K3 and never K6."""
+    import concurrent.futures
+    import tempfile
+
+    import torch
+
+    from crane_tpu_torch.generation.config import GenerationConfig
+    from crane_tpu_torch.loaders.gguf import dequant_route
+    from crane_tpu_torch.loaders.gguf_model import from_gguf
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.ops.linear import QuantizedWeight
+    from crane_tpu_torch.ops.sampling import SamplingParams
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        path = os.path.join(tmp, "qwen3-0.6b-q8_0.gguf")
+        t0 = time.perf_counter()
+        size = qwen3_gguf(lm, path)
+        write_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        card = from_gguf(path, dtype=torch.bfloat16, device=lm.device)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = from_gguf(path, dtype=torch.float32, keep_quant=False, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    route = dequant_route()
+    cfg = card.config
+    wq = card.params["layers"][0]["attn"]["wq"]
+    if not (isinstance(wq, QuantizedWeight) and (wq.block, wq.bits) == (32, 8)) \
+            or (cfg.num_layers, cfg.hidden_size, cfg.vocab_size) != (
+                lm.config.num_layers, lm.config.hidden_size, lm.config.vocab_size) \
+            or not cfg.tie_word_embeddings or card.device != lm.device:
+        raise AssertionError(f"from_gguf: {cfg}, wq {type(wq).__name__}")
+    log("gguf", f"wrote {size / 1e9:.3f} GB (q8_0 linears, f32 rest) in {write_s:.1f} s; "
+                f"from_gguf on the card (bf16, q8_0 kept blockwise) {card_s:.2f} s, on the CPU "
+                f"(float32, dequantized by the {route} route) {cpu_s:.2f} s")
+
+    prompt = torch.randint(0, cfg.vocab_size, (300,),
+                           generator=torch.Generator().manual_seed(11)).tolist()
+    logits_card, _ = card.prefill(card.init_cache(1, 512), [prompt], [300])
+    cache = cpu.init_cache(1, 512)
+    logits_cpu, cache = cpu.prefill(cache, [prompt], [300])
+    compare_logits("gguf", "q8_0 GGUF prefill logits card bf16 vs cpu f32",
+                   logits_card[0], logits_cpu[0])
+    card_toks = card.generate(prompt, GenerationConfig.greedy(32))
+    first = logits_cpu.argmax(-1).to(torch.int32)
+    toks, cache, _ = cpu.decode_steps(cache, first, torch.full((1, 64), -1, dtype=torch.int32),
+                                      SamplingParams.make(1, do_sample=False, device="cpu"),
+                                      torch.Generator(), 31)
+    cpu_toks = [int(first[0])] + toks[0].tolist()
+    ties = ties_on_reference_state(cpu, "gguf greedy card vs cpu", cache.layers, 1,
+                                   {0: (prompt, card_toks, cpu_toks)}, LOGIT_TIE)
+    log("gguf", f"32 greedy tokens, card bf16 vs cpu f32: "
+                f"{'identical' if not ties else f'first difference at a tie {ties[0]}'}")
+    del cpu, cache
+
+    card.tokenizer = StandInTokenizer(cfg.vocab_size)
+    engine, srv = serve_http(card)
+    try:
+        gen = torch.Generator().manual_seed(13)
+        asks = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+                for n in (17, 64, 300, 600)]
+
+        def ask(ids):
+            return http_json(srv.port, "POST", "/generate", {
+                "input_ids": ids, "sampling_params": {"max_new_tokens": 16, **GREEDY_HTTP}})
+
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            answers = [f.result(timeout=600) for f in [pool.submit(ask, a) for a in asks]]
+        for ids, (status, body) in zip(asks, answers):
+            if status != 200 or len(StandInTokenizer.ids(body["text"])) != 16 \
+                    or body["meta_info"]["finish_reason"] != {"type": "length"}:
+                raise AssertionError(f"GGUF over HTTP: {status} {str(body)[:300]}")
+    finally:
+        srv.close()
+        engine.stop()
+        card.release_graphs()
+        card.tokenizer = None
+    counts = kernels.launch_counts()
+    require_launched("gguf path", counts, ("fp_decode_attention", "flash_attention_causal",
+                                           "flash_attention_cached"))
+    if counts["quant_matmul[w8]"] or counts["quant_matmul[w4]"]:
+        raise AssertionError("a blockwise GGUF linear reached K6")
+    no_plain_routes("gguf path")
+    log("gguf", "4 concurrent /generate requests (17, 64, 300, 600 tokens) of 16 tokens each "
+                "served from the GGUF model")
+
+    prompt_ms, tps = time_generate(card, prompt, GenerationConfig.greedy(64))
+    ref_ms, ref_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
+    log("gguf", f"q8_0 GGUF (blockwise linears) vs the bf16 model, batch 1: prefill 300 tokens "
+                f"(bucket 512) {prompt_ms:.2f} vs {ref_ms:.2f} ms; graph decode step "
+                f"{1e3 / tps:.3f} vs {1e3 / ref_tps:.3f} ms ({tps:.1f} vs {ref_tps:.1f} tok/s)")
+    card.release_graphs()
+    lm.release_graphs()
+    del card
+    torch.cuda.synchronize()
+
+
 # device kernels by family, the first match of a name's words (the port's
 # kernels by their __global__ names; the rest PyTorch's own kernels)
 KERNEL_FAMILIES = (
@@ -2757,8 +3446,26 @@ def main() -> int:
     # speculative decoding: verify forwards (K3, K5, K3-S, K5-S; K6 at
     # B (k + 1) rows) inside chained propose/verify graphs
     check_spec(lm, lm4, verify_rows)
-    del lm4, params4
     phase_done("spec")
+
+    # the server over HTTP (the main path's last link): K1-K3 in bf16, and
+    # K2, K4, K5 and K6 in w4 kv4, counted over the HTTP traffic alone
+    counts = check_http(lm, "Qwen3-0.6B bf16")
+    require_launched("http path, bf16", counts, (
+        "fp_decode_attention", "flash_attention_causal", "flash_attention_cached"))
+    no_plain_routes("http path, bf16")
+    counts = check_http(lm4, "Qwen3-0.6B w4 kv4", kv_bits=4)
+    require_launched("http path, w4 kv4", counts, (
+        "flash_attention_causal", "quant_decode_attention[kv4]", "quant_cached_attention[kv4]",
+        "quant_matmul[w4]"))
+    no_plain_routes("http path, w4 kv4")
+    del lm4, params4
+    phase_done("http")
+
+    # a q8_0 GGUF file of the same weights, on the card against the CPU,
+    # and served over HTTP (K1-K3; blockwise linears, no K6)
+    check_gguf(lm)
+    phase_done("gguf")
     log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     rows += quant_rows + hybrid_rows + sp_rows + verify_rows

@@ -133,7 +133,9 @@ def _quant_linear(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
     nb = i // w.block
     xb = x.reshape(*x.shape[:-1], nb, w.block).float()
     y = torch.einsum("...nk,nko->...no", xb, w.codes.reshape(nb, w.block, o).float())
-    return torch.einsum("...no,no->...o", y, w.scales).to(x.dtype)
+    # einsum hands back a permuted view; the attention kernels downstream
+    # take contiguous rows, as every other route of this function gives them
+    return torch.einsum("...no,no->...o", y, w.scales).to(x.dtype).contiguous()
 
 
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:

@@ -1,0 +1,758 @@
+"""OpenAI- and SGLang-compatible HTTP server (port of
+``crane_tpu/serve/api.py``).
+
+Reference behavior (crane-serve ``src/{lib.rs,handlers/}``):
+endpoints /health, /health_generate, /v1/stats, /v1/models[/id],
+/v1/chat/completions, /v1/completions, /tokenize (+/v1), /detokenize, SGLang
+/generate, /model_info, /server_info, /flush_cache, /abort_request; SSE chunk
+protocol with a role-announce first chunk and optional usage chunk
+(handlers/sse.rs:18-110); default sampling temp 0.8 / top_p 0.95 / top_k 40 /
+repetition 1.05 (handlers/openai.rs:34-120).
+
+The handlers, their request parsing, JSON bodies, SSE chunks, status codes
+and error messages are ``crane_tpu``'s. The HTTP front is asyncio, through
+the standard-library transport of :mod:`crane_tpu_torch.serve.transport`
+(``crane_tpu`` uses aiohttp, which the machine with the card lacks); the
+engine runs on its own thread, bridged by thread-safe queues — the same
+async-front/engine-thread split as the reference's tokio + dedicated OS
+thread design.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+import json
+import logging
+import time
+import uuid
+from typing import Any, Optional
+
+from crane_tpu_torch.serve import transport as web
+from crane_tpu_torch.serve.engine import InferenceEngine
+from crane_tpu_torch.serve.sequence import EngineRequest, FinishReason, SamplingOptions
+
+log = logging.getLogger("crane_tpu_torch.api")
+
+
+def _sampling_from_payload(p: dict, prefix_defaults=True) -> SamplingOptions:
+    temp = p.get("temperature", 0.8)
+    return SamplingOptions(
+        temperature=float(temp),
+        top_k=int(p.get("top_k", 40)),
+        top_p=float(p.get("top_p", 0.95)),
+        repetition_penalty=float(p.get("repetition_penalty", 1.05)),
+        do_sample=bool(p.get("do_sample", temp > 0)),
+        seed=int(p.get("seed", 0)),
+    )
+
+
+def _stop_from_payload(p: dict) -> tuple:
+    """OpenAI ``stop``: a string or list of up to 4 strings."""
+    stop = p.get("stop")
+    if stop is None:
+        return ()
+    if isinstance(stop, str):
+        stop = [stop]
+    return tuple(s for s in stop if isinstance(s, str) and s)[:4]
+
+
+class Server:
+    def __init__(
+        self,
+        engine: InferenceEngine | None,
+        *,
+        model_name: str = "crane-tpu",
+        eos_token_ids: tuple[int, ...] = (),
+        tts=None,
+        asr=None,
+        vlm=None,
+        text_backend=None,
+    ):
+        """``engine`` serves CausalLM with continuous batching; models with
+        bespoke forwards (Gemma3n) pass ``text_backend`` instead (the
+        reference serves every model via ModelBackend + concurrency cap,
+        backend.rs:220-223) — chat/completions then route through it."""
+        assert engine is not None or text_backend is not None
+        if vlm is not None:
+            raise NotImplementedError(
+                "image chat (a vision-language model) is not ported yet (ROADMAP Queue 1 item 9)")
+        self.engine = engine
+        self.text_backend = text_backend
+        self.model_name = model_name
+        if engine is not None:
+            self.eos_token_ids = tuple(eos_token_ids) or tuple(engine.lm.eos_token_ids)
+            self.tokenizer = engine.lm.tokenizer
+        else:
+            self.eos_token_ids = tuple(eos_token_ids) or tuple(text_backend.eos_token_ids)
+            self.tokenizer = text_backend.tokenizer
+        self.created = int(time.time())
+        # multimodal backends run outside the engine with their own serialized
+        # executors — the reference's dedicated-thread-per-modality design
+        # (crane-serve lib.rs:200-619)
+        import concurrent.futures
+
+        self.tts = tts
+        self.asr = asr
+        self._tts_pool = concurrent.futures.ThreadPoolExecutor(1, "tts")
+        self._asr_pool = concurrent.futures.ThreadPoolExecutor(1, "asr")
+
+    # -- request plumbing ----------------------------------------------------
+    async def _stream_responses(self, q):
+        loop = asyncio.get_running_loop()
+        while True:
+            r = await loop.run_in_executor(None, q.get)
+            yield r
+            if r.finished:
+                return
+
+    def _make_request(self, prompt_ids, payload, rid=None) -> EngineRequest:
+        return EngineRequest(
+            request_id=rid or f"req-{uuid.uuid4().hex[:16]}",
+            prompt_ids=list(prompt_ids),
+            max_new_tokens=int(
+                payload.get("max_tokens")
+                or payload.get("max_completion_tokens")
+                or payload.get("max_new_tokens")
+                or 512
+            ),
+            sampling=_sampling_from_payload(payload),
+            eos_token_ids=self.eos_token_ids,
+            stop_strings=_stop_from_payload(payload),
+        )
+
+    # -- misc endpoints ------------------------------------------------------
+    async def health(self, request):
+        return web.json_response({"status": "ok"})
+
+    async def health_generate(self, request):
+        """Deep health check: run one tiny generation through the engine."""
+        if self.engine is None:
+            return web.json_response(
+                {"error": {"message": "endpoint requires the slot engine"}},
+                status=400,
+            )
+        req = EngineRequest(
+            request_id=f"health-{uuid.uuid4().hex[:8]}",
+            prompt_ids=[1], max_new_tokens=1,
+            sampling=SamplingOptions(do_sample=False),
+        )
+        q = self.engine.submit(req)
+        async for r in self._stream_responses(q):
+            if r.finished and r.error:
+                return web.json_response({"status": "error", "error": r.error}, status=500)
+        return web.json_response({"status": "ok"})
+
+    async def stats(self, request):
+        if self.engine is None:
+            return web.json_response(
+                {"error": {"message": "endpoint requires the slot engine"}},
+                status=400,
+            )
+        return web.json_response(
+            self.engine.stats.snapshot(
+                running=len(self.engine.scheduler.running),
+                waiting=len(self.engine.scheduler.waiting),
+            )
+        )
+
+    async def models(self, request):
+        return web.json_response(
+            {
+                "object": "list",
+                "data": [
+                    {
+                        "id": self.model_name,
+                        "object": "model",
+                        "created": self.created,
+                        "owned_by": "crane-tpu",
+                    }
+                ],
+            }
+        )
+
+    async def model_by_id(self, request):
+        mid = request.match_info["model_id"]
+        if mid != self.model_name:
+            return web.json_response({"error": "model not found"}, status=404)
+        return web.json_response(
+            {"id": mid, "object": "model", "created": self.created, "owned_by": "crane-tpu"}
+        )
+
+    async def tokenize(self, request):
+        p = await request.json()
+        text = p.get("text") or p.get("prompt") or ""
+        ids = self.tokenizer.encode(text)
+        return web.json_response({"tokens": ids, "count": len(ids)})
+
+    async def detokenize(self, request):
+        p = await request.json()
+        ids = p.get("tokens") or []
+        return web.json_response({"text": self.tokenizer.decode(ids)})
+
+    # -- SGLang-compatible ---------------------------------------------------
+    async def model_info(self, request):
+        return web.json_response(
+            {
+                "model_path": self.model_name,
+                "tokenizer_path": self.model_name,
+                "is_generation": True,
+            }
+        )
+
+    async def server_info(self, request):
+        if self.engine is None:
+            return web.json_response(
+                {"error": {"message": "endpoint requires the slot engine"}},
+                status=400,
+            )
+        snap = self.engine.stats.snapshot(
+            running=len(self.engine.scheduler.running),
+            waiting=len(self.engine.scheduler.waiting),
+        )
+        return web.json_response(
+            {
+                "model_path": self.model_name,
+                "max_num_reqs": self.engine.max_slots,
+                "max_seq_len": self.engine.max_seq_len,
+                **snap,
+            }
+        )
+
+    async def flush_cache(self, request):
+        if self.engine is None:
+            return web.json_response(
+                {"error": {"message": "endpoint requires the slot engine"}},
+                status=400,
+            )
+        # static slots: nothing to free while sequences are running — the
+        # flushable state is the resident prefixes idle slots keep for
+        # cross-request reuse
+        self.engine.clear_prefix_cache()
+        return web.json_response({"status": "ok", "message": "cache flushed"})
+
+    async def abort_request(self, request):
+        if self.engine is None:
+            return web.json_response(
+                {"error": {"message": "endpoint requires the slot engine"}},
+                status=400,
+            )
+        p = await request.json()
+        rid = p.get("rid") or p.get("request_id")
+        if not rid:
+            return web.json_response({"error": "missing rid"}, status=400)
+        self.engine.abort(rid)
+        return web.json_response({"status": "ok"})
+
+    async def generate(self, request):
+        """SGLang /generate: {text | input_ids, sampling_params, stream}."""
+        if self.engine is None:
+            return web.json_response(
+                {"error": {"message": "endpoint requires the slot engine"}},
+                status=400,
+            )
+        p = await request.json()
+        sp = p.get("sampling_params") or {}
+        if "input_ids" in p:
+            ids = p["input_ids"]
+        else:
+            ids = self.tokenizer.encode(p.get("text", ""))
+        payload = {**sp, "max_tokens": sp.get("max_new_tokens", 128)}
+        req = self._make_request(ids, payload, rid=p.get("rid"))
+        q = self.engine.submit(req)
+
+        if p.get("stream"):
+            resp = web.StreamResponse(
+                headers={"Content-Type": "text/event-stream", "Cache-Control": "no-cache"}
+            )
+            await resp.prepare(request)
+            text = ""
+            async for r in self._stream_responses(q):
+                if r.error:
+                    break
+                if r.text:
+                    text += r.text
+                    chunk = {"text": text, "meta_info": {"id": req.request_id}}
+                    await resp.write(f"data: {json.dumps(chunk)}\n\n".encode())
+            await resp.write(b"data: [DONE]\n\n")
+            await resp.write_eof()
+            return resp
+
+        text, n_gen, reason, err = "", 0, None, None
+        async for r in self._stream_responses(q):
+            if r.text:
+                text += r.text
+            if r.finished:
+                n_gen, reason, err = r.n_generated, r.finish_reason, r.error
+        if err:
+            return web.json_response({"error": err}, status=400)
+        return web.json_response(
+            {
+                "text": text,
+                "meta_info": {
+                    "id": req.request_id,
+                    "prompt_tokens": len(req.prompt_ids),
+                    "completion_tokens": n_gen,
+                    "finish_reason": {"type": reason.value if reason else None},
+                },
+            }
+        )
+
+    # -- audio endpoints (reference handlers/{tts,asr}.rs) --------------------
+    async def audio_speech(self, request):
+        """POST /v1/audio/speech: {input, voice?, response_format?} -> WAV."""
+        if self.tts is None:
+            return web.json_response({"error": "no TTS model loaded"}, status=400)
+        p = await request.json()
+        text = p.get("input") or p.get("text")
+        if not text:
+            return web.json_response({"error": "missing 'input'"}, status=400)
+        from crane_tpu_torch.audio.pcm import encode_wav
+        from crane_tpu_torch.generation.config import SpeechOptions
+
+        opts = SpeechOptions(voice=p.get("voice"), speed=float(p.get("speed", 1.0)))
+        loop = asyncio.get_running_loop()
+        if p.get("stream") and hasattr(self.tts, "generate_speech_stream"):
+            # frame-chunked PCM streaming (reference prepare_streaming /
+            # generate_one_frame, qwen3_tts/modeling.rs:1497-1658): audio
+            # chunks go out as the talker produces frames
+            from crane_tpu_torch.audio.pcm import f32_to_i16
+
+            resp = web.StreamResponse(
+                headers={
+                    "Content-Type": "audio/pcm",
+                    "X-Sample-Rate": str(self.tts.audio_info().sample_rate),
+                }
+            )
+            await resp.prepare(request)
+            q: asyncio.Queue = asyncio.Queue()
+            cancelled = threading.Event()
+
+            def produce():
+                try:
+                    for chunk in self.tts.generate_speech_stream(text, opts):
+                        if cancelled.is_set():
+                            # client gone: stop synthesizing so the
+                            # serialized TTS executor frees up (reference
+                            # drops the stream on disconnect)
+                            return
+                        loop.call_soon_threadsafe(
+                            q.put_nowait, f32_to_i16(chunk).tobytes()
+                        )
+                except Exception as e:  # surfaced as stream truncation
+                    log.warning("tts stream error: %s", e)
+                finally:
+                    loop.call_soon_threadsafe(q.put_nowait, None)
+
+            fut = loop.run_in_executor(self._tts_pool, produce)
+            try:
+                while True:
+                    b = await q.get()
+                    if b is None:
+                        break
+                    await resp.write(b)
+            except (ConnectionResetError, asyncio.CancelledError):
+                cancelled.set()
+                raise
+            finally:
+                cancelled.set()
+                await asyncio.shield(fut)
+            await resp.write_eof()
+            return resp
+        try:
+            wav = await loop.run_in_executor(
+                self._tts_pool, self.tts.generate_speech, text, opts
+            )
+        except Exception as e:
+            return web.json_response({"error": str(e)}, status=400)
+        sr = self.tts.audio_info().sample_rate
+        fmt = p.get("response_format", "wav")
+        if fmt == "pcm":
+            from crane_tpu_torch.audio.pcm import f32_to_i16
+
+            body, ctype = f32_to_i16(wav).tobytes(), "audio/pcm"
+        else:
+            body, ctype = encode_wav(wav, sr), "audio/wav"
+        return web.Response(body=body, content_type=ctype)
+
+    async def audio_transcriptions(self, request):
+        """POST /v1/audio/transcriptions: multipart 'file' -> {text}."""
+        if self.asr is None:
+            return web.json_response({"error": "no ASR model loaded"}, status=400)
+        data = None
+        if request.content_type and "multipart" in request.content_type:
+            reader = await request.multipart()
+            async for part in reader:
+                if part.name == "file":
+                    data = await part.read()
+        else:
+            data = await request.read()
+        if not data:
+            return web.json_response({"error": "missing audio file"}, status=400)
+        from crane_tpu_torch.audio.pcm import decode_wav, resample
+        from crane_tpu_torch.generation.config import TranscribeOptions
+
+        try:
+            samples, rate = decode_wav(data)
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        target = self.asr.input_sample_rate()
+        if rate != target:
+            samples = resample(samples, rate, target)
+        loop = asyncio.get_running_loop()
+        transcript = await loop.run_in_executor(
+            self._asr_pool, self.asr.transcribe, samples, TranscribeOptions()
+        )
+        return web.json_response({"text": transcript.text})
+
+    # -- OpenAI chat/completions ---------------------------------------------
+    def _render_chat(self, payload: dict) -> str:
+        messages = payload["messages"]
+        kw = {}
+        if "chat_template_kwargs" in payload:
+            kw.update(payload["chat_template_kwargs"])
+        return self.tokenizer.apply_chat_template(
+            messages,
+            tools=payload.get("tools"),
+            add_generation_prompt=True,
+            **kw,
+        )
+
+    async def chat_completions(self, request):
+        payload = await request.json()
+        try:
+            prompt = self._render_chat(payload)
+        except Exception as e:  # template errors -> 400
+            return web.json_response({"error": {"message": str(e)}}, status=400)
+        ids = self.tokenizer.encode(prompt)
+        if self.engine is None:
+            return await self._backend_chat(request, payload, ids)
+        req = self._make_request(ids, payload)
+        q = self.engine.submit(req)
+        if payload.get("stream"):
+            return await self._sse_chat(request, req, q, payload)
+        return await self._collect_chat(req, q)
+
+    async def _backend_chat(self, request, payload, ids):
+        """chat via the capped TextBackend (non-engine models)."""
+        max_tokens = int(
+            payload.get("max_tokens") or payload.get("max_completion_tokens")
+            or payload.get("max_new_tokens") or 512
+        )
+        rid = f"req-{uuid.uuid4().hex[:16]}"
+        if payload.get("stream"):
+            st = self.text_backend.generate_stream(ids, max_tokens)
+            return await self._sse_from_streamer(request, rid, st)
+        text, n_gen = await self.text_backend.generate(ids, max_tokens)
+        return web.json_response({
+            "id": rid, "object": "chat.completion", "created": int(time.time()),
+            "model": self.model_name,
+            "choices": [{
+                "index": 0,
+                "message": {"role": "assistant", "content": text},
+                "finish_reason": "stop",
+            }],
+            "usage": {
+                "prompt_tokens": len(ids), "completion_tokens": n_gen,
+                "total_tokens": len(ids) + n_gen,
+            },
+        })
+
+    async def _sse_from_streamer(self, request, rid, st):
+        """SSE chat deltas from a LoopStreamer (backend / VLM paths)."""
+        resp = web.StreamResponse(
+            headers={"Content-Type": "text/event-stream", "Cache-Control": "no-cache"}
+        )
+        await resp.prepare(request)
+        base = {
+            "id": rid, "object": "chat.completion.chunk",
+            "created": int(time.time()), "model": self.model_name,
+        }
+
+        def chunk(delta: dict, finish=None) -> bytes:
+            c = dict(base, choices=[{"index": 0, "delta": delta, "finish_reason": finish}])
+            return b"data: " + json.dumps(c).encode() + b"\n\n"
+
+        try:
+            await resp.write(chunk({"role": "assistant", "content": ""}))
+            while True:
+                item = await st.queue.get()
+                if item is None:
+                    break
+                if isinstance(item, tuple):  # forwarded generation error
+                    await resp.write(chunk({"content": f"\n[error: {item[0]}]"}))
+                    break
+                await resp.write(chunk({"content": item}))
+            await resp.write(chunk({}, finish="stop"))
+            await resp.write(b"data: [DONE]\n\n")
+            await resp.write_eof()
+        except (ConnectionResetError, asyncio.CancelledError):
+            # client gone: stop the producing generate loop so the capped
+            # executor frees up instead of decoding to max_tokens
+            st.cancel()
+            raise
+        return resp
+
+    async def completions(self, request):
+        if self.engine is None:
+            return web.json_response(
+                {"error": {"message": "endpoint requires the slot engine"}},
+                status=400,
+            )
+        payload = await request.json()
+        prompt = payload.get("prompt", "")
+        if isinstance(prompt, list):
+            prompt = prompt[0] if prompt else ""
+        ids = self.tokenizer.encode(prompt)
+        req = self._make_request(ids, payload)
+        q = self.engine.submit(req)
+
+        text, n_gen, reason, err = "", 0, None, None
+        async for r in self._stream_responses(q):
+            if r.text:
+                text += r.text
+            if r.finished:
+                n_gen, reason, err = r.n_generated, r.finish_reason, r.error
+        if err:
+            return web.json_response({"error": {"message": err}}, status=400)
+        return web.json_response(
+            {
+                "id": req.request_id,
+                "object": "text_completion",
+                "created": int(time.time()),
+                "model": self.model_name,
+                "choices": [
+                    {
+                        "index": 0,
+                        "text": text,
+                        "finish_reason": reason.value if reason else None,
+                    }
+                ],
+                "usage": {
+                    "prompt_tokens": len(req.prompt_ids),
+                    "completion_tokens": n_gen,
+                    "total_tokens": len(req.prompt_ids) + n_gen,
+                },
+            }
+        )
+
+    async def _collect_chat(self, req, q):
+        text, n_gen, reason, err = "", 0, None, None
+        async for r in self._stream_responses(q):
+            if r.text:
+                text += r.text
+            if r.finished:
+                n_gen, reason, err = r.n_generated, r.finish_reason, r.error
+        if err:
+            return web.json_response({"error": {"message": err}}, status=400)
+        return web.json_response(
+            {
+                "id": req.request_id,
+                "object": "chat.completion",
+                "created": int(time.time()),
+                "model": self.model_name,
+                "choices": [
+                    {
+                        "index": 0,
+                        "message": {"role": "assistant", "content": text},
+                        "finish_reason": reason.value if reason else None,
+                    }
+                ],
+                "usage": {
+                    "prompt_tokens": len(req.prompt_ids),
+                    "completion_tokens": n_gen,
+                    "total_tokens": len(req.prompt_ids) + n_gen,
+                },
+            }
+        )
+
+    async def _sse_chat(self, request, req, q, payload):
+        """SSE protocol: role-announce first chunk, content deltas, final
+        finish chunk, optional usage chunk, [DONE] (reference sse.rs)."""
+        resp = web.StreamResponse(
+            headers={"Content-Type": "text/event-stream", "Cache-Control": "no-cache"}
+        )
+        await resp.prepare(request)
+        created = int(time.time())
+
+        def chunk(delta: dict, finish: Optional[str] = None) -> bytes:
+            body = {
+                "id": req.request_id,
+                "object": "chat.completion.chunk",
+                "created": created,
+                "model": self.model_name,
+                "choices": [{"index": 0, "delta": delta, "finish_reason": finish}],
+            }
+            return f"data: {json.dumps(body)}\n\n".encode()
+
+        await resp.write(chunk({"role": "assistant"}))
+        n_gen, reason = 0, None
+        try:
+            async for r in self._stream_responses(q):
+                if r.text:
+                    await resp.write(chunk({"content": r.text}))
+                if r.finished:
+                    n_gen, reason = r.n_generated, r.finish_reason
+        except (ConnectionResetError, asyncio.CancelledError):
+            self.engine.abort(req.request_id)
+            raise
+        await resp.write(chunk({}, finish=reason.value if reason else "stop"))
+        if (payload.get("stream_options") or {}).get("include_usage"):
+            usage = {
+                "id": req.request_id,
+                "object": "chat.completion.chunk",
+                "created": created,
+                "model": self.model_name,
+                "choices": [],
+                "usage": {
+                    "prompt_tokens": len(req.prompt_ids),
+                    "completion_tokens": n_gen,
+                    "total_tokens": len(req.prompt_ids) + n_gen,
+                },
+            }
+            await resp.write(f"data: {json.dumps(usage)}\n\n".encode())
+        await resp.write(b"data: [DONE]\n\n")
+        await resp.write_eof()
+        return resp
+
+
+def build_app(server: Server) -> web.Application:
+    app = web.Application(client_max_size=25 * 1024 * 1024)  # 25 MiB, ref lib.rs:676-684
+    r = app.router
+    r.add_get("/health", server.health)
+    r.add_get("/health_generate", server.health_generate)
+    r.add_get("/v1/stats", server.stats)
+    r.add_get("/v1/models", server.models)
+    r.add_get("/v1/models/{model_id}", server.model_by_id)
+    r.add_post("/v1/chat/completions", server.chat_completions)
+    r.add_post("/v1/completions", server.completions)
+    r.add_post("/v1/audio/speech", server.audio_speech)
+    r.add_post("/v1/audio/transcriptions", server.audio_transcriptions)
+    r.add_post("/tokenize", server.tokenize)
+    r.add_post("/v1/tokenize", server.tokenize)
+    r.add_post("/detokenize", server.detokenize)
+    r.add_post("/v1/detokenize", server.detokenize)
+    # SGLang-compatible
+    r.add_post("/generate", server.generate)
+    r.add_get("/model_info", server.model_info)
+    r.add_get("/server_info", server.server_info)
+    r.add_post("/flush_cache", server.flush_cache)
+    r.add_post("/abort_request", server.abort_request)
+    return app
+
+
+def _not_ported(what: str, item: int):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def main(argv=None):
+    """``python -m crane_tpu_torch.serve --model-path <dir | file.gguf>``:
+    load the model onto ``--device`` (the card by default; ``cpu`` only when
+    asked), warm the engine up, start its thread and serve until
+    interrupted."""
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser("crane_tpu_torch.serve")
+    ap.add_argument("--model-path", required=True)
+    ap.add_argument("--model-name", default=None)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs: the card (cuda, the default) or, "
+                    "when asked, the CPU")
+    ap.add_argument("--max-concurrent", type=int, default=8)
+    ap.add_argument("--max-seq-len", type=int, default=2048)
+    ap.add_argument("--decode-tokens-per-seq", type=int, default=8)
+    ap.add_argument("--preempt-after", type=float, default=30.0,
+                    help="seconds a fresh request may starve before the "
+                    "longest-running sequence is preempted and requeued "
+                    "(<=0 disables)")
+    ap.add_argument("--speculative", default=None, choices=[None, "ngram"],
+                    help="prompt-lookup speculative decode for greedy "
+                    "streams (exact; tokens per weight pass gate it)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request prefix reuse (on by default "
+                    "for full-attention models: a new prompt sharing a "
+                    "token prefix with a free slot's finished context "
+                    "prefills only the unseen suffix — exact, multi-turn "
+                    "chats skip re-prefilling the conversation)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="admit prompts longer than this in chunks, with a "
+                    "decode block for running sequences interleaved between "
+                    "chunks (<=0 = whole-prompt prefill)")
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
+    ap.add_argument("--quant", default=None, choices=[None, "q8", "q4"])
+    ap.add_argument("--kv-quant", default=None, choices=[None, "int8", "int4"])
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (not ported yet)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel degree (not ported yet)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel degree: shard the KV cache's "
+                    "sequence axis over the first N devices (contexts too "
+                    "long for one card's memory; composes with --kv-quant)")
+    ap.add_argument("--vlm-path", default=None, help="Qwen3-VL checkpoint (not ported yet)")
+    ap.add_argument("--tts-path", default=None, help="codec-TTS checkpoint (not ported yet)")
+    ap.add_argument("--asr-path", default=None, help="ASR checkpoint (not ported yet)")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO)
+    if args.tp > 1 or args.dp > 1:
+        _not_ported("tensor- and data-parallel serving (--tp/--dp)", 12)
+    if args.vlm_path:
+        _not_ported("image chat (--vlm-path)", 9)
+    if args.asr_path:
+        _not_ported("speech recognition (--asr-path)", 10)
+    if args.tts_path:
+        _not_ported("speech synthesis (--tts-path)", 11)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    quant_bits = {"q8": 8, "q4": 4}.get(args.quant)
+    # hub fallback (reference autotokenizer.rs:232-258): --model-path may be
+    # a repo id; resolve once so every downstream consumer sees a local dir
+    from crane_tpu_torch.utils.hub import resolve_checkpoint
+
+    args.model_path = resolve_checkpoint(args.model_path)
+    if args.model_path.endswith(".gguf"):
+        from crane_tpu_torch.loaders.gguf_model import from_gguf
+
+        lm = from_gguf(args.model_path, dtype=dtype, device=args.device)
+    else:
+        from crane_tpu_torch.models.auto import from_pretrained, load_hf_config
+
+        if load_hf_config(args.model_path).get("model_type") in ("gemma3n", "gemma3n_text"):
+            _not_ported("gemma3n (served through TextBackend)", 8)
+        lm = from_pretrained(args.model_path, dtype=dtype, device=args.device,
+                             quant_bits=quant_bits)
+    if args.sp > 1:
+        # sequence-parallel serving: KV sequence axis sharded over sp
+        # devices — max_seq_len beyond one card's memory (parallel/sequence.py)
+        from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
+
+        devices = [args.device] * args.sp if lm.device.type == "cpu" else None
+        lm = sp_shard_lm(lm, make_sp_mesh(args.sp, devices))
+    engine = InferenceEngine(
+        lm,
+        max_slots=args.max_concurrent,
+        max_seq_len=args.max_seq_len,
+        decode_tokens_per_seq=args.decode_tokens_per_seq,
+        kv_quant_bits={"int8": 8, "int4": 4}.get(args.kv_quant),
+        preempt_after_s=args.preempt_after if args.preempt_after > 0 else None,
+        prefill_chunk=args.prefill_chunk if args.prefill_chunk > 0 else None,
+        speculative=args.speculative,
+        prefix_cache=not args.no_prefix_cache,
+    )
+    log.info("warming up (kernels and decode-block graphs)...")
+    engine.warmup()
+    engine.start()
+    name = args.model_name or args.model_path.rstrip("/").split("/")[-1]
+    server = Server(engine, model_name=name)
+    try:
+        web.run_app(build_app(server), host=args.host, port=args.port)
+    finally:
+        engine.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,633 @@
+"""crane_tpu_torch's HTTP server against crane_tpu's on the same checkpoint.
+
+Both servers serve one tiny Qwen3 checkpoint in float32 with greedy
+requests: crane_tpu's aiohttp app through aiohttp's in-process test client,
+the port's standard-library server on a real local socket (``device="cpu"``).
+Every case of tests/test_api.py is sent to both, in the same order, and the
+JSON bodies (and SSE events) must be equal with ``id`` and ``created``
+masked. Beyond those: stop strings, ``finish_reason: "length"``, a 413 body,
+a client that hangs up mid-stream, the refused flags of ``main()``, the SDK
+client, and the command line as a subprocess.
+"""
+
+import asyncio
+import http.client
+import json
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tests.fixtures import make_tiny_qwen3_checkpoint
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MASKED = ("id", "created")
+
+
+def masked(body):
+    """``body`` with the values of ``id`` and ``created`` keys blanked."""
+    if isinstance(body, dict):
+        return {k: None if k in MASKED else masked(v) for k, v in body.items()}
+    if isinstance(body, list):
+        return [masked(v) for v in body]
+    return body
+
+
+def sse_events(raw: bytes) -> list:
+    text = raw.decode()
+    assert text.rstrip().endswith("data: [DONE]"), text
+    return [json.loads(line[6:]) for line in text.splitlines()
+            if line.startswith("data: ") and line != "data: [DONE]"]
+
+
+class RefClient:
+    """Requests to a crane_tpu app through aiohttp's test client (a fresh
+    app each time: apps freeze on start)."""
+
+    def __init__(self, app_factory):
+        self.app_factory = app_factory
+
+    def request(self, method, path, body=None, raw=None, headers=None):
+        from aiohttp.test_utils import TestClient, TestServer
+
+        async def go():
+            client = TestClient(TestServer(self.app_factory()))
+            await client.start_server()
+            try:
+                kw = {"json": body} if body is not None else {"data": raw}
+                r = await client.request(method, path, headers=headers, **kw)
+                return r.status, dict(r.headers), await r.read()
+            finally:
+                await client.close()
+
+        return asyncio.run(go())
+
+
+class PortClient:
+    """Requests to the port's server over a local socket (http.client)."""
+
+    def __init__(self, port):
+        self.port = port
+
+    def request(self, method, path, body=None, raw=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+        try:
+            data = json.dumps(body).encode() if body is not None else raw
+            if headers is None:
+                headers = {"Content-Type": "application/json"} if body is not None else {}
+            conn.request(method, path, body=data, headers=headers)
+            r = conn.getresponse()
+            return r.status, dict(r.getheaders()), r.read()
+        finally:
+            conn.close()
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    return make_tiny_qwen3_checkpoint(str(tmp_path_factory.mktemp("api") / "m"))
+
+
+def _ref_engine(ckpt, **kw):
+    from crane_tpu.models.auto import from_pretrained
+    from crane_tpu.serve.engine import InferenceEngine
+
+    engine = InferenceEngine(from_pretrained(ckpt, dtype=jnp.float32), **kw)
+    engine.start()
+    return engine
+
+
+def _port_engine(ckpt, **kw):
+    from crane_tpu_torch.models.auto import from_pretrained
+    from crane_tpu_torch.serve.engine import InferenceEngine
+
+    engine = InferenceEngine(from_pretrained(ckpt, dtype=torch.float32, device="cpu"), **kw)
+    engine.start()
+    return engine
+
+
+ENGINE = dict(max_slots=2, max_seq_len=256, decode_tokens_per_seq=2)
+
+
+@pytest.fixture(scope="module")
+def both(ckpt):
+    """(crane_tpu client, port client) over engines of one shape, tiny-qwen3."""
+    from crane_tpu.serve.api import Server as RefServer
+    from crane_tpu.serve.api import build_app as ref_app
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    ref_engine, engine = _ref_engine(ckpt, **ENGINE), _port_engine(ckpt, **ENGINE)
+    ref = RefServer(ref_engine, model_name="tiny-qwen3")
+    http_server = BackgroundServer(build_app(Server(engine, model_name="tiny-qwen3")))
+    yield RefClient(lambda: ref_app(ref)), PortClient(http_server.port)
+    http_server.close()
+    ref_engine.stop()
+    engine.stop()
+
+
+def same(both, method, path, body=None):
+    """Send one request to both servers; the statuses and the masked JSON
+    bodies must be equal. Returns the port's body."""
+    ref, port = both
+    (s1, _, b1), (s2, _, b2) = ref.request(method, path, body), port.request(method, path, body)
+    assert s1 == s2, (path, s1, s2, b1, b2)
+    j1, j2 = json.loads(b1), json.loads(b2)
+    assert masked(j2) == masked(j1), (path, j1, j2)
+    return s2, j2
+
+
+def same_sse(both, path, body):
+    """One streamed request to both: equal statuses, event-stream content
+    types and masked events. Returns the port's events."""
+    ref, port = both
+    (s1, h1, b1), (s2, h2, b2) = ref.request("POST", path, body), port.request("POST", path, body)
+    assert s1 == s2 == 200
+    assert h1["Content-Type"].startswith("text/event-stream")
+    assert h2["Content-Type"].startswith("text/event-stream")
+    e1, e2 = sse_events(b1), sse_events(b2)
+    assert masked(e2) == masked(e1), (e1, e2)
+    return e2
+
+
+CHAT = {"model": "tiny-qwen3", "messages": [{"role": "user", "content": "hello"}],
+        "max_tokens": 8, "temperature": 0}
+
+
+class TestEndpoints:
+    """tests/test_api.py's cases, each sent to both servers."""
+
+    def test_health(self, both):
+        assert same(both, "GET", "/health")[1]["status"] == "ok"
+
+    def test_models(self, both):
+        assert same(both, "GET", "/v1/models")[1]["data"][0]["object"] == "model"
+        status, body = same(both, "GET", "/v1/models/tiny-qwen3")
+        assert status == 200
+        assert same(both, "GET", "/v1/models/nope")[0] == 404
+
+    def test_unknown_route_and_method(self, both):
+        ref, port = both
+        for method, path in (("GET", "/nope"), ("GET", "/v1/chat/completions")):
+            assert ref.request(method, path)[0] == port.request(method, path)[0]
+
+    def test_tokenize_roundtrip(self, both):
+        toks = same(both, "POST", "/tokenize", {"text": "hello world"})[1]["tokens"]
+        assert len(toks) > 0
+        assert same(both, "POST", "/detokenize", {"tokens": toks})[1]["text"] == "hello world"
+
+    def test_chat_completion(self, both):
+        status, body = same(both, "POST", "/v1/chat/completions", CHAT)
+        assert status == 200 and body["object"] == "chat.completion"
+        assert body["choices"][0]["message"]["role"] == "assistant"
+        assert body["usage"]["completion_tokens"] > 0
+
+    def test_chat_streaming_sse(self, both):
+        payload = {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 6,
+                   "temperature": 0, "stream": True, "stream_options": {"include_usage": True}}
+        events = same_sse(both, "/v1/chat/completions", payload)
+        assert events[0]["choices"][0]["delta"] == {"role": "assistant"}
+        assert [e for e in events if e.get("choices") and e["choices"][0]["finish_reason"]]
+        usage = [e for e in events if e.get("usage")]
+        assert usage and usage[0]["usage"]["completion_tokens"] > 0
+        # the deltas add up to the non-streamed content
+        text = "".join(e["choices"][0]["delta"].get("content", "")
+                       for e in events if e.get("choices"))
+        whole = same(both, "POST", "/v1/chat/completions", {**payload, "stream": False})[1]
+        assert text == whole["choices"][0]["message"]["content"]
+
+    def test_completions(self, both):
+        body = same(both, "POST", "/v1/completions",
+                    {"prompt": "hello world", "max_tokens": 4, "temperature": 0})[1]
+        assert body["object"] == "text_completion"
+        assert body["usage"]["completion_tokens"] == 4
+
+    def test_sglang_generate(self, both):
+        body = same(both, "POST", "/generate",
+                    {"text": "hello", "sampling_params": {"max_new_tokens": 4, "temperature": 0}})[1]
+        assert body["meta_info"]["completion_tokens"] == 4
+        same(both, "POST", "/generate",
+             {"input_ids": [5, 6, 7], "sampling_params": {"max_new_tokens": 3, "temperature": 0}})
+        events = same_sse(both, "/generate", {"text": "hello", "stream": True, "sampling_params":
+                                              {"max_new_tokens": 4, "temperature": 0}})
+        assert events[-1]["text"] == body["text"]
+
+    def test_sglang_info_and_stats(self, both):
+        assert same(both, "GET", "/model_info")[1]["is_generation"] is True
+        ref, port = both
+        keys = ("requests_received", "requests_completed", "requests_aborted",
+                "requests_failed", "requests_preempted", "prompt_tokens", "generated_tokens",
+                "prefix_hits", "prefix_tokens_reused", "running", "waiting",
+                "max_num_reqs", "max_seq_len", "model_path")
+        for path in ("/server_info", "/v1/stats"):
+            (s1, _, b1), (s2, _, b2) = ref.request("GET", path), port.request("GET", path)
+            j1, j2 = json.loads(b1), json.loads(b2)
+            assert s1 == s2 == 200 and j1.keys() == j2.keys()
+            assert {k: j1[k] for k in keys if k in j1} == {k: j2[k] for k in keys if k in j2}
+        assert j2["requests_completed"] >= 1
+        assert same(both, "POST", "/flush_cache")[1]["status"] == "ok"
+
+    def test_abort_request_endpoint(self, both):
+        assert same(both, "POST", "/abort_request", {"rid": "nonexistent"})[0] == 200
+        assert same(both, "POST", "/abort_request", {})[0] == 400
+
+    def test_prompt_too_long_400(self, both):
+        status, body = same(both, "POST", "/v1/completions",
+                            {"prompt": "word " * 400, "max_tokens": 4})
+        assert status == 400 and "exceeds" in body["error"]["message"]
+
+    def test_health_generate(self, both):
+        status, body = same(both, "GET", "/health_generate")
+        assert status == 200 and body["status"] == "ok"
+
+    def test_max_tokens_finish_length(self, both):
+        body = same(both, "POST", "/v1/chat/completions", {**CHAT, "max_tokens": 5})[1]
+        assert body["choices"][0]["finish_reason"] == "length"
+        assert body["usage"]["completion_tokens"] == 5
+
+    def test_stop_strings(self, both):
+        payload = {**CHAT, "max_tokens": 12}
+        full = same(both, "POST", "/v1/chat/completions", payload)[1]
+        text = full["choices"][0]["message"]["content"]
+        stop = text[len(text) // 2:len(text) // 2 + 2]
+        assert stop.strip()
+        for body in ({**payload, "stop": stop}, {**payload, "stop": ["§", stop]}):
+            got = same(both, "POST", "/v1/chat/completions", body)[1]
+            assert got["choices"][0]["message"]["content"] == text[:text.index(stop)]
+            assert got["choices"][0]["finish_reason"] == "stop"
+        events = same_sse(both, "/v1/chat/completions", {**payload, "stop": stop, "stream": True})
+        assert "".join(e["choices"][0]["delta"].get("content", "") for e in events) \
+            == text[:text.index(stop)]
+
+    def test_body_over_limit_413(self, both):
+        ref, port = both
+        limit = 25 * 1024 * 1024
+        assert ref.request("POST", "/v1/completions", raw=b" " * (limit + 1))[0] == 413
+        # the port refuses it from the header alone, before reading the body
+        with socket.create_connection(("127.0.0.1", port.port), timeout=30) as s:
+            s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\n"
+                      + f"Content-Length: {limit + 1}\r\n\r\n".encode())
+            head = s.recv(4096).decode()
+        assert head.startswith("HTTP/1.1 413 "), head
+        assert port.request("GET", "/health")[0] == 200
+
+
+class _StubStreamTts:
+    """Minimal Tts with frame-chunked streaming (tests/test_api.py's)."""
+
+    class _Info:
+        sample_rate = 24000
+
+    def audio_info(self):
+        return self._Info()
+
+    def supports_voice_cloning(self):
+        return False
+
+    def generate_speech(self, text, options=None):
+        return np.zeros(480, np.float32)
+
+    def generate_speech_stream(self, text, options=None):
+        for i in range(3):
+            yield np.full(240, 0.1 * (i + 1), np.float32)
+
+
+def test_audio_speech_stream_endpoint(ckpt):
+    """POST /v1/audio/speech with stream=true: chunked PCM of the
+    generator's length; without: the same WAV bytes from both servers."""
+    from crane_tpu.serve.api import Server as RefServer
+    from crane_tpu.serve.api import build_app as ref_app
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    kw = dict(max_slots=1, max_seq_len=128, decode_tokens_per_seq=1)
+    ref_engine, engine = _ref_engine(ckpt, **kw), _port_engine(ckpt, **kw)
+    ref_server = RefServer(ref_engine, model_name="tiny", tts=_StubStreamTts())
+    try:
+        with BackgroundServer(build_app(Server(engine, model_name="tiny",
+                                               tts=_StubStreamTts()))) as srv:
+            ref, port = RefClient(lambda: ref_app(ref_server)), PortClient(srv.port)
+            got = port.request("POST", "/v1/audio/speech", {"input": "hello", "stream": True})
+            status, headers, body = got
+            assert status == 200 and headers["Content-Type"].startswith("audio/pcm")
+            assert headers["X-Sample-Rate"] == "24000"
+            assert body == ref.request("POST", "/v1/audio/speech",
+                                       {"input": "hello", "stream": True})[2]
+            assert len(body) == 3 * 240 * 2
+            wav = [c.request("POST", "/v1/audio/speech", {"input": "hi"}) for c in (ref, port)]
+            assert wav[0][0] == wav[1][0] == 200 and wav[0][2] == wav[1][2]
+            assert wav[1][1]["Content-Type"] == "audio/wav"
+            missing = [c.request("POST", "/v1/audio/speech", {}) for c in (ref, port)]
+            assert missing[0][0] == missing[1][0] == 400
+            assert json.loads(missing[0][2]) == json.loads(missing[1][2])
+    finally:
+        ref_engine.stop()
+        engine.stop()
+
+
+class _StubAsr:
+    """An ASR adapter that reports what it was given."""
+
+    def input_sample_rate(self):
+        return 16000
+
+    def transcribe(self, samples, options):
+        return type("Transcript", (), {"text": f"{len(samples)} samples, "
+                                               f"peak {float(np.abs(samples).max()):.3f}"})()
+
+
+def test_audio_transcriptions_endpoint(ckpt):
+    """POST /v1/audio/transcriptions: a multipart ``file`` part (and a raw
+    body) as WAV at 8 kHz, resampled to the adapter's 16 kHz; both servers
+    give the same JSON, and the same 400 without audio."""
+    from crane_tpu.audio.pcm import encode_wav
+    from crane_tpu.serve.api import Server as RefServer
+    from crane_tpu.serve.api import build_app as ref_app
+    from crane_tpu.serve.backend import TextBackend as RefBackend
+    from crane_tpu.tokenizer.autotokenizer import AutoTokenizer as RefTokenizer
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.backend import TextBackend
+    from crane_tpu_torch.serve.transport import BackgroundServer
+    from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
+
+    ref_server = RefServer(None, asr=_StubAsr(), text_backend=RefBackend(
+        _EchoModel([1]), RefTokenizer.from_pretrained(ckpt)))
+    server = Server(None, asr=_StubAsr(), text_backend=TextBackend(
+        _EchoModel([1]), AutoTokenizer.from_pretrained(ckpt)))
+    wav = encode_wav(np.sin(np.arange(4000) / 5.0).astype(np.float32) * 0.5, 8000)
+    boundary = "crane-boundary"
+    multipart = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"model\"\r\n\r\n"
+                 f"whisper\r\n--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                 f"filename=\"a.wav\"\r\nContent-Type: audio/wav\r\n\r\n").encode() \
+        + wav + f"\r\n--{boundary}--\r\n".encode()
+    cases = [({"Content-Type": f"multipart/form-data; boundary={boundary}"}, multipart),
+             ({"Content-Type": "audio/wav"}, wav),
+             ({"Content-Type": "audio/wav"}, b"")]
+    with BackgroundServer(build_app(server)) as srv:
+        ref, port = RefClient(lambda: ref_app(ref_server)), PortClient(srv.port)
+        for headers, raw in cases:
+            got = [c.request("POST", "/v1/audio/transcriptions", raw=raw, headers=headers)
+                   for c in (ref, port)]
+            assert got[0][0] == got[1][0], got
+            assert json.loads(got[0][2]) == json.loads(got[1][2]), got
+        assert json.loads(got[1][2]) == {"error": "missing audio file"}
+        assert json.loads(port.request("POST", "/v1/audio/transcriptions", raw=wav,
+                                       headers=cases[1][0])[2])["text"].startswith("8000 samples")
+
+
+def test_client_hangup_mid_stream_frees_the_slot(ckpt):
+    """A client that closes its socket after the first SSE chunk aborts its
+    engine request: the slot comes free and /v1/stats counts the abort."""
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    engine = _port_engine(ckpt, max_slots=1, max_seq_len=256, decode_tokens_per_seq=1)
+    try:
+        with BackgroundServer(build_app(Server(engine, model_name="tiny"))) as srv:
+            port = PortClient(srv.port)
+            body = json.dumps({**CHAT, "max_tokens": 200, "stream": True}).encode()
+            s = socket.create_connection(("127.0.0.1", srv.port), timeout=30)
+            s.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\n"
+                      + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+            seen = b""
+            while b'"content"' not in seen:
+                chunk = s.recv(4096)
+                assert chunk, seen
+                seen += chunk
+            s.close()
+            deadline = time.monotonic() + 30
+            while True:
+                stats = json.loads(port.request("GET", "/v1/stats")[2])
+                if stats["requests_aborted"] == 1 and stats["running"] == 0:
+                    break
+                assert time.monotonic() < deadline, stats
+                time.sleep(0.05)
+            assert stats["generated_tokens"] < 200
+            # the freed slot serves the next request
+            out = json.loads(port.request("POST", "/v1/chat/completions", CHAT)[2])
+            assert out["usage"]["completion_tokens"] == CHAT["max_tokens"]
+    finally:
+        engine.stop()
+
+
+class _EchoModel:
+    """generate_greedy stub (tests/test_api.py's): a fixed token sequence."""
+
+    def __init__(self, toks):
+        self.toks = toks
+
+    def generate_greedy(self, ids, max_new_tokens, *, eos=(), streamer=None):
+        out = []
+        for t in self.toks[:max_new_tokens]:
+            out.append(t)
+            if t in eos:
+                break
+            if streamer is not None and streamer.append(t) is False:
+                break
+        if streamer is not None:
+            streamer.finalize()
+        return out
+
+
+@pytest.fixture(scope="module")
+def backend_both(ckpt):
+    """Both servers over a TextBackend (no engine) with the echo model."""
+    from crane_tpu.serve.api import Server as RefServer
+    from crane_tpu.serve.api import build_app as ref_app
+    from crane_tpu.serve.backend import TextBackend as RefBackend
+    from crane_tpu.tokenizer.autotokenizer import AutoTokenizer as RefTokenizer
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.backend import TextBackend
+    from crane_tpu_torch.serve.transport import BackgroundServer
+    from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
+
+    servers = []
+    for srv_cls, backend_cls, tok_cls in ((RefServer, RefBackend, RefTokenizer),
+                                          (Server, TextBackend, AutoTokenizer)):
+        tok = tok_cls.from_pretrained(ckpt)
+        backend = backend_cls(_EchoModel(tok.encode("hello world again")), tok,
+                              eos_token_ids=(), name="echo")
+        servers.append(srv_cls(None, model_name="tiny-backend", text_backend=backend))
+    http_server = BackgroundServer(build_app(servers[1]))
+    yield RefClient(lambda: ref_app(servers[0])), PortClient(http_server.port)
+    http_server.close()
+
+
+class TestBackendServing:
+    def test_backend_chat_completion(self, backend_both):
+        body = same(backend_both, "POST", "/v1/chat/completions",
+                    {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 8})[1]
+        assert body["choices"][0]["message"]["content"].strip() != ""
+        assert body["usage"]["completion_tokens"] > 0
+
+    def test_backend_chat_streaming(self, backend_both):
+        events = same_sse(backend_both, "/v1/chat/completions",
+                          {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 8,
+                           "stream": True})
+        assert events[0]["choices"][0]["delta"].get("role") == "assistant"
+        assert "".join(e["choices"][0]["delta"].get("content", "") for e in events).strip()
+        assert events[-1]["choices"][0]["finish_reason"] == "stop"
+
+    def test_engine_endpoints_rejected_without_engine(self, backend_both):
+        for path in ("/v1/stats", "/server_info"):
+            assert same(backend_both, "GET", path)[0] == 400
+        assert same(backend_both, "POST", "/generate", {"text": "hi"})[0] == 400
+        assert same(backend_both, "GET", "/health")[0] == 200
+
+
+REFUSED = [
+    (["--tp", "2"], "item 12"),
+    (["--dp", "2"], "item 12"),
+    (["--vlm-path", "v"], "item 9"),
+    (["--asr-path", "a"], "item 10"),
+    (["--tts-path", "t"], "item 11"),
+]
+
+
+@pytest.mark.parametrize("flags,item", REFUSED, ids=[f[0][0] for f in REFUSED])
+def test_main_refuses_what_is_not_ported(ckpt, flags, item):
+    from crane_tpu_torch.serve.api import main
+
+    with pytest.raises(NotImplementedError, match=item):
+        main(["--model-path", ckpt, "--device", "cpu", *flags])
+
+
+WIRED = {
+    "quant": (["--quant", "q8", "--kv-quant", "int8", "--prefill-chunk", "64",
+               "--no-prefix-cache", "--preempt-after", "0", "--speculative", "ngram"],
+              dict(weight_bits=8, kv_bits=8, prefill_chunk=64, prefix_cache=False,
+                   preempt_after_s=None, speculation=True, slabs=None)),
+    "sp": (["--sp", "2", "--kv-quant", "int4", "--preempt-after", "5"],
+           dict(weight_bits=None, kv_bits=4, prefill_chunk=None, prefix_cache=True,
+                preempt_after_s=5.0, speculation=False, slabs=2)),
+}
+
+
+@pytest.mark.parametrize("name", list(WIRED))
+def test_main_wires_the_engine_flags(ckpt, name, monkeypatch):
+    """main()'s flags reach the model and the engine it builds (the serving
+    loop replaced by one chat completion over a local socket)."""
+    from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+    from crane_tpu_torch.ops.linear import QuantizedWeight
+    from crane_tpu_torch.serve import api, transport
+
+    flags, want = WIRED[name]
+    seen = {}
+
+    def serve_once(app, *, host, port):
+        seen["server"] = app.router.routes[0][2].__self__
+        with transport.BackgroundServer(app) as srv:
+            seen["answer"] = PortClient(srv.port).request("POST", "/v1/chat/completions", CHAT)
+
+    monkeypatch.setattr(transport, "run_app", serve_once)
+    api.main(["--model-path", ckpt, "--device", "cpu", "--dtype", "f32", "--max-concurrent", "2",
+              "--max-seq-len", "256", *flags])
+    engine = seen["server"].engine
+    assert not engine._thread.is_alive()  # main() stopped it when serving ended
+    wq = engine.lm.params["layers"][0]["attn"]["wq"]
+    assert (wq.bits if isinstance(wq, QuantizedWeight) else None) == want["weight_bits"]
+    layer = engine.cache.layers[0]
+    slabs = getattr(layer, "slabs", None)
+    assert (len(slabs) if slabs else None) == want["slabs"]
+    layer = slabs[0] if slabs else layer
+    assert (layer.bits if isinstance(layer, QuantLayerKVCache) else None) == want["kv_bits"]
+    assert engine.prefill_chunk == want["prefill_chunk"]
+    assert engine.prefix_cache == want["prefix_cache"]
+    assert engine.preempt_after_s == want["preempt_after_s"]
+    assert (engine.history is not None) == want["speculation"]
+    status, _, body = seen["answer"]
+    assert status == 200 and json.loads(body)["usage"]["completion_tokens"] == CHAT["max_tokens"]
+
+
+def test_main_refuses_gemma3n(tmp_path):
+    from crane_tpu_torch.serve.api import main
+
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gemma3n"}))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        main(["--model-path", str(tmp_path), "--device", "cpu"])
+
+
+def test_server_refuses_a_vision_model(ckpt):
+    from crane_tpu_torch.serve.api import Server
+
+    with pytest.raises(NotImplementedError, match="item 9"):
+        Server(None, text_backend=object(), vlm=object())
+
+
+def test_sdk_clients_match(ckpt):
+    """LlmClient / ChatClient of both packages give the same text."""
+    from crane_tpu.generation.config import GenerationConfig as RefGen
+    from crane_tpu.sdk.client import ChatClient as RefChat
+    from crane_tpu.sdk.client import LlmClient as RefLlm
+    from crane_tpu_torch.generation.config import GenerationConfig
+    from crane_tpu_torch.sdk.client import ChatClient, LlmClient
+
+    ref = RefLlm.from_pretrained(ckpt, dtype=jnp.float32)
+    llm = LlmClient.from_pretrained(ckpt, dtype=torch.float32, device="cpu")
+    assert llm.generate_text("hello world", GenerationConfig.greedy(6)) \
+        == ref.generate_text("hello world", RefGen.greedy(6))
+    msgs = [{"role": "user", "content": "hi"}]
+    text = llm.chat(msgs, GenerationConfig.greedy(6))
+    assert text == ref.chat(msgs, RefGen.greedy(6))
+    assert "".join(llm.chat_stream(msgs, GenerationConfig.greedy(6))) == text
+    chats = [RefChat(ref, system="terse"), ChatClient(llm, system="terse")]
+    replies = [[c.send(m, g.greedy(3)) for m in ("one", "two")]
+               for c, g in zip(chats, (RefGen, GenerationConfig))]
+    assert replies[0] == replies[1]
+    assert [m["role"] for m in chats[1].history] == ["system", "user", "assistant", "user",
+                                                     "assistant"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_command_line_serves_a_chat(ckpt, tmp_path):
+    """``python -m crane_tpu_torch.serve --device cpu``: /health answers,
+    then one chat completion; the process is terminated at the end. The
+    whole test is bounded at 60 s."""
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "2"}
+    log = open(tmp_path / "serve.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crane_tpu_torch.serve", "--model-path", ckpt, "--device", "cpu",
+         "--host", "127.0.0.1", "--port", str(port), "--max-concurrent", "2",
+         "--max-seq-len", "256", "--dtype", "f32"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 60
+    try:
+        client = PortClient(port)
+        while True:
+            assert proc.poll() is None, (tmp_path / "serve.log").read_text()[-4000:]
+            assert time.monotonic() < deadline - 10, "the server never answered /health"
+            try:
+                if client.request("GET", "/health")[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        status, _, body = client.request("POST", "/v1/chat/completions", CHAT)
+        out = json.loads(body)
+        assert status == 200 and out["object"] == "chat.completion", out
+        assert out["usage"]["completion_tokens"] == CHAT["max_tokens"]
+        assert out["model"] == "m"
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(5)
+        log.close()

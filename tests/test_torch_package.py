@@ -43,6 +43,7 @@ names = [m.name for m in pkgutil.walk_packages(crane_tpu_torch.__path__, "crane_
 for name in names:
     importlib.import_module(name)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print(" ".join(names))
 print(len(names))
 """
 
@@ -51,7 +52,13 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 39  # every module of the four slices was walked
+    assert int(res.stdout.split()[-1]) >= 54  # every module of the slices so far was walked
+    walked = set(res.stdout.split())
+    # the server, its transport, GGUF loading and the SDK import without aiohttp
+    assert {"crane_tpu_torch.serve.api", "crane_tpu_torch.serve.transport",
+            "crane_tpu_torch.serve.__main__", "crane_tpu_torch.loaders.gguf",
+            "crane_tpu_torch.loaders.gguf_model", "crane_tpu_torch.native",
+            "crane_tpu_torch.sdk.client"} <= walked
 
 
 def test_kernel_build_directory_is_git_ignored():
@@ -86,8 +93,9 @@ def _imported_roots(path):
 def test_chip_smoke_imports_and_refusals(tmp_path):
     roots = _imported_roots(ROOT / "chip_smoke.py")
     assert "jax" not in roots and "crane_tpu" not in roots
-    assert roots <= {"__future__", "contextlib", "dataclasses", "json", "os", "subprocess",
-                     "sys", "time", "torch", "crane_tpu_torch"}
+    assert roots <= {"__future__", "concurrent", "contextlib", "dataclasses", "http", "json",
+                     "os", "struct", "subprocess", "sys", "tempfile", "threading", "time", "uuid",
+                     "torch", "crane_tpu_torch"}
     # this interpreter's torch has no CUDA device: no result, non-zero exit
     res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
