@@ -37,6 +37,9 @@ each reported on its own line:
    tokens in a 16,384-slot cache, where the decode kernels split each
    kv-head's range over many blocks (the split count is logged), with a
    window across the splits;
+   at the MoE and short-conv paths' shapes: K1, K2 and K3 with LFM2-1.2B's
+   32 / 8 heads of 64 and with Qwen3-Next-80B-A3B's 16 / 2 of 256, and K7
+   at B=1 S=1000 over 32 value heads (check_family_kernels);
    routes: a tiny model with head_dim 96 and one with 16 query heads on one
    kv-head, whose attention the kernels do not take, run prefill, a chunk
    and decode on the card through the plain versions (counted in
@@ -114,7 +117,8 @@ each reported on its own line:
    the 300- and the 1000-token prompt over HTTP and through
    ``engine.submit``, and the aggregate tokens/s of 8 HTTP streams against
    8 direct ones;
-14. gguf: the bf16 model's weights written as a q8_0 GGUF file (linears
+14. gguf (after paths and oov below): the bf16 model's weights written as
+   a q8_0 GGUF file (linears
    q8_0, the rest f32, about 1.1 GB) with this script's own writer,
    loaded by ``loaders/gguf_model.py`` ``from_gguf`` on the card (bf16,
    q8_0 kept as blockwise weights) and on the CPU in float32 as the
@@ -122,7 +126,28 @@ each reported on its own line:
    300-token prefill's logits and 32 greedy tokens against the CPU; 4
    requests served over HTTP; K1-K3 launched and K6 never (blockwise
    linears are plain products); load times, prefill ms and the graph
-   decode step beside the bf16 model's.
+   decode step beside the bf16 model's;
+15. paths (after sp): three served paths the card had not run before, each
+   through an existing check: Qwen3.5-0.8B on an int8 KV cache (the engine
+   mix and graphs against eager; K4 and K5 at head_dim 256 beside K7),
+   Qwen3.5-0.8B in four slabs (its GDN states whole on the lead device)
+   and Qwen3-0.6B with int8 ISQ weights in four slabs, each in float32
+   against the unsharded model (sp_greedy, compare_sp);
+16. oov (after http): a prompt id outside the vocabulary, answered 400 by
+   /generate and with an error response by ``engine.submit`` on a running
+   engine, which then serves a good request with a fresh engine's tokens;
+17. lfm2: LFM2-1.2B at full size (16 layers, 10 of them short conv;
+   attention 32 query / 8 KV heads of 64) with random bf16 weights in
+   LFM2's HF layout: the 300-token prefill against float32 on the CPU, a
+   chunked prompt against the whole one, generate, graphs against eager,
+   the engine mix; K1, K2 and K3 at head_dim 64 were launched by it;
+18. moe: Qwen3-Next-80B-A3B at full width (512 experts, top-10) and 12 of
+   its 48 layers: map_hf_weights on one full-width MoE layer, the prefill of
+   its first 4 layers in float32 on the card against the CPU, then the
+   12-layer bf16 model: the prefill (dense against ragged dispatch),
+   generate, graphs against eager, the engine mix; K1, K2, K3 (16 / 2
+   heads of 256) and K7 (32 value heads) were launched by it; its decode
+   step beside the bound of reading every expert.
 
 Where two paths' greedy tokens part (graphs against eager, speculative
 against plain, HTTP against ``engine.submit``, the GGUF model on the card
@@ -134,8 +159,8 @@ Decode blocks run as CUDA graphs on every path; ``graphs.eager()`` gives
 the eager loop they are held against. The decode-step lines time both in
 this one process, 4 blocks of 8 steps each. Each phase logs its seconds.
 
-Every model path (dense, quantized, hybrid, sp) must route no attention
-call to a plain version. ``[profile]`` lines split a chunk's, a prefill's
+Every model path (dense, quantized, hybrid, sp, the three once-unrun
+paths, lfm2, moe) must route no attention call to a plain version. ``[profile]`` lines split a chunk's, a prefill's
 and a decode step's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
 elementwise, reduce, index) and name the largest kernels; the decode steps
 (bf16 and w4 kv4 at B=1 and B=8 after 300 tokens, and B=1 after 16,000)
@@ -1391,8 +1416,9 @@ def _tree(tree, fn):
 
 
 def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) -> None:
-    """Phases 5, 7 and 9: concurrent requests through the serving engine, on
-    an fp or an int8/int4 KV cache. A hybrid model's engine keeps prefix
+    """Phases 5, 7 and 9 (and the MoE, LFM2 and int8-hybrid paths):
+    concurrent requests through the serving engine, on an fp or an int8/int4
+    KV cache. A model with recurrent layers (GDN or short conv) keeps prefix
     reuse off, so the follow-up is admitted whole, in chunks."""
     import torch
 
@@ -1459,9 +1485,9 @@ def check_engine(lm, phase: str = "engine", kv_quant_bits: int | None = None) ->
             raise AssertionError(f"{rid}: {len(toks)} of {asked[rid]} tokens, finish {res['reason']}")
     s = engine.stats
     prompt_total = sum(len(r.prompt_ids) for r in requests + [followup])
-    hybrid = lm.config.gdn is not None
+    recurrent = lm.config.has_recurrent_layers
     reuse_ok = (s.prefix_hits == s.prefix_tokens_reused == 0 and not engine.prefix_cache
-                if hybrid else s.prefix_hits == 1 and s.prefix_tokens_reused >= 256)
+                if recurrent else s.prefix_hits == 1 and s.prefix_tokens_reused >= 256)
     if not (s.requests_received == s.requests_completed == len(asked)
             and s.requests_failed == s.requests_aborted == 0
             and s.generated_tokens == sum(asked.values())
@@ -1834,14 +1860,18 @@ def launches_per(model, label, kv_bits=None) -> None:
 STEP_BLOCK = 8  # decode steps a timed block runs (the engine's decode_tokens_per_seq)
 
 
-def log_decode_steps(model, label, kv_bits=None) -> dict:
+# (B, T, context) of log_decode_steps' decode steps: B=1 and B=8 after a
+# 300-token prefill into 2048-slot rows, and B=1 after LONG_LIVE tokens in a
+# LONG_T-slot row, where the decode kernels split
+DECODE_SHAPES = ((1, 2048, 300), (8, 2048, 300), (1, LONG_T, LONG_LIVE))
+
+
+def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
     """[profile] lines of a decode step, the eager loop beside the CUDA
     graph, in this one process: the kernels' device time by family
     (log_device_ms, over one block of STEP_BLOCK steps) and the wall time a
     step on the host clock (4 blocks after a synchronize, ended by one), at
-    B=1 and B=8 after a 300-token prefill into 2048-slot rows, and at B=1
-    after LONG_LIVE tokens in a LONG_T-slot row, where the decode kernels
-    split. The device idle share is 1 - busy / wall. Where the profiler
+    each of ``shapes``. The device idle share is 1 - busy / wall. Where the profiler
     sees no device time inside a graph replay, the graph's busy time is the
     eager block's (the same kernels), and the line says so. Returns
     {(B, T): {mode: (wall ms, busy ms)}}."""
@@ -1852,7 +1882,7 @@ def log_decode_steps(model, label, kv_bits=None) -> dict:
 
     dev = model.device
     table = {}
-    for B, T, ctx in ((1, 2048, 300), (8, 2048, 300), (1, LONG_T, LONG_LIVE)):
+    for B, T, ctx in shapes:
         ids = [i % model.config.vocab_size for i in range(1, ctx + 1)]
         _, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), [ids] * B, [ctx] * B)
         tokens = torch.ones(B, dtype=torch.int32, device=dev)
@@ -3221,6 +3251,552 @@ def log_decode_build_info() -> None:
     log("build", f"decode instances that spill: {spills or 'none'}")
 
 
+# the attention heads of the MoE and short-conv paths: LFM2-1.2B's 32 query /
+# 8 KV heads of 64 and Qwen3-Next-80B-A3B's 16 / 2 of 256, and K7 over
+# Qwen3-Next's 32 value heads; each row's name carries its tag, and
+# read_launches reads the wrapper's count on the path that runs the shape
+LFM2_HEADS = "[D64-32/8]"
+NEXT_HEADS = "[D256-16/2]"
+H32 = "[H32]"
+
+
+def check_family_kernels() -> dict[str, list[dict]]:
+    """Phase 3 at the MoE and short-conv paths' shapes: K2 (S=1024), K3 (a
+    256-token chunk at offsets 0 and 1000 of a 2048-slot row) and K1 (B=8
+    rows over T=2048, ragged kv_valid) in bf16, with LFM2-1.2B's heads and
+    with Qwen3-Next-80B-A3B's, each with and without a window; and K7 at
+    B=1 S=1000 over Qwen3-Next's 32 value heads of K=V=128 (its 16 key heads
+    repeated, as gdn_block hands them to the kernel), zero and random
+    initial state. Each against its plain version, timed beside it and
+    SDPA (K1-K3). Returns the JSON rows by the path whose launches they
+    read, launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+    from crane_tpu_torch.ops.cuda.gdn_scan import gdn_route, gdn_scan, gdn_scan_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1108)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = {"lfm2": [], "moe": []}
+    valid = torch.tensor(RAGGED_VALID, dtype=torch.int32, device="cuda")
+    for path, tag, (Hq, Hkv, D) in (("lfm2", LFM2_HEADS, (32, 8, 64)),
+                                    ("moe", NEXT_HEADS, (16, 2, 256))):
+        scale = D ** -0.5
+        heads = f"Hq={Hq} Hkv={Hkv} D={D}"
+        windows = (("", {}), (" window=256", {"window": 256}))
+        q, k, v = rnd(1, 1024, Hq, D), rnd(1, 1024, Hkv, D), rnd(1, 1024, Hkv, D)
+        errs = [compare(f"K2 {heads}{label}",
+                        k23.flash_attention_causal(q, k, v, scale=scale, **kw),
+                        k23.flash_attention_causal_plain(q, k, v, scale=scale, **kw))
+                for label, kw in windows]
+        rows[path].append(timed_row(
+            "flash_attention_causal" + tag, "flash_attention_mma.cu",
+            "crane_tpu/ops/pallas/flash_attention.py:187", errs,
+            lambda: k23.flash_attention_causal(q, k, v, scale=scale),
+            lambda: k23.flash_attention_causal_plain(q, k, v, scale=scale),
+            f"B=1 S=1024 {heads}", attn_work(1, 1024, Hq, Hkv, D, 1024 * 1025 // 2, 1024, 2 * D, 0),
+            lambda: sdpa(q, k, v, causal=True)))
+
+        kc, vc = rnd(1, 2048, Hkv, D), rnd(1, 2048, Hkv, D)
+        errs = []
+        for off in (0, 1000):
+            qc = rnd(1, 256, Hq, D)
+            pos = (torch.arange(256, dtype=torch.int32, device="cuda") + off)[None].contiguous()
+            errs += [compare(f"K3 {heads} offset={off}{label}",
+                             k23.flash_attention_cached(qc, kc, vc, pos, scale=scale, **kw),
+                             k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale, **kw))
+                     for label, kw in windows]
+        rows[path].append(timed_row(
+            "flash_attention_cached" + tag, "flash_attention_mma.cu",
+            "crane_tpu/ops/pallas/flash_attention.py:384", errs,
+            lambda: k23.flash_attention_cached(qc, kc, vc, pos, scale=scale),
+            lambda: k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale),
+            f"B=1 S=256 at offset 1000, T=2048, {heads}", chunk_work(qc, Hkv, 2048, pos),
+            lambda: sdpa(qc, kc, vc, mask=chunk_mask(pos, 2048))))
+
+        qd = rnd(8, 1, Hq, D)
+        kd, vd = rnd(8, 2048, Hkv, D), rnd(8, 2048, Hkv, D)
+        errs = [compare(f"K1 {heads}{label}",
+                        k1.fp_decode_attention(qd, kd, vd, valid, scale=scale, **kw),
+                        k1.fp_decode_attention_plain(qd, kd, vd, valid, scale=scale, **kw))
+                for label, kw in windows]
+        rows[path].append(timed_row(
+            "fp_decode_attention" + tag, "decode_attention.cu",
+            "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+            lambda: k1.fp_decode_attention(qd, kd, vd, valid, scale=scale),
+            lambda: k1.fp_decode_attention_plain(qd, kd, vd, valid, scale=scale),
+            f"B=8 T=2048 ragged kv_valid, {heads}", decode_work(qd, Hkv, valid),
+            lambda: sdpa(qd, kd, vd, mask=decode_mask(valid, 2048))))
+
+    B, S, H, K, V = 1, 1000, 32, 128, 128
+    q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for d in (K, K, V))
+    g = -torch.rand(B, S, H, generator=gen, device="cuda") * 0.5
+    beta = torch.rand(B, S, H, generator=gen, device="cuda")
+    errs = []
+    for s0 in (None, torch.randn(B, H, K, V, generator=gen, device="cuda") * 0.3):
+        label = f"K7 B={B} S={S} H={H} K=V={K} {'init state' if s0 is not None else 'zero state'}"
+        y, st = gdn_scan(q, k, v, g, beta, s0)
+        yr, sr = gdn_scan_plain(q, k, v, g, beta, s0)
+        errs.append(compare(f"{label} y", y, yr))
+        compare(f"{label} state", st, sr, rtol=STATE_RTOL, atol=STATE_ATOL)
+    route = gdn_route(S)
+    p1, k1_ms, k2_ms, p2 = (cuda_ms(f, n, warmup=1) for f, n in (
+        (lambda: gdn_scan_plain(q, k, v, g, beta), 2), (lambda: gdn_scan(q, k, v, g, beta), 20),
+        (lambda: gdn_scan(q, k, v, g, beta), 20), (lambda: gdn_scan_plain(q, k, v, g, beta), 2)))
+    ms, plain_ms = (k1_ms + k2_ms) / 2, (p1 + p2) / 2
+    bound_ms, bound_by = bound(*gdn_work(B, S, H, K, V), peak="tf32")
+    shape = f"B={B} S={S} H={H} K=V={K}"
+    log("kernels", f"K7 {shape}: the {route} route {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+                   f"{bound_ms:.4f} ms ({bound_by}, TF32 tensor-core rate); max|err| of y "
+                   f"{max(errs):.3g}, state within {STATE_ATOL:g} + {STATE_RTOL:g}*|ref|")
+    rows["moe"].append({"name": f"gdn_scan[{route}]" + H32, "route": "cuda",
+                        "source": "crane_tpu_torch/csrc/gdn_chunk.cu",
+                        "replaces": "crane_tpu/ops/pallas/gdn_scan.py:126", "launches": 0,
+                        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                        "shape": shape})
+    return rows
+
+
+# Qwen3-Next-80B-A3B's text model, the published config as transformers'
+# Qwen3NextConfig defaults give it: 48 layers as [gdn, gdn, gdn, full] x 12,
+# hidden 2048, 16 query / 2 KV heads of 256 with a sigmoid output gate and
+# rotary on a quarter of each head, 16 key and 32 value GDN heads of 128
+# with a 4-tap conv, every layer a sparse MoE of 512 experts of 512 with
+# top-10 routing renormalised and one shared expert of 512, vocabulary
+# 151936, untied head. Its 48 layers hold 155 GB of experts in bf16, over
+# one card's 80 GB: the smoke run keeps every width and cuts the depth to
+# MOE_LAYERS (3 of the 12 blocks; 38.7 GB of experts).
+QWEN3_NEXT_80B_A3B = {
+    "model_type": "qwen3_next", "vocab_size": 151936, "hidden_size": 2048,
+    "num_hidden_layers": 48, "num_attention_heads": 16, "num_key_value_heads": 2,
+    "head_dim": 256, "intermediate_size": 5632, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "partial_rotary_factor": 0.25, "max_position_embeddings": 32768,
+    "tie_word_embeddings": False,
+    "layer_types": (["linear_attention"] * 3 + ["full_attention"]) * 12,
+    "linear_num_key_heads": 16, "linear_num_value_heads": 32, "linear_key_head_dim": 128,
+    "linear_value_head_dim": 128, "linear_conv_kernel_dim": 4,
+    "num_experts": 512, "num_experts_per_tok": 10, "moe_intermediate_size": 512,
+    "shared_expert_intermediate_size": 512, "norm_topk_prob": True, "decoder_sparse_step": 1,
+    "mlp_only_layers": [],
+}
+MOE_LAYERS = 12
+# the float32 check's depth: one [gdn, gdn, gdn, full] block, whose experts
+# take 25.8 GB in float32 on the card and again on the host
+MOE_F32_LAYERS = 4
+
+
+def moe_config(layers: int):
+    """QWEN3_NEXT_80B_A3B cut to its first ``layers`` layers."""
+    from crane_tpu_torch.models.auto import transformer_config_from_hf
+
+    hf = dict(QWEN3_NEXT_80B_A3B, num_hidden_layers=layers,
+              layer_types=QWEN3_NEXT_80B_A3B["layer_types"][:layers])
+    return transformer_config_from_hf(hf)
+
+
+def tree_shapes(tree, path="") -> list:
+    """(path, shape, dtype) of every leaf of a parameter tree, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_shapes(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree) for x in tree_shapes(v, f"{path}/{i}")]
+    return [(path, tuple(tree.shape), tree.dtype)]
+
+
+def expert_bytes(params) -> int:
+    """Bytes of the stacked experts of every layer."""
+    return sum(t.numel() * t.element_size() for layer in params["layers"]
+               for name, t in layer["mlp"].items() if name.startswith("experts_"))
+
+
+def check_moe_mapping() -> None:
+    """``map_hf_weights`` on one full-width MoE layer in the HF layout: a
+    seeded checkpoint of one GDN layer (512 experts, each its own gate, up
+    and down tensors) mapped on the card, against init_params' tree for the
+    same config: the same paths, shapes and dtypes, and each stacked expert
+    (the first, one inside, the last) its HF tensor transposed."""
+    import torch
+
+    from crane_tpu_torch.models.auto import map_hf_weights
+    from crane_tpu_torch.models.init import hf_state_dict, init_params
+
+    cfg = moe_config(1)
+    t0 = time.perf_counter()
+    sd = hf_state_dict(cfg, torch.Generator(device="cuda").manual_seed(81), torch.bfloat16)
+    params = map_hf_weights(cfg, sd, torch.bfloat16, "cuda")
+    drawn = init_params(cfg, torch.Generator(device="cuda").manual_seed(81), device="cuda")
+    if tree_shapes(params) != tree_shapes(drawn):
+        raise AssertionError("map_hf_weights' MoE tree differs from init_params'")
+    del drawn
+    mlp, lp = params["layers"][0]["mlp"], "model.layers.0.mlp."
+    pairs = [(mlp["router"], sd[lp + "gate.weight"]),
+             (mlp["shared_gate"], sd[lp + "shared_expert_gate.weight"])]
+    for e in (0, 255, 511):
+        for name, hf_name in (("experts_gate", "gate_proj"), ("experts_up", "up_proj"),
+                              ("experts_down", "down_proj")):
+            pairs.append((mlp[name][e], sd[f"{lp}experts.{e}.{hf_name}.weight"]))
+    if not all(torch.equal(got, ref.T) for got, ref in pairs):
+        raise AssertionError("a mapped expert or router is not its HF tensor transposed")
+    n_hf = sum(1 for name in sd if ".experts." in name)
+    del sd, params
+    torch.cuda.empty_cache()
+    log("moe", f"map_hf_weights on one full-width MoE layer ({n_hf} HF expert tensors): the "
+               f"tree equals init_params', each stacked expert its HF tensor transposed "
+               f"({time.perf_counter() - t0:.1f} s)")
+
+
+def prefill_300(model, prompt):
+    """The smoke run's 300-token prefill into a fresh 512-slot row: last
+    logits ``[V]``."""
+    return model.prefill(model.init_cache(1, 512), [prompt], [len(prompt)])[0][0]
+
+
+def sync_ms(run) -> float:
+    """Host-clock ms of ``run`` between two synchronises."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def moe_dispatch(mode: str):
+    """``CRANE_MOE_DISPATCH`` (the reference's switch) set to ``mode`` inside."""
+    os.environ["CRANE_MOE_DISPATCH"] = mode
+    try:
+        yield
+    finally:
+        del os.environ["CRANE_MOE_DISPATCH"]
+
+
+def check_moe_model():
+    """Phase 'moe': Qwen3-Next-80B-A3B at full width and MOE_LAYERS of its
+    48 layers, random bf16 weights drawn on the card by ``init_params`` in
+    the stacked tree (the HF layout would hold every expert twice while it
+    is mapped; ``check_moe_mapping`` holds the mapping on one layer).
+
+    Random routers put near-ties into the top-10, which bf16 and float32
+    can break apart, so the check against the CPU runs in float32 on both
+    sides, over the first MOE_F32_LAYERS layers (the CPU's float32 copy of
+    all 12 would not fit its host): the 300-token prefill's logits to
+    LOGIT_REL_L2 with the greedy top-1; the bf16 prefill's distance from
+    the CPU is logged beside it. The 12-layer bf16 model then runs the
+    300-token prefill (its device time by kernel family), 64 greedy tokens
+    through ``generate`` (graph decode against its own prefill and decode
+    steps), and the same prefill with ``CRANE_MOE_DISPATCH=ragged``: the
+    token-sorted dispatch must give dense's greedy top-1 (or part at a tie
+    of dense's logits), with the distance and both times logged."""
+    import dataclasses
+
+    import torch
+
+    from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
+    from crane_tpu_torch.models.init import init_params
+
+    check_moe_mapping()
+    cfg = moe_config(MOE_LAYERS)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log("moe", f"Qwen3-Next-80B-A3B at {cfg.num_layers} of 48 layers, full width (hidden "
+               f"{cfg.hidden_size}, {cfg.num_experts} experts of {cfg.moe_intermediate_size}, "
+               f"top-{cfg.num_experts_per_tok}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+               f"{cfg.head_dim}, GDN {cfg.gdn.num_k_heads}/{cfg.gdn.num_v_heads}): "
+               f"{n_params / 1e9:.2f} B parameters, experts {expert_bytes(params) / 1e9:.2f} GB "
+               f"bf16, drawn in {time.perf_counter() - t0:.1f} s; "
+               f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the card")
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=gen, device="cuda").tolist()
+
+    cfg4 = dataclasses.replace(cfg, num_layers=MOE_F32_LAYERS,
+                               layer_types=cfg.layer_types[:MOE_F32_LAYERS])
+    part = dict(params, layers=params["layers"][:MOE_F32_LAYERS])
+    logits_bf16 = prefill_300(CausalLM(cfg4, part, dtype=torch.bfloat16), prompt)
+    logits_f32 = k7_routes_launched(
+        f"Qwen3-Next {MOE_F32_LAYERS} layers float32 prefill on the card",
+        lambda: prefill_300(CausalLM(cfg4, _tree(part, lambda t: t.float()),
+                                     dtype=torch.float32), prompt))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    logits_cpu = prefill_300(CausalLM(cfg4, _tree(part, lambda t: t.to("cpu", torch.float32)),
+                                      dtype=torch.float32), prompt)
+    log("moe", f"the CPU's float32 prefill of {MOE_F32_LAYERS} layers took "
+               f"{time.perf_counter() - t0:.1f} s")
+    compare_logits("moe", f"Qwen3-Next {MOE_F32_LAYERS} layers prefill logits card f32 vs cpu f32",
+                   logits_f32, logits_cpu)
+    rel_l2, top = logits_distance(logits_bf16, logits_cpu)
+    log("moe", f"Qwen3-Next {MOE_F32_LAYERS} layers prefill logits card bf16 vs cpu f32: rel L2 "
+               f"{rel_l2:.4g}, top-1 {top} vs {int(logits_cpu.argmax())}")
+    del part, logits_cpu
+
+    lm = CausalLM(cfg, params, dtype=torch.bfloat16)
+    dense = k7_routes_launched(f"Qwen3-Next {MOE_LAYERS} layers bf16 prefill",
+                               lambda: prefill_300(lm, prompt))
+    logits_distance(dense, dense)  # finite, of the vocab's shape
+    log_device_ms(f"Qwen3-Next {MOE_LAYERS} layers bf16", "the 300-token prefill",
+                  lambda: prefill_300(lm, prompt))
+    dense_ms = sync_ms(lambda: prefill_300(lm, prompt))
+    with moe_dispatch("ragged"):
+        ragged = prefill_300(lm, prompt)
+        ragged_ms = sync_ms(lambda: prefill_300(lm, prompt))
+    rel_l2, top = logits_distance(ragged, dense)
+    top2 = dense.float().topk(2)
+    tie = (top2.values[0] - top2.values[1]).item() < LOGIT_TIE \
+        and dense[top].item() >= top2.values[0].item() - LOGIT_TIE
+    log("moe", f"dense vs ragged dispatch, the 300-token prefill: rel L2 {rel_l2:.4g}, top-1 "
+               f"ragged {top} dense {int(top2.indices[0])}; {ragged_ms:.1f} ms ragged vs "
+               f"{dense_ms:.1f} ms dense (host clock)")
+    if top != int(top2.indices[0]) and not tie:
+        raise AssertionError("the ragged dispatch's greedy top-1 differs from dense's, no tie")
+    prefill_ms, decode_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
+    log("moe", f"Qwen3-Next {MOE_LAYERS} layers bf16: prefill 300 tokens (bucket 512) "
+               f"{prefill_ms:.2f} ms, decode 63 tokens at batch 1 {decode_tps:.1f} tok/s; "
+               f"generate(64) matches")
+    return lm
+
+
+def log_moe_decode(lm) -> None:
+    """A dense decode step of the MoE model beside its bound: every expert
+    computes every row, so a step reads all the experts (and every other
+    weight but the embedding) whatever the batch; log_decode_steps gives its
+    time. The same step with the ragged dispatch (a block of STEP_BLOCK
+    steps at B=1, eager and as a graph, host clock) reads only the chosen
+    experts."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.ops.sampling import SamplingParams
+
+    params = lm.params
+    experts = expert_bytes(params)
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params)) \
+        - params["embed"].numel() * params["embed"].element_size()
+    table = log_decode_steps(lm, f"Qwen3-Next {MOE_LAYERS} layers bf16",
+                             shapes=((1, 2048, 300), (8, 2048, 300)))
+    ids = [i % lm.config.vocab_size for i in range(1, 301)]
+    _, cache = lm.prefill(lm.init_cache(1, 2048), [ids], [300])
+    args = (cache, torch.ones(1, dtype=torch.int32, device="cuda"),
+            torch.full((1, 8), -1, dtype=torch.int32, device="cuda"),
+            SamplingParams.make(1, do_sample=False, device="cuda"),
+            torch.Generator(device="cuda"), STEP_BLOCK)
+    ragged = {}
+    for mode in ("eager", "graph"):  # the graph is captured on this cache, under ragged
+        with moe_dispatch("ragged"), graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            lm.decode_steps(*args)
+            ragged[mode] = sync_ms(lambda: lm.decode_steps(*args)) / STEP_BLOCK
+    lm.release_graphs()
+    cfg = lm.config
+    chosen = weights - experts + experts * cfg.num_experts_per_tok // cfg.num_experts
+    for (B, _), modes in table.items():
+        log("profile", f"Qwen3-Next {MOE_LAYERS} layers bf16, a dense decode step at B={B}: "
+                       f"{modes['graph'][0]:.3f} ms (graph, host clock) against its bound "
+                       f"{experts / HBM_BYTES_PER_S * 1e3:.2f} ms for the experts' "
+                       f"{experts / 1e9:.2f} GB at 3.35 TB/s ({weights / HBM_BYTES_PER_S * 1e3:.2f} "
+                       f"ms for all {weights / 1e9:.2f} GB of weights a step reads)")
+    log("profile", f"Qwen3-Next {MOE_LAYERS} layers bf16, a ragged-dispatch decode step at B=1: "
+                   f"{ragged['graph']:.3f} ms (graph), {ragged['eager']:.3f} ms (eager), host "
+                   f"clock; it reads {chosen / 1e9:.2f} GB of weights (10 experts a layer), "
+                   f"{chosen / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+
+
+# LFM2-1.2B, as its published config.json gives it (huggingface.co/
+# LiquidAI/LFM2-1.2B): 16 layers, full attention at 2, 5, 8, 10, 12 and 14
+# and a short conv (L = 3) elsewhere, hidden 2048, 32 query / 8 KV heads of
+# 64, vocabulary 65536, tied head, intermediate_size 12288 with
+# block_auto_adjust_ff_dim, so its MLP weights are LFM2_FF wide (HF
+# Lfm2MLP: int(2 * 12288 / 3), rounded up to a multiple of 256).
+LFM2_1_2B = {
+    "model_type": "lfm2", "vocab_size": 65536, "hidden_size": 2048, "num_hidden_layers": 16,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "intermediate_size": 12288,
+    "block_auto_adjust_ff_dim": True, "block_ffn_dim_multiplier": 1.0, "block_multiple_of": 256,
+    "norm_eps": 1e-5, "rope_theta": 1000000.0, "max_position_embeddings": 128000,
+    "conv_L_cache": 3, "conv_bias": False, "tie_word_embeddings": True,
+    "layer_types": ["full_attention" if i in (2, 5, 8, 10, 12, 14) else "conv"
+                    for i in range(16)],
+}
+LFM2_FF = 8192
+
+
+def check_lfm2_model():
+    """Phase 'lfm2': LFM2-1.2B at full size, random bf16 weights in the HF
+    layout (LFM2's own names) from a seeded generator, mapped by
+    ``map_hf_weights``. The weights are drawn at the published checkpoint's
+    widths: the MLP LFM2_FF wide, while the config (as ``crane_tpu`` reads
+    it, ignoring ``block_auto_adjust_ff_dim``) says 12288, as a published
+    checkpoint loads. The 300-token prefill in bf16 against float32 on the
+    CPU (LOGIT_REL_L2, greedy top-1); the same prompt as a 256-token slot
+    prefill and a 44-token continuation chunk into a 2-slot cache against
+    one whole slot prefill; 64 greedy tokens through ``generate``."""
+    import dataclasses
+
+    import torch
+
+    from crane_tpu_torch.models.auto import map_hf_weights, transformer_config_from_hf
+    from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
+    from crane_tpu_torch.models.init import hf_state_dict
+
+    cfg = transformer_config_from_hf(LFM2_1_2B)
+    drawn = dataclasses.replace(cfg, intermediate_size=LFM2_FF)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = map_hf_weights(cfg, hf_state_dict(drawn, gen, torch.bfloat16), torch.bfloat16, "cuda")
+    if params["layers"][0]["mlp"]["gate"].shape[1] != LFM2_FF or cfg.intermediate_size != 12288:
+        raise AssertionError("LFM2's MLP weights are not the checkpoint's width")
+    n_params = sum(t.numel() for t in _leaves(params))
+    lm = CausalLM(cfg, params, dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=gen, device="cuda").tolist()
+
+    logits_gpu = prefill_300(lm, prompt)
+    cpu_params = _tree(params, lambda t: t.to("cpu", torch.float32))
+    logits_cpu = prefill_300(CausalLM(cfg, cpu_params, dtype=torch.float32), prompt)
+    del cpu_params
+    compare_logits("lfm2", "LFM2-1.2B prefill logits card bf16 vs cpu f32", logits_gpu, logits_cpu)
+
+    whole, first, rest = [prompt + [0] * 212], [prompt[:256]], [prompt[256:] + [0] * 20]
+    logits_whole, _ = lm.prefill_slot(lm.init_cache(2, 2048), whole, 1, 300)
+    _, cache = lm.prefill_slot(lm.init_cache(2, 2048), first, 1, 256)
+    logits_chunked, cache = lm.prefill_slot_continue(cache, rest, 1, 256, 44)
+    compare_logits("lfm2", "LFM2-1.2B a 256-token slot prefill + a 44-token chunk vs the whole "
+                           "300-token slot prefill", logits_chunked[0], logits_whole[0])
+
+    log_device_ms("LFM2-1.2B bf16", "the 300-token prefill", lambda: prefill_300(lm, prompt))
+    prefill_ms, decode_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
+    log("lfm2", f"LFM2-1.2B bf16, {cfg.num_layers} layers ({n_params / 1e9:.3f} B parameters, "
+                f"MLP {LFM2_FF} wide): prefill 300 tokens (bucket 512) {prefill_ms:.2f} ms, "
+                f"decode 63 tokens at batch 1 {decode_tps:.1f} tok/s; generate(64) matches")
+    return lm
+
+
+def check_oov(lm) -> None:
+    """Phase 'oov': a prompt id outside the vocabulary on a running engine.
+    The port's server over a threaded engine (serve_http) answers 400 to
+    /generate with such ``input_ids``; ``engine.submit`` ends one with an
+    id of ``vocab`` and one with -1 in an error response; a good prompt
+    submitted after them is served, the engine thread still alive, and its
+    16 greedy tokens equal those of the same request alone on a fresh
+    engine of the same shape stepped inline (the card's CUDA context still
+    works: no device-side assert ran)."""
+    import torch
+
+    from crane_tpu_torch.serve.engine import EngineRequest, InferenceEngine, SamplingOptions
+
+    vocab = lm.config.vocab_size
+    greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
+    good = torch.randint(0, vocab, (40,), generator=torch.Generator().manual_seed(13)).tolist()
+    bad = {"oov-high": good[:20] + [vocab] + good[20:], "oov-negative": [-1] + good}
+
+    def answer(q) -> tuple[list[int], str | None]:
+        toks = []
+        while True:
+            r = q.get(timeout=120)  # raises if the engine does not answer
+            if r.token is not None:
+                toks.append(r.token)
+            if r.finished or r.error is not None:
+                return toks, r.error
+
+    lm.tokenizer = StandInTokenizer(vocab)
+    engine, srv = serve_http(lm)
+    try:
+        status, body = http_json(srv.port, "POST", "/generate", {
+            "input_ids": bad["oov-high"],
+            "sampling_params": {"max_new_tokens": 16, "temperature": 0,
+                                "repetition_penalty": 1.0}})
+        if status != 400 or "vocabulary" not in json.dumps(body):
+            raise AssertionError(f"/generate with an id of {vocab}: {status} {body}")
+        errors = {}
+        for rid, ids in bad.items():
+            toks, errors[rid] = answer(engine.submit(EngineRequest(rid, ids, 16, greedy)))
+            if toks or not errors[rid] or "vocabulary" not in errors[rid]:
+                raise AssertionError(f"{rid}: tokens {toks}, error {errors[rid]!r}")
+        served, err = answer(engine.submit(EngineRequest("good", good, 16, greedy)))
+        if err is not None or len(served) != 16 or not engine._thread.is_alive():
+            raise AssertionError(f"the request after the bad ones: {len(served)} tokens, "
+                                 f"error {err!r}, engine thread alive "
+                                 f"{engine._thread.is_alive()}")
+    finally:
+        srv.close()
+        engine.stop()
+        lm.tokenizer = None
+    torch.cuda.synchronize()
+    fresh = InferenceEngine(lm, max_slots=8, max_seq_len=2048, prefill_chunk=256)
+    fresh.warmup()
+    alone, _ = serve_greedy(fresh, {"good": good}, 16)
+    if alone["good"] != served:
+        raise AssertionError(f"after the bad requests {served} vs a fresh engine {alone['good']}")
+    lm.release_graphs()
+    log("oov", f"/generate answered 400 to an id of {vocab}; engine.submit answered "
+               f"{json.dumps(errors)}; the next request's 16 greedy tokens equal a fresh "
+               f"engine's, the engine thread alive")
+
+
+def check_unrun_paths(lm, lm35) -> None:
+    """Phase 'paths': three served paths the card had not run before, each
+    through an existing check.
+
+    - Qwen3.5-0.8B (bf16) on an int8 KV cache: its attention layers keep
+      codes (K4 and K5 at head_dim 256), its GDN layers their states; the
+      engine mix (check_engine) and graphs against eager (graph_vs_eager);
+    - Qwen3.5-0.8B in four slabs on the one card (sequence parallelism;
+      its attention layers' caches split into slabs, K1-S and K3-S, its GDN
+      states whole on the lead device): sp_greedy's 5000-token prompt and
+      8 greedy steps in float32 against the unsharded model (compare_sp);
+    - Qwen3-0.6B with int8 ISQ weights (quantized from its float32
+      weights) in four slabs: the same against the unsharded w8 model (K6
+      in float32 on both sides).
+
+    Returns nothing; the launches each made are logged and required."""
+    import torch
+
+    from crane_tpu_torch.models.auto import quantize_params
+    from crane_tpu_torch.models.causal_lm import CausalLM
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
+
+    reset_counts()
+    check_engine(lm35, "paths hybrid kv8", kv_quant_bits=8)
+    graph_vs_eager(lm35, "Qwen3.5-0.8B bf16 kv8", kv_bits=8)
+    require_launched("Qwen3.5-0.8B int8 KV path", kernels.launch_counts(), (
+        "quant_decode_attention[kv8]", "quant_cached_attention[kv8]", "flash_attention_causal",
+        "gdn_scan[chunk]"))
+    no_plain_routes("Qwen3.5-0.8B int8 KV path")
+    lm35.release_graphs()
+
+    mesh = make_sp_mesh(4, ["cuda:0"] * 4)
+    gen = torch.Generator().manual_seed(14)
+    for label, model, need in (
+            ("Qwen3.5-0.8B float32",
+             CausalLM(lm35.config, _tree(lm35.params, lambda t: t.float()), dtype=torch.float32),
+             ("fp_decode_attention_with_stats", "flash_attention_cached_with_stats",
+              "gdn_scan[chunk]")),
+            ("Qwen3-0.6B w8 float32",
+             CausalLM(lm.config, quantize_params(_tree(lm.params, lambda t: t.float()), bits=8),
+                      dtype=torch.float32),
+             ("fp_decode_attention_with_stats", "flash_attention_cached_with_stats",
+              "quant_matmul[w8]"))):
+        prompt = torch.randint(0, model.config.vocab_size, (5000,), generator=gen).tolist()
+        ref, _ = sp_greedy(model, prompt, None, 8)
+        feed = [int(x.argmax()) for x in ref[:-1]]
+        reset_counts()
+        got, _ = sp_greedy(sp_shard_lm(model, mesh), prompt, None, 8, feed)
+        counts = kernels.launch_counts()
+        compare_sp(f"{label}, 5000-token prompt over 3 of 4 slabs", got, ref, SP_REL_L2[None])
+        require_launched(f"{label} sp path", counts, need)
+        if counts["fp_decode_attention"] or counts["flash_attention_cached"]:
+            raise AssertionError(f"{label}: K1 or K3 ran on a sequence-sharded layer")
+        no_plain_routes(f"{label} sp path")
+        del model, ref, got
+    torch.cuda.empty_cache()
+
+
 def reset_counts() -> None:
     """Zero the kernels' launch counters and the attention router's count of
     calls routed to a plain version by shape."""
@@ -3332,7 +3908,7 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
         name = row["name"]
-        for tag in (LONG, D256, M256):
+        for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32):
             name = name.removesuffix(tag)
         row["launches"] = counts[name]
         if row["launches"] <= 0:
@@ -3380,6 +3956,7 @@ def main() -> int:
     rows += long_rows["dense"]
     quant_rows += long_rows["quantized"]
     hybrid_rows += long_rows["hybrid"]
+    family_rows = check_family_kernels()
     check_routed_configs()
     phase_done("kernels")
 
@@ -3428,7 +4005,7 @@ def main() -> int:
     no_plain_routes("hybrid path")
     graph_vs_eager(lm35, "Qwen3.5-0.8B bf16")
     launches_per(lm35, "Qwen3.5-0.8B bf16")
-    del lm35
+    lm35.release_graphs()
     phase_done("hybrid")
 
     # the sequence-parallel main path: Qwen3-0.6B in four slabs on the card
@@ -3442,6 +4019,12 @@ def main() -> int:
     graph_vs_eager(sp_shard_lm(lm, make_sp_mesh(4, ["cuda:0"] * 4)), "Qwen3-0.6B bf16, 4 slabs")
     lm.release_graphs()
     phase_done("sp")
+
+    # paths the card had not run: an int8 KV cache on the hybrid, the
+    # hybrid in four slabs, int8 ISQ weights in four slabs
+    check_unrun_paths(lm, lm35)
+    del lm35
+    phase_done("paths")
 
     # speculative decoding: verify forwards (K3, K5, K3-S, K5-S; K6 at
     # B (k + 1) rows) inside chained propose/verify graphs
@@ -3462,13 +4045,47 @@ def main() -> int:
     del lm4, params4
     phase_done("http")
 
+    # a prompt id outside the vocabulary: 400 over HTTP, an error response
+    # from engine.submit, and the engine serves the next request
+    check_oov(lm)
+    phase_done("oov")
+
     # a q8_0 GGUF file of the same weights, on the card against the CPU,
     # and served over HTTP (K1-K3; blockwise linears, no K6)
     check_gguf(lm)
+    del lm
+    torch.cuda.empty_cache()
     phase_done("gguf")
+
+    # the short-conv main path: LFM2-1.2B generation and serving (K1, K2
+    # and K3 at head_dim 64, 32 query / 8 KV heads)
+    reset_counts()
+    lm_conv = check_lfm2_model()
+    check_engine(lm_conv, "lfm2-engine")
+    graph_vs_eager(lm_conv, "LFM2-1.2B bf16")
+    read_launches("lfm2 path", family_rows["lfm2"], kernels.launch_counts())
+    no_plain_routes("lfm2 path")
+    log_decode_steps(lm_conv, "LFM2-1.2B bf16", shapes=DECODE_SHAPES[:2])
+    del lm_conv
+    torch.cuda.empty_cache()
+    phase_done("lfm2")
+
+    # the MoE main path: Qwen3-Next-80B-A3B at 12 layers, generation and
+    # serving (K1, K2, K3 at head_dim 256 with 16 / 2 heads; K7 over 32
+    # value heads)
+    reset_counts()
+    lm_moe = check_moe_model()
+    check_engine(lm_moe, "moe-engine")
+    graph_vs_eager(lm_moe, f"Qwen3-Next {MOE_LAYERS} layers bf16")
+    read_launches("moe path", family_rows["moe"], kernels.launch_counts())
+    no_plain_routes("moe path")
+    log_moe_decode(lm_moe)
+    del lm_moe
+    phase_done("moe")
     log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
-    rows += quant_rows + hybrid_rows + sp_rows + verify_rows
+    rows += quant_rows + hybrid_rows + sp_rows + verify_rows + family_rows["lfm2"] \
+        + family_rows["moe"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

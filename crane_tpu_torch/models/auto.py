@@ -1,5 +1,6 @@
-"""HF checkpoint loading for the dense decoder families and the hybrid
-Gated-DeltaNet family (port of ``crane_tpu/models/auto.py``).
+"""HF checkpoint loading for the dense decoder families, the hybrid
+Gated-DeltaNet family with dense or sparse-MoE MLPs, and LFM2's short-conv
+hybrids (port of ``crane_tpu/models/auto.py``).
 
 ``config.json`` is authoritative for the family. HF stores linear weights
 ``[out, in]``; the port stores ``[in, out]`` as the reference does, so the
@@ -34,16 +35,13 @@ def load_hf_config(model_dir: str) -> dict:
 
 def transformer_config_from_hf(hf: dict) -> TransformerConfig:
     """Map an HF config.json dict to a TransformerConfig: qwen2, qwen3,
-    llama/mistral, ernie4_5, hunyuan_v1_dense, gemma3(_text) and the dense
-    GDN hybrids qwen3_next / qwen3_5. LFM2 (short-conv) and the MoE hybrids
-    are not ported yet and raise."""
+    llama/mistral, ernie4_5, hunyuan_v1_dense, gemma3(_text), the short-conv
+    hybrid lfm2 and the GDN hybrids qwen3_next / qwen3_5 (dense or MoE).
+
+    As in the reference, lfm2 reads ``intermediate_size`` as it stands and
+    ignores ``block_auto_adjust_ff_dim``: a checkpoint's MLP weights keep
+    their own (adjusted) width through :func:`map_hf_weights`."""
     mt = hf.get("model_type", "llama")
-    if mt == "lfm2":
-        raise NotImplementedError(
-            "'lfm2' (hybrid short-conv) is not ported yet (ROADMAP Queue 1 item 8)")
-    if mt in ("qwen3_next", "qwen3_5") and hf.get("num_experts", 0):
-        raise NotImplementedError(
-            f"{mt!r} with MoE MLPs is not ported yet (ROADMAP Queue 1 item 8)")
     if mt == "gemma3" and "text_config" in hf:
         return transformer_config_from_hf({**hf["text_config"], "model_type": "gemma3_text"})
     hidden = hf["hidden_size"]
@@ -113,9 +111,32 @@ def transformer_config_from_hf(hf: dict) -> TransformerConfig:
             logit_softcap=hf.get("final_logit_softcapping"),
             **common,
         )
+    if mt == "lfm2":
+        # hybrid attention + short-conv layers
+        common["rms_norm_eps"] = hf.get("norm_eps", 1e-5)
+        return TransformerConfig(
+            qk_norm=True,
+            layer_types=tuple(
+                "conv" if t != "full_attention" else "full" for t in hf["layer_types"]
+            ),
+            conv_l_cache=hf.get("conv_L_cache", 3),
+            conv_bias=hf.get("conv_bias", False),
+            **common,
+        )
     if mt in ("qwen3_next", "qwen3_5"):
         # hybrid GDN: unit-offset norms, 2x-wide gated q_proj, partial
-        # rotary, 3-in-4 linear-attention layers
+        # rotary, 3-in-4 linear-attention layers, sparse-MoE MLPs where the
+        # config has experts
+        if hf.get("num_experts", 0):
+            common.update(
+                num_experts=hf["num_experts"],
+                num_experts_per_tok=hf.get("num_experts_per_tok", 8),
+                moe_intermediate_size=hf.get("moe_intermediate_size", 0),
+                shared_expert_intermediate_size=hf.get("shared_expert_intermediate_size", 0),
+                norm_topk_prob=hf.get("norm_topk_prob", True),
+                decoder_sparse_step=hf.get("decoder_sparse_step", 1),
+                mlp_only_layers=tuple(hf.get("mlp_only_layers", ())),
+            )
         return TransformerConfig(
             attn_bias=hf.get("attention_bias", False),
             qk_norm=True,
@@ -144,15 +165,41 @@ def _pick(sd: dict, *names: str):
     raise KeyError(names[0])
 
 
+def _map_moe(cfg: TransformerConfig, sd: dict, lp: str, t) -> dict:
+    """Layer ``lp``'s sparse-MoE MLP (qwen3_next names): the router, the
+    experts' gate/up/down stacked into ``[n_experts, in, out]``, and the
+    shared expert with its sigmoid gate where the checkpoint has one. ``t``
+    transposes one HF ``[out, in]`` weight onto the target device and
+    dtype; each stack is built there, one expert at a time."""
+    def stack(name):
+        first = t(sd[f"{lp}mlp.experts.0.{name}.weight"])
+        out = first.new_empty((cfg.num_experts, *first.shape))
+        out[0] = first
+        for e in range(1, cfg.num_experts):
+            out[e] = t(sd[f"{lp}mlp.experts.{e}.{name}.weight"])
+        return out
+
+    moe = {
+        "router": t(sd[lp + "mlp.gate.weight"]),
+        "experts_gate": stack("gate_proj"),
+        "experts_up": stack("up_proj"),
+        "experts_down": stack("down_proj"),
+    }
+    if lp + "mlp.shared_expert.gate_proj.weight" in sd:
+        moe["shared_gate_proj"] = t(sd[lp + "mlp.shared_expert.gate_proj.weight"])
+        moe["shared_up"] = t(sd[lp + "mlp.shared_expert.up_proj.weight"])
+        moe["shared_down"] = t(sd[lp + "mlp.shared_expert.down_proj.weight"])
+        moe["shared_gate"] = t(sd[lp + "mlp.shared_expert_gate.weight"])
+    return moe
+
+
 def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
                    device=None) -> dict:
-    """Map an HF llama/qwen-style state dict (name -> tensor) to the port's
-    param tree: linear weights transposed to ``[in, out]``. A GDN layer's
-    conv weight ``[C, 1, k]`` becomes ``[C, k]`` float32, and its ``A_log``
-    and ``dt_bias`` stay float32."""
-    if cfg.num_experts > 0 or (cfg.layer_types is not None and "conv" in cfg.layer_types):
-        raise NotImplementedError(
-            "MoE and short-conv layers are not ported yet (ROADMAP Queue 1 item 8)")
+    """Map an HF llama/qwen/lfm2-style state dict (name -> tensor) to the
+    port's param tree: linear weights transposed to ``[in, out]``, MoE
+    experts stacked (:func:`_map_moe`). A GDN or short-conv layer's conv
+    weight ``[C, 1, k]`` becomes ``[C, k]`` float32, and a GDN layer's
+    ``A_log`` and ``dt_bias`` stay float32."""
 
     def a(w, dt=dtype):
         return w.to(device=device, dtype=dt)
@@ -164,11 +211,31 @@ def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
     layers = []
     for i in range(cfg.num_layers):
         lp = f"{p}layers.{i}."
-        mlp = {
-            "gate": t(_pick(sd, lp + "mlp.gate_proj.weight", lp + "feed_forward.w1.weight")),
-            "up": t(_pick(sd, lp + "mlp.up_proj.weight", lp + "feed_forward.w3.weight")),
-            "down": t(_pick(sd, lp + "mlp.down_proj.weight", lp + "feed_forward.w2.weight")),
-        }
+        if cfg.is_moe_layer(i):
+            mlp = _map_moe(cfg, sd, lp, t)
+        else:
+            mlp = {
+                "gate": t(_pick(sd, lp + "mlp.gate_proj.weight", lp + "feed_forward.w1.weight")),
+                "up": t(_pick(sd, lp + "mlp.up_proj.weight", lp + "feed_forward.w3.weight")),
+                "down": t(_pick(sd, lp + "mlp.down_proj.weight", lp + "feed_forward.w2.weight")),
+            }
+        if cfg.layer_type(i) == "conv":
+            conv = {
+                "in_proj": t(sd[lp + "conv.in_proj.weight"]),
+                "out_proj": t(sd[lp + "conv.out_proj.weight"]),
+                "conv_w": a(sd[lp + "conv.conv.weight"][:, 0, :], torch.float32),
+            }
+            if lp + "conv.conv.bias" in sd:
+                conv["conv_b"] = a(sd[lp + "conv.conv.bias"])
+            layers.append({
+                "conv": conv,
+                "mlp": mlp,
+                "input_ln": a(_pick(sd, lp + "input_layernorm.weight",
+                                    lp + "operator_norm.weight")),
+                "post_ln": a(_pick(sd, lp + "post_attention_layernorm.weight",
+                                   lp + "ffn_norm.weight")),
+            })
+            continue
         if cfg.layer_type(i) == "gdn":
             gp = lp + "linear_attn."
             layers.append({
@@ -201,15 +268,17 @@ def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
             attn["q_norm"] = a(_pick(
                 sd, lp + "self_attn.q_norm.weight",
                 lp + "self_attn.query_layernorm.weight",  # hunyuan
+                lp + "self_attn.q_layernorm.weight",  # lfm2
             ))
             attn["k_norm"] = a(_pick(
                 sd, lp + "self_attn.k_norm.weight",
                 lp + "self_attn.key_layernorm.weight",
+                lp + "self_attn.k_layernorm.weight",
             ))
         layer = {
             "attn": attn,
             "mlp": mlp,
-            "input_ln": a(sd[lp + "input_layernorm.weight"]),
+            "input_ln": a(_pick(sd, lp + "input_layernorm.weight", lp + "operator_norm.weight")),
         }
         if cfg.sandwich_norms:
             layer["post_attn_ln"] = a(sd[lp + "post_attention_layernorm.weight"])
@@ -222,7 +291,7 @@ def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
     params = {
         "embed": a(sd[p + "embed_tokens.weight"]),
         "layers": tuple(layers),
-        "final_norm": a(sd[p + "norm.weight"]),
+        "final_norm": a(_pick(sd, p + "norm.weight", p + "embedding_norm.weight")),
     }
     if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
         params["lm_head"] = t(sd["lm_head.weight"])
@@ -266,7 +335,7 @@ def from_pretrained(
     tokenizer=None,
     quant_bits: int | None = None,
 ) -> CausalLM:
-    """Load a causal LM (dense or GDN hybrid) from an HF checkpoint
+    """Load a causal LM (dense, GDN or short-conv hybrid) from an HF checkpoint
     directory or hub id onto ``device``: by default the card, and with no
     card an error unless ``device="cpu"`` is given. ``quant_bits`` 8 or 4
     quantizes its linear weights in situ (:func:`quantize_params`)."""
@@ -299,7 +368,10 @@ def quantize_params(params: dict, *, bits: int = 8, block: int = 32,
                     quant_tied_head: bool | None = None) -> dict:
     """In-situ quantization (ISQ) of every linear weight of the layers, the
     reference's ``quantize_params``: per-channel int8 or packed int4 codes
-    with float32 scales. Embeddings, norms and biases stay dense.
+    with float32 scales. Embeddings, norms and biases stay dense, and so do
+    the ones the reference leaves dense: MoE routers, stacked experts and
+    shared experts, and the GDN and short-conv projections (only the 2-D
+    ``LINEAR_NAMES`` are quantized).
 
     A separate ``lm_head`` is quantized too. A tied head gets a quantized
     copy beside the dense embedding (which stays for the gathers) when

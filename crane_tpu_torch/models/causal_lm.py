@@ -119,6 +119,22 @@ def device_ngram_propose(history: torch.Tensor, hist_len: torch.Tensor, n: int,
     return torch.where(ok, drafts, 0).to(torch.int32)
 
 
+def prompt_ids_error(ids, vocab_size: int) -> str | None:
+    """Why ``ids`` cannot be a prompt, or None: a prompt is a flat sequence
+    of integers in ``[0, vocab_size)``. Checked on the host, before the
+    embedding gather: on the card an index past the table is a device-side
+    assert, which leaves the process's CUDA context unusable. (``crane_tpu``
+    clamps such an id into the table instead; the port refuses it.)"""
+    arr = np.asarray(ids)
+    if arr.ndim != 1 or (arr.size and arr.dtype.kind not in "iu"):
+        return "prompt ids must be a flat list of integers"
+    bad = (arr < 0) | (arr >= vocab_size)
+    if bad.any():
+        i = int(np.argmax(bad))
+        return f"prompt id {int(arr[i])} at position {i} lies outside the vocabulary [0, {vocab_size})"
+    return None
+
+
 class CausalLM:
     """A loaded model: static config + parameter tree + step functions."""
 
@@ -460,12 +476,16 @@ class CausalLM:
         streamer=None,
     ) -> list[int]:
         """Greedy or sampled generation of one sequence, streamed in decode
-        blocks of ``gen.decode_block`` tokens. The batch-1 cache (and on the
+        blocks of ``gen.decode_block`` tokens. A prompt id outside the
+        vocabulary raises ``ValueError`` (:func:`prompt_ids_error`). The batch-1 cache (and on the
         card the captured blocks) is kept per (max_seq, kv bits) across
         calls, so calls on one model must not overlap; these caches stay on
         the device until :meth:`release_graphs`, outside any engine's
         memory budget."""
         gen = gen or GenerationConfig()
+        err = prompt_ids_error(input_ids, self.config.vocab_size)
+        if err:
+            raise ValueError(err)
         eos = set(gen.eos_token_ids) | set(self.eos_token_ids)
         # speculative decoding is exact only for greedy, penalty-free configs
         # on purely positional caches (a recurrent state cannot roll back

@@ -1,15 +1,18 @@
 """Shared decoder-only transformer: config and forward functions.
 
 Port of ``crane_tpu/models/modules/transformer.py``: the dense branches,
-quantized weights and int8/int4 KV caches, and the hybrid Gated-DeltaNet
-layers of Qwen3-Next / Qwen3.5. The pre-norm block is input_ln -> token
-mixer -> +res -> post_ln -> SwiGLU -> +res, one parameterised implementation
-for Qwen3, Qwen2.5, Llama-likes, Hunyuan-dense, Gemma3 text and the GDN
-hybrids. The mixer is GQA attention (QK-norm, RoPE, KV-cache write, the
-optional sigmoid output gate) or, in a ``gdn`` layer,
+quantized weights and int8/int4 KV caches, the hybrid Gated-DeltaNet layers
+of Qwen3-Next / Qwen3.5, their sparse-MoE MLPs, and LFM2's short-conv
+layers. The pre-norm block is input_ln -> token mixer -> +res -> post_ln ->
+MLP -> +res, one parameterised implementation for Qwen3, Qwen2.5,
+Llama-likes, Hunyuan-dense, Gemma3 text, LFM2 and the GDN hybrids. The
+mixer is GQA attention (QK-norm, RoPE, KV-cache write, the optional sigmoid
+output gate), in a ``gdn`` layer
 :func:`~crane_tpu_torch.models.modules.gdn_layer.gdn_block` (K7 for fresh
-prefills and continuation chunks). Params are the reference's nested dict,
-with torch tensors as leaves.
+prefills and continuation chunks), in a ``conv`` layer
+:func:`short_conv_block`. The MLP is SwiGLU, or :func:`moe_block` where the
+layer's params carry a router. Params are the reference's nested dict, with
+torch tensors as leaves.
 
 Attention has one route per phase and cache form, whatever S and T are:
 
@@ -41,14 +44,16 @@ shapes go to the kernel's plain version, as crane_tpu sends them to
 
 Quantized linear weights go through :func:`~crane_tpu_torch.ops.linear.linear`
 (K6 at M <= 256). Each wrapper launches its CUDA kernel on a CUDA tensor and
-runs its plain PyTorch version on a CPU tensor. MoE and short-conv branches
-are not ported yet and raise.
+runs its plain PyTorch version on a CPU tensor. The MoE dispatch and the
+short conv have no Pallas kernel in the reference (XLA computes them) and
+are plain PyTorch here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import torch
@@ -73,7 +78,9 @@ from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_decode_attention_plain,
 )
 from crane_tpu_torch.ops.cuda.quant_matmul import matmul_f32
+from crane_tpu_torch.ops.gdn import causal_conv1d, causal_conv1d_update
 from crane_tpu_torch.ops.kv_cache import (
+    ConvLayerCache,
     GdnLayerCache,
     KVCache,
     LayerKVCache,
@@ -131,6 +138,14 @@ class TransformerConfig:
     mlp_only_layers: tuple[int, ...] = ()
     sequence_axis: str | None = None
 
+    def is_moe_layer(self, i: int) -> bool:
+        return (
+            self.num_experts > 0
+            and i not in self.mlp_only_layers
+            and self.decoder_sparse_step > 0
+            and (i + 1) % self.decoder_sparse_step == 0
+        )
+
     @property
     def rot_dim(self) -> int:
         r = int(self.head_dim * self.partial_rotary_factor)
@@ -148,16 +163,6 @@ class TransformerConfig:
         )
 
 
-def _check_ported(cfg: TransformerConfig) -> None:
-    """Refuse configurations whose branches the port does not have yet, so
-    they never fall through to a dense path silently."""
-    if cfg.layer_types is not None and "conv" in cfg.layer_types:
-        raise NotImplementedError(
-            "short-conv hybrid layers (LFM2) are not ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE MLPs are not ported yet (ROADMAP Queue 1 item 8)")
-
-
 def make_cache(
     cfg: TransformerConfig,
     batch: int,
@@ -170,8 +175,8 @@ def make_cache(
     """Allocate the per-layer cache: KV buffers ``[batch, max_seq, Hkv, D]``
     in ``dtype`` (or int8/int4 codes and scales with ``quant_bits`` 8 or 4)
     for attention layers, the conv window and float32 recurrent state for
-    GDN layers. ``device="meta"`` sizes without allocating."""
-    _check_ported(cfg)
+    GDN layers, the ``[batch, conv_l_cache, hidden]`` window for short-conv
+    layers. ``device="meta"`` sizes without allocating."""
     layers = tuple(make_layer_cache(cfg, i, batch, max_seq, dtype, quant_bits=quant_bits,
                                     device=device) for i in range(cfg.num_layers))
     return KVCache(layers=layers,
@@ -185,6 +190,8 @@ def make_layer_cache(cfg: TransformerConfig, i: int, batch: int, max_seq: int, d
         g = cfg.gdn
         return GdnLayerCache.empty(batch, g.conv_kernel, g.conv_dim, g.num_v_heads,
                                    g.head_k_dim, g.head_v_dim, dtype, device)
+    if cfg.layer_type(i) == "conv":
+        return ConvLayerCache.empty(batch, cfg.conv_l_cache, cfg.hidden_size, dtype, device)
     if quant_bits is not None:
         return QuantLayerKVCache.empty(batch, max_seq, cfg.num_kv_heads, cfg.head_dim,
                                        bits=quant_bits, device=device)
@@ -232,8 +239,87 @@ def _activation(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(cfg: TransformerConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: down(act(gate(x)) * up(x))."""
+    """SwiGLU: down(act(gate(x)) * up(x)); the sparse-MoE MLP where the
+    layer's params carry a router."""
+    if "router" in p:
+        return moe_block(cfg, p, x)
     return linear(_activation(cfg, linear(x, p["gate"])) * linear(x, p["up"]), p["down"])
+
+
+# the dense dispatch's [n_experts, tokens, I] intermediates hold at most this
+# many elements: longer token runs go through in blocks of tokens
+MOE_BLOCK_ELEMENTS = 1 << 27
+
+
+def _moe_dispatch_dense(cfg: TransformerConfig, p: dict, xt: torch.Tensor,
+                        w: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Dense one-hot dispatch, the reference's default: every expert computes
+    every token, weighted by the sparse combine matrix. xt ``[T, E]``; w,
+    sel ``[T, k]``. The gate and up projections are one batched product over
+    the experts (``[n, t, I]``); the combine weights scale ``h`` first, so the
+    down projection is one contraction over (expert, I) and never builds a
+    ``[t, n, E]`` product."""
+    T, E = xt.shape
+    n, I = cfg.num_experts, p["experts_down"].shape[1]
+    cw = torch.zeros((T, n), dtype=torch.float32, device=xt.device)
+    cw = cw.scatter_add_(1, sel, w.float()).to(xt.dtype)
+    down = p["experts_down"].reshape(n * I, E)
+    block = max(1, MOE_BLOCK_ELEMENTS // (n * I))
+    out = []
+    for s in range(0, T, block):
+        x = xt[s:s + block]
+        h = _activation(cfg, torch.matmul(x, p["experts_gate"])) * torch.matmul(x, p["experts_up"])
+        h = h * cw[s:s + block].T[:, :, None]
+        out.append(h.transpose(0, 1).reshape(x.shape[0], n * I) @ down)
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _moe_dispatch_ragged(cfg: TransformerConfig, p: dict, xt: torch.Tensor,
+                         w: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Token-sorted grouped-product dispatch (``CRANE_MOE_DISPATCH=ragged``):
+    the T k (token, expert) slots are sorted by expert (stably), each expert
+    multiplies its contiguous group (``torch._grouped_mm``, the counterpart
+    of ``lax.ragged_dot``), and the weighted results add back per token.
+    Group ends are counted on the device, with no host read, so a CUDA graph
+    captures it."""
+    T, E = xt.shape
+    flat = sel.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    token_idx = torch.div(order, cfg.num_experts_per_tok, rounding_mode="floor")
+    xs = xt[token_idx]
+    sizes = torch.zeros(cfg.num_experts, dtype=torch.int32, device=xt.device)
+    sizes.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    h = _activation(cfg, torch._grouped_mm(xs, p["experts_gate"], offs=offs)) \
+        * torch._grouped_mm(xs, p["experts_up"], offs=offs)
+    out = torch._grouped_mm(h, p["experts_down"], offs=offs)
+    out = out * w.reshape(-1)[order][:, None].to(out.dtype)
+    return torch.zeros((T, E), dtype=out.dtype, device=xt.device).index_add_(0, token_idx, out)
+
+
+def moe_block(cfg: TransformerConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Sparse-MoE SwiGLU with a sigmoid-gated shared expert (Qwen3-Next).
+
+    Routing as the reference does it (HF ``Qwen3NextSparseMoeBlock``): a
+    softmax over the experts in float32, top-k, renormalised when
+    ``norm_topk_prob``. The dispatch is dense unless
+    ``CRANE_MOE_DISPATCH=ragged``, the reference's own switch."""
+    B, S, E = x.shape
+    xt = x.reshape(B * S, E)
+    probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
+    w, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    if cfg.norm_topk_prob:
+        w = w / w.sum(dim=-1, keepdim=True)
+    if os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged":
+        y = _moe_dispatch_ragged(cfg, p, xt, w, sel)
+    else:
+        y = _moe_dispatch_dense(cfg, p, xt, w, sel)
+    if "shared_gate" in p:
+        sh = linear(_activation(cfg, linear(xt, p["shared_gate_proj"]))
+                    * linear(xt, p["shared_up"]), p["shared_down"])
+        gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()).to(x.dtype)
+        y = y + gate * sh
+    return y.reshape(B, S, E)
 
 
 def attention_block(
@@ -351,6 +437,40 @@ def attention_route(kind: str, kernel, plain, head_dim: int, n_heads: int, n_kv_
 attention_block.plain_routes = dict.fromkeys(ATTENTION_KINDS, 0)
 
 
+def short_conv_block(
+    cfg: TransformerConfig,
+    p: dict,
+    x: torch.Tensor,
+    layer_cache: ConvLayerCache,
+    *,
+    decode: bool,
+    cache_row: int | None = None,
+    active: torch.Tensor | None = None,
+    true_lengths: torch.Tensor | None = None,
+    continuation: bool = False,
+):
+    """LFM2 short-conv mixer (HF ``Lfm2ShortConv``): in_proj -> (B, C, x) ->
+    depthwise causal conv of B * x, no activation -> C * conv_out ->
+    out_proj, with the rolling L-window in the layer cache for decode.
+    ``continuation`` re-enters the saved window (chunked prefill == whole
+    prefill). The window is written in place (:meth:`ConvLayerCache.replace_rows`).
+    Returns (out ``[B, S, E]``, layer cache)."""
+    b, c, xx = linear(x, p["in_proj"], p.get("in_bias")).chunk(3, dim=-1)
+    bx = b * xx
+    if decode:
+        y, new_state = causal_conv1d_update(bx[:, 0], layer_cache.conv_state, p["conv_w"],
+                                            activation=False)
+        conv_out = y[:, None]
+    else:
+        conv_out, new_state = causal_conv1d(
+            bx, p["conv_w"], activation=False, true_lengths=true_lengths,
+            init_window=layer_cache.conv_state if continuation else None)
+    if "conv_b" in p:
+        conv_out = conv_out + p["conv_b"]
+    out = linear(c * conv_out, p["out_proj"], p.get("out_bias"))
+    return out, layer_cache.replace_rows(new_state, row=cache_row, active=active)
+
+
 def decoder_layer(
     cfg: TransformerConfig,
     p: dict,
@@ -367,25 +487,25 @@ def decoder_layer(
     true_lengths: torch.Tensor | None = None,
 ):
     ltype = cfg.layer_type(layer_idx)
-    if ltype not in ("full", "sliding", "gdn"):
-        raise NotImplementedError(f"{ltype!r} layers are not ported yet (ROADMAP Queue 1 item 8)")
 
     def nrm(t, w):
         return rms_norm(t, w, eps=cfg.rms_norm_eps, weight_offset=cfg.norm_weight_offset)
 
-    if ltype == "gdn":
+    if ltype in ("gdn", "conv"):
         # as attention: S == 1 while reading the cache is decode; S > 1
         # while reading it is a continuation chunk (re-enters the saved conv
         # window and recurrent state, so chunked prefill == whole prefill);
         # read_cache=False is a fresh prefill restarting from zero state
         decode = read_cache and x.shape[1] == 1
-        attn_out, new_cache = gdn_block(
-            cfg.gdn, p["gdn"], nrm(x, p["input_ln"]), layer_cache,
-            eps=cfg.rms_norm_eps, decode=decode, cache_row=cache_row,
-            active=active if decode else None,
-            true_lengths=None if decode else true_lengths,
-            continuation=read_cache and x.shape[1] > 1 and cache_row is None,
-        )
+        kw = dict(decode=decode, cache_row=cache_row, active=active if decode else None,
+                  true_lengths=None if decode else true_lengths,
+                  continuation=read_cache and x.shape[1] > 1 and cache_row is None)
+        if ltype == "gdn":
+            attn_out, new_cache = gdn_block(cfg.gdn, p["gdn"], nrm(x, p["input_ln"]), layer_cache,
+                                            eps=cfg.rms_norm_eps, **kw)
+        else:
+            attn_out, new_cache = short_conv_block(cfg, p["conv"], nrm(x, p["input_ln"]),
+                                                   layer_cache, **kw)
     else:
         attn_out, new_cache = attention_block(
             cfg, p["attn"], nrm(x, p["input_ln"]), layer_cache, positions,
@@ -427,7 +547,6 @@ def forward_hidden(
     their state (attention masks them by position). Buffers are written in
     place; the returned cache shares them and carries the advanced lengths.
     """
-    _check_ported(cfg)
     B, S = tokens.shape
     device = tokens.device
     steps = torch.arange(S, dtype=torch.int32, device=device)

@@ -9,6 +9,8 @@ and never regrown:
   head-major per-(token, head) scales ``[B, H_kv, S_max]`` float32;
 - Gated-Delta-Net layers (:class:`GdnLayerCache`): a rolling conv window
   ``[B, k, conv_dim]`` and a float32 recurrent state ``[B, H_v, K, V]``;
+- short-conv layers (:class:`ConvLayerCache`): a rolling window
+  ``[B, L, C]``;
 - sequence parallelism (:class:`SequenceShardedKVCache`): an fp or
   quantized layer cache split along its sequence axis into slabs, one per
   slab device;
@@ -313,6 +315,47 @@ class GdnLayerCache:
 
 
 @dataclasses.dataclass
+class ConvLayerCache:
+    """Short-conv layer state (LFM2's hybrid conv layers): the rolling window
+    of the last L pre-conv inputs, ``conv_state [B, L, C]`` in the model
+    dtype."""
+
+    conv_state: torch.Tensor
+
+    @staticmethod
+    def empty(batch: int, l_cache: int, channels: int, dtype=torch.bfloat16,
+              device=None) -> "ConvLayerCache":
+        """``device="meta"`` sizes without allocating."""
+        return ConvLayerCache(conv_state=torch.zeros((batch, l_cache, channels), dtype=dtype,
+                                                     device=device))
+
+    def row(self, slot: int) -> "ConvLayerCache":
+        """Batch-1 view of row ``slot``: writes through it land in this cache."""
+        return ConvLayerCache(conv_state=self.conv_state[slot:slot + 1])
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.conv_state,)
+
+    def nbytes(self) -> int:
+        return self.conv_state.numel() * self.conv_state.element_size()
+
+    def replace_rows(self, conv_state: torch.Tensor, row: int | None = None,
+                     active: torch.Tensor | None = None) -> "ConvLayerCache":
+        """Write the new window in place: for the whole batch, for one
+        ``row`` (slot prefill; the new window has batch 1), or only where
+        ``active [B]`` (masked batched decode). Returns ``self``."""
+        conv_state = conv_state.to(self.conv_state.dtype)
+        if row is not None:
+            self.conv_state[row:row + 1] = conv_state
+        elif active is not None:
+            self.conv_state.copy_(torch.where(active[:, None, None], conv_state,
+                                              self.conv_state))
+        else:
+            self.conv_state.copy_(conv_state)
+        return self
+
+
+@dataclasses.dataclass
 class SequenceShardedKVCache:
     """One attention layer's KV cache split along its sequence axis into
     ``n`` contiguous slabs (sequence parallelism,
@@ -381,8 +424,9 @@ class SequenceShardedKVCache:
 class KVCache:
     """Whole-model cache: one layer cache per layer (:class:`LayerKVCache`,
     :class:`QuantLayerKVCache`, :class:`SequenceShardedKVCache` or, in hybrid
-    models, :class:`GdnLayerCache`) + per-row ``lengths [B]`` int32 (the
-    number of valid tokens, i.e. the next write position)."""
+    models, :class:`GdnLayerCache` and :class:`ConvLayerCache`) + per-row
+    ``lengths [B]`` int32 (the number of valid tokens, i.e. the next write
+    position)."""
 
     layers: tuple
     lengths: torch.Tensor

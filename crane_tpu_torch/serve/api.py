@@ -29,6 +29,7 @@ import uuid
 from typing import Any, Optional
 
 from crane_tpu_torch.serve import transport as web
+from crane_tpu_torch.models.causal_lm import prompt_ids_error
 from crane_tpu_torch.serve.engine import InferenceEngine
 from crane_tpu_torch.serve.sequence import EngineRequest, FinishReason, SamplingOptions
 
@@ -107,6 +108,12 @@ class Server:
                 return
 
     def _make_request(self, prompt_ids, payload, rid=None) -> EngineRequest:
+        """The engine request of a route; a prompt id outside the vocabulary
+        (or not an integer) is answered 400 here, before the engine sees
+        it."""
+        err = prompt_ids_error(prompt_ids, self.engine.lm.config.vocab_size)
+        if err:
+            raise web.HTTPError(400, err)
         return EngineRequest(
             request_id=rid or f"req-{uuid.uuid4().hex[:16]}",
             prompt_ids=list(prompt_ids),

@@ -62,7 +62,7 @@ from crane_tpu_torch.serve.sequence import (  # noqa: F401  (EngineRequest, Samp
 from crane_tpu_torch.serve.stats import EngineStats
 from crane_tpu_torch.tokenizer.token_stream import TokenOutputStream
 from crane_tpu_torch.utils.buckets import bucket_length
-from crane_tpu_torch.models.causal_lm import CausalLM
+from crane_tpu_torch.models.causal_lm import CausalLM, prompt_ids_error
 from crane_tpu_torch.ops.kv_cache import SequenceShardedKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
@@ -504,6 +504,13 @@ class InferenceEngine:
         ctx_len = len(ctx)
         if ctx_len == 0:
             seq.send_error("empty prompt")
+            self.stats.requests_failed += 1
+            return
+        # refused on the host: an id past the embedding would be a device-
+        # side assert inside the gather, and the thread and the card with it
+        err = prompt_ids_error(ctx, self.lm.config.vocab_size)
+        if err:
+            seq.send_error(err)
             self.stats.requests_failed += 1
             return
         if ctx_len + 1 >= self.max_seq_len:

@@ -42,7 +42,9 @@ MAX_HEADERS = 128
 
 
 class HTTPError(Exception):
-    """A request the transport refuses before any handler sees it."""
+    """A request the transport refuses before any handler sees it, or one a
+    handler refuses by raising it (answered ``{"error": {"message": ...}}``
+    with its status)."""
 
     def __init__(self, status: int, message: str):
         super().__init__(message)
@@ -316,6 +318,8 @@ class _Connection:
             resp = self.task.result()
         except asyncio.CancelledError:
             return None
+        except HTTPError as e:
+            return json_response({"error": {"message": e.message}}, status=e.status)
         except Exception:
             log.exception("error handling %s %s", req.method, req.path)
             if self.streamed:

@@ -3,8 +3,8 @@
 :func:`params_from_jax` turns a ``crane_tpu`` params pytree (nested dicts,
 tuples and lists whose leaves are numpy arrays or ``jax.Array``s) into the
 same tree of torch tensors, so both packages can run on the same weights.
-:func:`cache_from_jax` turns a ``crane_tpu`` ``KVCache`` (fp, int8/int4 and
-GDN layers) into the port's, so a decode step or a continuation can start
+:func:`cache_from_jax` turns a ``crane_tpu`` ``KVCache`` (fp, int8/int4, GDN
+and short-conv layers) into the port's, so a decode step or a continuation can start
 from JAX's own state. Nothing here imports jax: a ``jax.Array`` leaf is read
 through ``numpy.asarray``.
 """
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from crane_tpu_torch.ops.kv_cache import (
+    ConvLayerCache,
     GdnLayerCache,
     KVCache,
     LayerKVCache,
@@ -58,7 +59,8 @@ def params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
 def cache_from_jax(cache, device=None) -> KVCache:
     """A ``crane_tpu`` ``KVCache`` -> the port's, layer by layer, with the
     same values and dtypes: ``GdnLayerCache`` (conv window and recurrent
-    state), ``QuantLayerKVCache`` (codes, scales, bits) or ``LayerKVCache``."""
+    state), ``ConvLayerCache`` (conv window alone), ``QuantLayerKVCache``
+    (codes, scales, bits) or ``LayerKVCache``."""
     def t(a):
         return tensor_from_numpy(a, device)
 
@@ -67,6 +69,8 @@ def cache_from_jax(cache, device=None) -> KVCache:
         if hasattr(layer, "recurrent_state"):
             layers.append(GdnLayerCache(conv_state=t(layer.conv_state),
                                         recurrent_state=t(layer.recurrent_state)))
+        elif hasattr(layer, "conv_state"):
+            layers.append(ConvLayerCache(conv_state=t(layer.conv_state)))
         elif hasattr(layer, "k_scale"):
             layers.append(QuantLayerKVCache(k=t(layer.k), v=t(layer.v), k_scale=t(layer.k_scale),
                                             v_scale=t(layer.v_scale), bits=layer.bits,

@@ -421,6 +421,36 @@ def test_client_hangup_mid_stream_frees_the_slot(ckpt):
         engine.stop()
 
 
+def test_out_of_vocabulary_ids_answer_400(ckpt):
+    """/generate with an ``input_ids`` id outside ``[0, vocab)``, or not an
+    integer, is answered 400 before the engine sees the request (crane_tpu
+    clamps such an id; on the card the embedding gather would assert); the
+    engine thread stays alive and the next request is served."""
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    engine = _port_engine(ckpt, **ENGINE)
+    vocab = engine.lm.config.vocab_size
+    params = {"max_new_tokens": 4, "temperature": 0, "repetition_penalty": 1.0}
+    try:
+        with BackgroundServer(build_app(Server(engine, model_name="tiny"))) as srv:
+            port = PortClient(srv.port)
+            for ids in ([1, 2, vocab], [-1, 5], [1.5, 2], "12", [[1, 2]]):
+                for stream in (False, True):
+                    status, _, body = port.request("POST", "/generate", {
+                        "input_ids": ids, "sampling_params": params, "stream": stream})
+                    assert status == 400, (ids, status, body)
+                    assert "prompt" in json.loads(body)["error"]["message"]
+            status, _, body = port.request("POST", "/generate",
+                                           {"input_ids": [1, 2, 3], "sampling_params": params})
+            assert status == 200 and json.loads(body)["meta_info"]["completion_tokens"] == 4
+            stats = json.loads(port.request("GET", "/v1/stats")[2])
+            assert stats["requests_received"] == 1 and stats["requests_failed"] == 0
+        assert engine._thread.is_alive()
+    finally:
+        engine.stop()
+
+
 class _EchoModel:
     """generate_greedy stub (tests/test_api.py's): a fixed token sequence."""
 

@@ -322,3 +322,30 @@ def test_speculative_engine_budget_edge(lms):
         run_until_idle(spec)
         plain = InferenceEngine(tl, max_slots=1, max_seq_len=seq)
         assert drain(q)[0] == one_stream(plain, prompt, 2)[0]
+
+
+def test_out_of_vocabulary_prompt_ends_in_an_error(lms):
+    """A prompt id of ``vocab`` or -1 is refused on the host before the
+    embedding gather (crane_tpu clamps it instead; on the card the gather
+    would be a device-side assert): the threaded engine answers each with an
+    error response, stays alive, and serves the next request with the
+    tokens a fresh engine gives it; ``generate`` raises for such a prompt."""
+    _, tl = lms
+    vocab = QWEN3_TINY.vocab_size
+    engine = InferenceEngine(tl, max_slots=2, max_seq_len=128, decode_tokens_per_seq=2)
+    engine.start()
+    try:
+        for rid, ids in (("high", [3, vocab, 4]), ("negative", [-1, 3]), ("float", [3.5, 4])):
+            r = engine.submit(req(engine, rid, ids, 4)).get(timeout=30)
+            assert r.finished and r.finish_reason == FinishReason.ERROR and "prompt" in r.error
+        toks, reason = drain(engine.submit(req(engine, "good", [3, 4, 5], 6)))
+        assert engine._thread.is_alive() and reason == FinishReason.LENGTH
+    finally:
+        engine.stop()
+    assert engine.stats.requests_failed == 3 and engine.stats.requests_completed == 1
+    fresh = InferenceEngine(tl, max_slots=2, max_seq_len=128, decode_tokens_per_seq=2)
+    q = fresh.submit(req(fresh, "good", [3, 4, 5], 6))
+    run_until_idle(fresh)
+    assert drain(q)[0] == toks
+    with pytest.raises(ValueError, match="outside the vocabulary"):
+        tl.generate([3, vocab], GenerationConfig.greedy(2))

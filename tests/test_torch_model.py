@@ -255,21 +255,43 @@ def test_entry_points_default_to_the_card():
     assert p["embed"].device.type == "cpu"
 
 
-def test_unported_branches_raise(tiny_pair):
+def test_once_refused_branches_build(tiny_pair, tmp_path):
+    """What the port refused in its earlier slices and builds now, and what
+    it still refuses: int8/int4 caches are allocated; an MoE config and a
+    short-conv config build their caches (a GDN/KV cache beside the MoE
+    MLPs, a ``[B, L, hidden]`` window per conv layer) and their configs from
+    HF dicts; ``main()`` still refuses a gemma3n checkpoint."""
+    from crane_tpu_torch.ops.kv_cache import ConvLayerCache, LayerKVCache
+    from crane_tpu_torch.serve.api import main
+
     _, tl = tiny_pair
-    for bits in (8, 4):  # int8/int4 caches, once refused, are allocated
+    for bits in (8, 4):
         cache = tl.init_cache(1, 64, quant_bits=bits)
         assert all(layer.bits == bits for layer in cache.layers)
-    # GDN hybrids are ported (tests/test_torch_hybrid.py); MoE MLPs and
-    # LFM2 short-conv layers still raise
-    moe = dataclasses.replace(tinit.QWEN3_TINY, num_experts=4)
+    moe = dataclasses.replace(tinit.QWEN3_TINY, num_experts=4, moe_intermediate_size=16)
     short_conv = dataclasses.replace(tinit.QWEN3_TINY, layer_types=("conv", "full"))
-    for cfg in (moe, short_conv):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            ttf.make_cache(cfg, 1, 16)
-    for hf in ({"model_type": "qwen3_next", "num_experts": 8}, {"model_type": "lfm2"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tauto.transformer_config_from_hf(hf)
+    assert [type(c) for c in ttf.make_cache(moe, 1, 16).layers] == [LayerKVCache] * 2
+    conv_cache = ttf.make_cache(short_conv, 1, 16)
+    assert [type(c) for c in conv_cache.layers] == [ConvLayerCache, LayerKVCache]
+    assert conv_cache.layers[0].conv_state.shape == (1, 3, short_conv.hidden_size)
+    next_moe = {"model_type": "qwen3_next", "vocab_size": 64, "hidden_size": 32,
+                "num_hidden_layers": 2, "num_attention_heads": 2, "num_key_value_heads": 1,
+                "head_dim": 16, "intermediate_size": 48,
+                "layer_types": ["linear_attention", "full_attention"],
+                "linear_num_value_heads": 2, "linear_num_key_heads": 2,
+                "linear_key_head_dim": 8, "linear_value_head_dim": 8, "num_experts": 8,
+                "num_experts_per_tok": 2, "moe_intermediate_size": 16}
+    lfm2 = {"model_type": "lfm2", "vocab_size": 64, "hidden_size": 32, "num_hidden_layers": 2,
+            "num_attention_heads": 2, "num_key_value_heads": 1, "intermediate_size": 48,
+            "layer_types": ["conv", "full_attention"]}
+    for hf in (next_moe, lfm2):
+        cfg = tauto.transformer_config_from_hf(hf)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jauto.transformer_config_from_hf(hf))
+    assert tauto.transformer_config_from_hf(next_moe).is_moe_layer(1)
+    assert tauto.transformer_config_from_hf(lfm2).layer_types == ("conv", "full")
+    (tmp_path / "config.json").write_text('{"model_type": "gemma3n"}')
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        main(["--model-path", str(tmp_path), "--device", "cpu"])
 
 
 @pytest.mark.parametrize("gate,bias", [(False, False), (True, False), (True, True)])

@@ -59,6 +59,13 @@ def test_every_module_imports_without_jax():
             "crane_tpu_torch.serve.__main__", "crane_tpu_torch.loaders.gguf",
             "crane_tpu_torch.loaders.gguf_model", "crane_tpu_torch.native",
             "crane_tpu_torch.sdk.client"} <= walked
+    # the MoE and short-conv hybrids (moe_block, short_conv_block and
+    # ConvLayerCache, their configs, mapping and random weights) and the
+    # out-of-vocabulary guard of generate, the engine and the server
+    assert {"crane_tpu_torch.models.modules.transformer", "crane_tpu_torch.ops.kv_cache",
+            "crane_tpu_torch.models.auto", "crane_tpu_torch.models.init",
+            "crane_tpu_torch.models.causal_lm", "crane_tpu_torch.serve.engine",
+            "crane_tpu_torch.utils.bridge"} <= walked
 
 
 def test_kernel_build_directory_is_git_ignored():
