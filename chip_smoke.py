@@ -39,7 +39,11 @@ each reported on its own line:
    window across the splits;
    at the MoE and short-conv paths' shapes: K1, K2 and K3 with LFM2-1.2B's
    32 / 8 heads of 64 and with Qwen3-Next-80B-A3B's 16 / 2 of 256, and K7
-   at B=1 S=1000 over 32 value heads (check_family_kernels);
+   at B=1 S=1000 over 32 value heads (check_family_kernels); at this
+   slice's: K1 with Gemma 3n's 8 / 2 heads of 256, scale 1.0 and the
+   512-token window over 1200 live slots, and K2 with segments at
+   Gemma3-4B's 8 / 4 heads of 256 on a 300-token prompt holding a 256-token
+   image block (check_slice_kernels);
    routes: a tiny model with head_dim 96 and one with 16 query heads on one
    kv-head, whose attention the kernels do not take, run prefill, a chunk
    and decode on the card through the plain versions (counted in
@@ -147,7 +151,30 @@ each reported on its own line:
    12-layer bf16 model: the prefill (dense against ragged dispatch),
    generate, graphs against eager, the engine mix; K1, K2, K3 (16 / 2
    heads of 256) and K7 (32 value heads) were launched by it; its decode
-   step beside the bound of reading every expert.
+   step beside the bound of reading every expert;
+19. gemma3n: Gemma 3n E4B's text model (transformers' Gemma3nTextConfig()
+   defaults: 35 layers, 8 query / 2 KV heads of 256, the last 15 layers
+   reading the KV of layers 18 and 19, AltUp, Laurel, per-layer embeddings,
+   activation sparsity) with random weights in the HF layout, mapped by
+   ``models/gemma3n.py`` ``map_hf_weights``: its first 12 layers (4 of
+   them KV-shared) in float32 on the card against the CPU, a prefill
+   holding two ids past the 262144-row per-layer table and 4 decode steps;
+   then all 35 layers in bf16: a 1000-token prompt in a 2048-slot cache
+   (the 512-token window bites), 64 greedy tokens through the decode-step
+   graph against the eager step, 4 chat requests through ``TextBackend``
+   over HTTP with the stand-in tokenizer; K1 (scale 1.0, the window, the
+   shared layers over their source's cache) was launched by it;
+20. vlm: Qwen3-VL-2B at full size, its vision tower and a 448-pixel
+   image's chat prefill in float32 on the card against the CPU, then bf16
+   ``generate`` with the image and with a 4-frame video, decode blocks as
+   graphs against eager (K3 for the prefill, K1); Gemma3-4B, image chat in
+   bf16 against float32 on the CPU at 6 of 34 text and 4 of 27 SigLIP
+   layers, then the whole model in bf16, its fresh prefill launching K2
+   with the image block's segments on every layer (K1 for decode);
+   PaddleOCR-VL at full size, ``recognize`` of a synthetic 560x420 page in
+   float32 on the card against the CPU (K3, K1). Each model's vision
+   tower, prefill and decode step are timed, and the device's idle share
+   logged.
 
 Where two paths' greedy tokens part (graphs against eager, speculative
 against plain, HTTP against ``engine.submit``, the GGUF model on the card
@@ -160,7 +187,9 @@ the eager loop they are held against. The decode-step lines time both in
 this one process, 4 blocks of 8 steps each. Each phase logs its seconds.
 
 Every model path (dense, quantized, hybrid, sp, the three once-unrun
-paths, lfm2, moe) must route no attention call to a plain version. ``[profile]`` lines split a chunk's, a prefill's
+paths, lfm2, moe, gemma3n and the three vision-language models) must route
+no attention call to a plain version (Gemma 3n's prefill attention and the
+vision towers' are plain by design, as in crane_tpu, and not routed). ``[profile]`` lines split a chunk's, a prefill's
 and a decode step's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
 elementwise, reduce, index) and name the largest kernels; the decode steps
 (bf16 and w4 kv4 at B=1 and B=8 after 300 tokens, and B=1 after 16,000)
@@ -3908,11 +3937,898 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
         name = row["name"]
-        for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32):
+        for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32, G3N_HEADS, SEG_HEADS):
             name = name.removesuffix(tag)
         row["launches"] = counts[name]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched by the {path}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 19 (gemma3n) and 20 (vlm): Gemma 3n and the vision-language models
+
+# Gemma 3n E4B's text model: transformers' Gemma3nTextConfig() defaults
+# (transformers 4.57.6): 35 layers, every fifth full attention and the rest
+# sliding (window 512), the last 15 sharing the KV of layers 18 and 19,
+# activation sparsity 0.95 on the first 10, vocabulary 262400 with a
+# per-layer table of 262144 rows.
+GEMMA3N_E4B = {
+    "model_type": "gemma3n_text", "vocab_size": 262400, "vocab_size_per_layer_input": 262144,
+    "hidden_size": 2048, "hidden_size_per_layer_input": 256, "num_hidden_layers": 35,
+    "num_attention_heads": 8, "num_key_value_heads": 2, "head_dim": 256,
+    "intermediate_size": [16384] * 35, "sliding_window": 512, "num_kv_shared_layers": 15,
+    "laurel_rank": 64, "altup_num_inputs": 4, "altup_active_idx": 0,
+    "altup_correct_scale": True, "rope_theta": 1_000_000.0, "rope_local_base_freq": 10_000.0,
+    "rms_norm_eps": 1e-6, "final_logit_softcapping": 30.0, "max_position_embeddings": 32768,
+    "activation_sparsity_pattern": [0.95] * 10 + [0.0] * 25,
+    "layer_types": ["full_attention" if (i + 1) % 5 == 0 else "sliding_attention"
+                    for i in range(35)],
+    "tie_word_embeddings": True,
+}
+# the float32 check's cut: every width kept, the first 12 layers with the
+# last 4 of them KV-shared (both attention types, the sparse layers 0-9 and
+# two dense ones); 10.8 GB in float32 on the card and again on the host
+GEMMA3N_F32_LAYERS, GEMMA3N_F32_SHARED = 12, 4
+GEMMA3N_PROMPT, GEMMA3N_CACHE, GEMMA3N_NEW = 1000, 2048, 64
+
+# Qwen3-VL-2B-Instruct: the text shapes of bench.py's vl mode, and the
+# published vision_config (depth 24, hidden 1024, MLP 4096, 16 heads, patch
+# 16, temporal patch 2, merge 2, out 2048, 2304 position embeddings,
+# DeepStack taps after blocks 5, 11, 17); the published special ids
+QWEN3_VL_2B = {
+    "model_type": "qwen3_vl", "tie_word_embeddings": True,
+    "text_config": {
+        "vocab_size": 151936, "hidden_size": 2048, "num_hidden_layers": 28,
+        "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 128,
+        "intermediate_size": 6144, "rms_norm_eps": 1e-6, "rope_theta": 5_000_000.0,
+        "max_position_embeddings": 262144, "tie_word_embeddings": True,
+        "rope_scaling": {"rope_type": "default", "mrope_section": [24, 20, 20],
+                         "mrope_interleaved": True}},
+    "vision_config": {
+        "depth": 24, "hidden_size": 1024, "intermediate_size": 4096, "num_heads": 16,
+        "patch_size": 16, "temporal_patch_size": 2, "spatial_merge_size": 2,
+        "out_hidden_size": 2048, "num_position_embeddings": 2304,
+        "deepstack_visual_indexes": [5, 11, 17], "hidden_act": "gelu_pytorch_tanh"},
+    "image_token_id": 151655, "video_token_id": 151656, "vision_start_token_id": 151652,
+}
+QWEN3_VL_VISION_END = 151653
+QWEN3_VL_IMAGE = 448  # 28 x 28 patches of 16, 196 image tokens
+QWEN3_VL_FRAMES, QWEN3_VL_FRAME = 4, 224  # a video of 2 temporal patches, 49 tokens each
+
+# Gemma3-4B (google/gemma-3-4b-it config.json): text 34 layers, hidden 2560,
+# 8 query / 4 KV heads of 256, MLP 10240, every sixth layer full attention
+# and the rest sliding (window 1024), linear rope scaling 8 on the full
+# layers; SigLIP-so400m at 896 px in patches of 14 (4096 patches), 27
+# layers of 1152, 16 heads, MLP 4304; 256 tokens an image
+GEMMA3_4B = {
+    "model_type": "gemma3",
+    "text_config": {
+        "vocab_size": 262208, "hidden_size": 2560, "intermediate_size": 10240,
+        "num_hidden_layers": 34, "num_attention_heads": 8, "num_key_value_heads": 4,
+        "head_dim": 256, "rms_norm_eps": 1e-6, "rope_theta": 1_000_000.0,
+        "rope_local_base_freq": 10_000.0, "rope_scaling": {"rope_type": "linear", "factor": 8.0},
+        "sliding_window": 1024, "query_pre_attn_scalar": 256,
+        "max_position_embeddings": 131072, "tie_word_embeddings": True,
+        "layer_types": ["full_attention" if (i + 1) % 6 == 0 else "sliding_attention"
+                        for i in range(34)]},
+    "vision_config": {
+        "hidden_size": 1152, "num_hidden_layers": 27, "num_attention_heads": 16,
+        "intermediate_size": 4304, "image_size": 896, "patch_size": 14, "layer_norm_eps": 1e-6},
+    "mm_tokens_per_image": 256, "image_token_index": 262144,
+    "boi_token_index": 255999, "eoi_token_index": 256000,
+}
+# the bf16-against-CPU check's cut: 6 of 34 text layers (five sliding, one
+# full) and 4 of 27 SigLIP layers, every width kept
+GEMMA3_F32_TEXT_LAYERS, GEMMA3_F32_VISION_LAYERS = 6, 4
+
+# PaddleOCR-VL (PaddlePaddle/PaddleOCR-VL config.json): an ERNIE-4.5-0.3B
+# decoder (18 layers of 1024, 16 query / 2 KV heads of 128, MLP 3072,
+# vocabulary 103424) and a NaViT tower of SigLIP-so400m shape (27 layers of
+# 1152, 16 heads, MLP 4304, patch 14, a 27 x 27 position table) with the 2x2
+# merge projector into 1024
+PADDLEOCR_VL = {
+    "model_type": "paddleocr_vl", "vocab_size": 103424, "hidden_size": 1024,
+    "num_hidden_layers": 18, "num_attention_heads": 16, "num_key_value_heads": 2,
+    "head_dim": 128, "intermediate_size": 3072, "rms_norm_eps": 1e-5, "rope_theta": 500_000.0,
+    "max_position_embeddings": 131072, "tie_word_embeddings": True,
+    "image_token_id": 100295,
+    "vision_config": {
+        "num_hidden_layers": 27, "hidden_size": 1152, "intermediate_size": 4304,
+        "num_attention_heads": 16, "patch_size": 14, "spatial_merge_size": 2,
+        "hidden_act": "gelu_pytorch_tanh", "layer_norm_eps": 1e-6, "image_size": 384},
+}
+PADDLE_PAGE = (560, 420)  # a synthetic page, 40 x 30 patches, 300 image tokens
+PADDLE_NEW = 16
+
+# float32 on the card against float32 on the CPU, the same weights: the
+# same sums in another order (cuBLAS and the kernels' float32 routes), so
+# the logits and features agree to F32_REL_L2
+F32_REL_L2 = 1e-3
+
+# kernel-row tags of this slice's shapes
+G3N_HEADS = "[D256-8/2 scale1 w512]"
+SEG_HEADS = "[D256-8/4 segments]"
+
+
+def draw_checkpoint(shapes: dict, gen, dtype, tables=()) -> dict:
+    """Random HF tensors of the given shapes on ``gen``'s device: weights
+    of two or more dims normal with std fan_in ** -0.5 (fan_in their
+    product past the first), the embedding and position tables in
+    ``tables`` with std 0.02, biases zero, other 1-D weights (norms,
+    scales) one."""
+    import torch
+
+    sd = {}
+    for name, shape in shapes.items():
+        if len(shape) == 1:
+            sd[name] = torch.full(shape, 0.0 if name.endswith("bias") else 1.0, dtype=dtype,
+                                  device=gen.device)
+            continue
+        std = 0.02 if name in tables else torch.Size(shape[1:]).numel() ** -0.5
+        sd[name] = (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+    return sd
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = got.float().cpu(), ref.float().cpu()
+    if got.shape != ref.shape or not bool(got.isfinite().all()):
+        raise AssertionError(f"not finite or of shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def check_f32(phase: str, label: str, got, ref, limit: float = F32_REL_L2) -> float:
+    """float32 card output against float32 on the CPU: finite, same shape,
+    relative L2 within ``limit``."""
+    err = rel_l2(got, ref)
+    log(phase, f"{label}: rel L2 {err:.3g} (limit {limit:g}), float32 card vs CPU")
+    if err > limit:
+        raise AssertionError(f"{label}: the card's float32 disagrees with the CPU's")
+    return err
+
+
+def tie_at_first_difference(phase, label, ref_toks, other_toks, ref_logits) -> None:
+    """Where two greedy token lists part, the reference path's step is
+    replayed (``ref_logits(i)``, the logits that chose ``ref_toks[i]`` on
+    the reference path's own state): it must choose its token again, and
+    the other token must lie within LOGIT_TIE of it."""
+    n = min(len(ref_toks), len(other_toks))
+    i = next((j for j in range(n) if ref_toks[j] != other_toks[j]), None)
+    if i is None:
+        if len(ref_toks) != len(other_toks):
+            raise AssertionError(f"{label}: {len(other_toks)} tokens vs {len(ref_toks)}")
+        log(phase, f"{label}: {n} greedy tokens identical")
+        return
+    logits = ref_logits(i).float().cpu()
+    ref_t, other_t = ref_toks[i], other_toks[i]
+    gap = (logits[ref_t] - logits[other_t]).item()
+    log(phase, f"{label}: tokens part at step {i} ({ref_t} vs {other_t}); replayed, the "
+               f"reference chooses {int(logits.argmax())} and the gap is {gap:.4g} (tie "
+               f"{LOGIT_TIE})")
+    if int(logits.argmax()) != ref_t or gap > LOGIT_TIE:
+        raise AssertionError(f"{label}: the paths part at step {i} without a tie")
+
+
+def log_busy(phase: str, label: str, what: str, run) -> None:
+    """The wall time of ``run`` (host clock, synchronised), the kernel time
+    the profiler sums for it, and the device's idle share between them."""
+    wall = sync_ms(run)
+    fam = log_device_ms(label, what, run)
+    busy = sum(fam.values())
+    if busy > 0:
+        log(phase, f"{label}, {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+                   f"{1 - busy / wall:.3f}")
+
+
+def check_slice_kernels() -> list[dict]:
+    """Phase 3 at this slice's shapes: K1 with Gemma 3n's 8 query / 2 KV
+    heads of 256, scale 1.0, over 1200 live slots of a 2048-slot cache,
+    with the sliding window of 512 (the row) and without; K2 with segments
+    at Gemma3-4B's 8 / 4 heads of 256 on a 300-token prompt whose 256 image
+    tokens form one bidirectional segment. Each against its plain version,
+    timed beside it and SDPA (with the window's or the segments' boolean
+    mask). Returns the rows, launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    gen = torch.Generator(device="cuda").manual_seed(1912)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = []
+    T, live, W = 2048, 1200, 512
+    q, k, v = rnd(1, 1, 8, 256), rnd(1, T, 2, 256), rnd(1, T, 2, 256)
+    valid = torch.tensor([live], dtype=torch.int32, device="cuda")
+    errs = [compare(f"K1 Gemma 3n heads scale 1.0{label}",
+                    k1.fp_decode_attention(q, k, v, valid, scale=1.0, **kw),
+                    k1.fp_decode_attention_plain(q, k, v, valid, scale=1.0, **kw))
+            for label, kw in (("", {}), (f" window {W}", {"window": W}))]
+    t = torch.arange(T, device="cuda")
+    window_mask = ((t < live) & (t >= live - W))[None, None, None]
+    rows.append(timed_row(
+        "fp_decode_attention" + G3N_HEADS, "decode_attention.cu",
+        "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+        lambda: k1.fp_decode_attention(q, k, v, valid, scale=1.0, window=W),
+        lambda: k1.fp_decode_attention_plain(q, k, v, valid, scale=1.0, window=W),
+        f"B=1 T={T}, {live} live slots, window {W}, Hq=8 Hkv=2 D=256",
+        decode_work(q, 2, valid.clamp(max=W)),
+        lambda: sdpa(q, k, v, mask=window_mask)))
+
+    S, lo, hi = 300, 20, 276
+    q, k, v = rnd(1, S, 8, 256), rnd(1, S, 4, 256), rnd(1, S, 4, 256)
+    seg = torch.zeros(1, S, dtype=torch.int32, device="cuda")
+    seg[0, lo:hi] = 1
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) | ((seg[0, :, None] == seg[0, None, :]) & (seg[0, :, None] > 0))
+    pairs = int(mask.sum())
+    errs = [compare("K2 Gemma3-4B heads with segments",
+                    k23.flash_attention_causal(q, k, v, seg, scale=256 ** -0.5),
+                    k23.flash_attention_causal_plain(q, k, v, seg, scale=256 ** -0.5)),
+            compare("K2 Gemma3-4B heads with segments, window 64",
+                    k23.flash_attention_causal(q, k, v, seg, scale=256 ** -0.5, window=64),
+                    k23.flash_attention_causal_plain(q, k, v, seg, scale=256 ** -0.5, window=64))]
+    rows.append(timed_row(
+        "flash_attention_causal" + SEG_HEADS, "flash_attention_mma.cu",
+        "crane_tpu/ops/pallas/flash_attention.py:187", errs,
+        lambda: k23.flash_attention_causal(q, k, v, seg, scale=256 ** -0.5),
+        lambda: k23.flash_attention_causal_plain(q, k, v, seg, scale=256 ** -0.5),
+        f"B=1 S={S}, one segment of {hi - lo} tokens, Hq=8 Hkv=4 D=256",
+        attn_work(1, S, 8, 4, 256, pairs, S, 2 * 256, 4 * S),
+        lambda: sdpa(q, k, v, mask=mask[None, None])))
+    return rows
+
+
+def gemma3n_config(layers: int | None = None, shared: int | None = None) -> dict:
+    """GEMMA3N_E4B, or its first ``layers`` layers with the last ``shared``
+    of them KV-shared."""
+    if layers is None:
+        return GEMMA3N_E4B
+    cut = {k: (v[:layers] if isinstance(v, list) else v) for k, v in GEMMA3N_E4B.items()}
+    return dict(cut, num_hidden_layers=layers, num_kv_shared_layers=shared)
+
+
+def gemma3n_model(hf: dict, seed: int, dtype, max_seq: int):
+    """A Gemma3nLM of config ``hf`` on the card, from a random checkpoint in
+    the HF layout mapped by ``map_hf_weights``."""
+    import torch
+
+    from crane_tpu_torch.models import gemma3n as g3n
+
+    cfg = g3n.config_from_hf(hf)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = draw_checkpoint(g3n.hf_shapes(cfg, hf["laurel_rank"]), gen, dtype,
+                         tables=("model.embed_tokens.weight",
+                                 "model.embed_tokens_per_layer.weight"))
+    params = g3n.map_hf_weights(cfg, sd, dtype, "cuda")
+    del sd
+    torch.cuda.empty_cache()
+    return g3n.Gemma3nLM(cfg, params, max_seq=max_seq)
+
+
+def gemma3n_prompt(cfg, n: int, seed: int) -> list[int]:
+    """``n`` seeded ids with two past the per-layer table (in
+    [vocab_size_per_layer_input, vocab_size)), at positions 3 and n - 2."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size_per_layer_input, (n,), generator=g).tolist()
+    ids[3], ids[n - 2] = cfg.vocab_size_per_layer_input + 7, cfg.vocab_size - 1
+    return ids
+
+
+def gemma3n_replay(lm, prompt, toks):
+    """The eager path's logits that chose ``toks[i]``: a prefill, then
+    ``toks[:i]`` decoded step by step."""
+    def logits_at(i):
+        cache = lm.new_cache()
+        logits, cache = lm.prefill([prompt], cache, last_only=True)
+        for j, t in enumerate(toks[:i]):
+            logits, cache = lm.decode_step([[t]], cache, [len(prompt) + j])
+        return logits[0]
+    return logits_at
+
+
+def check_gemma3n_model():
+    """Phase 'gemma3n': Gemma 3n E4B's text model (GEMMA3N_E4B) with random
+    weights in the HF layout. First GEMMA3N_F32_LAYERS layers in float32:
+    a prefill holding two ids past the per-layer table, and 4 decode steps
+    (K1 with scale 1.0, on the shared layers over their source's cache) on
+    the card against the CPU. Then the whole model in bf16: a
+    GEMMA3N_PROMPT-token prefill in a GEMMA3N_CACHE-slot cache (the sliding
+    window bites), GEMMA3N_NEW greedy tokens through the decode-step graph
+    against the eager step (the tie rule), and the step's times. Returns
+    the bf16 model."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models.gemma3n import Gemma3nLM
+
+    t0 = time.perf_counter()
+    lm32 = gemma3n_model(gemma3n_config(GEMMA3N_F32_LAYERS, GEMMA3N_F32_SHARED), 19,
+                         torch.float32, 64)
+    cpu = Gemma3nLM(lm32.cfg, _tree(lm32.params, lambda t: t.cpu()), max_seq=64)
+    prompt = gemma3n_prompt(lm32.cfg, 40, 1)
+    logits_gpu, cache_gpu = lm32.prefill([prompt], lm32.new_cache(), last_only=True)
+    logits_cpu, cache_cpu = cpu.prefill([prompt], cpu.new_cache(), last_only=True)
+    check_f32("gemma3n", f"{GEMMA3N_F32_LAYERS}-layer prefill of {len(prompt)} tokens, two of "
+                         f"them past the per-layer table", logits_gpu, logits_cpu)
+    tok = int(logits_cpu[0].argmax())
+    for j in range(4):
+        step_gpu = lm32.decode_graph([[tok]], cache_gpu, [len(prompt) + j])
+        step_cpu, cache_cpu = cpu.decode_step([[tok]], cache_cpu, [len(prompt) + j])
+        check_f32("gemma3n", f"decode step {j} (K1, scale 1.0; layers {lm32.cfg.first_shared_layer}"
+                             f"-{lm32.cfg.num_layers - 1} read layers "
+                             f"{sorted({lm32.cfg.kv_source(i) for i in range(lm32.cfg.first_shared_layer, lm32.cfg.num_layers)})})",
+                  step_gpu, step_cpu)
+        tok = int(step_cpu[0].argmax())
+    lm32.release_graphs()
+    del lm32, cpu, cache_gpu, cache_cpu
+    torch.cuda.empty_cache()
+    log("gemma3n", f"float32 check done in {time.perf_counter() - t0:.1f} s")
+
+    lm = gemma3n_model(gemma3n_config(), 20, torch.bfloat16, GEMMA3N_CACHE)
+    n_params = sum(t.numel() for t in _leaves(lm.params))
+    prompt = gemma3n_prompt(lm.cfg, GEMMA3N_PROMPT, 2)
+    logits, _ = lm.prefill([prompt], lm.new_cache(), last_only=True)
+    if not bool(logits.isfinite().all()):
+        raise AssertionError("Gemma 3n's bf16 prefill logits are not finite")
+    prefill_ms = sync_ms(lambda: lm.prefill([prompt], lm.new_cache(), last_only=True))
+    t1 = time.perf_counter()
+    toks = lm.generate_greedy([prompt], GEMMA3N_NEW)
+    graph_s = time.perf_counter() - t1
+    with graphs.eager():
+        t1 = time.perf_counter()
+        eager = lm.generate_greedy([prompt], GEMMA3N_NEW)
+        eager_s = time.perf_counter() - t1
+    if not all(0 <= t < lm.cfg.vocab_size for t in toks):
+        raise AssertionError("Gemma 3n generated an id outside the vocabulary")
+    tie_at_first_difference("gemma3n", f"Gemma 3n bf16 {GEMMA3N_NEW} tokens, graphs vs eager",
+                            eager, toks, gemma3n_replay(lm, prompt, eager))
+    cache = lm._generate_caches[lm.max_seq]
+    pos = [len(prompt) + GEMMA3N_NEW]
+    step_graph = sync_ms(lambda: [lm.decode_graph([[5]], cache, pos) for _ in range(8)]) / 8
+    with graphs.eager():
+        step_eager = sync_ms(lambda: [lm.decode_graph([[5]], cache, pos) for _ in range(8)]) / 8
+    log_busy("gemma3n", "Gemma 3n bf16", f"8 graph decode steps after {pos[0]} tokens",
+             lambda: [lm.decode_graph([[5]], cache, pos) for _ in range(8)])
+    log("gemma3n", f"Gemma 3n E4B text, {lm.cfg.num_layers} layers, bf16 ({n_params / 1e9:.3f} B "
+                   f"parameters): prefill {GEMMA3N_PROMPT} tokens {prefill_ms:.1f} ms (window "
+                   f"{lm.cfg.sliding_window}, {GEMMA3N_CACHE}-slot cache); decode step {step_graph:.3f} "
+                   f"ms as a graph vs {step_eager:.3f} ms eager; generate({GEMMA3N_NEW}) "
+                   f"{graph_s:.2f} s with graphs, {eager_s:.2f} s eager")
+    return lm
+
+
+def check_gemma3n_http(lm) -> None:
+    """Gemma 3n served through ``TextBackend`` (no engine) over HTTP with
+    the stand-in tokenizer: 4 chat requests, 2 streamed, one holding an id
+    past the per-layer table; each answer's ids equal ``generate_greedy``
+    on the same prompt ids."""
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.backend import TextBackend
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    tok = StandInTokenizer(lm.cfg.vocab_size)
+    server = Server(None, model_name="gemma3n", text_backend=TextBackend(lm, tok, name="gemma3n"))
+    http_server = BackgroundServer(build_app(server))
+    try:
+        for r in range(4):
+            ids = gemma3n_prompt(lm.cfg, 24 + 8 * r, 40 + r)
+            messages = [{"role": "user", "content": " ".join(f"t{i}" for i in ids)}]
+            body = {"messages": messages, "max_tokens": 16, "stream": r % 2 == 1}
+            if r % 2:
+                text = chat_text(http_stream(http_server.port, "/v1/chat/completions", body)["events"])
+            else:
+                status, answer = http_json(http_server.port, "POST", "/v1/chat/completions", body)
+                if status != 200:
+                    raise AssertionError(f"gemma3n chat: status {status}, {answer}")
+                text = answer["choices"][0]["message"]["content"]
+            want = lm.generate_greedy([tok.encode(tok.apply_chat_template(messages))], 16)
+            if tok.ids(text) != want:
+                raise AssertionError(f"gemma3n over HTTP: {tok.ids(text)} vs {want}")
+    finally:
+        http_server.close()
+    log("gemma3n", "4 chat requests (2 streamed) through TextBackend over HTTP: ids equal "
+                   "generate_greedy's")
+
+
+def qwen3_vl_vision_shapes(vcfg) -> dict:
+    """Name -> shape of the ``model.visual.`` tensors of an HF Qwen3-VL
+    checkpoint (``[out, in]`` linears, the Conv3d patch embed)."""
+    E, I, unit = vcfg.hidden_size, vcfg.intermediate_size, vcfg.merge_unit
+    p = "model.visual."
+    shapes = {p + "patch_embed.proj.weight": (E, vcfg.in_channels, vcfg.temporal_patch_size,
+                                              vcfg.patch_size, vcfg.patch_size),
+              p + "patch_embed.proj.bias": (E,),
+              p + "pos_embed.weight": (vcfg.num_position_embeddings, E)}
+    for i in range(vcfg.depth):
+        b = f"{p}blocks.{i}."
+        shapes.update({b + "norm1.weight": (E,), b + "norm1.bias": (E,),
+                       b + "norm2.weight": (E,), b + "norm2.bias": (E,),
+                       b + "attn.qkv.weight": (3 * E, E), b + "attn.qkv.bias": (3 * E,),
+                       b + "attn.proj.weight": (E, E), b + "attn.proj.bias": (E,),
+                       b + "mlp.linear_fc1.weight": (I, E), b + "mlp.linear_fc1.bias": (I,),
+                       b + "mlp.linear_fc2.weight": (E, I), b + "mlp.linear_fc2.bias": (E,)})
+    mergers = [("merger", E)] + [(f"deepstack_merger_list.{j}", unit * E)
+                                 for j in range(len(vcfg.deepstack_indexes))]
+    for name, norm in mergers:
+        m = f"{p}{name}."
+        shapes.update({m + "norm.weight": (norm,), m + "norm.bias": (norm,),
+                       m + "linear_fc1.weight": (unit * E, unit * E),
+                       m + "linear_fc1.bias": (unit * E,),
+                       m + "linear_fc2.weight": (vcfg.out_hidden_size, unit * E),
+                       m + "linear_fc2.bias": (vcfg.out_hidden_size,)})
+    return shapes
+
+
+def siglip_layer_shapes(prefix: str, layers: int, E: int, I: int) -> dict:
+    """Name -> shape of a SigLIP encoder's layers in the HF layout."""
+    shapes = {}
+    for i in range(layers):
+        lp = f"{prefix}encoder.layers.{i}."
+        for n in ("layer_norm1", "layer_norm2"):
+            shapes.update({f"{lp}{n}.weight": (E,), f"{lp}{n}.bias": (E,)})
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            shapes.update({f"{lp}self_attn.{n}.weight": (E, E), f"{lp}self_attn.{n}.bias": (E,)})
+        shapes.update({lp + "mlp.fc1.weight": (I, E), lp + "mlp.fc1.bias": (I,),
+                       lp + "mlp.fc2.weight": (E, I), lp + "mlp.fc2.bias": (E,)})
+    shapes.update({prefix + "post_layernorm.weight": (E,), prefix + "post_layernorm.bias": (E,)})
+    return shapes
+
+
+def random_pixels(shape, seed: int):
+    """Normalized pixels (a clipped standard normal) from a seeded CPU
+    generator, as a numpy array."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).clamp(-2, 2).numpy()
+
+
+def vlm_ids(n_text: int, seed: int, vocab: int, spans) -> list[int]:
+    """Seeded text ids around the visual ``spans`` (each a list of ids),
+    ``n_text`` ids before the first span and 6 after each."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, min(vocab, 100000), (n_text,), generator=g).tolist()
+    for span in spans:
+        ids += span + torch.randint(3, min(vocab, 100000), (6,), generator=g).tolist()
+    return ids
+
+
+def qwen3_vl_replay(model, ids, images, videos, toks):
+    """The eager path's logits that chose ``toks[i]``: Qwen3-VL's prefill,
+    then ``toks[:i]`` decoded one step at a time (the decode body's MRoPE
+    position: lengths + delta)."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits, make_cache
+    from crane_tpu_torch.ops.rope import mrope_cos_sin
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    cfg = model.config
+
+    def logits_at(i):
+        with torch.no_grad():
+            S = len(ids)
+            embeds, cos, sin, deep, delta = model.prompt_inputs(ids, images, videos)
+            cache = make_cache(cfg, 1, bucket_length(S + len(toks), floor=256), model.dtype,
+                               device=model.device)
+            logits, cache = model.prefill(cache, embeds, cos, sin, deep, S)
+            for t in toks[:i]:
+                p = (cache.lengths + delta).to(torch.int32)
+                c1, s1 = mrope_cos_sin(p[None, :, None].expand(3, -1, 1), cfg.rot_dim,
+                                       model.mrope_section, theta=cfg.rope_theta)
+                hidden, cache = forward_hidden(
+                    cfg, model.params, torch.tensor([[t]], dtype=torch.int32, device=model.device),
+                    cache, cache.lengths, model.rope, rope_embeds={"cos": c1, "sin": s1})
+                logits = lm_logits(cfg, model.params, hidden)[:, 0]
+            return logits[0]
+    return logits_at
+
+
+def qwen3_vl_model(tparams, vparams, dtype):
+    from crane_tpu_torch.models import qwen3_vl as q
+
+    hf = QWEN3_VL_2B
+    return q.Qwen3VLModel(q.text_config_from_hf(hf), q.vision_config_from_hf(hf), tparams,
+                          vparams, mrope_section=tuple(hf["text_config"]["rope_scaling"]["mrope_section"]),
+                          image_token_id=hf["image_token_id"], video_token_id=hf["video_token_id"],
+                          vision_start_token_id=hf["vision_start_token_id"], dtype=dtype)
+
+
+def check_qwen3_vl() -> None:
+    """Qwen3-VL-2B (QWEN3_VL_2B) at full size, random weights in the HF
+    layout: the vision tower and the image-chat prefill of a
+    QWEN3_VL_IMAGE-pixel image in float32 on the card against the CPU;
+    then bf16 ``generate`` with the image and with a video of
+    QWEN3_VL_FRAMES frames, decode blocks as graphs against eager (the tie
+    rule); the tower's, the prefill's and a decode step's times."""
+    import torch
+
+    from crane_tpu_torch.generation.config import GenerationConfig
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import qwen3_vl as q
+    from crane_tpu_torch.models.auto import map_hf_weights
+    from crane_tpu_torch.models.image_processing import patchify
+    from crane_tpu_torch.models.init import hf_state_dict
+
+    hf = QWEN3_VL_2B
+    tcfg, vcfg = q.text_config_from_hf(hf), q.vision_config_from_hf(hf)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    tparams = map_hf_weights(tcfg, hf_state_dict(tcfg, gen, torch.float32), torch.float32, "cuda")
+    vparams = q.map_vision_weights(vcfg, draw_checkpoint(
+        qwen3_vl_vision_shapes(vcfg), gen, torch.float32, tables=("model.visual.pos_embed.weight",)),
+        torch.float32, "cuda")
+    gpu = qwen3_vl_model(tparams, vparams, torch.float32)
+    cpu = qwen3_vl_model(_tree(tparams, lambda t: t.cpu()), _tree(vparams, lambda t: t.cpu()),
+                         torch.float32)
+    side = QWEN3_VL_IMAGE
+    patches, grid = patchify(random_pixels((1, 3, side, side), 5), vcfg.patch_size,
+                             vcfg.spatial_merge_size, vcfg.temporal_patch_size)
+    n_img = grid[0] * (grid[1] // 2) * (grid[2] // 2)
+    ids = vlm_ids(20, 6, tcfg.vocab_size, [[hf["vision_start_token_id"]]
+                                           + [hf["image_token_id"]] * n_img + [QWEN3_VL_VISION_END]])
+    images = [(patches, grid)]
+    t0 = time.perf_counter()
+    (f_gpu, d_gpu), (f_cpu, d_cpu) = gpu.encode_images(patches, grid), cpu.encode_images(patches, grid)
+    check_f32("vlm", f"Qwen3-VL-2B vision tower, {patches.shape[0]} patches -> {n_img} tokens",
+              f_gpu, f_cpu)
+    check_f32("vlm", "Qwen3-VL-2B DeepStack features (3 taps)", d_gpu, d_cpu)
+    logits = []
+    for model in (gpu, cpu):
+        embeds, cos, sin, deep, _ = model.prompt_inputs(ids, images)
+        cache = model.lm.init_cache(1, 512)
+        logits.append(model.prefill(cache, embeds, cos, sin, deep, len(ids))[0])
+    check_f32("vlm", f"Qwen3-VL-2B image-chat prefill logits, {len(ids)} tokens", *logits)
+    log("vlm", f"Qwen3-VL-2B float32 check done in {time.perf_counter() - t0:.1f} s")
+    del cpu, gpu, logits
+    model = qwen3_vl_model(_tree(tparams, lambda t: t.to(torch.bfloat16)),
+                           _tree(vparams, lambda t: t.to(torch.bfloat16)), torch.bfloat16)
+    del tparams, vparams
+    torch.cuda.empty_cache()
+
+    frames = random_pixels((QWEN3_VL_FRAMES, 3, QWEN3_VL_FRAME, QWEN3_VL_FRAME), 7)
+    vpatches, vgrid = patchify(frames, vcfg.patch_size, vcfg.spatial_merge_size,
+                               vcfg.temporal_patch_size)
+    per_frame = (vgrid[1] // 2) * (vgrid[2] // 2)
+    span = [hf["vision_start_token_id"]] + [hf["video_token_id"]] * per_frame + [QWEN3_VL_VISION_END]
+    vids = vlm_ids(12, 8, tcfg.vocab_size, [span] * vgrid[0])
+    for label, p_ids, kw, n in (("image", ids, {"images": images}, 32),
+                                (f"video of {QWEN3_VL_FRAMES} frames", vids,
+                                 {"videos": [(vpatches, vgrid)]}, 16)):
+        gen_cfg = GenerationConfig.greedy(n)
+        toks = model.generate(p_ids, gen=gen_cfg, **kw)
+        with graphs.eager():
+            eager = model.generate(p_ids, gen=gen_cfg, **kw)
+        tie_at_first_difference("vlm", f"Qwen3-VL-2B bf16 {label}, {n} tokens, graphs vs eager",
+                                eager, toks, qwen3_vl_replay(model, p_ids, kw.get("images"),
+                                                             kw.get("videos"), eager))
+    vision_ms = sync_ms(lambda: model.encode_images(patches, grid))
+    embeds, cos, sin, deep, delta = model.prompt_inputs(ids, images)
+    cache = model.lm.init_cache(1, 512)
+    prefill_ms = sync_ms(lambda: model.prefill(cache, embeds, cos, sin, deep, len(ids)))
+    cur = torch.tensor([5], dtype=torch.int32, device=model.device)
+    pd = torch.tensor([delta], dtype=torch.int32, device=model.device)
+
+    def block():
+        cache.lengths.fill_(len(ids))
+        model.decode_block(cache, cur, pd)
+
+    block()  # capture
+    step_graph = sync_ms(block) / 8
+    with graphs.eager():
+        step_eager = sync_ms(block) / 8
+    log_busy("vlm", "Qwen3-VL-2B bf16", "a graph decode block of 8 steps", block)
+    model.release_graphs()
+    log("vlm", f"Qwen3-VL-2B bf16: vision tower {vision_ms:.2f} ms ({patches.shape[0]} patches), "
+               f"image-chat prefill {prefill_ms:.2f} ms ({len(ids)} tokens), decode step "
+               f"{step_graph:.3f} ms as a graph vs {step_eager:.3f} ms eager")
+
+
+def gemma3_model(hf: dict, seed: int, dtype, text_layers=None, vision_layers=None):
+    """A Gemma3VLModel of ``hf`` on the card (its first ``text_layers`` /
+    ``vision_layers`` layers where given) from a random HF checkpoint mapped
+    by the port's ``map_*`` functions."""
+    import torch
+
+    from crane_tpu_torch.models import gemma3_vl as g3
+    from crane_tpu_torch.models.auto import map_hf_weights
+    from crane_tpu_torch.models.init import hf_state_dict
+
+    tc, vc = dict(hf["text_config"]), dict(hf["vision_config"])
+    if text_layers is not None:
+        tc.update(num_hidden_layers=text_layers, layer_types=tc["layer_types"][:text_layers])
+    if vision_layers is not None:
+        vc.update(num_hidden_layers=vision_layers)
+    hf = dict(hf, text_config=tc, vision_config=vc)
+    tcfg, vcfg = g3.text_config_from_hf(hf), g3.siglip_config_from_hf(hf)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = hf_state_dict(tcfg, gen, dtype)
+    for i in range(tcfg.num_layers):
+        for n in ("pre_feedforward_layernorm", "post_feedforward_layernorm"):
+            sd[f"model.layers.{i}.{n}.weight"] = torch.zeros(tcfg.hidden_size, dtype=dtype,
+                                                             device="cuda")
+    params = map_hf_weights(tcfg, sd, dtype, "cuda")
+    vt = "model.vision_tower.vision_model."
+    E, P, n = vcfg.hidden_size, vcfg.patch_size, vcfg.patches_per_side
+    shapes = {vt + "embeddings.patch_embedding.weight": (E, 3, P, P),
+              vt + "embeddings.patch_embedding.bias": (E,),
+              vt + "embeddings.position_embedding.weight": (n * n, E),
+              **siglip_layer_shapes(vt, vcfg.num_layers, E, vcfg.intermediate_size),
+              "model.multi_modal_projector.mm_soft_emb_norm.weight": (E,),
+              "model.multi_modal_projector.mm_input_projection_weight": (E, tcfg.hidden_size)}
+    vsd = draw_checkpoint(shapes, gen, dtype, tables=(vt + "embeddings.position_embedding.weight",))
+    vsd["model.multi_modal_projector.mm_soft_emb_norm.weight"].zero_()  # unit-offset norm
+    vparams = g3.map_siglip_weights(vcfg, vsd, dtype, "cuda")
+    del sd, vsd
+    return g3.Gemma3VLModel(tcfg, vcfg, params, vparams, image_token_id=hf["image_token_index"],
+                            mm_tokens_per_image=hf["mm_tokens_per_image"], dtype=dtype)
+
+
+def greedy_step_ms(programs, cfg, params, rope, cache, start: int):
+    """The ms of one ``greedy_decode_step`` (8 in a row after ``start``
+    tokens of ``cache``) as a graph replay and eagerly, and the graph run
+    (the first call, which captures, is not timed)."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models.modules.embeds_decode import greedy_decode_step
+
+    cur = torch.tensor([5], dtype=torch.int32, device="cuda")
+
+    def steps():
+        cache.lengths.fill_(start)
+        for _ in range(8):
+            greedy_decode_step(programs, cfg, params, rope, cache, cur)
+
+    steps()  # capture
+    graph = sync_ms(steps) / 8
+    with graphs.eager():
+        eager = sync_ms(steps) / 8
+    return graph, eager, steps
+
+
+def gemma3_replay(model, ids, pixels, toks):
+    """The eager path's logits that chose ``toks[i]``: the fresh prefill
+    (segments to K2), then ``toks[:i]`` decoded step by step."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    embeds, extra, seg = model.prompt_inputs(ids, pixels)
+    cfg, params = model.config, model.params
+
+    def logits_at(i):
+        with torch.no_grad():
+            cache = model.lm.init_cache(1, bucket_length(len(ids) + len(toks), floor=256))
+            logits, cache = model.prefill(cache, embeds, extra, seg, len(ids))
+            for t in toks[:i]:
+                hidden, cache = forward_hidden(
+                    cfg, params, torch.tensor([[t]], dtype=torch.int32, device="cuda"),
+                    cache, cache.lengths, model.rope)
+                logits = lm_logits(cfg, params, hidden)[:, 0]
+            return logits[0]
+    return logits_at
+
+
+def check_gemma3_vl() -> None:
+    """Gemma3-4B (GEMMA3_4B): image chat in bf16 on the card against
+    float32 on the CPU at GEMMA3_F32_TEXT_LAYERS / GEMMA3_F32_VISION_LAYERS
+    layers (every width kept), the prefill's last logits; then the whole
+    model in bf16: an image-chat generate whose fresh prefill passes the
+    image block's segments to K2, its decode steps as graphs against the
+    eager steps (the tie rule); the tower's, the prefill's and a decode
+    step's times."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models.causal_lm import GenerationConfig
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    hf = GEMMA3_4B
+    vc = hf["vision_config"]
+    pixels = random_pixels((1, 3, vc["image_size"], vc["image_size"]), 9)
+    span = [hf["boi_token_index"]] + [hf["image_token_index"]] * hf["mm_tokens_per_image"] \
+        + [hf["eoi_token_index"]]
+    ids = vlm_ids(30, 10, hf["text_config"]["vocab_size"], [span])
+    t0 = time.perf_counter()
+    gpu = gemma3_model(hf, 22, torch.float32, GEMMA3_F32_TEXT_LAYERS, GEMMA3_F32_VISION_LAYERS)
+    cpu_params = _tree(gpu.params, lambda t: t.cpu())
+    cpu_vparams = _tree(gpu.vision_params, lambda t: t.cpu())
+    bf16 = type(gpu)(gpu.config, gpu.vision_config, _tree(gpu.params, lambda t: t.to(torch.bfloat16)),
+                     _tree(gpu.vision_params, lambda t: t.to(torch.bfloat16)),
+                     image_token_id=gpu.image_token_id,
+                     mm_tokens_per_image=gpu.mm_tokens_per_image, dtype=torch.bfloat16)
+    cpu = type(gpu)(gpu.config, gpu.vision_config, cpu_params, cpu_vparams,
+                    image_token_id=gpu.image_token_id, mm_tokens_per_image=gpu.mm_tokens_per_image,
+                    dtype=torch.float32)
+    del gpu
+    logits = []
+    for model in (bf16, cpu):
+        embeds, extra, seg = model.prompt_inputs(ids, pixels)
+        logits.append(model.prefill(model.lm.init_cache(1, 512), embeds, extra, seg, len(ids))[0][0])
+    compare_logits("vlm", f"Gemma3-4B at {GEMMA3_F32_TEXT_LAYERS} text / "
+                          f"{GEMMA3_F32_VISION_LAYERS} SigLIP layers, image-chat prefill logits "
+                          f"({len(ids)} tokens), card bf16 vs cpu f32", *logits)
+    del bf16, cpu, cpu_params, cpu_vparams
+    torch.cuda.empty_cache()
+    log("vlm", f"Gemma3-4B check at the cut depth done in {time.perf_counter() - t0:.1f} s")
+
+    model = gemma3_model(hf, 23, torch.bfloat16)
+    before = k23.flash_attention_causal.segment_launches
+    toks = model.generate(ids, pixels=pixels, gen=GenerationConfig.greedy(16))
+    seg_launches = k23.flash_attention_causal.segment_launches - before
+    if seg_launches != model.config.num_layers:
+        raise AssertionError(f"Gemma3-4B's prefill launched K2 with segments {seg_launches} "
+                             f"times, not once a layer")
+    if len(toks) != 16 or not all(0 <= t < model.config.vocab_size for t in toks):
+        raise AssertionError(f"Gemma3-4B generated {toks}")
+    with graphs.eager():
+        eager = model.generate(ids, pixels=pixels, gen=GenerationConfig.greedy(16))
+    tie_at_first_difference("vlm", "Gemma3-4B bf16 image chat, 16 tokens, graphs vs eager",
+                            eager, toks, gemma3_replay(model, ids, pixels, eager))
+    vision_ms = sync_ms(lambda: model.encode_images(pixels))
+    embeds, extra, seg = model.prompt_inputs(ids, pixels)
+    cache = model.lm.init_cache(1, 512)
+    prefill_ms = sync_ms(lambda: model.prefill(cache, embeds, extra, seg, len(ids)))
+    step_ms, step_eager, steps = greedy_step_ms(model._programs, model.config, model.params,
+                                                model.rope, cache, len(ids))
+    log_busy("vlm", "Gemma3-4B bf16", "the image-chat prefill",
+             lambda: model.prefill(cache, embeds, extra, seg, len(ids)))
+    log_busy("vlm", "Gemma3-4B bf16", "8 graph decode steps", steps)
+    model.release_graphs()
+    log("vlm", f"Gemma3-4B bf16, {model.config.num_layers} layers + {model.vision_config.num_layers} "
+               f"SigLIP layers: vision tower {vision_ms:.2f} ms "
+               f"({model.vision_config.patches_per_side ** 2} patches -> "
+               f"{model.mm_tokens_per_image} tokens), "
+               f"image-chat prefill {prefill_ms:.2f} ms ({len(ids)} tokens, K2 with segments "
+               f"{seg_launches} launches), decode step {step_ms:.3f} ms as a graph vs "
+               f"{step_eager:.3f} ms eager; generate(16) {toks[:6]}...")
+
+
+class PageTokenizer(StandInTokenizer):
+    """The stand-in tokenizer with PaddleOCR-VL's special tokens: the
+    sentence start is id 1, ``</s>`` id 2 (the EOS)."""
+
+    SPECIAL = {"<|begin_of_sentence|>": 1, "</s>": 2}
+
+    def token_to_id(self, token: str):
+        return self.SPECIAL.get(token)
+
+
+def synthetic_page(seed: int):
+    """A white page (PADDLE_PAGE pixels, uint8 HWC) with dark lines of
+    seeded lengths, as a numpy array."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    h, w = PADDLE_PAGE
+    page = torch.full((h, w, 3), 255, dtype=torch.uint8)
+    for row in range(30, h - 30, 28):
+        n = int(torch.randint(w // 3, w - 40, (1,), generator=g))
+        page[row:row + 12, 20:20 + n] = torch.randint(0, 90, (12, n, 3), generator=g,
+                                                      dtype=torch.uint8)
+    return page.numpy()
+
+
+def paddle_replay(model, feats, ids, toks):
+    """The reference path's logits that chose ``toks[i]``: the embeds
+    prefill, then ``toks[:i]`` decoded."""
+    import torch
+    import torch.nn.functional as F
+
+    from crane_tpu_torch.models.modules.embeds_decode import embeds_prefill
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits, make_cache
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    lm = model.lm
+
+    def logits_at(i):
+        with torch.no_grad():
+            S = len(ids)
+            ids_t = torch.tensor(ids, device=lm.device).long()
+            embeds = lm.params["embed"][ids_t][None].to(model.dtype)
+            pos = (ids_t == model.image_token_id).nonzero()[:, 0]
+            embeds[0, pos] = feats.to(model.dtype)
+            embeds = F.pad(embeds, (0, 0, 0, bucket_length(S, floor=64) - S))
+            cache = make_cache(lm.config, 1, bucket_length(S + len(toks) + 1, floor=256),
+                               model.dtype, device=lm.device)
+            logits, cache = embeds_prefill(lm.config, lm.params, lm.rope, cache, embeds, S)
+            for t in toks[:i]:
+                hidden, cache = forward_hidden(
+                    lm.config, lm.params, torch.tensor([[t]], dtype=torch.int32, device=lm.device),
+                    cache, cache.lengths, lm.rope)
+                logits = lm_logits(lm.config, lm.params, hidden)[:, 0]
+            return logits[0]
+    return logits_at
+
+
+def check_paddleocr_vl() -> None:
+    """PaddleOCR-VL (PADDLEOCR_VL) at full size, random weights in its HF
+    layout mapped by ``map_navit_weights`` and ``map_hf_weights``, float32
+    on the card against float32 on the CPU: ``recognize`` of a synthetic
+    page (preprocessing, the NaViT tower, the spliced prefill over the
+    cache, PADDLE_NEW greedy steps, graphs on the card), its features and
+    token ids (the tie rule), and the card's graph steps against its eager
+    steps (the tie rule); the tower's, the prefill's and a decode step's
+    times."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import paddleocr_vl as po
+    from crane_tpu_torch.models.auto import map_hf_weights
+    from crane_tpu_torch.models.causal_lm import CausalLM
+    from crane_tpu_torch.models.init import hf_state_dict
+
+    hf = PADDLEOCR_VL
+    vcfg, tcfg = po.navit_config_from_hf(hf), po.text_config_from_hf(hf)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    E, I, P = vcfg.hidden_size, vcfg.intermediate_size, vcfg.patch_size
+    side = hf["vision_config"]["image_size"] // P
+    wide = vcfg.merge_unit * E
+    shapes = {"visual.vision_model.embeddings.patch_embedding.weight": (E, 3, P, P),
+              "visual.vision_model.embeddings.patch_embedding.bias": (E,),
+              "visual.vision_model.embeddings.position_embedding.weight": (side * side, E),
+              **siglip_layer_shapes("visual.vision_model.", vcfg.depth, E, I),
+              "mlp_AR.linear_1.weight": (wide, wide), "mlp_AR.linear_1.bias": (wide,),
+              "mlp_AR.linear_2.weight": (tcfg.hidden_size, wide),
+              "mlp_AR.linear_2.bias": (tcfg.hidden_size,)}
+    sd = draw_checkpoint(shapes, gen, torch.float32,
+                         tables=("visual.vision_model.embeddings.position_embedding.weight",))
+    sd.update(hf_state_dict(tcfg, gen, torch.float32))
+    v_sd, text_sd = po.split_state_dict(sd)
+    vparams = po.map_navit_weights(vcfg, v_sd, torch.float32, "cuda")
+    tparams = map_hf_weights(tcfg, text_sd, torch.float32, "cuda")
+    del sd, v_sd, text_sd
+    tok = PageTokenizer(tcfg.vocab_size)
+
+    def model(tp, vp):
+        lm = CausalLM(tcfg, tp, tokenizer=tok, eos_token_ids=(2,), dtype=torch.float32)
+        return po.PaddleOcrVL(lm, vcfg, vp, image_token_id=hf["image_token_id"],
+                              dtype=torch.float32)
+
+    gpu = model(tparams, vparams)
+    cpu = model(_tree(tparams, lambda t: t.cpu()), _tree(vparams, lambda t: t.cpu()))
+    page = synthetic_page(11)
+    patches, grid = po.preprocess_image(page)
+    t0 = time.perf_counter()
+    feats = [m.encode_patches(patches, grid) for m in (gpu, cpu)]
+    n = feats[0].shape[0]
+    check_f32("vlm", f"PaddleOCR-VL NaViT tower, a {PADDLE_PAGE[0]}x{PADDLE_PAGE[1]} page, "
+                     f"{patches.shape[0]} patches -> {n} tokens", *feats)
+    ids = gpu.build_prompt_ids(n, "ocr")
+    toks = [list(m.recognize_ids(f, ids, PADDLE_NEW)) for m, f in zip((gpu, cpu), feats)]
+    tie_at_first_difference("vlm", f"PaddleOCR-VL recognize, {PADDLE_NEW} tokens, card vs CPU",
+                            toks[1], toks[0], paddle_replay(cpu, feats[1], ids, toks[1]))
+    text = gpu.recognize(page, max_new_tokens=PADDLE_NEW)
+    if tok.ids(text) != [t for t in toks[0] if t != 2]:
+        raise AssertionError("PaddleOCR-VL recognize() disagrees with its own token ids")
+    with graphs.eager():
+        eager = list(gpu.recognize_ids(feats[0], ids, PADDLE_NEW))
+    tie_at_first_difference("vlm", f"PaddleOCR-VL recognize, {PADDLE_NEW} tokens, graphs vs "
+                                   f"eager on the card", eager, toks[0],
+                            paddle_replay(gpu, feats[0], ids, eager))
+    log("vlm", f"PaddleOCR-VL float32 check done in {time.perf_counter() - t0:.1f} s")
+    del cpu
+    vision_ms = sync_ms(lambda: gpu.encode_patches(patches, grid))
+    decode_ms = sync_ms(lambda: list(gpu.recognize_ids(feats[0], ids, PADDLE_NEW)))
+    lm = gpu.lm
+    step_ms, step_eager, steps = greedy_step_ms(gpu._programs, lm.config, lm.params, lm.rope,
+                                                lm.init_cache(1, 512), len(ids))
+    log_busy("vlm", "PaddleOCR-VL float32", "the NaViT tower",
+             lambda: gpu.encode_patches(patches, grid))
+    log_busy("vlm", "PaddleOCR-VL float32", "8 graph decode steps", steps)
+    gpu.release_graphs()
+    log("vlm", f"PaddleOCR-VL float32, {tcfg.num_layers} decoder layers + {vcfg.depth} NaViT "
+               f"layers: vision tower {vision_ms:.2f} ms ({patches.shape[0]} patches), prefill "
+               f"({len(ids)} tokens) + {PADDLE_NEW} greedy steps {decode_ms:.1f} ms, decode "
+               f"step {step_ms:.3f} ms as a graph vs {step_eager:.3f} ms eager; "
+               f"recognize: {text[:60]!r}...")
 
 
 def main() -> int:
@@ -3957,6 +4873,7 @@ def main() -> int:
     quant_rows += long_rows["quantized"]
     hybrid_rows += long_rows["hybrid"]
     family_rows = check_family_kernels()
+    slice_rows = check_slice_kernels()
     check_routed_configs()
     phase_done("kernels")
 
@@ -4081,11 +4998,46 @@ def main() -> int:
     no_plain_routes("moe path")
     log_moe_decode(lm_moe)
     del lm_moe
+    torch.cuda.empty_cache()
     phase_done("moe")
+
+    # Gemma 3n E4B through TextBackend: K1 at 8 / 2 heads of 256 with scale
+    # 1.0 and the window, on the shared layers over their source's cache
+    reset_counts()
+    lm_g3n = check_gemma3n_model()
+    check_gemma3n_http(lm_g3n)
+    read_launches("gemma3n path", slice_rows[:1], kernels.launch_counts())
+    no_plain_routes("gemma3n path")
+    del lm_g3n
+    torch.cuda.empty_cache()
+    phase_done("gemma3n")
+
+    # the vision-language models: Qwen3-VL (K3 prefill, K1 in decode-block
+    # graphs), Gemma3-VL (K2 with segments, K1), PaddleOCR-VL (K3, K1)
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    segment_launches = 0
+    for label, check, names in (
+            ("Qwen3-VL path", check_qwen3_vl, ("fp_decode_attention", "flash_attention_cached")),
+            ("Gemma3-VL path", check_gemma3_vl, ("fp_decode_attention", "flash_attention_causal")),
+            ("PaddleOCR-VL path", check_paddleocr_vl,
+             ("fp_decode_attention", "flash_attention_cached"))):
+        reset_counts()
+        check()
+        counts = kernels.launch_counts()
+        require_launched(label, counts, names)
+        no_plain_routes(label)
+        log("launches", f"{label}: K2 with segments "
+                        f"{k23.flash_attention_causal.segment_launches}")
+        segment_launches += k23.flash_attention_causal.segment_launches
+        torch.cuda.empty_cache()
+    # the K2 row at Gemma3-4B's heads reads its launches given segments
+    read_launches("vlm path", slice_rows[1:], {"flash_attention_causal": segment_launches})
+    phase_done("vlm")
     log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     rows += quant_rows + hybrid_rows + sp_rows + verify_rows + family_rows["lfm2"] \
-        + family_rows["moe"]
+        + family_rows["moe"] + slice_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,10 @@ hybrids (port of ``crane_tpu/models/auto.py``).
 
 ``config.json`` is authoritative for the family. HF stores linear weights
 ``[out, in]``; the port stores ``[in, out]`` as the reference does, so the
-forward is ``x @ w``. ``safetensors`` is imported inside the loader only: the
-machine with the card has none, and it runs on random weights.
+forward is ``x @ w``. Checkpoints load through
+:mod:`crane_tpu_torch.loaders.safetensors_loader`, which imports
+``safetensors`` inside its functions: the machine with the card has none,
+and it runs on random weights.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from crane_tpu_torch.loaders.safetensors_loader import load_state_dict
 from crane_tpu_torch.models.causal_lm import CausalLM
 from crane_tpu_torch.models.modules.gdn_layer import GdnConfig
 from crane_tpu_torch.models.modules.transformer import TransformerConfig
@@ -308,23 +311,6 @@ def read_eos_ids(model_dir: str) -> tuple[int, ...]:
                 continue
             return tuple(eos) if isinstance(eos, list) else (eos,)
     return ()
-
-
-def load_state_dict(model_dir: str) -> dict[str, torch.Tensor]:
-    """Every tensor of a single-file or sharded safetensors checkpoint."""
-    from safetensors.torch import load_file
-
-    index = os.path.join(model_dir, "model.safetensors.index.json")
-    if os.path.exists(index):
-        files = sorted(set(read_json(index)["weight_map"].values()))
-    else:
-        files = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no safetensors checkpoint under {model_dir}")
-    sd: dict[str, torch.Tensor] = {}
-    for f in files:
-        sd.update(load_file(os.path.join(model_dir, f)))
-    return sd
 
 
 def from_pretrained(

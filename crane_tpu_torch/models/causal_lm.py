@@ -29,7 +29,6 @@ as crane_tpu's gate says; any other config takes plain decoding.
 
 from __future__ import annotations
 
-import functools
 import time
 from typing import Sequence
 
@@ -48,10 +47,6 @@ from crane_tpu_torch.models.modules.transformer import (
 )
 from crane_tpu_torch.ops.kv_cache import KVCache
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
-
-# block inputs that the block also writes, copied back to the caller's
-# tensors after a graph replay
-_IN_OUT = ("lengths", "recent", "history")
 
 
 def _greedy_accept(logits: torch.Tensor, tokens: torch.Tensor):
@@ -138,6 +133,10 @@ def prompt_ids_error(ids, vocab_size: int) -> str | None:
 class CausalLM:
     """A loaded model: static config + parameter tree + step functions."""
 
+    # the slab devices of a sequence-parallel model (parallel/sequence.py);
+    # none for one device
+    mesh: tuple = ()
+
     def __init__(
         self,
         config: TransformerConfig,
@@ -223,8 +222,8 @@ class CausalLM:
     # -- decode blocks -------------------------------------------------------
     # Each block is one function of tensors (the ``_*_body`` methods below):
     # it reads its inputs, writes its outputs and the in/out state in place,
-    # and closes over the cache layers. On the card ``_dispatch`` runs it as
-    # a CUDA graph program (``models/graphs.py``), elsewhere eagerly.
+    # and closes over the cache layers. On the card ``graphs.dispatch`` runs
+    # it as a CUDA graph program, elsewhere eagerly.
 
     def _mask(self, active, batch: int) -> torch.Tensor:
         """``active`` as a device bool ``[B]`` (``None``: every row)."""
@@ -233,46 +232,6 @@ class CausalLM:
         if isinstance(active, torch.Tensor):
             return active.to(device=self.device, dtype=torch.bool)
         return torch.as_tensor(np.asarray(active, bool), device=self.device)
-
-    def _dispatch(self, kind: str, body, cache: KVCache, inputs: dict, outputs: dict,
-                  generator=None, copy_out: bool = True, **static) -> dict:
-        """Run block ``body`` over ``cache``: ``inputs`` are read (and its
-        ``lengths``, ``recent`` and ``history`` written back in place),
-        ``outputs`` (name -> shape, dtype) come back as fresh tensors (with
-        ``copy_out=False`` on the card: the program's static outputs, which
-        its next replay overwrites).
-
-        On the card this is one replay of a CUDA graph program keyed, as a
-        jit is, by ``kind``, the ``static`` sizes, the generator, the cache
-        layers' buffers (address and shape) and the inputs' shapes; the
-        first call of a key captures it, and the program holds the
-        generator and the layers. Elsewhere (and under ``graphs.eager()``)
-        the body runs eagerly on the caller's tensors."""
-        fn = functools.partial(body, layers=cache.layers, **static)
-        if generator is not None:
-            fn = functools.partial(fn, generator=generator)
-        if not graphs.takes_graphs(self):
-            outs = {name: torch.empty(shape, dtype=dt, device=self.device)
-                    for name, (shape, dt) in outputs.items()}
-            fn(**inputs, **outs)
-            return outs
-        key = (kind, tuple(sorted(static.items())), id(generator),
-               tuple((t.data_ptr(), tuple(t.shape)) for layer in cache.layers
-                     for t in layer.tensors()),
-               tuple((name, tuple(t.shape), t.dtype) for name, t in sorted(inputs.items())))
-        program = self._programs.get(key)
-        if program is None:
-            statics = {name: t.clone() for name, t in inputs.items()}
-            statics.update({name: torch.empty(shape, dtype=dt, device=self.device)
-                            for name, (shape, dt) in outputs.items()})
-            program = self._programs[key] = graphs.Program(fn, statics, generator,
-                                                           keep=cache.layers)
-        res = program(**inputs)
-        for name in _IN_OUT:
-            if name in inputs:
-                inputs[name].copy_(res[name])
-        # the next replay overwrites the static outputs
-        return {name: res[name].clone() if copy_out else res[name] for name in outputs}
 
     def release_graphs(self) -> None:
         """Drop the captured programs, their graphs' memory pools and the
@@ -404,9 +363,10 @@ class CausalLM:
                       active=self._mask(active, B), **vars(sp))
         if history is not None:
             inputs["history"] = history
-        out = self._dispatch("decode", self._decode_body, cache, inputs,
-                             {"out": ((B, n_steps), torch.int32)}, generator,
-                             copy_out=copy_out, n_steps=n_steps)["out"]
+        out = graphs.dispatch(self._programs, self.device, "decode", self._decode_body, cache,
+                              inputs, {"out": ((B, n_steps), torch.int32)},
+                              generator=generator, copy_out=copy_out, mesh=self.mesh,
+                              n_steps=n_steps)["out"]
         return out, cache, recent, history
 
     @torch.no_grad()
@@ -424,9 +384,9 @@ class CausalLM:
         toks = self._ids(tokens)
         B, S = toks.shape
         inputs = dict(tokens=toks, lengths=cache.lengths, active=self._mask(active, B))
-        res = self._dispatch("verify", self._verify_body, cache, inputs,
-                             {"model_tok": ((B, S), torch.int32),
-                              "n_accept": ((B,), torch.int32)})
+        res = graphs.dispatch(self._programs, self.device, "verify", self._verify_body, cache,
+                              inputs, {"model_tok": ((B, S), torch.int32),
+                                       "n_accept": ((B,), torch.int32)}, mesh=self.mesh)
         return res["model_tok"], res["n_accept"], cache
 
     @torch.no_grad()
@@ -451,10 +411,10 @@ class CausalLM:
         sequential greedy decoding. Lengths and ``history`` roll in place."""
         B = history.shape[0]
         inputs = dict(lengths=cache.lengths, history=history, active=self._mask(active, B))
-        res = self._dispatch("spec", self._spec_body, cache, inputs,
-                             {"out_tok": ((n_rounds, B, k + 1), torch.int32),
-                              "out_acc": ((n_rounds, B), torch.int32)},
-                             n_rounds=n_rounds, k=k, ngram_n=ngram_n)
+        res = graphs.dispatch(self._programs, self.device, "spec", self._spec_body, cache,
+                              inputs, {"out_tok": ((n_rounds, B, k + 1), torch.int32),
+                                       "out_acc": ((n_rounds, B), torch.int32)},
+                              mesh=self.mesh, n_rounds=n_rounds, k=k, ngram_n=ngram_n)
         return res["out_tok"], res["out_acc"], cache, history
 
     def _generate_cache(self, max_seq: int, quant_bits: int | None):

@@ -8,13 +8,13 @@ a few thousand a step, and the card idles most of the step. Here such a
 block is captured once into a ``torch.cuda.CUDAGraph`` and replayed, so one
 block is one dispatch, as one ``lax.scan`` is.
 
-A :class:`Program` is keyed the way a jit is (:meth:`CausalLM._dispatch`):
+A :class:`Program` is keyed the way a jit is (:func:`dispatch`):
 by program kind, batch, the block's static sizes, the generator and the
 identity (``data_ptr`` and shape) of the cache's layer buffers, which the
 graph reads and writes in place. The program holds the generator and the
 layers, so no other generator or buffer can take their identity while it
-lives; it lives, with its graph's memory pool, until
-:meth:`CausalLM.release_graphs`. Every other tensor
+lives; it lives, with its graph's memory pool, until its model drops it
+(``release_graphs``). Every other tensor
 the block reads is a static buffer of the program: before each replay the
 caller's values are copied in (stream-ordered ``copy_``), and after it the
 results are read out of the static buffers.
@@ -28,8 +28,9 @@ results are read out of the static buffers.
 - **Random numbers.** Sampling draws from the caller's ``torch.Generator``,
   registered with the graph (``CUDAGraph.register_generator_state``), so
   each replay advances it as the eager loop would.
-- **Launch counts.** The kernels' counters (``ops.cuda.launch_counts``) and
-  ``attention_block.plain_routes`` are Python integers: a capture would
+- **Launch counts.** The kernels' counters (``ops.cuda.launch_counts``,
+  and K2's launches given segments) and ``attention_block.plain_routes``
+  are Python integers: a capture would
   count its launches once and a replay never. The counts are restored to
   what they were before the warm-up, the capture's change is recorded, and
   every replay adds it, so the counts after N replays equal the eager
@@ -45,12 +46,17 @@ results are read out of the static buffers.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
 
 from crane_tpu_torch.models.modules.transformer import attention_block
 from crane_tpu_torch.ops import cuda as kernels
+from crane_tpu_torch.ops.cuda.flash_attention import flash_attention_causal
+
+# inputs a block writes back in place (its other outputs come back fresh)
+IN_OUT = ("lengths", "recent", "history")
 
 # graphs captured in this process (the engine's warmup must leave none to
 # capture while serving)
@@ -71,30 +77,41 @@ def eager():
         _local.eager = prev
 
 
-def takes_graphs(lm) -> bool:
-    """True when ``lm``'s decode blocks run as CUDA graphs: a model on a
-    CUDA device whose slab devices (a sequence-parallel model's) are all its
-    own, outside :func:`eager`."""
-    if lm.device.type != "cuda" or getattr(_local, "eager", False):
+def takes_graphs(device: torch.device, mesh=()) -> bool:
+    """True when decode blocks on ``device`` run as CUDA graphs: a CUDA
+    device whose slab devices ``mesh`` (a sequence-parallel model's) are all
+    itself, outside :func:`eager`."""
+    if device.type != "cuda" or getattr(_local, "eager", False):
         return False
-    return all(torch.device(d) == lm.device for d in getattr(lm, "mesh", (lm.device,)))
+    return all(torch.device(d) == device for d in mesh)
+
+
+# K2's launches given segments (``flash_attention_causal.segment_launches``),
+# carried as one more entry of the launch counts here
+SEGMENTS = "flash_attention_causal given segments"
 
 
 def counts() -> tuple[dict[str, int], dict[str, int]]:
-    """The kernels' launch counts and the attention router's plain-route
-    counts."""
-    return kernels.launch_counts(), dict(attention_block.plain_routes)
+    """The kernels' launch counts (with :data:`SEGMENTS`) and the attention
+    router's plain-route counts."""
+    launches = kernels.launch_counts()
+    launches[SEGMENTS] = flash_attention_causal.segment_launches
+    return launches, dict(attention_block.plain_routes)
 
 
 def set_counts(launches: dict[str, int], routes: dict[str, int]) -> None:
     """Set both counters to what :func:`counts` gave."""
+    launches = dict(launches)
     kernels.reset_launch_counts()
+    flash_attention_causal.segment_launches = launches.pop(SEGMENTS)
     kernels.add_launch_counts(launches)
     attention_block.plain_routes.update(routes)
 
 
 def add_counts(launches: dict[str, int], routes: dict[str, int]) -> None:
     """Add to both counters (a replay adds its capture's counts)."""
+    launches = dict(launches)
+    flash_attention_causal.segment_launches += launches.pop(SEGMENTS, 0)
     kernels.add_launch_counts(launches)
     for kind, n in routes.items():
         attention_block.plain_routes[kind] += n
@@ -166,3 +183,45 @@ class Program:
         self.graph.replay()
         add_counts(self.launches, self.routes)
         return self.statics
+
+
+def dispatch(programs: dict, device: torch.device, kind: str, body, cache, inputs: dict,
+             outputs: dict, *, generator=None, copy_out: bool = True, mesh=(),
+             **static) -> dict:
+    """Run block ``body`` over ``cache`` on ``device``: ``inputs`` are read
+    (and those named in :data:`IN_OUT` written back in place), ``outputs``
+    (name -> shape, dtype) come back as fresh tensors (with
+    ``copy_out=False`` on the card: the program's static outputs, which its
+    next replay overwrites).
+
+    On the card (:func:`takes_graphs`) this is one replay of a
+    :class:`Program` kept in the model's ``programs`` dict and keyed, as a
+    jit is, by ``kind``, the ``static`` sizes, the generator, the cache
+    layers' buffers (address and shape) and the inputs' shapes; the first
+    call of a key captures it, and the program holds the generator and the
+    layers. Elsewhere (and under :func:`eager`) the body runs eagerly on
+    the caller's tensors."""
+    fn = functools.partial(body, layers=cache.layers, **static)
+    if generator is not None:
+        fn = functools.partial(fn, generator=generator)
+    if not takes_graphs(device, mesh):
+        outs = {name: torch.empty(shape, dtype=dt, device=device)
+                for name, (shape, dt) in outputs.items()}
+        fn(**inputs, **outs)
+        return outs
+    key = (kind, tuple(sorted(static.items())), id(generator),
+           tuple((t.data_ptr(), tuple(t.shape)) for layer in cache.layers
+                 for t in layer.tensors()),
+           tuple((name, tuple(t.shape), t.dtype) for name, t in sorted(inputs.items())))
+    program = programs.get(key)
+    if program is None:
+        statics = {name: t.clone() for name, t in inputs.items()}
+        statics.update({name: torch.empty(shape, dtype=dt, device=device)
+                        for name, (shape, dt) in outputs.items()})
+        program = programs[key] = Program(fn, statics, generator, keep=cache.layers)
+    res = program(**inputs)
+    for name in IN_OUT:
+        if name in inputs:
+            inputs[name].copy_(res[name])
+    # the next replay overwrites the static outputs
+    return {name: res[name].clone() if copy_out else res[name] for name in outputs}

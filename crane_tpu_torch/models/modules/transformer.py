@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from crane_tpu_torch.models.modules.gdn_layer import gdn_block
+from crane_tpu_torch.ops.attention import gqa_attention
 from crane_tpu_torch.ops.cuda import ATTENTION_KINDS, attention_kernel_takes
 from crane_tpu_torch.ops.cuda.decode_attention import (
     fp_decode_attention,
@@ -335,6 +336,8 @@ def attention_block(
     read_cache: bool = True,
     cache_row: int | None = None,
     use_local_rope: bool = False,
+    extra_mask: torch.Tensor | None = None,
+    segments: torch.Tensor | None = None,
 ):
     """GQA attention with QK-norm, RoPE, the KV-cache append and the
     optional sigmoid output gate.
@@ -347,6 +350,16 @@ def attention_block(
     carries ``[query | gate]`` per head; the attention output is multiplied
     by ``sigmoid(gate)`` before the output projection. The cache is written
     in place. Returns (out ``[B, S, E]``, layer cache).
+
+    ``extra_mask [B, S, T']`` is OR'd with the causal mask (Gemma3-VL's
+    bidirectional image blocks). ``segments [B, S]`` int32 is the same mask
+    in compact form (a key and a query in one positive segment see each
+    other), and a caller that passes it passes the ``extra_mask`` it
+    stands for: a fresh prefill then takes K2 with the segments, as
+    crane_tpu's flash route does. An ``extra_mask`` without ``segments``
+    (or over the cache) goes to the plain :func:`gqa_attention`, as in
+    crane_tpu, and counts in ``plain_routes``. The route follows the
+    arguments, never a failed launch.
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -384,9 +397,16 @@ def attention_block(
     def route(kernel, plain):
         return attention_route(kind, kernel, plain, D, H, Hkv)
 
-    if not read_cache:
+    if extra_mask is not None and (read_cache or segments is None):
+        attention_block.plain_routes[kind] += 1
+        kc, vc = (k, v) if not read_cache else (
+            new_cache.dequant(x.dtype) if isinstance(new_cache, QuantLayerKVCache)
+            else (new_cache.k, new_cache.v))
+        out = gqa_attention(q, kc, vc, positions, scale=scale, window=window,
+                            logit_softcap=softcap, extra_mask=extra_mask)
+    elif not read_cache:
         out = route(flash_attention_causal, flash_attention_causal_plain)(
-            q, k, v, scale=scale, window=window, softcap=softcap)
+            q, k, v, segments, scale=scale, window=window, softcap=softcap)
     elif isinstance(new_cache, SequenceShardedKVCache):
         # only full-attention layers shard (a sliding window's KV is bounded)
         if window is not None:
@@ -485,6 +505,8 @@ def decoder_layer(
     cache_row: int | None = None,
     active: torch.Tensor | None = None,
     true_lengths: torch.Tensor | None = None,
+    extra_mask: torch.Tensor | None = None,
+    segments: torch.Tensor | None = None,
 ):
     ltype = cfg.layer_type(layer_idx)
 
@@ -513,6 +535,7 @@ def decoder_layer(
             window=cfg.sliding_window if ltype == "sliding" else None,
             read_cache=read_cache, cache_row=cache_row,
             use_local_rope=(ltype == "sliding" and cfg.rope_local_theta is not None),
+            extra_mask=extra_mask, segments=segments,
         )
     if cfg.sandwich_norms:
         x = x + nrm(attn_out, p["post_attn_ln"])
@@ -535,6 +558,11 @@ def forward_hidden(
     cache_row: int | None = None,
     active: torch.Tensor | None = None,
     true_lengths: torch.Tensor | None = None,
+    inputs_embeds: torch.Tensor | None = None,
+    rope_embeds: dict | None = None,
+    deepstack: tuple | None = None,
+    extra_mask: torch.Tensor | None = None,
+    segments: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Token ids ``[B, S]`` -> final hidden states ``[B, S, E]`` + cache.
 
@@ -546,6 +574,16 @@ def forward_hidden(
     row of a bucket-padded prefill; GDN layers keep the pad steps out of
     their state (attention masks them by position). Buffers are written in
     place; the returned cache shares them and carries the advanced lengths.
+
+    The multimodal hooks, as in crane_tpu: ``inputs_embeds [B, S, E]``
+    replaces the embedding lookup (VLM and audio splices); ``rope_embeds``
+    (``{"cos", "sin"}`` per token, ``[B, S, R / 2]``) replaces the table
+    lookup (MRoPE); ``deepstack`` = (mask ``[B, S]`` bool, embeds
+    ``[n, n_visual, E]``) adds visual features at the masked positions
+    after each of the first n layers (Qwen3-VL DeepStack; the mask is read
+    on the host, so it belongs to a prefill, never to a captured block);
+    ``extra_mask`` and ``segments`` go to every attention layer
+    (:func:`attention_block`).
     """
     B, S = tokens.shape
     device = tokens.device
@@ -563,19 +601,25 @@ def forward_hidden(
         positions = (steps + write_pos)[None, :].expand(B, S).contiguous()
         new_lengths = cache.lengths + S
 
-    idx = positions.long()
-    rope_embeds = {name: table[idx] for name, table in rope.items()}
-    x = params["embed"][tokens.long()]
+    if rope_embeds is None:
+        idx = positions.long()
+        rope_embeds = {name: table[idx] for name, table in rope.items()}
+    x = params["embed"][tokens.long()] if inputs_embeds is None else inputs_embeds
     if cfg.embed_scale is not None:
         x = (x.float() * cfg.embed_scale).to(x.dtype)
+    if deepstack is not None:
+        visual = deepstack[0].nonzero(as_tuple=True)
 
     new_layers = list(cache.layers)
     for i in range(cfg.num_layers):
         x, new_layers[i] = decoder_layer(
             cfg, params["layers"][i], x, cache.layers[i], positions, write_pos,
             rope_embeds, layer_idx=i, read_cache=read_cache, cache_row=cache_row,
-            active=active, true_lengths=true_lengths,
+            active=active, true_lengths=true_lengths, extra_mask=extra_mask,
+            segments=segments,
         )
+        if deepstack is not None and i < deepstack[1].shape[0]:
+            x = x.index_put(visual, deepstack[1][i].to(x.dtype), accumulate=True)
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_norm_eps,
                  weight_offset=cfg.norm_weight_offset)
     return x, KVCache(layers=tuple(new_layers), lengths=new_lengths)

@@ -5,7 +5,9 @@ plain PyTorch counterpart on a CPU tensor, and counts its launches in a
 plain attribute ``launches``, so a run can show that the main path went
 through the kernels. The quantized kernels count per bit width
 (``launches`` is a dict, ``{"w8": n, "w4": n}`` or ``{"kv8": n, "kv4": n}``),
-so a run can show each variant was launched. A with-stats form (K1-S, K3-S,
+so a run can show each variant was launched; K2 also counts its launches
+given ``segments`` (``flash_attention_causal.segment_launches``, reset with
+the others). A with-stats form (K1-S, K3-S,
 K4-S, K5-S) shares its kernel's launch path but counts on its own wrapper.
 A launch captured into a CUDA graph counts once for each replay of the
 graph (:func:`add_launch_counts`), so the counts read the same as the eager
@@ -90,6 +92,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    flash_attention_causal.segment_launches = 0
     for name, fn in KERNELS.items():
         v = _variant(name)
         if v is None:

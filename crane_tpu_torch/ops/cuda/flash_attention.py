@@ -166,6 +166,8 @@ def flash_attention_causal(
     build.require_cuda("flash_attention_causal", *tensors)
     out = _launch(q, k, v, None, segments, S, scale, window, softcap)
     flash_attention_causal.launches += 1
+    if segments is not None:
+        flash_attention_causal.segment_launches += 1
     return out
 
 
@@ -232,5 +234,7 @@ def mma_kernel_info(head_dim: int) -> dict[str, int]:
 
 
 flash_attention_causal.launches = 0
+# of those, the launches given segments (Gemma3-VL's image blocks)
+flash_attention_causal.segment_launches = 0
 flash_attention_cached.launches = 0
 flash_attention_cached_with_stats.launches = 0

@@ -70,3 +70,30 @@ def apply_rope(
     half-width tables ``[max_pos, R/2]`` (``R <= D``)."""
     idx = positions.long()
     return apply_rope_embeds(x, cos[idx], sin[idx], mode=mode)
+
+
+def mrope_cos_sin(
+    positions3: torch.Tensor,
+    rot_dim: int,
+    mrope_section: tuple[int, int, int],
+    *,
+    theta: float = 10000.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved multimodal RoPE tables from 3-D (T, H, W) positions.
+
+    positions3 ``[3, B, S]`` (a tensor on the model's device, so a captured
+    decode block derives it from the cache's lengths with no host integer)
+    -> (cos, sin) each ``[B, S, rot_dim / 2]`` float32. Frequency column i
+    belongs to H when ``i % 3 == 1 and i < 3 * sec_h``, to W when
+    ``i % 3 == 2 and i < 3 * sec_w``, else to T (HF Qwen3VL
+    ``apply_interleaved_mrope``). Where the three streams are equal this is
+    standard RoPE."""
+    device = positions3.device
+    half = rot_dim // 2
+    freqs = positions3[..., None].float() * inv_frequencies(rot_dim, theta, device)
+    _, sec_h, sec_w = mrope_section
+    idx = torch.arange(half, device=device)
+    own_h = (idx % 3 == 1) & (idx < 3 * sec_h)
+    own_w = (idx % 3 == 2) & (idx < 3 * sec_w)
+    mixed = torch.where(own_h, freqs[1], torch.where(own_w, freqs[2], freqs[0]))
+    return torch.cos(mixed), torch.sin(mixed)

@@ -75,9 +75,6 @@ class Server:
         reference serves every model via ModelBackend + concurrency cap,
         backend.rs:220-223) — chat/completions then route through it."""
         assert engine is not None or text_backend is not None
-        if vlm is not None:
-            raise NotImplementedError(
-                "image chat (a vision-language model) is not ported yet (ROADMAP Queue 1 item 9)")
         self.engine = engine
         self.text_backend = text_backend
         self.model_name = model_name
@@ -95,8 +92,10 @@ class Server:
 
         self.tts = tts
         self.asr = asr
+        self.vlm = vlm
         self._tts_pool = concurrent.futures.ThreadPoolExecutor(1, "tts")
         self._asr_pool = concurrent.futures.ThreadPoolExecutor(1, "asr")
+        self._vlm_pool = concurrent.futures.ThreadPoolExecutor(1, "vlm")
 
     # -- request plumbing ----------------------------------------------------
     async def _stream_responses(self, q):
@@ -425,8 +424,116 @@ class Server:
             **kw,
         )
 
+    @staticmethod
+    def _has_image_parts(messages) -> bool:
+        return any(
+            isinstance(m.get("content"), list)
+            and any(p.get("type") == "image_url" for p in m["content"])
+            for m in messages
+        )
+
+    def _decode_image(self, url: str):
+        """A ``data:`` image URL -> a PIL image (PIL is imported here only:
+        the machine with the card has none)."""
+        import base64
+        import io
+
+        from PIL import Image
+
+        if url.startswith("data:"):
+            b64 = url.split(",", 1)[1]
+            return Image.open(io.BytesIO(base64.b64decode(b64)))
+        raise ValueError("only data: image URLs are supported (zero-egress server)")
+
+    def _vlm_generate_sync(self, messages, max_tokens, streamer=None):
+        """Render a ChatML prompt by hand with N image pads per image
+        (reference vlm.rs:311-344), splice, and greedy-decode."""
+        from crane_tpu_torch.models.image_processing import preprocess_image
+
+        vc = self.vlm.vision_config
+        images, meta = [], []
+        for m in messages:
+            if not isinstance(m.get("content"), list):
+                continue
+            for part in m["content"]:
+                if part.get("type") == "image_url":
+                    img = self._decode_image(part["image_url"]["url"])
+                    patches, grid = preprocess_image(
+                        img, patch_size=vc.patch_size,
+                        merge_size=vc.spatial_merge_size,
+                        temporal_patch_size=vc.temporal_patch_size,
+                    )
+                    images.append((patches, grid))
+                    meta.append(grid[0] * (grid[1] // vc.spatial_merge_size)
+                                * (grid[2] // vc.spatial_merge_size))
+        parts, img_i = [], 0
+        for m in messages:
+            c = m.get("content")
+            if isinstance(c, list):
+                text = ""
+                for part in c:
+                    if part.get("type") == "image_url":
+                        text += ("<|vision_start|>" + "<|image_pad|>" * meta[img_i]
+                                 + "<|vision_end|>")
+                        img_i += 1
+                    else:
+                        text += part.get("text", "")
+            else:
+                text = c
+            parts.append(f"<|im_start|>{m['role']}\n{text}<|im_end|>\n")
+        prompt = "".join(parts) + "<|im_start|>assistant\n"
+        ids = self.vlm.tokenizer.encode(prompt)
+        from crane_tpu_torch.generation.config import GenerationConfig
+        from crane_tpu_torch.generation.streamer import CollectStreamer
+
+        st = streamer or CollectStreamer(self.vlm.tokenizer)
+        gen = GenerationConfig.greedy(max_tokens, eos_token_ids=tuple(self.vlm.eos_token_ids))
+        n = len(self.vlm.generate(ids, images=images, gen=gen, streamer=st))
+        text = st.text if streamer is None else ""
+        return text, len(ids), n
+
+    async def _vlm_chat(self, request, payload):
+        loop = asyncio.get_running_loop()
+        max_tokens = int(payload.get("max_tokens") or 512)
+        if payload.get("stream"):
+            from crane_tpu_torch.serve.backend import LoopStreamer
+
+            st = LoopStreamer(self.vlm.tokenizer, loop)
+
+            def run():
+                try:
+                    self._vlm_generate_sync(payload["messages"], max_tokens, st)
+                except BaseException as e:  # surfaced to the SSE consumer
+                    st.fail(e)
+
+            self._vlm_pool.submit(run)
+            return await self._sse_from_streamer(request, f"req-{uuid.uuid4().hex[:16]}", st)
+        try:
+            text, n_prompt, n_gen = await loop.run_in_executor(
+                self._vlm_pool, self._vlm_generate_sync, payload["messages"], max_tokens)
+        except Exception as e:
+            return web.json_response({"error": {"message": str(e)}}, status=400)
+        return web.json_response({
+            "id": f"req-{uuid.uuid4().hex[:16]}",
+            "object": "chat.completion",
+            "created": int(time.time()),
+            "model": self.model_name,
+            "choices": [{
+                "index": 0,
+                "message": {"role": "assistant", "content": text},
+                "finish_reason": "stop",
+            }],
+            "usage": {
+                "prompt_tokens": n_prompt,
+                "completion_tokens": n_gen,
+                "total_tokens": n_prompt + n_gen,
+            },
+        })
+
     async def chat_completions(self, request):
         payload = await request.json()
+        if self.vlm is not None and self._has_image_parts(payload.get("messages", [])):
+            return await self._vlm_chat(request, payload)
         try:
             prompt = self._render_chat(payload)
         except Exception as e:  # template errors -> 400
@@ -656,7 +763,9 @@ def main(argv=None):
     """``python -m crane_tpu_torch.serve --model-path <dir | file.gguf>``:
     load the model onto ``--device`` (the card by default; ``cpu`` only when
     asked), warm the engine up, start its thread and serve until
-    interrupted."""
+    interrupted. A Gemma3n checkpoint is served through ``TextBackend``
+    instead of the engine; ``--vlm-path`` adds a Qwen3-VL model for chat
+    requests with images."""
     import argparse
 
     import torch
@@ -700,7 +809,7 @@ def main(argv=None):
                     help="sequence-parallel degree: shard the KV cache's "
                     "sequence axis over the first N devices (contexts too "
                     "long for one card's memory; composes with --kv-quant)")
-    ap.add_argument("--vlm-path", default=None, help="Qwen3-VL checkpoint (not ported yet)")
+    ap.add_argument("--vlm-path", default=None, help="Qwen3-VL checkpoint for image chat")
     ap.add_argument("--tts-path", default=None, help="codec-TTS checkpoint (not ported yet)")
     ap.add_argument("--asr-path", default=None, help="ASR checkpoint (not ported yet)")
     args = ap.parse_args(argv)
@@ -708,8 +817,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     if args.tp > 1 or args.dp > 1:
         _not_ported("tensor- and data-parallel serving (--tp/--dp)", 12)
-    if args.vlm_path:
-        _not_ported("image chat (--vlm-path)", 9)
     if args.asr_path:
         _not_ported("speech recognition (--asr-path)", 10)
     if args.tts_path:
@@ -721,44 +828,65 @@ def main(argv=None):
     from crane_tpu_torch.utils.hub import resolve_checkpoint
 
     args.model_path = resolve_checkpoint(args.model_path)
+    lm = engine = backend = None
     if args.model_path.endswith(".gguf"):
         from crane_tpu_torch.loaders.gguf_model import from_gguf
 
         lm = from_gguf(args.model_path, dtype=dtype, device=args.device)
     else:
-        from crane_tpu_torch.models.auto import from_pretrained, load_hf_config
+        from crane_tpu_torch.models.auto import from_pretrained
+        from crane_tpu_torch.models.factory import detect_model_type
 
-        if load_hf_config(args.model_path).get("model_type") in ("gemma3n", "gemma3n_text"):
-            _not_ported("gemma3n (served through TextBackend)", 8)
-        lm = from_pretrained(args.model_path, dtype=dtype, device=args.device,
-                             quant_bits=quant_bits)
-    if args.sp > 1:
+        if detect_model_type(args.model_path) in ("gemma3n", "gemma3n_text"):
+            # bespoke forward (AltUp/PLE/KV-sharing): served via the capped
+            # TextBackend instead of the slot engine (backend.rs:220-223)
+            from crane_tpu_torch.models.auto import read_eos_ids
+            from crane_tpu_torch.models.gemma3n import from_pretrained as g3n
+            from crane_tpu_torch.serve.backend import TextBackend
+            from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
+
+            model = g3n(args.model_path, dtype=dtype, max_seq=args.max_seq_len,
+                        device=args.device)
+            backend = TextBackend(model, AutoTokenizer.from_pretrained(args.model_path),
+                                  eos_token_ids=read_eos_ids(args.model_path), name="gemma3n")
+        else:
+            lm = from_pretrained(args.model_path, dtype=dtype, device=args.device,
+                                 quant_bits=quant_bits)
+    if lm is not None and args.sp > 1:
         # sequence-parallel serving: KV sequence axis sharded over sp
         # devices — max_seq_len beyond one card's memory (parallel/sequence.py)
         from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm
 
         devices = [args.device] * args.sp if lm.device.type == "cpu" else None
         lm = sp_shard_lm(lm, make_sp_mesh(args.sp, devices))
-    engine = InferenceEngine(
-        lm,
-        max_slots=args.max_concurrent,
-        max_seq_len=args.max_seq_len,
-        decode_tokens_per_seq=args.decode_tokens_per_seq,
-        kv_quant_bits={"int8": 8, "int4": 4}.get(args.kv_quant),
-        preempt_after_s=args.preempt_after if args.preempt_after > 0 else None,
-        prefill_chunk=args.prefill_chunk if args.prefill_chunk > 0 else None,
-        speculative=args.speculative,
-        prefix_cache=not args.no_prefix_cache,
-    )
-    log.info("warming up (kernels and decode-block graphs)...")
-    engine.warmup()
-    engine.start()
+    if lm is not None:
+        engine = InferenceEngine(
+            lm,
+            max_slots=args.max_concurrent,
+            max_seq_len=args.max_seq_len,
+            decode_tokens_per_seq=args.decode_tokens_per_seq,
+            kv_quant_bits={"int8": 8, "int4": 4}.get(args.kv_quant),
+            preempt_after_s=args.preempt_after if args.preempt_after > 0 else None,
+            prefill_chunk=args.prefill_chunk if args.prefill_chunk > 0 else None,
+            speculative=args.speculative,
+            prefix_cache=not args.no_prefix_cache,
+        )
+    vlm = None
+    if args.vlm_path:
+        from crane_tpu_torch.models.qwen3_vl import load_qwen3_vl
+
+        vlm = load_qwen3_vl(args.vlm_path, dtype=dtype, device=args.device)
+    if engine is not None:
+        log.info("warming up (kernels and decode-block graphs)...")
+        engine.warmup()
+        engine.start()
     name = args.model_name or args.model_path.rstrip("/").split("/")[-1]
-    server = Server(engine, model_name=name)
+    server = Server(engine, model_name=name, vlm=vlm, text_backend=backend)
     try:
         web.run_app(build_app(server), host=args.host, port=args.port)
     finally:
-        engine.stop()
+        if engine is not None:
+            engine.stop()
 
 
 if __name__ == "__main__":

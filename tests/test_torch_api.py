@@ -519,7 +519,6 @@ class TestBackendServing:
 REFUSED = [
     (["--tp", "2"], "item 12"),
     (["--dp", "2"], "item 12"),
-    (["--vlm-path", "v"], "item 9"),
     (["--asr-path", "a"], "item 10"),
     (["--tts-path", "t"], "item 11"),
 ]
@@ -580,19 +579,203 @@ def test_main_wires_the_engine_flags(ckpt, name, monkeypatch):
     assert status == 200 and json.loads(body)["usage"]["completion_tokens"] == CHAT["max_tokens"]
 
 
-def test_main_refuses_gemma3n(tmp_path):
-    from crane_tpu_torch.serve.api import main
+def _tiny_gemma3n(dirpath) -> str:
+    """A random-weight Gemma3n checkpoint (tests/test_gemma3n.py's widths)
+    with the trained tiny tokenizer."""
+    import transformers
 
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gemma3n"}))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["--model-path", str(tmp_path), "--device", "cpu"])
+    from tests.fixtures import make_tiny_tokenizer
+    from tests.test_gemma3n import LAYER_TYPES
+
+    tok = make_tiny_tokenizer(str(dirpath))
+    torch.manual_seed(0)
+    cfg = transformers.Gemma3nTextConfig(
+        vocab_size=tok.get_vocab_size(), vocab_size_per_layer_input=tok.get_vocab_size(),
+        hidden_size=32, hidden_size_per_layer_input=16, intermediate_size=[64] * 6,
+        num_hidden_layers=6, num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+        layer_types=LAYER_TYPES, sliding_window=4, num_kv_shared_layers=2, laurel_rank=4,
+        activation_sparsity_pattern=[0.95, 0.95, 0.0, 0.0, 0.0, 0.0],
+        max_position_embeddings=256, tie_word_embeddings=True,
+    )
+    transformers.Gemma3nForCausalLM(cfg).save_pretrained(str(dirpath), safe_serialization=True)
+    return str(dirpath)
 
 
-def test_server_refuses_a_vision_model(ckpt):
-    from crane_tpu_torch.serve.api import Server
+def test_main_refuses_gemma3n(tmp_path, monkeypatch):
+    """main() serves a Gemma3n checkpoint through ``TextBackend`` (no
+    engine), as crane_tpu's main() means to: a chat completion over a local
+    socket gives the tokens of crane_tpu's ``Gemma3nLM`` on the same
+    checkpoint and prompt. (The name is the test's older one, from when
+    main() refused the checkpoint; the refusal is gone.)"""
+    from crane_tpu.models.gemma3n import from_pretrained as ref_g3n
+    from crane_tpu_torch.models.gemma3n import Gemma3nLM
+    from crane_tpu_torch.serve import api, transport
+    from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Server(None, text_backend=object(), vlm=object())
+    d = _tiny_gemma3n(tmp_path / "g3n")
+    seen = {}
+
+    def serve_once(app, *, host, port):
+        seen["server"] = app.router.routes[0][2].__self__
+        with transport.BackgroundServer(app) as srv:
+            seen["answer"] = PortClient(srv.port).request("POST", "/v1/chat/completions", CHAT)
+
+    monkeypatch.setattr(transport, "run_app", serve_once)
+    api.main(["--model-path", d, "--device", "cpu", "--dtype", "f32", "--max-seq-len", "64"])
+    server = seen["server"]
+    assert server.engine is None and isinstance(server.text_backend.model, Gemma3nLM)
+    status, _, body = seen["answer"]
+    assert status == 200, body
+    tok = AutoTokenizer.from_pretrained(d)
+    ids = tok.encode(tok.apply_chat_template(CHAT["messages"], add_generation_prompt=True))
+    want = ref_g3n(d, dtype=jnp.float32, max_seq=64).generate_greedy(
+        np.asarray([ids]), CHAT["max_tokens"], eos=server.text_backend.eos_token_ids)
+    answer = json.loads(body)
+    assert answer["usage"]["completion_tokens"] == len(want)
+    assert answer["choices"][0]["message"]["content"] == tok.decode(
+        [t for t in want if t not in server.text_backend.eos_token_ids])
+
+
+def test_server_refuses_a_vision_model(vlm_both):
+    """A ``Server`` holds a vision model (``Server(vlm=)``), and a chat
+    request without an image still goes to the text backend, on both
+    servers alike (image requests: test_image_chat_matches_crane_tpu). (The
+    name is the test's older one, from when the port refused ``vlm=``; the
+    refusal is gone.)"""
+    ref, port, (_, server) = vlm_both
+    assert server.vlm is not None
+    body = same((ref, port), "POST", "/v1/chat/completions",
+                {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 4})[1]
+    assert body["choices"][0]["message"]["content"].strip()
+
+
+def _png_data_url(h=16, w=24) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    from tests.test_qwen3_vl_parity import _positional_image
+
+    buf = io.BytesIO()
+    Image.fromarray(_positional_image(h, w)).save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+@pytest.fixture(scope="module")
+def vlm_ckpt(tmp_path_factory):
+    """A tiny Qwen3-VL checkpoint (tests/test_qwen3_vl_parity.py's widths)
+    whose tokenizer holds the vision tokens."""
+    import transformers
+
+    from tests.fixtures import make_tiny_tokenizer
+
+    d = tmp_path_factory.mktemp("vlm") / "m"
+    tok = make_tiny_tokenizer(str(d), extra_tokens=[
+        "<|vision_start|>", "<|image_pad|>", "<|vision_end|>", "<|video_pad|>"])
+    torch.manual_seed(0)
+    cfg = transformers.Qwen3VLConfig(
+        text_config=dict(
+            vocab_size=tok.get_vocab_size(), hidden_size=64, intermediate_size=96,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+            max_position_embeddings=512, rope_theta=10000.0,
+            rope_scaling={"rope_type": "default", "mrope_section": [2, 3, 3],
+                          "mrope_interleaved": True},
+            tie_word_embeddings=False),
+        vision_config=dict(
+            depth=2, hidden_size=32, intermediate_size=64, num_heads=4, patch_size=4,
+            temporal_patch_size=2, spatial_merge_size=2, out_hidden_size=64,
+            num_position_embeddings=16, deepstack_visual_indexes=[0]),
+        image_token_id=tok.token_to_id("<|image_pad|>"),
+        video_token_id=tok.token_to_id("<|video_pad|>"),
+        vision_start_token_id=tok.token_to_id("<|vision_start|>"),
+    )
+    transformers.Qwen3VLForConditionalGeneration(cfg).eval().save_pretrained(
+        str(d), safe_serialization=True)
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def vlm_both(ckpt, vlm_ckpt):
+    """Both servers over the echo TextBackend with a Qwen3-VL for images."""
+    from crane_tpu.models.qwen3_vl import load_qwen3_vl as ref_load
+    from crane_tpu.serve.api import Server as RefServer
+    from crane_tpu.serve.api import build_app as ref_app
+    from crane_tpu.serve.backend import TextBackend as RefBackend
+    from crane_tpu.tokenizer.autotokenizer import AutoTokenizer as RefTokenizer
+    from crane_tpu_torch.models.qwen3_vl import load_qwen3_vl
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.backend import TextBackend
+    from crane_tpu_torch.serve.transport import BackgroundServer
+    from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
+
+    servers = []
+    for srv_cls, backend_cls, tok_cls, vlm in (
+            (RefServer, RefBackend, RefTokenizer, ref_load(vlm_ckpt, dtype=jnp.float32)),
+            (Server, TextBackend, AutoTokenizer,
+             load_qwen3_vl(vlm_ckpt, dtype=torch.float32, device="cpu"))):
+        tok = tok_cls.from_pretrained(ckpt)
+        backend = backend_cls(_EchoModel(tok.encode("hello world again")), tok,
+                              eos_token_ids=(), name="echo")
+        servers.append(srv_cls(None, model_name="tiny-vlm", text_backend=backend, vlm=vlm))
+    http_server = BackgroundServer(build_app(servers[1]))
+    yield RefClient(lambda: ref_app(servers[0])), PortClient(http_server.port), servers
+    http_server.close()
+
+
+@pytest.fixture(scope="module")
+def image_chat():
+    """A chat request holding a PNG as a data: URL (built with PIL, which
+    only the image tests need)."""
+    return {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": "what is this? "},
+        {"type": "image_url", "image_url": {"url": _png_data_url()}},
+        {"type": "text", "text": " tell me"}]}], "max_tokens": 10}
+
+
+def test_image_chat_matches_crane_tpu(vlm_both, image_chat):
+    """A PNG as a data: URL: the port's ``_vlm_generate_sync`` gives
+    crane_tpu's text, prompt length and token count, and the HTTP answers,
+    whole and streamed, equal crane_tpu's."""
+    ref, port, (ref_server, server) = vlm_both
+    got = server._vlm_generate_sync(image_chat["messages"], 10)
+    want = ref_server._vlm_generate_sync(image_chat["messages"], 10)
+    assert got == want and got[2] == 10
+    body = same((ref, port), "POST", "/v1/chat/completions", image_chat)[1]
+    assert body["usage"]["completion_tokens"] == 10
+    assert body["choices"][0]["message"]["content"] == got[0]
+    events = same_sse((ref, port), "/v1/chat/completions", dict(image_chat, stream=True))
+    assert "".join(e["choices"][0]["delta"].get("content", "") for e in events) == got[0]
+
+
+def test_image_chat_rejects_a_remote_url(vlm_both):
+    ref, port, _ = vlm_both
+    bad = {"messages": [{"role": "user", "content": [
+        {"type": "image_url", "image_url": {"url": "http://example.invalid/x.png"}}]}]}
+    body = same((ref, port), "POST", "/v1/chat/completions", bad)[1]
+    assert "data:" in body["error"]["message"]
+
+
+def test_main_serves_image_chat(ckpt, vlm_ckpt, image_chat, monkeypatch):
+    """``--vlm-path`` loads the Qwen3-VL beside the text model's engine;
+    an image chat request goes to it."""
+    from crane_tpu_torch.models.qwen3_vl import Qwen3VLModel
+    from crane_tpu_torch.serve import api, transport
+
+    seen = {}
+
+    def serve_once(app, *, host, port):
+        seen["server"] = app.router.routes[0][2].__self__
+        with transport.BackgroundServer(app) as srv:
+            seen["answer"] = PortClient(srv.port).request("POST", "/v1/chat/completions",
+                                                         image_chat)
+
+    monkeypatch.setattr(transport, "run_app", serve_once)
+    api.main(["--model-path", ckpt, "--vlm-path", vlm_ckpt, "--device", "cpu", "--dtype", "f32",
+              "--max-concurrent", "2", "--max-seq-len", "256"])
+    assert isinstance(seen["server"].vlm, Qwen3VLModel)
+    status, _, body = seen["answer"]
+    assert status == 200 and json.loads(body)["usage"]["completion_tokens"] == 10
 
 
 def test_sdk_clients_match(ckpt):

@@ -86,7 +86,7 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(graphs, "_warm_up", stand_in_warm_up)
     monkeypatch.setattr(graphs, "_capture", stand_in_capture)
     monkeypatch.setattr(graphs, "takes_graphs",
-                        lambda lm: not getattr(graphs._local, "eager", False))
+                        lambda device, mesh=(): not getattr(graphs._local, "eager", False))
     return made
 
 
@@ -304,3 +304,34 @@ def test_generate_replays_its_programs(stand_in):
     assert graphs.captures == captured
     with graphs.eager():
         assert [lm.generate(prompt, c) for c in cfgs] == got
+
+
+def test_greedy_decode_step_replays_one_program(stand_in, monkeypatch):
+    """The embed-splicing models' greedy step (Gemma3-VL, PaddleOCR-VL):
+    one program over a cache, captured at the first step and replayed after;
+    its tokens, the cache's lengths (rolled in place) and the KV it writes
+    equal the eager steps', and the capture leaves K2's count of launches
+    given segments (a prefill's, read after the steps) as it was."""
+    from crane_tpu_torch.models.modules.embeds_decode import greedy_decode_step
+    from crane_tpu_torch.ops.cuda.flash_attention import flash_attention_causal
+
+    lm = tiny_lm()
+    monkeypatch.setattr(flash_attention_causal, "segment_launches", 7)
+    padded = np.zeros((1, 64), np.int32)
+    padded[0, :8] = np.arange(5, 13)
+    programs, got = {}, {}
+    for mode in ("graph", "eager"):
+        logits, cache = lm.prefill(lm.init_cache(1, 64), padded, [8])
+        cur = torch.argmax(logits, -1).to(torch.int32)
+        toks = []
+        with graphs.eager() if mode == "eager" else torch.no_grad():
+            for _ in range(6):
+                cur, cache = greedy_decode_step(programs, lm.config, lm.params, lm.rope, cache,
+                                                cur)
+                toks.append(int(cur[0]))
+        got[mode] = toks, cache.lengths.clone(), snapshot(cache)
+    assert len(stand_in) == 1 and len(programs) == 1
+    assert flash_attention_causal.segment_launches == 7
+    assert got["graph"][0] == got["eager"][0]
+    assert got["graph"][1].tolist() == got["eager"][1].tolist() == [14]
+    assert all(torch.equal(a, b) for a, b in zip(got["graph"][2], got["eager"][2]))

@@ -7,6 +7,7 @@ tokens are identical.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -260,7 +261,9 @@ def test_once_refused_branches_build(tiny_pair, tmp_path):
     it still refuses: int8/int4 caches are allocated; an MoE config and a
     short-conv config build their caches (a GDN/KV cache beside the MoE
     MLPs, a ``[B, L, hidden]`` window per conv layer) and their configs from
-    HF dicts; ``main()`` still refuses a gemma3n checkpoint."""
+    HF dicts; a gemma3n config, which ``main()`` refused until the model
+    was ported, now gives crane_tpu's ``Gemma3nConfig`` and goes to its
+    loader (a directory with no weights then fails to load)."""
     from crane_tpu_torch.ops.kv_cache import ConvLayerCache, LayerKVCache
     from crane_tpu_torch.serve.api import main
 
@@ -289,8 +292,15 @@ def test_once_refused_branches_build(tiny_pair, tmp_path):
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jauto.transformer_config_from_hf(hf))
     assert tauto.transformer_config_from_hf(next_moe).is_moe_layer(1)
     assert tauto.transformer_config_from_hf(lfm2).layer_types == ("conv", "full")
-    (tmp_path / "config.json").write_text('{"model_type": "gemma3n"}')
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    from crane_tpu.models.gemma3n import config_from_hf as jg3n_config
+    from crane_tpu_torch.models.gemma3n import config_from_hf as tg3n_config
+
+    gemma3n = {"model_type": "gemma3n_text", "vocab_size": 64, "hidden_size": 32,
+               "num_hidden_layers": 2, "num_attention_heads": 2, "num_key_value_heads": 1,
+               "head_dim": 16, "intermediate_size": 48, "num_kv_shared_layers": 1}
+    assert dataclasses.asdict(tg3n_config(gemma3n)) == dataclasses.asdict(jg3n_config(gemma3n))
+    (tmp_path / "config.json").write_text(json.dumps(gemma3n))
+    with pytest.raises(FileNotFoundError, match="safetensors"):
         main(["--model-path", str(tmp_path), "--device", "cpu"])
 
 

@@ -2,7 +2,7 @@
 
 - Every module imports with jax, crane_tpu (the JAX package, whose jax-free
   modules the port keeps its own copies of) and the packages the card
-  machine lacks blocked, in a fresh interpreter: tests/conftest.py has
+  machine lacks (PIL among them) blocked, in a fresh interpreter: tests/conftest.py has
   already imported jax into this one. A root of exactly ``crane_tpu`` does
   not match ``crane_tpu_torch``.
 - The kernel build directory is ignored by git.
@@ -29,7 +29,7 @@ IMPORT_ALL = r"""
 import importlib.abc, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "crane_tpu", "tokenizers", "safetensors", "transformers", "aiohttp",
-           "jinja2")
+           "jinja2", "PIL")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 54  # every module of the slices so far was walked
+    assert int(res.stdout.split()[-1]) >= 64  # every module of the slices so far was walked
     walked = set(res.stdout.split())
     # the server, its transport, GGUF loading and the SDK import without aiohttp
     assert {"crane_tpu_torch.serve.api", "crane_tpu_torch.serve.transport",
@@ -66,6 +66,12 @@ def test_every_module_imports_without_jax():
             "crane_tpu_torch.models.auto", "crane_tpu_torch.models.init",
             "crane_tpu_torch.models.causal_lm", "crane_tpu_torch.serve.engine",
             "crane_tpu_torch.utils.bridge"} <= walked
+    # gemma3n, the vision-language models, their loaders and the vision SDK
+    assert {"crane_tpu_torch.loaders.safetensors_loader", "crane_tpu_torch.models.factory",
+            "crane_tpu_torch.models.gemma3n", "crane_tpu_torch.models.image_processing",
+            "crane_tpu_torch.models.modules.vision", "crane_tpu_torch.models.modules.embeds_decode",
+            "crane_tpu_torch.models.qwen3_vl", "crane_tpu_torch.models.gemma3_vl",
+            "crane_tpu_torch.models.paddleocr_vl", "crane_tpu_torch.sdk.vision"} <= walked
 
 
 def test_kernel_build_directory_is_git_ignored():
