@@ -43,7 +43,9 @@ each reported on its own line:
    slice's: K1 with Gemma 3n's 8 / 2 heads of 256, scale 1.0 and the
    512-token window over 1200 live slots, and K2 with segments at
    Gemma3-4B's 8 / 4 heads of 256 on a 300-token prompt holding a 256-token
-   image block (check_slice_kernels);
+   image block (check_slice_kernels); and K1 and K3 with Qwen2-Audio's 32
+   query / 32 KV heads of 128 (group 1) at its transcription prompt
+   (check_audio_kernels);
    routes: a tiny model with head_dim 96 and one with 16 query heads on one
    kv-head, whose attention the kernels do not take, run prefill, a chunk
    and decode on the card through the plain versions (counted in
@@ -174,7 +176,29 @@ each reported on its own line:
    PaddleOCR-VL at full size, ``recognize`` of a synthetic 560x420 page in
    float32 on the card against the CPU (K3, K1). Each model's vision
    tower, prefill and decode step are timed, and the device's idle share
-   logged.
+   logged;
+21. audio: Qwen3-ASR-0.6B whole (``AuTConfig()`` and Qwen3-0.6B, bench.py's
+   workload: 20 s of a seeded synthetic waveform, 64 tokens), random weights
+   under the names the ``map_*`` functions read: the log-mel, the tower's
+   features and the spliced prefill's logits in float32 on the card against
+   the CPU, and 64 greedy tokens; then bf16: ``generate`` in decode blocks
+   of 16 steps, each block one graph replay (counted), against the eager
+   blocks; a WAV upload at 16 kHz and one at 8 kHz (the resample route) to
+   /v1/audio/transcriptions of ``build_app(Server(None, asr=...))``, each
+   text equal to ``Qwen3AsrAdapter.transcribe``'s; the tower's, the
+   prefill's and a block's times and ``generate``'s xRT. Qwen2-Audio-7B
+   (transformers' ``Qwen2AudioEncoderConfig()`` encoder, the published text
+   shapes): its first 4 encoder and 4 text layers in float32 against the
+   CPU (the padded log-mel, the tower, the prefill logits, 16 tokens),
+   then the whole model in bf16 (K3 and K1 at 32 / 32 heads of 128; each
+   greedy step one graph replay, counted; tokens against the eager steps).
+   Whisper large-v3 (a 4 + 4-layer float32 check against the CPU, then
+   bf16 whole) and Moonshine tiny (float32 whole, then bf16): encoder
+   states, greedy ids, every decoder step one graph replay (counted)
+   against the eager steps, the encoder's and a step's times. The native
+   VAD net over 10 s: probabilities on the card within 1e-5 of the CPU's,
+   identical segments. K1 and K3 were launched by the Qwen3-ASR and the
+   Qwen2-Audio paths.
 
 Where two paths' greedy tokens part (graphs against eager, speculative
 against plain, HTTP against ``engine.submit``, the GGUF model on the card
@@ -187,9 +211,11 @@ the eager loop they are held against. The decode-step lines time both in
 this one process, 4 blocks of 8 steps each. Each phase logs its seconds.
 
 Every model path (dense, quantized, hybrid, sp, the three once-unrun
-paths, lfm2, moe, gemma3n and the three vision-language models) must route
-no attention call to a plain version (Gemma 3n's prefill attention and the
-vision towers' are plain by design, as in crane_tpu, and not routed). ``[profile]`` lines split a chunk's, a prefill's
+paths, lfm2, moe, gemma3n, the three vision-language models, Qwen3-ASR and
+Qwen2-Audio) must route no attention call to a plain version (Gemma 3n's
+prefill attention, the vision and audio towers' and Whisper's and
+Moonshine's decoders' are plain by design, as in crane_tpu, and not
+routed). ``[profile]`` lines split a chunk's, a prefill's
 and a decode step's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
 elementwise, reduce, index) and name the largest kernels; the decode steps
 (bf16 and w4 kv4 at B=1 and B=8 after 300 tokens, and B=1 after 16,000)
@@ -3937,7 +3963,8 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
         name = row["name"]
-        for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32, G3N_HEADS, SEG_HEADS):
+        for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32, G3N_HEADS, SEG_HEADS,
+                    MHA_HEADS):
             name = name.removesuffix(tag)
         row["launches"] = counts[name]
         if row["launches"] <= 0:
@@ -4831,6 +4858,748 @@ def check_paddleocr_vl() -> None:
                f"recognize: {text[:60]!r}...")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21 (audio): speech recognition. Qwen3-ASR-0.6B whole (bench.py's
+# workload, served over HTTP), Qwen2-Audio-7B, Whisper large-v3, Moonshine
+# tiny, the native VAD
+
+# bench.py's Qwen3-ASR workload (bench.py:494-528): 20 s of audio, 64 tokens
+ASR_AUDIO_S = 20.0
+ASR_NEW = 64
+
+# Qwen2-Audio-7B: the encoder is transformers 4.57.6's
+# Qwen2AudioEncoderConfig() defaults (whisper-large-v3's encoder); the text
+# model is Qwen2-Audio-7B's published text_config as far as it can be
+# stated without a download (unverified here)
+QWEN2_AUDIO_ENCODER = {"d_model": 1280, "encoder_layers": 32, "encoder_attention_heads": 20,
+                       "encoder_ffn_dim": 5120, "num_mel_bins": 128, "max_source_positions": 1500}
+QWEN2_AUDIO_TEXT = {
+    "model_type": "qwen2", "vocab_size": 156032, "hidden_size": 4096, "intermediate_size": 11008,
+    "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+    "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "max_position_embeddings": 8192,
+    "tie_word_embeddings": False,
+}
+QWEN2_AUDIO_S = 10.0  # seconds of audio: 250 audio tokens
+QWEN2_AUDIO_NEW = 32
+
+# Whisper large-v3 (openai/whisper-large-v3 config.json) and Moonshine tiny
+# (transformers 4.57.6's MoonshineConfig() defaults)
+WHISPER_LARGE_V3 = {
+    "vocab_size": 51866, "d_model": 1280, "encoder_layers": 32, "decoder_layers": 32,
+    "encoder_attention_heads": 20, "encoder_ffn_dim": 5120, "num_mel_bins": 128,
+    "max_source_positions": 1500, "max_target_positions": 448,
+    "decoder_start_token_id": 50258, "eos_token_id": 50257,
+}
+MOONSHINE_TINY = {
+    "vocab_size": 32768, "hidden_size": 288, "intermediate_size": 1152,
+    "encoder_num_hidden_layers": 6, "decoder_num_hidden_layers": 6,
+    "encoder_num_attention_heads": 8, "decoder_num_attention_heads": 8,
+    "partial_rotary_factor": 0.9, "rope_theta": 10000.0, "decoder_start_token_id": 1,
+    "eos_token_id": 2,
+}
+SPEECH_NEW = 24  # greedy tokens of the Whisper and Moonshine checks
+
+# the float32 check of Qwen2-Audio and Whisper against the CPU runs their
+# first 4 encoder and 4 text (decoder) layers, every width kept
+AUDIO_F32_LAYERS = 4
+
+# the kernel rows at Qwen2-Audio's text heads (group 1)
+MHA_HEADS = "[D128-32/32]"
+
+
+class SpeechTokenizer(StandInTokenizer):
+    """The stand-in tokenizer with the audio prompts' special tokens as
+    single ids (Qwen's: ``<|audio_pad|>`` and ``<|AUDIO|>`` at 151646, as
+    bench.py's workload and Qwen2-Audio's ``audio_token_index``), so
+    ``build_prompt`` encodes exactly."""
+
+    SPECIAL = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|audio_start|>": 151647,
+               "<|audio_end|>": 151648, "<|audio_pad|>": 151646, "<|AUDIO|>": 151646}
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
+        out = []
+        while True:
+            hits = [(text.find(t), t) for t in self.SPECIAL if t in text]
+            if not hits:
+                return out + super().encode(text)
+            at, token = min(hits)
+            out += super().encode(text[:at]) + [self.SPECIAL[token]]
+            text = text[at + len(token):]
+
+    def token_to_id(self, token: str):
+        return self.SPECIAL.get(token)
+
+
+def speech_wave(seconds: float, seed: int, rate: int = 16000):
+    """A seeded synthetic utterance at ``rate``: three tones, on for the
+    first 0.6 s of every second (so the VAD sees speech and pauses), plus
+    noise; float32 numpy."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    t = torch.arange(int(seconds * rate), dtype=torch.float64) / rate
+    x = sum(a * torch.sin(2 * torch.pi * f * t) for a, f in ((0.3, 220.0), (0.2, 1330.0),
+                                                           (0.1, 3100.0)))
+    x = x * ((t % 1.0) < 0.6) + 0.02 * torch.randn(len(t), generator=g, dtype=torch.float64)
+    return x.float().numpy()
+
+
+def encoder_layer_shapes(prefix: str, layers: int, d: int, f: int, k_bias: bool,
+                         cross: bool = False) -> dict:
+    """HF names and shapes of Whisper-style pre-LN layers (AuT, Qwen2-Audio's
+    and Whisper's encoders; with ``cross`` Whisper's decoder layers)."""
+    shapes = {}
+    for i in range(layers):
+        lp = f"{prefix}layers.{i}."
+        for attn in ("self_attn", "encoder_attn") if cross else ("self_attn",):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                shapes[f"{lp}{attn}.{proj}.weight"] = (d, d)
+                if proj != "k_proj" or k_bias:
+                    shapes[f"{lp}{attn}.{proj}.bias"] = (d,)
+            shapes[f"{lp}{attn}_layer_norm.weight"] = shapes[f"{lp}{attn}_layer_norm.bias"] = (d,)
+        shapes.update({lp + "final_layer_norm.weight": (d,), lp + "final_layer_norm.bias": (d,),
+                       lp + "fc1.weight": (f, d), lp + "fc1.bias": (f,),
+                       lp + "fc2.weight": (d, f), lp + "fc2.bias": (d,)})
+    return shapes
+
+
+def aut_shapes(acfg) -> dict:
+    """Qwen3-ASR's tower and projector under the names ``map_aut_weights``
+    reads (tower-relative, the projector under ``_projector.``)."""
+    C, d = acfg.downsample_hidden_size, acfg.d_model
+    shapes = {"conv2d1.weight": (C, 1, 3, 3), "conv2d2.weight": (C, C, 3, 3),
+              "conv2d3.weight": (C, C, 3, 3), "conv_out.weight": (d, C * acfg.post_conv_mel_bins),
+              "ln_post.weight": (d,), "ln_post.bias": (d,),
+              "_projector.linear_1.weight": (d, d), "_projector.linear_1.bias": (d,),
+              "_projector.linear_2.weight": (acfg.output_dim, d),
+              "_projector.linear_2.bias": (acfg.output_dim,)}
+    for i in (1, 2, 3):
+        shapes[f"conv2d{i}.bias"] = (C,)
+    shapes.update(encoder_layer_shapes("", acfg.num_layers, d, acfg.ffn_dim, k_bias=True))
+    return shapes
+
+
+def asr_replay(model, ids, feats, toks):
+    """The reference path's logits that chose ``toks[i]`` (Qwen3-ASR or
+    Qwen2-Audio): the spliced prefill, then ``toks[:i]`` decoded one step
+    at a time, eagerly."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits
+
+    def logits_at(i):
+        with torch.no_grad():
+            logits, cache = model.prefill(ids, feats, len(toks))
+            for t in toks[:i]:
+                hidden, cache = forward_hidden(
+                    model.config, model.params,
+                    torch.tensor([[t]], dtype=torch.int32, device=model.device),
+                    cache, cache.lengths, model.rope)
+                logits = lm_logits(model.config, model.params, hidden)[:, 0]
+            return logits[0]
+    return logits_at
+
+
+def multipart_wav(samples, rate: int) -> tuple[dict, bytes]:
+    """A multipart/form-data body whose ``file`` part is ``samples`` as a
+    WAV at ``rate``."""
+    from crane_tpu_torch.audio.pcm import encode_wav
+
+    boundary = "crane-audio"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"model\"\r\n\r\nasr\r\n"
+            f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"a.wav\"\r\nContent-Type: audio/wav\r\n\r\n").encode() \
+        + encode_wav(samples, rate) + f"\r\n--{boundary}--\r\n".encode()
+    return {"Content-Type": f"multipart/form-data; boundary={boundary}"}, body
+
+
+def http_raw(port: int, path: str, headers: dict, body: bytes) -> tuple[int, dict]:
+    """POST ``body`` as it is: (status, JSON body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def qwen3_asr_model(tparams, aparams, dtype):
+    from crane_tpu_torch.models import qwen3_asr as qa
+    from crane_tpu_torch.models.init import QWEN3_0_6B
+
+    return qa.Qwen3AsrModel(QWEN3_0_6B, qa.AuTConfig(), {**tparams, "audio": aparams},
+                            audio_token_id=SpeechTokenizer.SPECIAL["<|audio_pad|>"],
+                            tokenizer=SpeechTokenizer(QWEN3_0_6B.vocab_size), dtype=dtype)
+
+
+def check_qwen3_asr() -> dict[str, int]:
+    """Qwen3-ASR-0.6B whole (``AuTConfig()`` and QWEN3_0_6B, bench.py's
+    shapes), random weights under the names the ``map_*`` functions read:
+    in float32 on the card against the CPU, the log-mel, the tower's
+    features and the spliced prefill's logits (F32_REL_L2) and 64 greedy
+    tokens (the tie rule); then in bf16: 64 tokens as graph blocks against
+    the eager blocks (the tie rule), each block one replay of 16 steps;
+    transcriptions over HTTP (16 kHz, and 8 kHz through the resample route)
+    against ``Qwen3AsrAdapter.transcribe``; the tower's, the prefill's and
+    a block's times and the xRT of ``generate``. Returns the bf16 path's
+    launch counts."""
+    import torch
+
+    from crane_tpu_torch.audio.mel import log_mel_spectrogram
+    from crane_tpu_torch.audio.pcm import decode_wav, encode_wav, resample
+    from crane_tpu_torch.generation.config import TranscribeOptions
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import qwen3_asr as qa
+    from crane_tpu_torch.models.auto import map_hf_weights
+    from crane_tpu_torch.models.init import QWEN3_0_6B, hf_state_dict
+    from crane_tpu_torch.models.modules.embeds_decode import greedy_decode_block
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.sdk.audio import Qwen3AsrAdapter
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    acfg = qa.AuTConfig()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    tparams = map_hf_weights(QWEN3_0_6B, hf_state_dict(QWEN3_0_6B, gen, torch.float32),
+                             torch.float32, "cuda")
+    aparams = qa.map_aut_weights(acfg, draw_checkpoint(aut_shapes(acfg), gen, torch.float32),
+                                 torch.float32, "cuda")
+    gpu = qwen3_asr_model(tparams, aparams, torch.float32)
+    cpu = qwen3_asr_model(_tree(tparams, lambda t: t.cpu()), _tree(aparams, lambda t: t.cpu()),
+                          torch.float32)
+    wav = speech_wave(ASR_AUDIO_S, 13)
+    t0 = time.perf_counter()
+    mels = [log_mel_spectrogram(gpu.mel_config, torch.as_tensor(wav, device=d))
+            for d in ("cuda", "cpu")]
+    check_f32("audio", f"Qwen3-ASR log-mel of {ASR_AUDIO_S:g} s, {tuple(mels[1].shape)}", *mels)
+    feats = [m.encode_audio(wav) for m in (gpu, cpu)]
+    n = feats[1].shape[0]
+    check_f32("audio", f"Qwen3-ASR-0.6B AuT tower and projector, {n} audio tokens", *feats)
+    ids = gpu.tokenizer.encode(gpu.build_prompt(gpu.n_audio_tokens(len(wav))))
+    logits = [m.prefill(ids, f, ASR_NEW)[0] for m, f in zip((gpu, cpu), feats)]
+    check_f32("audio", f"Qwen3-ASR-0.6B spliced prefill logits, {len(ids)} tokens", *logits)
+    toks = [m.generate(ids, wav, max_new_tokens=ASR_NEW) for m in (gpu, cpu)]
+    tie_at_first_difference("audio", f"Qwen3-ASR-0.6B float32, {ASR_NEW} tokens, card vs CPU",
+                            toks[1], toks[0], asr_replay(cpu, ids, feats[1], toks[1]))
+    log("audio", f"Qwen3-ASR-0.6B float32 check done in {time.perf_counter() - t0:.1f} s")
+    del gpu, cpu, feats, logits
+    model = qwen3_asr_model(_tree(tparams, lambda t: t.to(torch.bfloat16)),
+                            _tree(aparams, lambda t: t.to(torch.bfloat16)), torch.bfloat16)
+    del tparams, aparams
+    torch.cuda.empty_cache()
+
+    # the main path: counted from here to the HTTP transcriptions
+    reset_counts()
+    replays = graphs.replays
+    toks = model.generate(ids, wav, max_new_tokens=ASR_NEW)
+    blocks = graphs.replays - replays
+    want = -(-(ASR_NEW - 1) // qa.DECODE_BLOCK)
+    if blocks != want or len(toks) != ASR_NEW:
+        raise AssertionError(f"Qwen3-ASR: {len(toks)} tokens in {blocks} graph replays, "
+                             f"expected {ASR_NEW} in {want}")
+    log("audio", f"Qwen3-ASR-0.6B bf16: {ASR_NEW} tokens in {blocks} graph replays of "
+                 f"{qa.DECODE_BLOCK} steps")
+    with graphs.eager():
+        eager = model.generate(ids, wav, max_new_tokens=ASR_NEW)
+    feats = model.encode_audio(wav)
+    tie_at_first_difference("audio", f"Qwen3-ASR-0.6B bf16, {ASR_NEW} tokens, graphs vs eager",
+                            eager, toks, asr_replay(model, ids, feats, eager))
+
+    asr = Qwen3AsrAdapter(model)
+    with BackgroundServer(build_app(Server(None, asr=asr))) as srv:
+        for rate in (16000, 8000):
+            clip = speech_wave(4.0, 17, rate)
+            t1 = time.perf_counter()
+            status, body = http_raw(srv.port, "/v1/audio/transcriptions", *multipart_wav(clip, rate))
+            http_s = time.perf_counter() - t1
+            x, r = decode_wav(encode_wav(clip, rate))
+            direct = asr.transcribe(resample(x, r, 16000) if r != 16000 else x,
+                                    TranscribeOptions()).text
+            if status != 200 or body.get("text") != direct:
+                raise AssertionError(f"Qwen3-ASR over HTTP at {rate} Hz: {status} "
+                                     f"{str(body)[:200]} vs direct {direct[:200]!r}")
+            log("audio", f"Qwen3-ASR over HTTP, a 4 s WAV at {rate} Hz: the text equals "
+                         f"Qwen3AsrAdapter.transcribe ({len(direct.split())} tokens, "
+                         f"{http_s:.2f} s a request)")
+    counts = kernels.launch_counts()
+
+    tower_ms = sync_ms(lambda: model.encode_audio(wav))
+    prefill_ms = sync_ms(lambda: model.prefill(ids, feats, ASR_NEW))
+    _, cache = model.prefill(ids, feats, ASR_NEW)
+    cur = torch.tensor([5], dtype=torch.int32, device="cuda")
+
+    def block():
+        cache.lengths.fill_(len(ids))
+        greedy_decode_block(model._programs, model.config, model.params, model.rope, cache, cur,
+                            qa.DECODE_BLOCK)
+
+    block()  # the block over this cache is captured
+    block_ms = sync_ms(block)
+    with graphs.eager():
+        block_eager = sync_ms(block)
+    runs = sorted(sync_ms(lambda: model.generate(ids, wav, max_new_tokens=ASR_NEW))
+                  for _ in range(3))
+    log_busy("audio", "Qwen3-ASR-0.6B bf16", f"generate of {ASR_NEW} tokens",
+             lambda: model.generate(ids, wav, max_new_tokens=ASR_NEW))
+    model.release_graphs()
+    log("audio", f"Qwen3-ASR-0.6B bf16, {ASR_AUDIO_S:g} s of audio ({n} audio tokens, prompt "
+                 f"{len(ids)}): AuT tower {tower_ms:.2f} ms, prefill {prefill_ms:.2f} ms, a "
+                 f"{qa.DECODE_BLOCK}-step block {block_ms:.3f} ms as one graph replay vs "
+                 f"{block_eager:.3f} ms eager; generate of {ASR_NEW} tokens {runs[1]:.1f} ms "
+                 f"(median of 3), xRT {ASR_AUDIO_S / (runs[1] / 1e3):.1f} (audio seconds a wall "
+                 f"second)")
+    return counts
+
+
+def qwen2_audio_prompt(n: int) -> list[int]:
+    """Qwen2-Audio's transcription prompt for ``n`` audio tokens, as the
+    stand-in tokenizer encodes it."""
+    from crane_tpu_torch.models.qwen2_audio import AudioLLM
+
+    return SpeechTokenizer(QWEN2_AUDIO_TEXT["vocab_size"]).encode(AudioLLM.build_prompt(n))
+
+
+def qwen2_audio_model(seed: int, dtype, layers: int | None = None):
+    """Qwen2-Audio-7B (QWEN2_AUDIO_ENCODER, QWEN2_AUDIO_TEXT), or its first
+    ``layers`` encoder and text layers, random weights under the names
+    ``map_audio_weights`` and ``map_hf_weights`` read (the text model's
+    q/k/v biases drawn beside ``hf_state_dict``'s tensors), on the card."""
+    import torch
+
+    from crane_tpu_torch.models import qwen2_audio as q2
+    from crane_tpu_torch.models.auto import map_hf_weights, transformer_config_from_hf
+    from crane_tpu_torch.models.init import hf_state_dict
+
+    enc = dict(QWEN2_AUDIO_ENCODER)
+    text = dict(QWEN2_AUDIO_TEXT)
+    if layers is not None:
+        enc["encoder_layers"] = text["num_hidden_layers"] = layers
+    acfg = q2.audio_config_from_hf({"audio_config": enc})
+    tcfg = transformer_config_from_hf(text)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, E = acfg.d_model, tcfg.hidden_size
+    a_shapes = {"conv1.weight": (d, acfg.num_mel_bins, 3), "conv1.bias": (d,),
+                "conv2.weight": (d, d, 3), "conv2.bias": (d,),
+                "embed_positions.weight": (acfg.max_source_positions, d),
+                "layer_norm.weight": (d,), "layer_norm.bias": (d,),
+                **encoder_layer_shapes("", acfg.num_layers, d, acfg.ffn_dim, k_bias=False)}
+    a_sd = draw_checkpoint(a_shapes, gen, dtype, tables=("embed_positions.weight",))
+    proj_sd = draw_checkpoint({"linear.weight": (E, d), "linear.bias": (E,)}, gen, dtype)
+    text_sd = hf_state_dict(tcfg, gen, dtype)
+    for i in range(tcfg.num_layers):
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            text_sd[f"model.layers.{i}.self_attn.{proj}.bias"] = (
+                torch.randn(E, generator=gen, device="cuda") * 0.02).to(dtype)
+    params = map_hf_weights(tcfg, text_sd, dtype, "cuda")
+    del text_sd
+    params.update(q2.map_audio_weights(acfg, a_sd, proj_sd, dtype, "cuda"))
+    return q2.AudioLLM(tcfg, acfg, params, audio_token_id=SpeechTokenizer.SPECIAL["<|AUDIO|>"],
+                       tokenizer=SpeechTokenizer(tcfg.vocab_size), dtype=dtype)
+
+
+def check_qwen2_audio() -> dict[str, int]:
+    """Qwen2-Audio-7B: its first AUDIO_F32_LAYERS encoder and text layers
+    (every width kept) in float32 on the card against the CPU (the padded
+    log-mel, the tower and projector, the spliced prefill's logits, 16
+    greedy tokens under the tie rule); then the whole model in bf16: the
+    tower's and the prefill's times (K3 at 32 / 32 heads of 128), each
+    greedy step one graph replay (K1 at 32 / 32), tokens against the eager
+    steps (the tie rule), a step's time as a graph and eager. Returns the
+    bf16 path's launch counts."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import qwen2_audio as q2
+    from crane_tpu_torch.ops import cuda as kernels
+
+    gpu = qwen2_audio_model(41, torch.float32, AUDIO_F32_LAYERS)
+    cpu = q2.AudioLLM(gpu.config, gpu.audio_config, _tree(gpu.params, lambda t: t.cpu()),
+                      audio_token_id=gpu.audio_token_id, tokenizer=gpu.tokenizer,
+                      dtype=torch.float32)
+    wav = speech_wave(QWEN2_AUDIO_S, 19)
+    t0 = time.perf_counter()
+    mels = [m.extract_features(wav) for m in (gpu, cpu)]
+    mel_len = mels[0][1]
+    n = q2.audio_feature_lengths(mel_len)
+    check_f32("audio", f"Qwen2-Audio log-mel padded to {mels[1][0].shape[-1]} frames",
+              mels[0][0], mels[1][0])
+    feats = [q2.encode_project(m.audio_config, m.params, mel)[0, :n]
+             for m, (mel, _) in zip((gpu, cpu), mels)]
+    label = f"Qwen2-Audio, {AUDIO_F32_LAYERS} encoder + {AUDIO_F32_LAYERS} text layers"
+    check_f32("audio", f"{label}: tower and projector, {n} audio tokens", *feats)
+    ids = qwen2_audio_prompt(n)
+    logits = [m.prefill(ids, f, 16)[0] for m, f in zip((gpu, cpu), feats)]
+    check_f32("audio", f"{label}: spliced prefill logits, {len(ids)} tokens", *logits)
+    toks = [m.generate_from_features(ids, f, max_new_tokens=16) for m, f in zip((gpu, cpu), feats)]
+    tie_at_first_difference("audio", f"{label}, float32, 16 tokens, card vs CPU", toks[1], toks[0],
+                            asr_replay(cpu, ids, feats[1], toks[1]))
+    log("audio", f"Qwen2-Audio float32 check done in {time.perf_counter() - t0:.1f} s")
+    del gpu, cpu, feats, logits
+    torch.cuda.empty_cache()
+
+    model = qwen2_audio_model(43, torch.bfloat16)
+    mel, _ = model.extract_features(wav)
+    reset_counts()
+    feats = q2.encode_project(model.audio_config, model.params, mel.to(torch.bfloat16))[0, :n]
+    replays = graphs.replays
+    toks = model.generate_from_features(ids, feats, max_new_tokens=QWEN2_AUDIO_NEW)
+    steps = graphs.replays - replays
+    if steps != len(toks) - 1:
+        raise AssertionError(f"Qwen2-Audio: {len(toks)} tokens but {steps} graph replays")
+    with graphs.eager():
+        eager = model.generate_from_features(ids, feats, max_new_tokens=QWEN2_AUDIO_NEW)
+    tie_at_first_difference("audio", f"Qwen2-Audio-7B bf16, {QWEN2_AUDIO_NEW} tokens, graphs vs "
+                                     f"eager ({steps} steps, each one graph replay)", eager, toks,
+                            asr_replay(model, ids, feats, eager))
+    counts = kernels.launch_counts()
+
+    tower_ms = sync_ms(lambda: q2.encode_project(model.audio_config, model.params,
+                                                 mel.to(torch.bfloat16)))
+    prefill_ms = sync_ms(lambda: model.prefill(ids, feats, QWEN2_AUDIO_NEW))
+    _, cache = model.prefill(ids, feats, QWEN2_AUDIO_NEW)
+    step_ms, step_eager, steps_fn = greedy_step_ms(model._programs, model.config, model.params,
+                                                   model.rope, cache, len(ids))
+    log_busy("audio", "Qwen2-Audio-7B bf16", "8 graph decode steps", steps_fn)
+    model.release_graphs()
+    log("audio", f"Qwen2-Audio-7B bf16 (32 + 32 layers): tower {tower_ms:.2f} ms (1500 "
+                 f"positions), prefill {prefill_ms:.2f} ms ({len(ids)} tokens), decode step "
+                 f"{step_ms:.3f} ms as a graph vs {step_eager:.3f} ms eager")
+    return counts
+
+
+def whisper_model(seed: int, dtype, layers: int | None = None):
+    """Whisper large-v3 (WHISPER_LARGE_V3), or its first ``layers`` encoder
+    and decoder layers, random weights under the names
+    ``map_whisper_weights`` reads, on the card."""
+    import torch
+
+    from crane_tpu_torch.models import whisper as wh
+
+    hf = dict(WHISPER_LARGE_V3)
+    if layers is not None:
+        hf["encoder_layers"] = hf["decoder_layers"] = layers
+    cfg = wh.config_from_hf(hf)
+    d, f = cfg.d_model, cfg.ffn_dim
+    shapes = {"model.encoder.conv1.weight": (d, cfg.num_mel_bins, 3), "model.encoder.conv1.bias": (d,),
+              "model.encoder.conv2.weight": (d, d, 3), "model.encoder.conv2.bias": (d,),
+              "model.encoder.embed_positions.weight": (cfg.max_source_positions, d),
+              "model.encoder.layer_norm.weight": (d,), "model.encoder.layer_norm.bias": (d,),
+              "model.decoder.embed_tokens.weight": (cfg.vocab_size, d),
+              "model.decoder.embed_positions.weight": (cfg.max_target_positions, d),
+              "model.decoder.layer_norm.weight": (d,), "model.decoder.layer_norm.bias": (d,),
+              **encoder_layer_shapes("model.encoder.", cfg.encoder_layers, d, f, k_bias=False),
+              **encoder_layer_shapes("model.decoder.", cfg.decoder_layers, d, f, k_bias=False,
+                                     cross=True)}
+    tables = ("model.encoder.embed_positions.weight", "model.decoder.embed_tokens.weight",
+              "model.decoder.embed_positions.weight")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = draw_checkpoint(shapes, gen, dtype, tables=tables)
+    return wh.WhisperModel(cfg, wh.map_whisper_weights(cfg, sd, dtype, "cuda"), dtype=dtype)
+
+
+def moonshine_model(seed: int, dtype):
+    """Moonshine tiny (MOONSHINE_TINY), random weights under the names
+    ``map_moonshine_weights`` reads (the head tied), on the card."""
+    import torch
+
+    from crane_tpu_torch.models import moonshine as ms
+
+    cfg = ms.config_from_hf(MOONSHINE_TINY)
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    e, dd = "model.encoder.", "model.decoder."
+    shapes = {e + "conv1.weight": (d, 1, 127), e + "conv2.weight": (2 * d, d, 7),
+              e + "conv2.bias": (2 * d,), e + "conv3.weight": (d, 2 * d, 3), e + "conv3.bias": (d,),
+              e + "groupnorm.weight": (d,), e + "groupnorm.bias": (d,),
+              e + "layer_norm.weight": (d,), dd + "norm.weight": (d,),
+              dd + "embed_tokens.weight": (cfg.vocab_size, d)}
+    for prefix, n, cross, up in ((e, cfg.encoder_layers, False, f), (dd, cfg.decoder_layers, True,
+                                                                        2 * f)):
+        for i in range(n):
+            lp = f"{prefix}layers.{i}."
+            for attn in ("self_attn", "encoder_attn") if cross else ("self_attn",):
+                for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                    shapes[f"{lp}{attn}.{proj}.weight"] = (d, d)
+            names = ("input_layernorm", "post_attention_layernorm") + (
+                ("final_layernorm",) if cross else ())
+            shapes.update({f"{lp}{nm}.weight": (d,) for nm in names})
+            shapes.update({lp + "mlp.fc1.weight": (up, d), lp + "mlp.fc1.bias": (up,),
+                           lp + "mlp.fc2.weight": (d, f), lp + "mlp.fc2.bias": (d,)})
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = draw_checkpoint(shapes, gen, dtype, tables=(dd + "embed_tokens.weight",))
+    return ms.MoonshineModel(cfg, ms.map_moonshine_weights(cfg, sd, dtype, "cuda"), dtype=dtype)
+
+
+def whisper_replay(model, mel, toks):
+    """Whisper's logits that chose ``toks[i]``: the start token, then
+    ``toks[:i]`` decoded one step at a time, eagerly."""
+    import torch
+
+    from crane_tpu_torch.models import whisper as wh
+
+    cfg = model.config
+
+    def logits_at(i):
+        with torch.no_grad():
+            _, kv = wh.encode_kv(cfg, model.params, mel.to(model.dtype))
+            cache = model._decoder_cache()
+            seq = [cfg.decoder_start_token_id, *toks[:i]]
+            logits, cache = wh.decode_logits(cfg, model.params, cache,
+                                             torch.tensor([seq[:1]], device=model.device), kv)
+            for t in seq[1:]:
+                logits, cache = wh.decode_logits(cfg, model.params, cache,
+                                                 torch.tensor([[t]], device=model.device), kv)
+            return logits[0]
+    return logits_at
+
+
+def moonshine_replay(model, wav, toks):
+    """Moonshine's logits that chose ``toks[i]``: the start token, then
+    ``toks[:i]`` decoded one step at a time, eagerly."""
+    import torch
+
+    from crane_tpu_torch.models import moonshine as ms
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    cfg = model.config
+
+    def logits_at(i):
+        with torch.no_grad():
+            wav_t = torch.as_tensor(wav, device=model.device).to(model.dtype)[None]
+            _, kv = ms.encode_and_kv(cfg, model.params, wav_t)
+            slots = bucket_length(len(toks) + 8, floor=64)
+            cache = model._cache(slots)
+            rope = ms.rope_tables(cfg, slots, model.device)
+            for t in [cfg.decoder_start_token_id, *toks[:i]]:
+                logits = ms.decode_logits(cfg, model.params, cache,
+                                          torch.tensor([t], dtype=torch.int32, device=model.device),
+                                          kv, rope)
+                cache.lengths += 1
+            return logits[0]
+    return logits_at
+
+
+def speech_step_ms(model, cache, enc_len: int, start: int):
+    """One decoder step of a Whisper or Moonshine model (8 in a row after
+    ``start`` tokens), as a graph replay and eagerly, and the graph run."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+
+    cur = torch.tensor([5], dtype=torch.int32, device="cuda")
+
+    def steps():
+        cache.lengths.fill_(start)
+        for _ in range(8):
+            model.step(cache, cur, enc_len)
+
+    steps()
+    graph = sync_ms(steps) / 8
+    with graphs.eager():
+        eager = sync_ms(steps) / 8
+    return graph, eager, steps
+
+
+def check_speech_decoders() -> None:
+    """Whisper large-v3 and Moonshine tiny: in float32 on the card against
+    the CPU (Whisper at its first AUDIO_F32_LAYERS encoder and decoder
+    layers, Moonshine whole), the encoder states (F32_REL_L2) and
+    SPEECH_NEW greedy ids (the tie rule); then in bf16 (Whisper whole):
+    the encoder's time, each greedy step one graph replay (counted), ids
+    against the eager steps (the tie rule), a step's time as a graph and
+    eager."""
+    import torch
+
+    from crane_tpu_torch.generation.config import TranscribeOptions
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import moonshine as ms
+    from crane_tpu_torch.models import whisper as wh
+
+    def on_cpu(model):
+        return type(model)(model.config, _tree(model.params, lambda t: t.cpu()), dtype=model.dtype)
+
+    def counted_steps(model, run):
+        calls = []
+        step = model.step
+        model.step = lambda *a: calls.append(1) or step(*a)
+        replays = graphs.replays
+        try:
+            out = run()
+        finally:
+            model.step = step
+        if graphs.replays - replays != len(calls):
+            raise AssertionError(f"{len(calls)} decode steps but {graphs.replays - replays} "
+                                 f"graph replays")
+        return out, len(calls)
+
+    wav = speech_wave(10.0, 23)
+    # Whisper: float32 at AUDIO_F32_LAYERS layers, then bf16 whole
+    gpu = whisper_model(51, torch.float32, AUDIO_F32_LAYERS)
+    cpu = on_cpu(gpu)
+    t0 = time.perf_counter()
+    mels = [m.extract_features(wav) for m in (gpu, cpu)]
+    check_f32("audio", "Whisper log-mel, 30 s window", *mels)
+    label = f"Whisper large-v3, {AUDIO_F32_LAYERS} + {AUDIO_F32_LAYERS} layers"
+    check_f32("audio", f"{label}: encoder states",
+              *[wh.encode_kv(m.config, m.params, mel)[0] for m, mel in zip((gpu, cpu), mels)])
+    toks = [m.transcribe_features(mel, max_new_tokens=SPEECH_NEW) for m, mel in zip((gpu, cpu), mels)]
+    tie_at_first_difference("audio", f"{label}, float32, {SPEECH_NEW} tokens, card vs CPU", toks[1],
+                            toks[0], whisper_replay(cpu, mels[1], toks[1]))
+    log("audio", f"Whisper float32 check done in {time.perf_counter() - t0:.1f} s")
+    del gpu, cpu
+    model = whisper_model(53, torch.bfloat16)
+    mel = mels[0]
+    toks, steps = counted_steps(model, lambda: model.transcribe_features(
+        mel, max_new_tokens=SPEECH_NEW))
+    with graphs.eager():
+        eager = model.transcribe_features(mel, max_new_tokens=SPEECH_NEW)
+    tie_at_first_difference("audio", f"Whisper large-v3 bf16, {len(toks)} tokens, graphs vs eager "
+                                     f"({steps} steps, each one graph replay)", eager, toks,
+                            whisper_replay(model, mel, eager))
+    encoder_ms = sync_ms(lambda: wh.encode_kv(model.config, model.params, mel.to(torch.bfloat16)))
+    step_ms, step_eager, steps_fn = speech_step_ms(model, model._decoder_cache(),
+                                                   model.config.max_source_positions, 4)
+    log_busy("audio", "Whisper large-v3 bf16", "8 graph decode steps", steps_fn)
+    model.release_graphs()
+    log("audio", f"Whisper large-v3 bf16 (32 + 32 layers): encoder {encoder_ms:.2f} ms (1500 "
+                 f"positions), decode step {step_ms:.3f} ms as a graph vs {step_eager:.3f} ms "
+                 f"eager")
+    del model
+    torch.cuda.empty_cache()
+
+    # Moonshine tiny: float32 whole, then bf16
+    gpu = moonshine_model(61, torch.float32)
+    cpu = on_cpu(gpu)
+    opts = TranscribeOptions(max_new_tokens=SPEECH_NEW)
+    check_f32("audio", "Moonshine tiny: encoder states, 10 s",
+              *[ms.encode(m.config, m.params, torch.as_tensor(wav, device=m.device)[None])
+                for m in (gpu, cpu)])
+    toks = [m.transcribe_ids(wav, opts) for m in (gpu, cpu)]
+    tie_at_first_difference("audio", f"Moonshine tiny float32, {len(toks[1])} tokens, card vs CPU",
+                            toks[1], toks[0], moonshine_replay(cpu, wav, toks[1]))
+    model = moonshine_model(63, torch.bfloat16)
+    toks, steps = counted_steps(model, lambda: model.transcribe_ids(wav, opts))
+    with graphs.eager():
+        eager = model.transcribe_ids(wav, opts)
+    tie_at_first_difference("audio", f"Moonshine tiny bf16, {len(toks)} tokens, graphs vs eager "
+                                     f"({steps} steps, each one graph replay)", eager, toks,
+                            moonshine_replay(model, wav, eager))
+    wav_t = torch.as_tensor(wav, device="cuda").to(torch.bfloat16)[None]
+    encoder_ms = sync_ms(lambda: ms.encode_and_kv(model.config, model.params, wav_t))
+    enc_len = ms.encode_and_kv(model.config, model.params, wav_t)[0].shape[1]
+    slots = max(model._caches)
+    step_ms, step_eager, _ = speech_step_ms(model, model._cache(slots), enc_len, 4)
+    model.release_graphs()
+    log("audio", f"Moonshine tiny bf16: encoder {encoder_ms:.2f} ms (10 s, {enc_len} positions), "
+                 f"decode step {step_ms:.3f} ms as a graph vs {step_eager:.3f} ms eager")
+
+
+def check_vad() -> None:
+    """The native VAD net (its default draw) on the card and on the CPU with
+    the same weights, over 10 s of audio in 512-sample chunks: the speech
+    probabilities within 1e-5, and ``Vad.segment_audio`` gives identical
+    segments (its threshold put between two of the CPU's probabilities, at
+    least 1e-4 from every one, so the comparison is not a tie)."""
+    import torch
+
+    from crane_tpu_torch.models import silero_vad as sv
+
+    cpu = sv.VadModel(seed=7, device="cpu")
+    gpu = sv.VadModel(seed=7, device="cuda")
+    wav = speech_wave(10.0, 29)
+    w = sv.VadConfig().window_size_samples
+    probs = {}
+    t0 = time.perf_counter()
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        state, ps = m.initial_state(), []
+        for i in range(0, len(wav) - w + 1, w):
+            p, state = m(wav[i:i + w], state)
+            ps.append(p)
+        probs[name] = torch.tensor(ps, dtype=torch.float64)
+    card_s = time.perf_counter() - t0
+    err = (probs["cuda"] - probs["cpu"]).abs().max().item()
+    log("audio", f"VAD net: {len(probs['cpu'])} chunks of {w}, max |p card - p CPU| {err:.3g} "
+                 f"(limit 1e-5); p in [{probs['cpu'].min():.4f}, {probs['cpu'].max():.4f}]")
+    if err > 1e-5:
+        raise AssertionError("the VAD net's probabilities on the card disagree with the CPU's")
+    # the threshold in the widest gap between neighbouring probabilities,
+    # the hysteresis's lower one in the widest gap below it
+    ps = probs["cpu"].sort().values
+    gaps = ps.diff()
+    j = int(gaps[1:-1].argmax()) + 1
+    k = int(gaps[:j].argmax()) if j > 1 else 0
+    if min(gaps[j], gaps[k]) < 2e-4:
+        raise AssertionError("no gap of 2e-4 between the VAD's probabilities for a threshold")
+    threshold = float(ps[j] + ps[j + 1]) / 2
+    offset = threshold - float(ps[k] + ps[k + 1]) / 2
+    cfg = dict(threshold=threshold, neg_threshold_offset=offset, min_speech_duration_ms=60,
+               min_silence_duration_ms=60)
+    segs = [sv.Vad(sv.VadConfig(**cfg), model=m).segment_audio(wav) for m in (gpu, cpu)]
+    if [(s.start, s.end) for s in segs[0]] != [(s.start, s.end) for s in segs[1]]:
+        raise AssertionError(f"VAD segments on the card {segs[0]} vs the CPU {segs[1]}")
+    log("audio", f"VAD segment_audio over 10 s at threshold {threshold:.5f}: {len(segs[0])} "
+                 f"segments, identical on the card and the CPU ({card_s:.1f} s for both nets)")
+
+
+def check_audio_kernels() -> list[dict]:
+    """Phase 3 at this slice's shapes: K1 and K3 with Qwen2-Audio's text
+    heads, 32 query / 32 KV heads of 128 (group 1), at its transcription
+    prompt (QWEN2_AUDIO_S of audio): K3 over the prefill's 64-floor bucket
+    at positions 0.. in the cache of ``bucket_length(S + new, 256)`` slots,
+    K1 at B=1 over the prompt's live length; each against its plain
+    version (also at other lengths), timed beside it and SDPA. Returns the
+    rows, launches 0."""
+    import torch
+
+    from crane_tpu_torch.models.qwen2_audio import audio_feature_lengths
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    gen = torch.Generator(device="cuda").manual_seed(1313)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    H, D = 32, 128
+    S = len(qwen2_audio_prompt(audio_feature_lengths(int(QWEN2_AUDIO_S * 100))))
+    Sb, T = bucket_length(S, floor=64), bucket_length(S + QWEN2_AUDIO_NEW, floor=256)
+    kc, vc = rnd(1, T, H, D), rnd(1, T, H, D)
+    q = rnd(1, Sb, H, D)
+    errs = []
+    for off in (0, 64, T - Sb):
+        pos = (torch.arange(Sb, dtype=torch.int32, device="cuda") + off)[None].contiguous()
+        errs.append(compare(f"K3 32/32 heads, offset {off}",
+                            k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5),
+                            k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5)))
+    pos = torch.arange(Sb, dtype=torch.int32, device="cuda")[None].contiguous()
+    rows = [timed_row(
+        "flash_attention_cached" + MHA_HEADS, "flash_attention_mma.cu",
+        "crane_tpu/ops/pallas/flash_attention.py:384", errs,
+        lambda: k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5),
+        lambda: k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5),
+        f"B=1 S={Sb} (a {S}-token prompt) at positions 0.., T={T}, Hq=32 Hkv=32 D=128",
+        chunk_work(q, H, T, pos), lambda: sdpa(q, kc, vc, mask=chunk_mask(pos, T)))]
+    q1 = rnd(1, 1, H, D)
+    errs = []
+    for live in (1, S, T):
+        v = torch.tensor([live], dtype=torch.int32, device="cuda")
+        errs.append(compare(f"K1 32/32 heads, {live} live",
+                            k1.fp_decode_attention(q1, kc, vc, v, scale=D ** -0.5),
+                            k1.fp_decode_attention_plain(q1, kc, vc, v, scale=D ** -0.5)))
+    valid = torch.tensor([S], dtype=torch.int32, device="cuda")
+    rows.append(timed_row(
+        "fp_decode_attention" + MHA_HEADS, "decode_attention.cu",
+        "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+        lambda: k1.fp_decode_attention(q1, kc, vc, valid, scale=D ** -0.5),
+        lambda: k1.fp_decode_attention_plain(q1, kc, vc, valid, scale=D ** -0.5),
+        f"B=1 T={T}, {S} live slots, Hq=32 Hkv=32 D=128", decode_work(q1, H, valid),
+        lambda: sdpa(q1, kc, vc, mask=decode_mask(valid, T))))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4874,6 +5643,7 @@ def main() -> int:
     hybrid_rows += long_rows["hybrid"]
     family_rows = check_family_kernels()
     slice_rows = check_slice_kernels()
+    audio_rows = check_audio_kernels()
     check_routed_configs()
     phase_done("kernels")
 
@@ -5034,10 +5804,27 @@ def main() -> int:
     # the K2 row at Gemma3-4B's heads reads its launches given segments
     read_launches("vlm path", slice_rows[1:], {"flash_attention_causal": segment_launches})
     phase_done("vlm")
+
+    # audio in: Qwen3-ASR-0.6B served over HTTP (K3 for the spliced
+    # prefill, K1 in graph blocks of 16 steps), Qwen2-Audio-7B (K3 and K1 at
+    # 32 / 32 heads of 128), Whisper large-v3, Moonshine tiny, the VAD net;
+    # each path's counts are zeroed just before its main path
+    for label, check in (("Qwen3-ASR path", check_qwen3_asr),
+                         ("Qwen2-Audio path", check_qwen2_audio)):
+        counts = check()
+        require_launched(label, counts, ("fp_decode_attention", "flash_attention_cached"))
+        no_plain_routes(label)
+        torch.cuda.empty_cache()
+    # the rows at Qwen2-Audio's heads read its path's launches
+    read_launches("Qwen2-Audio path", audio_rows, counts)
+    check_speech_decoders()
+    check_vad()
+    torch.cuda.empty_cache()
+    phase_done("audio")
     log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     rows += quant_rows + hybrid_rows + sp_rows + verify_rows + family_rows["lfm2"] \
-        + family_rows["moe"] + slice_rows
+        + family_rows["moe"] + slice_rows + audio_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

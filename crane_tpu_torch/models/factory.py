@@ -37,7 +37,8 @@ def load_model(path: str, **kwargs):
     """Load whatever lives at ``path`` with the appropriate model class.
 
     Returns one of: CausalLM (text LMs incl. hybrid GDN/MoE), Qwen3VLModel,
-    Gemma3VLModel, Gemma3nLM, PaddleOcrVL, or the GGUF-backed CausalLM.
+    Gemma3VLModel, Gemma3nLM, PaddleOcrVL, Qwen3AsrModel, AudioLLM
+    (Qwen2-Audio), or the GGUF-backed CausalLM.
     ``dtype`` and ``device`` go to every loader; the text loaders take their
     other keywords (``quant_bits``, ``max_seq``) too."""
     mt = detect_model_type(path)
@@ -66,8 +67,14 @@ def load_model(path: str, **kwargs):
         return load_paddleocr_vl(path, **_pick(kwargs, "dtype", "device"))
     if mt == "qwen3_tts":
         _not_ported(mt, 11)
-    if mt in ("qwen3_asr", "qwen3_omni_moe_asr", "qwen2_audio"):
-        _not_ported(mt, 10)
+    if mt in ("qwen3_asr", "qwen3_omni_moe_asr"):
+        from crane_tpu_torch.models.qwen3_asr import load_qwen3_asr
+
+        return load_qwen3_asr(path, **_pick(kwargs, "dtype", "device"))
+    if mt == "qwen2_audio":
+        from crane_tpu_torch.models.qwen2_audio import load_qwen2_audio
+
+        return load_qwen2_audio(path, **_pick(kwargs, "dtype", "device"))
     from crane_tpu_torch.models.auto import from_pretrained
 
     return from_pretrained(path, **kwargs)

@@ -59,8 +59,10 @@ from crane_tpu_torch.ops.cuda.flash_attention import flash_attention_causal
 IN_OUT = ("lengths", "recent", "history")
 
 # graphs captured in this process (the engine's warmup must leave none to
-# capture while serving)
+# capture while serving), and replays of captured programs (a path's count
+# of steps or blocks run as graphs)
 captures = 0
+replays = 0
 
 _local = threading.local()
 
@@ -178,11 +180,26 @@ class Program:
         captures += 1
 
     def __call__(self, **inputs: torch.Tensor) -> dict[str, torch.Tensor]:
+        global replays
         for name, value in inputs.items():
             self.statics[name].copy_(value)
         self.graph.replay()
+        replays += 1
         add_counts(self.launches, self.routes)
         return self.statics
+
+
+def kept_copies(store: dict, key, pairs) -> tuple:
+    """``pairs`` (tensor pairs, such as each decoder layer's cross K/V)
+    copied into buffers kept in ``store[key]``, allocated at a key's first
+    call: the fixed inputs a captured program reads in place, whatever
+    tensors the caller computed."""
+    if key not in store:
+        store[key] = tuple(tuple(torch.empty_like(t) for t in pair) for pair in pairs)
+    for kept, pair in zip(store[key], pairs):
+        for buf, t in zip(kept, pair):
+            buf.copy_(t)
+    return store[key]
 
 
 def dispatch(programs: dict, device: torch.device, kind: str, body, cache, inputs: dict,

@@ -266,18 +266,12 @@ class PaddleOcrVL:
         from crane_tpu_torch.models.modules.embeds_decode import (
             embeds_prefill,
             greedy_decode_step,
+            splice_prompt,
         )
         from crane_tpu_torch.utils.buckets import bucket_length
 
         lm = self.lm
-        ids = np.asarray(ids, np.int32)
-        S = len(ids)
-        embeds = lm.params["embed"][self._t(ids).long()][None].to(self.dtype)
-        (pos,) = np.where(ids == self.image_token_id)
-        if len(pos) != feats.shape[0]:
-            raise ValueError(f"{len(pos)} image tokens for {feats.shape[0]} features")
-        embeds[0, self._t(pos).long()] = feats.to(self.dtype)
-        embeds = F.pad(embeds, (0, 0, 0, bucket_length(S, floor=64) - S))
+        embeds, S = splice_prompt(lm.params["embed"], ids, self.image_token_id, feats, self.dtype)
         cache, _ = lm._generate_cache(bucket_length(S + max_new_tokens, floor=256), None)
         logits, cache = embeds_prefill(lm.config, lm.params, lm.rope, cache, embeds, S)
         cur = torch.argmax(logits, -1).to(torch.int32)

@@ -73,17 +73,21 @@ class Server:
         """``engine`` serves CausalLM with continuous batching; models with
         bespoke forwards (Gemma3n) pass ``text_backend`` instead (the
         reference serves every model via ModelBackend + concurrency cap,
-        backend.rs:220-223) — chat/completions then route through it."""
-        assert engine is not None or text_backend is not None
+        backend.rs:220-223) — chat/completions then route through it. With
+        neither, the server serves speech recognition alone (``asr``), and
+        a text request answers 400 (crane_tpu requires a text model)."""
+        assert engine is not None or text_backend is not None or asr is not None
         self.engine = engine
         self.text_backend = text_backend
         self.model_name = model_name
         if engine is not None:
             self.eos_token_ids = tuple(eos_token_ids) or tuple(engine.lm.eos_token_ids)
             self.tokenizer = engine.lm.tokenizer
-        else:
+        elif text_backend is not None:
             self.eos_token_ids = tuple(eos_token_ids) or tuple(text_backend.eos_token_ids)
             self.tokenizer = text_backend.tokenizer
+        else:
+            self.eos_token_ids, self.tokenizer = tuple(eos_token_ids), None
         self.created = int(time.time())
         # multimodal backends run outside the engine with their own serialized
         # executors — the reference's dedicated-thread-per-modality design
@@ -185,13 +189,24 @@ class Server:
             {"id": mid, "object": "model", "created": self.created, "owned_by": "crane-tpu"}
         )
 
+    def _no_text_model(self):
+        """The answer to a text request on a server of speech recognition
+        alone, else None."""
+        if self.tokenizer is None:
+            return web.json_response({"error": {"message": "no text model loaded"}}, status=400)
+        return None
+
     async def tokenize(self, request):
+        if (refused := self._no_text_model()) is not None:
+            return refused
         p = await request.json()
         text = p.get("text") or p.get("prompt") or ""
         ids = self.tokenizer.encode(text)
         return web.json_response({"tokens": ids, "count": len(ids)})
 
     async def detokenize(self, request):
+        if (refused := self._no_text_model()) is not None:
+            return refused
         p = await request.json()
         ids = p.get("tokens") or []
         return web.json_response({"text": self.tokenizer.decode(ids)})
@@ -534,6 +549,8 @@ class Server:
         payload = await request.json()
         if self.vlm is not None and self._has_image_parts(payload.get("messages", [])):
             return await self._vlm_chat(request, payload)
+        if (refused := self._no_text_model()) is not None:
+            return refused
         try:
             prompt = self._render_chat(payload)
         except Exception as e:  # template errors -> 400
@@ -759,19 +776,85 @@ def _not_ported(what: str, item: int):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
+def _load_text_model(args, dtype, quant_bits):
+    """(the CausalLM the engine serves, or None; the TextBackend a Gemma3n
+    checkpoint is served through, or None) for ``--model-path``."""
+    if args.model_path.endswith(".gguf"):
+        from crane_tpu_torch.loaders.gguf_model import from_gguf
+
+        return from_gguf(args.model_path, dtype=dtype, device=args.device), None
+    from crane_tpu_torch.models.auto import from_pretrained
+    from crane_tpu_torch.models.factory import detect_model_type
+
+    if detect_model_type(args.model_path) in ("gemma3n", "gemma3n_text"):
+        # bespoke forward (AltUp/PLE/KV-sharing): served via the capped
+        # TextBackend instead of the slot engine (backend.rs:220-223)
+        from crane_tpu_torch.models.auto import read_eos_ids
+        from crane_tpu_torch.models.gemma3n import from_pretrained as g3n
+        from crane_tpu_torch.serve.backend import TextBackend
+        from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
+
+        model = g3n(args.model_path, dtype=dtype, max_seq=args.max_seq_len, device=args.device)
+        return None, TextBackend(model, AutoTokenizer.from_pretrained(args.model_path),
+                                 eos_token_ids=read_eos_ids(args.model_path), name="gemma3n")
+    return from_pretrained(args.model_path, dtype=dtype, device=args.device,
+                           quant_bits=quant_bits), None
+
+
+def load_asr(path: str, dtype, device):
+    """The speech-recognition adapter for the checkpoint at ``path``:
+    Qwen3-ASR where its ``model_type`` starts with ``qwen3`` and it has no
+    ``talker_config`` (a Qwen3-TTS checkpoint has one), else Moonshine
+    (crane_tpu/serve/api.py:896-909)."""
+    from crane_tpu_torch.models.auto import load_hf_config
+    from crane_tpu_torch.sdk.audio import MoonshineAsr, Qwen3AsrAdapter
+
+    hf = load_hf_config(path)
+    if "talker_config" not in hf and hf.get("model_type", "").startswith("qwen3"):
+        from crane_tpu_torch.models.qwen3_asr import load_qwen3_asr
+
+        return Qwen3AsrAdapter(load_qwen3_asr(path, dtype=dtype, device=device))
+    from crane_tpu_torch.models.moonshine import load_moonshine
+
+    return MoonshineAsr(load_moonshine(path, dtype=dtype, device=device))
+
+
+def warm_up_asr(asr) -> None:
+    """Transcribe one second of silence before serving, so the first
+    request does not pay the kernels' and the decode graphs' set-up; a
+    failure is logged and serving goes on, as in crane_tpu
+    (``serve/api.py:921-938``). crane_tpu's warm-up loop also rebinds the
+    name that held its Gemma3n ``TextBackend``; nothing here touches the
+    text side."""
+    import numpy as np
+
+    from crane_tpu_torch.generation.config import TranscribeOptions
+
+    try:
+        t0 = time.time()
+        asr.transcribe(np.zeros(16000, np.float32), TranscribeOptions())
+        log.info("asr warmup done in %.1fs", time.time() - t0)
+    except Exception as e:
+        log.warning("asr warmup failed (non-fatal): %s", e)
+
+
 def main(argv=None):
     """``python -m crane_tpu_torch.serve --model-path <dir | file.gguf>``:
     load the model onto ``--device`` (the card by default; ``cpu`` only when
     asked), warm the engine up, start its thread and serve until
     interrupted. A Gemma3n checkpoint is served through ``TextBackend``
     instead of the engine; ``--vlm-path`` adds a Qwen3-VL model for chat
-    requests with images."""
+    requests with images; ``--asr-path`` adds a speech-recognition model
+    for /v1/audio/transcriptions (Qwen3-ASR for a ``qwen3*`` config without
+    a talker, else Moonshine), warmed up on one second of silence. With
+    ``--asr-path``, ``--model-path`` may be left out: the server then
+    serves speech recognition alone."""
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser("crane_tpu_torch.serve")
-    ap.add_argument("--model-path", required=True)
+    ap.add_argument("--model-path", default=None)
     ap.add_argument("--model-name", default=None)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
@@ -811,14 +894,15 @@ def main(argv=None):
                     "long for one card's memory; composes with --kv-quant)")
     ap.add_argument("--vlm-path", default=None, help="Qwen3-VL checkpoint for image chat")
     ap.add_argument("--tts-path", default=None, help="codec-TTS checkpoint (not ported yet)")
-    ap.add_argument("--asr-path", default=None, help="ASR checkpoint (not ported yet)")
+    ap.add_argument("--asr-path", default=None,
+                    help="Qwen3-ASR or Moonshine checkpoint for /v1/audio/transcriptions")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     if args.tp > 1 or args.dp > 1:
         _not_ported("tensor- and data-parallel serving (--tp/--dp)", 12)
-    if args.asr_path:
-        _not_ported("speech recognition (--asr-path)", 10)
+    if args.model_path is None and args.asr_path is None:
+        ap.error("--model-path is required unless --asr-path is given")
     if args.tts_path:
         _not_ported("speech synthesis (--tts-path)", 11)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -827,31 +911,10 @@ def main(argv=None):
     # a repo id; resolve once so every downstream consumer sees a local dir
     from crane_tpu_torch.utils.hub import resolve_checkpoint
 
-    args.model_path = resolve_checkpoint(args.model_path)
     lm = engine = backend = None
-    if args.model_path.endswith(".gguf"):
-        from crane_tpu_torch.loaders.gguf_model import from_gguf
-
-        lm = from_gguf(args.model_path, dtype=dtype, device=args.device)
-    else:
-        from crane_tpu_torch.models.auto import from_pretrained
-        from crane_tpu_torch.models.factory import detect_model_type
-
-        if detect_model_type(args.model_path) in ("gemma3n", "gemma3n_text"):
-            # bespoke forward (AltUp/PLE/KV-sharing): served via the capped
-            # TextBackend instead of the slot engine (backend.rs:220-223)
-            from crane_tpu_torch.models.auto import read_eos_ids
-            from crane_tpu_torch.models.gemma3n import from_pretrained as g3n
-            from crane_tpu_torch.serve.backend import TextBackend
-            from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
-
-            model = g3n(args.model_path, dtype=dtype, max_seq=args.max_seq_len,
-                        device=args.device)
-            backend = TextBackend(model, AutoTokenizer.from_pretrained(args.model_path),
-                                  eos_token_ids=read_eos_ids(args.model_path), name="gemma3n")
-        else:
-            lm = from_pretrained(args.model_path, dtype=dtype, device=args.device,
-                                 quant_bits=quant_bits)
+    if args.model_path is not None:
+        args.model_path = resolve_checkpoint(args.model_path)
+        lm, backend = _load_text_model(args, dtype, quant_bits)
     if lm is not None and args.sp > 1:
         # sequence-parallel serving: KV sequence axis sharded over sp
         # devices — max_seq_len beyond one card's memory (parallel/sequence.py)
@@ -876,12 +939,15 @@ def main(argv=None):
         from crane_tpu_torch.models.qwen3_vl import load_qwen3_vl
 
         vlm = load_qwen3_vl(args.vlm_path, dtype=dtype, device=args.device)
+    asr = load_asr(args.asr_path, dtype, args.device) if args.asr_path else None
+    if asr is not None:
+        warm_up_asr(asr)
     if engine is not None:
         log.info("warming up (kernels and decode-block graphs)...")
         engine.warmup()
         engine.start()
-    name = args.model_name or args.model_path.rstrip("/").split("/")[-1]
-    server = Server(engine, model_name=name, vlm=vlm, text_backend=backend)
+    name = args.model_name or (args.model_path or args.asr_path).rstrip("/").split("/")[-1]
+    server = Server(engine, model_name=name, vlm=vlm, asr=asr, text_backend=backend)
     try:
         web.run_app(build_app(server), host=args.host, port=args.port)
     finally:

@@ -2,7 +2,9 @@
 
 :func:`params_from_jax` turns a ``crane_tpu`` params pytree (nested dicts,
 tuples and lists whose leaves are numpy arrays or ``jax.Array``s) into the
-same tree of torch tensors, so both packages can run on the same weights.
+same tree of torch tensors, so both packages can run on the same weights;
+:func:`audio_params_from_jax` does the same for the audio models' trees,
+whose 1-D convs the port keeps in PyTorch's layout.
 :func:`cache_from_jax` turns a ``crane_tpu`` ``KVCache`` (fp, int8/int4, GDN
 and short-conv layers) into the port's, so a decode step or a continuation can start
 from JAX's own state. Nothing here imports jax: a ``jax.Array`` leaf is read
@@ -78,3 +80,32 @@ def cache_from_jax(cache, device=None) -> KVCache:
         else:
             layers.append(LayerKVCache(k=t(layer.k), v=t(layer.v)))
     return KVCache(layers=tuple(layers), lengths=t(cache.lengths))
+
+
+# 1-D conv weights crane_tpu stores WIO ``[k, Cin, Cout]``: Qwen2-Audio's and
+# Whisper's ``conv1_w``/``conv2_w``, Moonshine's frontend ``conv1_w``..
+# ``conv3_w``, and the VAD net's ``convs[i]["w"]``
+_CONV_KEYS = ("conv1_w", "conv2_w", "conv3_w", "w")
+
+
+def audio_params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
+    """A ``crane_tpu`` audio params tree (Qwen3-ASR's AuT tower and
+    projector, Qwen2-Audio's encoder and projector, Whisper, Moonshine, the
+    VAD net, with or without a text model beside them) -> the port's tree,
+    as :func:`params_from_jax`, except that each 1-D conv weight becomes
+    PyTorch's ``[Cout, Cin, k]`` and Moonshine's GroupNorm affine (``gn_w``,
+    ``gn_b``, ``[1, 1, C]``) becomes ``[C]``. AuT's 2-D convs are OIHW in
+    both packages and come across as they are."""
+    def walk(node, key):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v, key) for v in node)
+        t = params_from_jax(node, device, dtype)
+        if key in _CONV_KEYS and t.ndim == 3:
+            return t.permute(2, 1, 0).contiguous()
+        if key in ("gn_w", "gn_b"):
+            return t.reshape(-1)
+        return t
+
+    return walk(tree, "")

@@ -7,7 +7,10 @@ Every case of tests/test_api.py is sent to both, in the same order, and the
 JSON bodies (and SSE events) must be equal with ``id`` and ``created``
 masked. Beyond those: stop strings, ``finish_reason: "length"``, a 413 body,
 a client that hangs up mid-stream, the refused flags of ``main()``, the SDK
-client, and the command line as a subprocess.
+client, and the command line as a subprocess. Speech recognition: a tiny
+Qwen3-ASR checkpoint served by ``main(["--asr-path", ...])`` beside a text
+model, beside Gemma3n's ``TextBackend``, alone, and from the command line,
+each transcription equal to crane_tpu's on the same samples.
 """
 
 import asyncio
@@ -519,7 +522,6 @@ class TestBackendServing:
 REFUSED = [
     (["--tp", "2"], "item 12"),
     (["--dp", "2"], "item 12"),
-    (["--asr-path", "a"], "item 10"),
     (["--tts-path", "t"], "item 11"),
 ]
 
@@ -836,6 +838,169 @@ def test_command_line_serves_a_chat(ckpt, tmp_path):
         assert status == 200 and out["object"] == "chat.completion", out
         assert out["usage"]["completion_tokens"] == CHAT["max_tokens"]
         assert out["model"] == "m"
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(5)
+        log.close()
+
+
+# -- speech recognition (--asr-path) -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def asr_ckpt(tmp_path_factory):
+    from tests.test_torch_qwen3_asr import make_tiny_qwen3_asr_checkpoint
+
+    return make_tiny_qwen3_asr_checkpoint(tmp_path_factory.mktemp("asr"))
+
+
+def _speech(n: int, rate: int) -> np.ndarray:
+    t = np.arange(n) / rate
+    noise = 0.05 * np.random.default_rng(n).standard_normal(n)
+    return (0.3 * np.sin(2 * np.pi * 300 * t) + noise).astype(np.float32)
+
+
+def _wav_upload(samples: np.ndarray, rate: int) -> tuple[dict, bytes]:
+    """A multipart/form-data body with the WAV as its ``file`` part."""
+    from crane_tpu_torch.audio.pcm import encode_wav
+
+    boundary = "asr-boundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"a.wav\"\r\nContent-Type: audio/wav\r\n\r\n").encode() \
+        + encode_wav(samples, rate) + f"\r\n--{boundary}--\r\n".encode()
+    return {"Content-Type": f"multipart/form-data; boundary={boundary}"}, body
+
+
+def _crane_transcripts(asr_ckpt, uploads) -> list[str]:
+    """crane_tpu's Qwen3-ASR text for each (samples, rate) as the server
+    sees it: decoded from the WAV, resampled to 16 kHz, the adapter's
+    default options."""
+    from crane_tpu.audio.pcm import decode_wav, encode_wav, resample
+    from crane_tpu.generation.config import TranscribeOptions
+    from crane_tpu.models.qwen3_asr import load_qwen3_asr
+    from crane_tpu.sdk.audio import Qwen3AsrAdapter
+
+    ref = Qwen3AsrAdapter(load_qwen3_asr(asr_ckpt))
+    out = []
+    for samples, rate in uploads:
+        x, r = decode_wav(encode_wav(samples, rate))
+        out.append(ref.transcribe(resample(x, r, 16000) if r != 16000 else x,
+                                  TranscribeOptions()).text)
+    return out
+
+
+UPLOADS = ((_speech(16000, 16000), 16000), (_speech(12000, 8000), 8000))
+
+
+def _serve_asr(monkeypatch, argv) -> dict:
+    """main(argv) with the serving loop replaced by the UPLOADS posted to
+    /v1/audio/transcriptions and one chat completion."""
+    from crane_tpu_torch.serve import api, transport
+
+    seen = {}
+
+    def serve_once(app, *, host, port):
+        seen["server"] = app.router.routes[0][2].__self__
+        with transport.BackgroundServer(app) as srv:
+            client = PortClient(srv.port)
+            seen["asr"] = [client.request("POST", "/v1/audio/transcriptions", raw=body,
+                                          headers=headers)
+                           for headers, body in (_wav_upload(*u) for u in UPLOADS)]
+            seen["chat"] = client.request("POST", "/v1/chat/completions", CHAT)
+
+    monkeypatch.setattr(transport, "run_app", serve_once)
+    api.main(argv)
+    return seen
+
+
+def _texts(seen) -> list[str]:
+    for status, _, body in seen["asr"]:
+        assert status == 200, body
+    return [json.loads(body)["text"] for _, _, body in seen["asr"]]
+
+
+def test_main_serves_speech_recognition(ckpt, asr_ckpt, monkeypatch):
+    """``--asr-path`` loads Qwen3-ASR (a ``qwen3*`` config without a talker)
+    beside the text model's engine: a 16 kHz and an 8 kHz WAV upload (the
+    resample route) give crane_tpu's transcriptions, and chat still goes
+    to the engine."""
+    from crane_tpu_torch.models.qwen3_asr import Qwen3AsrModel
+    from crane_tpu_torch.sdk.audio import Qwen3AsrAdapter
+
+    seen = _serve_asr(monkeypatch, ["--model-path", ckpt, "--asr-path", asr_ckpt, "--device",
+                                    "cpu", "--dtype", "f32", "--max-concurrent", "2",
+                                    "--max-seq-len", "256"])
+    server = seen["server"]
+    assert isinstance(server.asr, Qwen3AsrAdapter) and isinstance(server.asr.model, Qwen3AsrModel)
+    assert server.engine is not None and seen["chat"][0] == 200
+    assert _texts(seen) == _crane_transcripts(asr_ckpt, UPLOADS)
+
+
+def test_main_keeps_gemma3ns_text_backend_beside_asr(asr_ckpt, tmp_path, monkeypatch):
+    """A Gemma3n checkpoint with ``--asr-path``: the server keeps the
+    Gemma3n ``TextBackend`` for chat (crane_tpu's warm-up loop rebinds that
+    name, ROADMAP Queue 3) and serves speech recognition beside it."""
+    from crane_tpu_torch.models.gemma3n import Gemma3nLM
+
+    d = _tiny_gemma3n(tmp_path / "g3n")
+    seen = _serve_asr(monkeypatch, ["--model-path", d, "--asr-path", asr_ckpt, "--device", "cpu",
+                                    "--dtype", "f32", "--max-seq-len", "64"])
+    server = seen["server"]
+    assert server.engine is None and isinstance(server.text_backend.model, Gemma3nLM)
+    assert seen["chat"][0] == 200, seen["chat"]
+    assert _texts(seen) == _crane_transcripts(asr_ckpt, UPLOADS)
+
+
+def test_main_serves_speech_recognition_alone(asr_ckpt, monkeypatch):
+    """``--asr-path`` without ``--model-path``: no text model, so a chat
+    request answers 400, and transcriptions are crane_tpu's. Without
+    ``--device cpu`` on a machine with no card, loading raises."""
+    seen = _serve_asr(monkeypatch, ["--asr-path", asr_ckpt, "--device", "cpu", "--dtype", "f32"])
+    server = seen["server"]
+    assert server.engine is None and server.text_backend is None
+    assert seen["chat"][0] == 400
+    assert json.loads(seen["chat"][2]) == {"error": {"message": "no text model loaded"}}
+    assert _texts(seen) == _crane_transcripts(asr_ckpt, UPLOADS)
+    from crane_tpu_torch.serve import api
+
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            api.main(["--asr-path", asr_ckpt, "--dtype", "f32"])
+    with pytest.raises(SystemExit):
+        api.main(["--device", "cpu"])  # neither --model-path nor --asr-path
+
+
+def test_command_line_serves_a_transcription(asr_ckpt, tmp_path):
+    """``python -m crane_tpu_torch.serve --asr-path <dir> --device cpu``
+    answers /v1/audio/transcriptions with crane_tpu's text for the same
+    WAV; the process is terminated at the end; bounded at 60 s."""
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "2"}
+    log = open(tmp_path / "serve.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crane_tpu_torch.serve", "--asr-path", asr_ckpt, "--device", "cpu",
+         "--host", "127.0.0.1", "--port", str(port), "--dtype", "f32"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 60
+    try:
+        client = PortClient(port)
+        while True:
+            assert proc.poll() is None, (tmp_path / "serve.log").read_text()[-4000:]
+            assert time.monotonic() < deadline - 10, "the server never answered /health"
+            try:
+                if client.request("GET", "/health")[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        headers, body = _wav_upload(*UPLOADS[0])
+        status, _, out = client.request("POST", "/v1/audio/transcriptions", raw=body,
+                                        headers=headers)
+        assert status == 200, out
+        assert json.loads(out)["text"] == _crane_transcripts(asr_ckpt, UPLOADS[:1])[0]
     finally:
         proc.terminate()
         try:

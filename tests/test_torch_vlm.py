@@ -11,7 +11,8 @@
   hands ``segments`` to K2 (its plain version here);
 - PaddleOCR-VL on tests/test_paddleocr_vl.py's tiny checkpoint: the
   antialiased resize (down and up), the NaViT tower and ``recognize``;
-- ``models/factory.py`` on each family, and the vision SDK.
+- ``models/factory.py`` on each family (the audio LLMs too), and the vision
+  SDK.
 
 Features and logits agree within rtol/atol 2e-4; greedy tokens are
 identical.
@@ -47,6 +48,7 @@ from tests.test_gemma3_vl_parity import IMG_TOKEN as G3_IMG
 from tests.test_gemma3_vl_parity import _pixels
 from tests.test_gemma3_vl_parity import tiny as g3_tiny  # noqa: F401
 from tests.test_paddleocr_vl import _tiny_ocr_checkpoint, _tiny_vcfg, _tower_params
+from tests.test_qwen2_audio_parity import tiny as qa_tiny  # noqa: F401
 from tests.test_qwen3_vl_parity import IMG_TOKEN, VID_TOKEN, VSTART, _positional_image
 from tests.test_qwen3_vl_parity import tiny as vl_tiny  # noqa: F401
 from tests.test_torch_moe import same_leaves
@@ -397,7 +399,8 @@ def test_vision_sdk_over_the_port(ocr_dir):
 # -- the factory -------------------------------------------------------------
 
 
-def test_factory_detects_and_loads_each_family(vl_tiny, g3_tiny, ocr_dir, tmp_path):  # noqa: F811
+def test_factory_detects_and_loads_each_family(vl_tiny, g3_tiny, ocr_dir, qa_tiny,  # noqa: F811
+                                               tmp_path):
     from tests.fixtures import make_tiny_qwen3_checkpoint
     from crane_tpu.models import factory as jf
     from crane_tpu_torch.models import factory as tf
@@ -426,9 +429,21 @@ def test_factory_detects_and_loads_each_family(vl_tiny, g3_tiny, ocr_dir, tmp_pa
         assert type(model) is cls
         assert model.__class__.__name__ == type(jf.load_model(path, dtype=jnp.float32)).__name__
     assert tf.detect_model_type(str(tmp_path / "x.gguf")) == "gguf"
-    for mt, item in (("qwen3_tts", 11), ("qwen3_asr", 10), ("qwen2_audio", 10)):
-        d = tmp_path / mt
-        d.mkdir()
-        (d / "config.json").write_text(json.dumps({"model_type": mt}))
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tf.load_model(str(d), device="cpu")
+    d = tmp_path / "qwen3_tts"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({"model_type": "qwen3_tts"}))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tf.load_model(str(d), device="cpu")
+    # the audio LLMs load as the port's classes (ROADMAP Queue 1 item 10)
+    from crane_tpu_torch.models.qwen2_audio import AudioLLM
+    from crane_tpu_torch.models.qwen3_asr import Qwen3AsrModel
+    from tests.test_torch_qwen3_asr import make_tiny_qwen3_asr_checkpoint
+
+    (tmp_path / "asr").mkdir()
+    audio = {make_tiny_qwen3_asr_checkpoint(tmp_path / "asr"): (Qwen3AsrModel, "qwen3_asr"),
+             qa_tiny[1]: (AudioLLM, "qwen2_audio")}
+    for path, (cls, mt) in audio.items():
+        assert tf.detect_model_type(path) == jf.detect_model_type(path) == mt
+        model = tf.load_model(path, dtype=torch.float32, device="cpu")
+        assert type(model) is cls
+        assert model.__class__.__name__ == type(jf.load_model(path, dtype=jnp.float32)).__name__
