@@ -198,7 +198,30 @@ each reported on its own line:
    against the eager steps, the encoder's and a step's times. The native
    VAD net over 10 s: probabilities on the card within 1e-5 of the CPU's,
    identical segments. K1 and K3 were launched by the Qwen3-ASR and the
-   Qwen2-Audio paths.
+   Qwen2-Audio paths;
+22. tts: Qwen3-TTS at bench.py:399-451's 0.6B-class widths (QWEN3_TTS),
+   random weights under the names ``map_talker_weights`` reads, the codec
+   head and the code predictor's heads scaled by TTS_PEAK so that sampled
+   codes are comparable between runs; the speech decoder, its reference
+   encoder and ECAPA at their released shapes. Float32 with the talker cut
+   to 4 of 28 layers on the card against the CPU: the prefill, the first
+   code-0 logits, 16 frames of codes (equal or tied), the decoder's audio
+   of them with cuDNN's TF32 off, ECAPA's x-vector and the reference
+   encoder's codes of a 3-s reference. Then bf16 whole: the prefill, a
+   16-frame block as one graph replay against eager, the RTF of 64 frames,
+   a streaming chunk's decode, a voice-clone loop (one replay a frame),
+   and over HTTP (``build_app(Server(None, tts=...))``, frames capped at
+   50) a WAV equal to the direct synthesis and a streamed request (time to
+   the first PCM chunk). CSM-1B (``CsmConfig()``'s published shapes, Mimi
+   at ``MimiConfig()``): float32 with the backbone cut to 4 of 16 layers
+   against the CPU (codes, Mimi's audio), then bf16 whole: 24 greedy
+   frames, each frame (31 depth recomputes and the backbone step) one
+   graph replay against eager, Mimi's decode and the RTF, a voice clone
+   through ``audio_context``. K1 and K3 were launched by both paths; the
+   rows at the predictor's and the depth decoder's shapes
+   (check_tts_kernels: K3 at S=2 and K1 over a 32-slot cache with 16 / 8
+   heads of 64, K3 at S=32 over 32 slots with 8 / 2 of 128) read their
+   path's launches.
 
 Where two paths' greedy tokens part (graphs against eager, speculative
 against plain, HTTP against ``engine.submit``, the GGUF model on the card
@@ -218,7 +241,7 @@ Moonshine's decoders' are plain by design, as in crane_tpu, and not
 routed). ``[profile]`` lines split a chunk's, a prefill's
 and a decode step's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
 elementwise, reduce, index) and name the largest kernels; the decode steps
-(bf16 and w4 kv4 at B=1 and B=8 after 300 tokens, and B=1 after 16,000)
+(bf16 and w4 kv4 at B=1 and B=8 after 300 tokens)
 also give their wall time on the host clock and the device's idle share,
 eager and as graphs.
 
@@ -1916,17 +1939,18 @@ STEP_BLOCK = 8  # decode steps a timed block runs (the engine's decode_tokens_pe
 
 
 # (B, T, context) of log_decode_steps' decode steps: B=1 and B=8 after a
-# 300-token prefill into 2048-slot rows, and B=1 after LONG_LIVE tokens in a
-# LONG_T-slot row, where the decode kernels split
-DECODE_SHAPES = ((1, 2048, 300), (8, 2048, 300), (1, LONG_T, LONG_LIVE))
+# 300-token prefill into 2048-slot rows (the step after 16,000 tokens, PR 7-13,
+# was cut to keep the run inside its limit on a slow host; the 16K kernel
+# rows of phase 3 stay)
+DECODE_SHAPES = ((1, 2048, 300), (8, 2048, 300))
 
 
-def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
+def log_decode_steps(model, label, kv_bits=None) -> dict:
     """[profile] lines of a decode step, the eager loop beside the CUDA
     graph, in this one process: the kernels' device time by family
     (log_device_ms, over one block of STEP_BLOCK steps) and the wall time a
     step on the host clock (4 blocks after a synchronize, ended by one), at
-    each of ``shapes``. The device idle share is 1 - busy / wall. Where the profiler
+    each of DECODE_SHAPES. The device idle share is 1 - busy / wall. Where the profiler
     sees no device time inside a graph replay, the graph's busy time is the
     eager block's (the same kernels), and the line says so. Returns
     {(B, T): {mode: (wall ms, busy ms)}}."""
@@ -1937,7 +1961,7 @@ def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
 
     dev = model.device
     table = {}
-    for B, T, ctx in shapes:
+    for B, T, ctx in DECODE_SHAPES:
         ids = [i % model.config.vocab_size for i in range(1, ctx + 1)]
         _, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), [ids] * B, [ctx] * B)
         tokens = torch.ones(B, dtype=torch.int32, device=dev)
@@ -3636,8 +3660,7 @@ def log_moe_decode(lm) -> None:
     experts = expert_bytes(params)
     weights = sum(t.numel() * t.element_size() for t in _leaves(params)) \
         - params["embed"].numel() * params["embed"].element_size()
-    table = log_decode_steps(lm, f"Qwen3-Next {MOE_LAYERS} layers bf16",
-                             shapes=((1, 2048, 300), (8, 2048, 300)))
+    table = log_decode_steps(lm, f"Qwen3-Next {MOE_LAYERS} layers bf16")
     ids = [i % lm.config.vocab_size for i in range(1, 301)]
     _, cache = lm.prefill(lm.init_cache(1, 2048), [ids], [300])
     args = (cache, torch.ones(1, dtype=torch.int32, device="cuda"),
@@ -3964,7 +3987,7 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     for row in rows:
         name = row["name"]
         for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32, G3N_HEADS, SEG_HEADS,
-                    MHA_HEADS):
+                    MHA_HEADS, PRED_PREFILL, PRED_STEP, DEPTH_CHUNK):
             name = name.removesuffix(tag)
         row["launches"] = counts[name]
         if row["launches"] <= 0:
@@ -5015,15 +5038,8 @@ def multipart_wav(samples, rate: int) -> tuple[dict, bytes]:
 
 def http_raw(port: int, path: str, headers: dict, body: bytes) -> tuple[int, dict]:
     """POST ``body`` as it is: (status, JSON body)."""
-    import http.client
-
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-    try:
-        conn.request("POST", path, body=body, headers=headers)
-        r = conn.getresponse()
-        return r.status, json.loads(r.read())
-    finally:
-        conn.close()
+    status, _, data = http_raw_bytes(port, path, headers, body)
+    return status, json.loads(data)
 
 
 def qwen3_asr_model(tparams, aparams, dtype):
@@ -5600,6 +5616,867 @@ def check_audio_kernels() -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 22 (tts): speech out. Qwen3-TTS at bench.py's 0.6B-class widths,
+# served over /v1/audio/speech, and CSM-1B with the Mimi codec
+
+# Qwen3-TTS at bench.py:399-451's widths (the 0.6B-class talker: 28 layers
+# of 1024, 16 / 8 heads of 128, MLP 3072, codec vocabulary 3072, 16 code
+# groups, text table 151936 x 2048; the code predictor: 6 layers of 1024,
+# 16 / 8 heads of 64), with a code predictor vocabulary of 2048 (the speech
+# decoder's codebook size, so every predicted code decodes) and control ids
+# in the top 1024 of the codec vocabulary (EOS 2150)
+QWEN3_TTS = {
+    "talker": dict(vocab_size=3072, hidden_size=1024, num_layers=28, num_heads=16,
+                   num_kv_heads=8, head_dim=128, intermediate_size=3072, rope_theta=1e6,
+                   qk_norm=True),
+    "predictor": dict(vocab_size=2048, hidden_size=1024, num_layers=6, num_heads=16,
+                      num_kv_heads=8, head_dim=64, intermediate_size=3072, rope_theta=1e6,
+                      qk_norm=True),
+    "groups": 16, "text_vocab": 151936, "text_hidden": 2048,
+    "specials": dict(vocab_size=3072, codec_eos=2150, codec_think=2154, codec_nothink=2155,
+                     codec_think_bos=2156, codec_think_eos=2157, codec_pad=2148, codec_bos=2149,
+                     language_ids={"english": 2050}, speaker_ids={}, spk_is_dialect={}),
+}
+# the codec head and the code predictor's 15 heads are scaled by TTS_PEAK in
+# the drawn checkpoint: a logit gap of the unscaled heads' 1e-5 is then 10
+# in the sampler's units, so top-k 50 at temperature 0.9 takes the argmax
+# but for a near-tie, and two runs with different generators (the card's,
+# the CPU's) give the same codes; a tie is judged in the unscaled units
+TTS_PEAK = 1e6
+TTS_TEXT = 20  # text ids of a request
+TTS_BLOCK = 16  # frames a block (generate_speech_codes)
+TTS_F32_FRAMES = 16
+TTS_F32_LAYERS = 4  # of the talker's 28, for the float32 check against the CPU
+TTS_FRAMES = 64  # generate_speech_codes for the RTF: 5.12 s of audio
+TTS_HTTP_FRAMES = 50  # the frame cap over HTTP (random weights rarely sample EOS)
+FRAME_S = 0.08  # 12.5 Hz
+
+# CSM-1B: transformers 4.57.6's CsmConfig() defaults (its published
+# config): backbone 16 layers of 2048, 32 / 8 heads of 64, MLP 8192; depth
+# decoder 4 layers of 1024, 8 / 2 heads of 128, MLP 8192; 32 codebooks of
+# 2051; text vocabulary 128256; the codec MimiConfig()
+CSM_1B = {
+    "model_type": "csm", "num_codebooks": 32, "vocab_size": 2051, "text_vocab_size": 128256,
+    "hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 16,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64, "rms_norm_eps": 1e-5,
+    "rope_theta": 500000, "max_position_embeddings": 2048, "codebook_eos_token_id": 0,
+    "audio_token_id": 128002, "audio_eos_token_id": 128003,
+    "depth_decoder_config": {
+        "num_codebooks": 32, "vocab_size": 2051, "backbone_hidden_size": 2048,
+        "hidden_size": 1024, "intermediate_size": 8192, "num_hidden_layers": 4,
+        "num_attention_heads": 8, "num_key_value_heads": 2, "head_dim": 128,
+        "rms_norm_eps": 1e-5, "rope_theta": 500000, "max_position_embeddings": 33},
+    "codec_config": {
+        "sampling_rate": 24000, "hidden_size": 512, "num_filters": 64, "num_residual_layers": 1,
+        "upsampling_ratios": [8, 6, 5, 4], "kernel_size": 7, "last_kernel_size": 3,
+        "residual_kernel_size": 3, "dilation_growth_rate": 2, "codebook_size": 2048,
+        "codebook_dim": 256, "num_quantizers": 32, "num_semantic_quantizers": 1,
+        "num_hidden_layers": 8, "num_attention_heads": 8, "head_dim": 64,
+        "intermediate_size": 2048, "rope_theta": 10000.0, "sliding_window": 250,
+        "norm_eps": 1e-5, "upsample_groups": 512},
+}
+CSM_FRAMES = 24
+CSM_F32_LAYERS = 4  # of the backbone's 16, for the float32 check (depth and codec whole)
+CSM_F32_FRAMES = 2  # each frame 31 recomputes of the depth decoder on the CPU
+
+# kernel-row tags of this slice's shapes: the code predictor's two-token
+# prefill and its steps over the 32-slot cache, CSM's depth recompute
+PRED_PREFILL = "[D64-16/8 S2 T32]"
+PRED_STEP = "[D64-16/8 T32]"
+DEPTH_CHUNK = "[D128-8/2 S32 T32]"
+
+
+def check_tts_kernels() -> list[dict]:
+    """Phase 3 at this slice's shapes, the kernels' smallest yet: K3 at S=2
+    over a 32-slot cache with 16 / 8 heads of 64 (the code predictor's
+    prefill, positions 0 and 1; also at 30 and 31), K1 at B=1 over that
+    cache (its steps, 3 to 17 live slots), K3 at S=32 over a 32-slot cache
+    with 8 / 2 heads of 128 (CSM's depth recompute); each against its plain
+    version, timed beside it and SDPA. Returns the rows, launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    gen = torch.Generator(device="cuda").manual_seed(1414)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def positions(start, S):
+        return (torch.arange(S, dtype=torch.int32, device="cuda") + start)[None].contiguous()
+
+    rows = []
+    T = 32
+    for tag, (Hq, Hkv, D, S, starts) in ((PRED_PREFILL, (16, 8, 64, 2, (0, 30))),
+                                         (DEPTH_CHUNK, (8, 2, 128, 32, (0,)))):
+        kc, vc, q = rnd(1, T, Hkv, D), rnd(1, T, Hkv, D), rnd(1, S, Hq, D)
+        errs = [compare(f"K3 {tag} at {s}",
+                        k23.flash_attention_cached(q, kc, vc, positions(s, S), scale=D ** -0.5),
+                        k23.flash_attention_cached_plain(q, kc, vc, positions(s, S),
+                                                         scale=D ** -0.5))
+                for s in starts]
+        pos = positions(0, S)
+        rows.append(timed_row(
+            "flash_attention_cached" + tag, "flash_attention_mma.cu",
+            "crane_tpu/ops/pallas/flash_attention.py:384", errs,
+            lambda q=q, kc=kc, vc=vc, pos=pos, D=D: k23.flash_attention_cached(
+                q, kc, vc, pos, scale=D ** -0.5),
+            lambda q=q, kc=kc, vc=vc, pos=pos, D=D: k23.flash_attention_cached_plain(
+                q, kc, vc, pos, scale=D ** -0.5),
+            f"B=1 S={S} at positions 0.., T={T}, Hq={Hq} Hkv={Hkv} D={D}",
+            chunk_work(q, Hkv, T, pos),
+            lambda q=q, kc=kc, vc=vc, pos=pos: sdpa(q, kc, vc, mask=chunk_mask(pos, T))))
+    kc, vc, q1 = rnd(1, T, 8, 64), rnd(1, T, 8, 64), rnd(1, 1, 16, 64)
+    errs = []
+    for live in (3, 10, 17, T):
+        v = torch.tensor([live], dtype=torch.int32, device="cuda")
+        errs.append(compare(f"K1 {PRED_STEP}, {live} live",
+                            k1.fp_decode_attention(q1, kc, vc, v, scale=64 ** -0.5),
+                            k1.fp_decode_attention_plain(q1, kc, vc, v, scale=64 ** -0.5)))
+    valid = torch.tensor([17], dtype=torch.int32, device="cuda")
+    rows.insert(1, timed_row(
+        "fp_decode_attention" + PRED_STEP, "decode_attention.cu",
+        "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+        lambda: k1.fp_decode_attention(q1, kc, vc, valid, scale=64 ** -0.5),
+        lambda: k1.fp_decode_attention_plain(q1, kc, vc, valid, scale=64 ** -0.5),
+        f"B=1 T={T}, 17 live slots (the predictor's last step), Hq=16 Hkv=8 D=64",
+        decode_work(q1, 8, valid), lambda: sdpa(q1, kc, vc, mask=decode_mask(valid, T))))
+    return rows
+
+
+def stack_state_dict(cfg, gen, prefix: str) -> dict:
+    """A transformer stack's layers and final norm in the HF layout
+    (``models/init.py`` ``hf_state_dict``, float32 on ``gen``'s device)
+    under ``prefix`` in place of ``model.``; no embedding, no head."""
+    import torch
+
+    from crane_tpu_torch.models.init import hf_state_dict
+
+    return {prefix + k[len("model."):]: v
+            for k, v in hf_state_dict(cfg, gen, torch.float32).items()
+            if k.startswith("model.") and "embed_tokens" not in k}
+
+
+def qwen3_tts_state_dict(gen) -> dict:
+    """QWEN3_TTS's talker and code predictor under the names
+    ``map_talker_weights`` reads, drawn on ``gen``'s device in float32, the
+    codec head and the predictor's heads scaled by TTS_PEAK."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import TransformerConfig
+
+    tcfg, pcfg = (TransformerConfig(**QWEN3_TTS["talker"]),
+                  TransformerConfig(**QWEN3_TTS["predictor"]))
+    E, V, PV, TV, TD = (tcfg.hidden_size, tcfg.vocab_size, pcfg.vocab_size,
+                        QWEN3_TTS["text_vocab"], QWEN3_TTS["text_hidden"])
+    n = QWEN3_TTS["groups"] - 1
+    shapes = {"talker.model.codec_embedding.weight": (V, E),
+              "talker.model.text_embedding.weight": (TV, TD),
+              "talker.codec_head.weight": (V, E),
+              "talker.text_projection.linear_fc1.weight": (TD, TD),
+              "talker.text_projection.linear_fc1.bias": (TD,),
+              "talker.text_projection.linear_fc2.weight": (E, TD),
+              "talker.text_projection.linear_fc2.bias": (E,)}
+    for i in range(n):
+        shapes[f"talker.code_predictor.model.codec_embedding.{i}.weight"] = (PV, E)
+        shapes[f"talker.code_predictor.lm_head.{i}.weight"] = (PV, pcfg.hidden_size)
+    tables = [k for k in shapes if "embedding" in k]
+    sd = draw_checkpoint(shapes, gen, torch.float32, tables)
+    sd.update(stack_state_dict(tcfg, gen, "talker.model."))
+    sd.update(stack_state_dict(pcfg, gen, "talker.code_predictor.model."))
+    for k in sd:
+        if k == "talker.codec_head.weight" or "code_predictor.lm_head" in k:
+            sd[k] = sd[k] * TTS_PEAK
+    return sd
+
+
+def qwen3_tts_model(sd, dtype, device, talker_layers=None, decoder=None):
+    """A Qwen3TTSModel from QWEN3_TTS's drawn state dict (the talker cut to
+    ``talker_layers``), in ``dtype`` on ``device``, with the stand-in
+    tokenizer."""
+    import dataclasses
+
+    from crane_tpu_torch.models import qwen3_tts as qt
+    from crane_tpu_torch.models.modules.transformer import TransformerConfig
+
+    tcfg = TransformerConfig(**QWEN3_TTS["talker"])
+    if talker_layers is not None:
+        tcfg = dataclasses.replace(tcfg, num_layers=talker_layers)
+    pcfg = TransformerConfig(**QWEN3_TTS["predictor"])
+    params = qt.map_talker_weights(tcfg, pcfg, sd, QWEN3_TTS["groups"], dtype, device)
+    return qt.Qwen3TTSModel(tcfg, pcfg, qt.TalkerSpecials(**QWEN3_TTS["specials"]), params,
+                            num_code_groups=QWEN3_TTS["groups"],
+                            tokenizer=StandInTokenizer(QWEN3_TTS["text_vocab"]),
+                            decoder=decoder, dtype=dtype)
+
+
+def tts_frame_logits(model, ids, codes, f):
+    """The logits that chose frame ``f`` on ``model``'s own eager path,
+    with ``codes[:f]`` fed back: code 0's (the suppress masks and the
+    repetition penalty applied) ``[V]``, and the predictor's ``[groups -
+    1, PV]`` with frame f's codes fed, the predictor's two-token prefill
+    and its steps as the frame runs them."""
+    import torch
+
+    from crane_tpu_torch.generation.config import SpeechOptions
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import qwen3_tts as qt
+    from crane_tpu_torch.ops.kv_cache import KVCache
+    from crane_tpu_torch.ops.sampling import apply_repetition_penalty
+
+    G, dev, dt = model.num_code_groups, model.device, model.dtype
+    opts = SpeechOptions(max_new_tokens=len(codes) + 1)
+    talker, pred = model.params["talker"], model.params["pred"]
+
+    def proj(x):
+        return x if "mtp_w" not in pred else x @ pred["mtp_w"] + pred["mtp_b"]
+
+    with torch.no_grad(), graphs.eager():
+        state = model.prepare_streaming(ids, "english", None, opts)
+        h, cache = state.past_hidden, state.cache
+        for step in range(f + 1):
+            frame = torch.as_tensor(codes[step], device=dev).long() \
+                if step < len(codes) else None
+            if step == f:
+                c0 = (h[:, 0] @ talker["codec_head"]).float() + model._suppress[None]
+                if step < 2:
+                    c0 = c0 + model._eos_suppress[None]
+                recent = torch.full((1, qt.REP_WINDOW), -1, dtype=torch.int32, device=dev)
+                past = torch.as_tensor(codes, device=dev)[:f, 0][-qt.REP_WINDOW:]
+                if len(past):
+                    recent[0, -len(past):] = past.to(torch.int32)
+                c0 = apply_repetition_penalty(c0, recent, state.sp.repetition_penalty)[0]
+                if frame is None:
+                    return c0, None
+                e0 = pred["codec_embedding0"][frame[:1]][:, None]
+                pc = KVCache(layers=model._pred_cache.layers,
+                             lengths=torch.zeros((1,), dtype=torch.int32, device=dev))
+                ph, pc = qt.forward_hidden(model.pcfg, pred["tree"],
+                                           torch.zeros((1, 2), dtype=torch.int32, device=dev),
+                                           pc, 0, model.pred_rope,
+                                           inputs_embeds=proj(torch.cat([h, e0], 1)).to(dt))
+                hh, groups = ph[:, -1:], []
+                for g in range(G - 1):
+                    groups.append((hh[:, 0] @ pred["lm_heads"][g]).float()[0])
+                    emb = proj(pred["codec_embeddings"][g][frame[g + 1:g + 2]][:, None]).to(dt)
+                    hh, pc = qt._step_embed(model.pcfg, pred["tree"], model.pred_rope, pc, emb)
+                return c0, torch.stack(groups)
+            emb = pred["codec_embedding0"][frame[0]] + sum(
+                pred["codec_embeddings"][g][frame[g + 1]] for g in range(G - 1))
+            guidance = state.trailing[0, step] if step < state.trailing.shape[1] \
+                else state.tts_pad_embed[0, 0]
+            h, cache = qt._step_embed(model.tcfg, talker["tree"], model.rope, cache,
+                                      (emb + guidance)[None, None].to(dt))
+
+
+def tts_codes_tied(phase, label, model, ids, ref, other) -> None:
+    """Where two paths' sampled codes part, the reference path's logits at
+    the first difference (``tts_frame_logits`` on its model; a path that
+    ended takes EOS there) put the two codes within LOGIT_TIE of each other
+    in the unscaled heads' units (the logit gap over TTS_PEAK)."""
+    import torch
+
+    ref, other = torch.as_tensor(ref), torch.as_tensor(other)
+    n = min(len(ref), len(other))
+    diff = torch.nonzero(ref[:n] != other[:n])
+    if not len(diff) and len(ref) == len(other):
+        log(phase, f"{label}: {len(ref)} frames x {ref.shape[1]} codes identical")
+        return
+    eos = model.sp_tokens.codec_eos
+    if len(diff):
+        f, g = (int(x) for x in diff[0])
+        a, b = int(ref[f, g]), int(other[f, g])
+    else:  # one path sampled EOS where the other went on
+        f, g = n, 0
+        a = int(ref[f, 0]) if len(ref) > n else eos
+        b = int(other[f, 0]) if len(other) > n else eos
+    c0, groups = tts_frame_logits(model, ids, ref, f)
+    logits = (c0 if g == 0 else groups[g - 1]).cpu()
+    gap = abs((logits[a] - logits[b]).item()) / TTS_PEAK
+    log(phase, f"{label}: codes part at frame {f}, group {g} ({a} vs {b}); the reference's "
+               f"logits there put them {gap:.4g} apart in the unscaled heads' units (tie "
+               f"{LOGIT_TIE})")
+    if not gap <= LOGIT_TIE:
+        raise AssertionError(f"{label}: the codes part at frame {f}, group {g} without a tie")
+
+
+def encoder_codes_tied(label, enc, wav, ref, other) -> None:
+    """Where two runs' reference-encoder codes part, the distances of the two
+    codewords on the reference run (the CPU's ``enc``) at the first
+    difference of each frame's branch lie within 1e-4 of each other,
+    relative."""
+    import torch
+
+    from crane_tpu_torch.models import speech_tokenizer as st
+
+    ref, other = torch.as_tensor(ref).long(), torch.as_tensor(other).long()
+    if torch.equal(ref, other):
+        log("tts", f"{label}: {tuple(ref.shape)} codes identical")
+        return
+    cfg, p = enc.config, enc.params
+    with torch.no_grad():
+        x = torch.as_tensor(wav, dtype=torch.float32)[None, None]
+        h = st.encoder_seanet(cfg, p, x)
+        h = st.encoder_transformer(cfg, p["transformer"], h.transpose(1, 2)).transpose(1, 2)
+        worst = 0.0
+        for branch, q0, nq in ((p["semantic"], 0, cfg.num_semantic_quantizers),
+                               (p["acoustic"], cfg.num_semantic_quantizers,
+                                cfg.valid_num_quantizers - cfg.num_semantic_quantizers)):
+            res = torch.einsum("bdt,nd->btn", h, branch["input_proj"])[0]
+            parted = torch.zeros(res.shape[0], dtype=torch.bool)
+            for q in range(nq):
+                emb = st.codebook_table(branch["layers"][q])
+                d = st.codeword_distances(res[None], emb)[0]
+                for t in torch.nonzero((ref[:, q0 + q] != other[:, q0 + q]) & ~parted)[:, 0]:
+                    da, db = d[t, ref[t, q0 + q]].item(), d[t, other[t, q0 + q]].item()
+                    worst = max(worst, abs(da - db) / max(abs(da), abs(db), 1e-30))
+                    parted[t] = True
+                res = res - emb[ref[:, q0 + q]]
+    log("tts", f"{label}: {int((ref != other).sum())} of {ref.numel()} codes part; at each "
+               f"chain's first, the codewords' distances lie {worst:.3g} apart (relative; "
+               f"tie 1e-4)")
+    if worst > 1e-4:
+        raise AssertionError(f"{label}: reference codes part without a tie")
+
+
+@contextlib.contextmanager
+def cudnn_tf32(allow: bool):
+    """cuDNN's float32 convolutions with TF32 allowed or not, inside (the
+    package leaves the setting at PyTorch's default, allowed)."""
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class CappedTts:
+    """A Tts adapter with each request's frames capped at ``frames`` (the
+    handler asks for 2048, and random weights rarely sample EOS); the
+    adapter and the handler stay as they are."""
+
+    def __init__(self, tts, frames: int):
+        self.tts, self.frames = tts, frames
+
+    def _options(self, options):
+        import dataclasses
+
+        from crane_tpu_torch.generation.config import SpeechOptions
+
+        return dataclasses.replace(options or SpeechOptions(), max_new_tokens=self.frames)
+
+    def audio_info(self):
+        return self.tts.audio_info()
+
+    def voices(self):
+        return self.tts.voices()
+
+    def supports_voice_cloning(self):
+        return self.tts.supports_voice_cloning()
+
+    def generate_speech(self, text, options=None):
+        return self.tts.generate_speech(text, self._options(options))
+
+    def generate_speech_stream(self, text, options=None):
+        return self.tts.generate_speech_stream(text, self._options(options))
+
+
+def http_pcm(port: int, body: dict) -> tuple[float, bytes]:
+    """POST a streamed /v1/audio/speech: (seconds to the first PCM bytes,
+    all the bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/audio/speech", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200:
+            raise AssertionError(f"streamed speech: {r.status} {r.read()[:200]!r}")
+        first, data = None, b""
+        while True:
+            chunk = r.read1(1 << 16)
+            if not chunk:
+                return first, data
+            if first is None:
+                first = time.perf_counter() - t0
+            data += chunk
+    finally:
+        conn.close()
+
+
+def check_qwen3_tts() -> dict[str, int]:
+    """Qwen3-TTS at QWEN3_TTS's widths, random weights (QWEN3_TTS's drawn
+    checkpoint; the speech decoder, reference encoder and ECAPA at their
+    released shapes from the port's seeded ``random_*_state_dict``). Float32
+    on the card against the CPU with the talker cut to TTS_F32_LAYERS: the
+    prefill's last hidden state and the first frame's code-0 logits
+    (F32_REL_L2), TTS_F32_FRAMES frames of codes (equal, or tied:
+    ``tts_codes_tied``), the speech decoder's audio for those frames with
+    TF32 off (F32_REL_L2; with TF32 on logged); voice clone's ECAPA
+    embedding of a 3-s reference and the reference encoder's codes
+    (``encoder_codes_tied``). Then bf16 whole: the prefill's ms, one
+    16-frame block as one replay against eager (the tie rule), the blocks'
+    ms, ``generate_speech_codes`` of TTS_FRAMES frames and its RTF, a
+    streaming chunk's decode; a voice-clone loop (one replay a frame); over
+    HTTP through ``build_app(Server(None, tts=...))`` (CappedTts) a WAV
+    equal to ``Qwen3Tts.generate_speech``'s and a streamed request (time to
+    the first PCM chunk, 1920 samples a frame). Returns the bf16 path's
+    launch counts (the main path: the direct synthesis and HTTP)."""
+    import torch
+
+    from crane_tpu_torch.audio.pcm import encode_wav
+    from crane_tpu_torch.generation.config import SpeechOptions
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import speaker_encoder as se
+    from crane_tpu_torch.models import speech_tokenizer as st
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.sdk.audio import Qwen3Tts
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    sd = qwen3_tts_state_dict(gen)
+    dcfg, ecfg, scfg = st.SpeechDecoderConfig(), st.SpeechEncoderConfig(), se.EcapaConfig()
+    # the decoder drawn with fan-in scales (crane_tpu's dry-run std of 0.05
+    # grows its activations to ~1e6 and clips every sample), its output conv
+    # scaled by 0.01 so that the random audio sits inside the clip (rms
+    # ~0.1) and the float32 check compares samples
+    dec_sd = draw_checkpoint(st.decoder_state_shapes(dcfg), gen, torch.float32)
+    dec_sd[f"decoder.decoder.{len(dcfg.upsample_rates) + 2}.conv.weight"] *= 0.01
+    decoders = [st.SpeechTokenizerDecoder(dcfg, st.map_decoder_weights(dcfg, dec_sd, device=d))
+                for d in ("cuda", "cpu")]
+    del dec_sd
+    tok = StandInTokenizer(QWEN3_TTS["text_vocab"])
+    ids = torch.randint(0, QWEN3_TTS["text_vocab"], (TTS_TEXT,),
+                        generator=torch.Generator().manual_seed(43)).tolist()
+    text = tok.decode(ids)
+    log("tts", f"Qwen3-TTS checkpoint drawn and the speech decoder mapped in "
+               f"{time.perf_counter() - t0:.1f} s")
+
+    # float32, card against the CPU, the talker cut to TTS_F32_LAYERS
+    t0 = time.perf_counter()
+    models = [qwen3_tts_model(sd, torch.float32, d, TTS_F32_LAYERS, dec)
+              for d, dec in zip(("cuda", "cpu"), decoders)]
+    opts = SpeechOptions(max_new_tokens=TTS_F32_FRAMES, seed=0, language="english")
+    states = [m.prepare_streaming(ids, "english", None, opts) for m in models]
+    check_f32("tts", f"Qwen3-TTS talker ({TTS_F32_LAYERS} of 28 layers) prefill's last hidden "
+                     f"state, {len(ids)} text ids", *(s.past_hidden for s in states))
+    check_f32("tts", "Qwen3-TTS first frame's code-0 logits (unmasked)",
+              *((s.past_hidden[:, 0] @ m.params["talker"]["codec_head"]).float()
+                for s, m in zip(states, models)))
+    with graphs.eager():  # numerics here; graphs against eager below, in bf16
+        codes = [m.generate_speech_codes(ids, "english", None, opts) for m in models]
+    tts_codes_tied("tts", f"Qwen3-TTS float32, {TTS_F32_FRAMES} frames, card vs CPU", models[1],
+                   ids, codes[1], codes[0])
+    cpu_audio = torch.as_tensor(decoders[1].decode(codes[1][None]))
+    for tf32 in (False, True):
+        with cudnn_tf32(tf32):
+            audio = torch.as_tensor(decoders[0].decode(codes[1][None]))
+        label = (f"speech decoder audio of {len(codes[1])} frames ({audio.shape[1]} samples), "
+                 f"cuDNN TF32 {'on' if tf32 else 'off'}")
+        if tf32:
+            log("tts", f"{label}: rel L2 {rel_l2(audio, cpu_audio):.3g} against the CPU (logged, "
+                       f"not held)")
+        else:
+            check_f32("tts", label, audio, cpu_audio)
+    clipped = float((cpu_audio.abs() >= 1.0).float().mean())
+    log("tts", f"the decoded audio: rms {cpu_audio.pow(2).mean().sqrt().item():.4g}, clipped "
+               f"share {clipped:.4g}")
+    del models, states
+
+    # voice clone's encoders, float32, card against the CPU
+    ecapa_sd = se.random_speaker_encoder_state_dict(scfg, 44)
+    ecapas = [se.SpeakerEncoder(scfg, se.map_speaker_encoder_weights(scfg, ecapa_sd, device=d))
+              for d in ("cuda", "cpu")]
+    encoders = [st.SpeechTokenizerEncoder(ecfg, st.init_encoder_params(ecfg, 45, d))
+                for d in ("cuda", "cpu")]
+    ref_wav = speech_wave(3.0, 46, 24000)
+    with cudnn_tf32(False):
+        check_f32("tts", "ECAPA x-vector of a 3-s 24 kHz reference, cuDNN TF32 off",
+                  *(torch.as_tensor(e(ref_wav)) for e in ecapas))
+        ref_codes = [e.encode(ref_wav) for e in encoders]
+    encoder_codes_tied(f"the reference encoder's codes of 3 s, {ref_codes[1].shape}",
+                       encoders[1], ref_wav, ref_codes[1], ref_codes[0])
+    log("tts", f"Qwen3-TTS float32 checks done in {time.perf_counter() - t0:.1f} s")
+
+    # bf16, the whole talker: the main path is counted from here
+    model = qwen3_tts_model(sd, torch.bfloat16, "cuda", decoder=decoders[0])
+    model.speaker_encoder, model.ref_encoder = ecapas[0], encoders[0]
+    del sd, ecapas, encoders, decoders
+    torch.cuda.empty_cache()
+    reset_counts()
+    opts = SpeechOptions(max_new_tokens=TTS_FRAMES, seed=0)
+    prefill_ms = sorted(sync_ms(lambda: model.prepare_streaming(ids, "english", None, opts))
+                        for _ in range(3))[1]
+    blocks = {}
+    for mode in ("capture", "graph", "eager"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            state = model.prepare_streaming(ids, "english", None, opts)
+            replays = graphs.replays
+            out = []
+            ms = sync_ms(lambda: out.append(model.generate_frames(state, TTS_BLOCK)))
+            blocks[mode] = (out[0], graphs.replays - replays, ms)
+    if blocks["graph"][1] != 1 or blocks["eager"][1] != 0:
+        raise AssertionError(f"Qwen3-TTS: a block took {blocks['graph'][1]} replays")
+    tts_codes_tied("tts", f"Qwen3-TTS bf16, one {TTS_BLOCK}-frame block, graph vs eager", model,
+                   ids, blocks["eager"][0], blocks["graph"][0])
+    block_ms, block_eager = blocks["graph"][2], blocks["eager"][2]
+    log("tts", f"Qwen3-TTS bf16: the block's first call (its capture) took "
+               f"{blocks['capture'][2] / 1e3:.1f} s")
+
+    def block():
+        model.generate_frames(model.prepare_streaming(ids, "english", None, opts), TTS_BLOCK)
+    state = model.prepare_streaming(ids, "english", None, opts)
+    before = kernels.launch_counts()
+    model.generate_frames(state, 1)
+    per_frame = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+    log("tts", f"Qwen3-TTS bf16: one frame's launches {json.dumps(per_frame)}")
+    runs, n_frames = [], 0
+    for _ in range(3):
+        t1 = time.perf_counter()
+        c = model.generate_speech_codes(ids, "english", None, opts, block_frames=TTS_BLOCK)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t1)
+        n_frames = len(c)
+    gen_s = sorted(runs)[1]
+    chunk = c[None, :50]
+    chunk_ms = sorted(sync_ms(lambda: model.decoder.decode_chunk(chunk, 25)) for _ in range(3))[1]
+    log_busy("tts", "Qwen3-TTS bf16", f"a prefill and one {TTS_BLOCK}-frame block", block)
+    log("tts", f"Qwen3-TTS bf16 ({len(ids)} text ids): prefill {prefill_ms:.2f} ms, a "
+               f"{TTS_BLOCK}-frame block {block_ms:.1f} ms as one graph replay vs "
+               f"{block_eager:.1f} ms eager ({block_ms / TTS_BLOCK:.2f} ms a frame); "
+               f"generate_speech_codes of {n_frames} frames {gen_s * 1e3:.1f} ms (median of 3), "
+               f"RTF {gen_s / (n_frames * FRAME_S):.4f} (synthesis seconds an audio second); a "
+               f"streaming chunk's decode (25 new + 25 context frames, float32) {chunk_ms:.2f} ms")
+
+    # voice clone once: ECAPA, the reference encoder, the ICL prompt, one
+    # replay a frame
+    replays = graphs.replays
+    clone = model.generate_voice_clone_codes(
+        ids[:8], ids[8:12], model.encode_reference(ref_wav), model.speaker_encoder(ref_wav),
+        "english", SpeechOptions(max_new_tokens=8, seed=1))
+    if graphs.replays - replays != len(clone) + (len(clone) < 8):
+        raise AssertionError(f"voice clone: {len(clone)} frames in "
+                             f"{graphs.replays - replays} replays")
+    log("tts", f"Qwen3-TTS voice clone (ICL over {len(model.encode_reference(ref_wav))} "
+               f"reference frames): {len(clone)} frames, one replay a frame")
+
+    # over HTTP: the WAV equals the direct synthesis; the stream's first chunk
+    tts = CappedTts(Qwen3Tts(model), TTS_HTTP_FRAMES)
+    direct = tts.generate_speech(text, SpeechOptions())
+    t1 = time.perf_counter()
+    list(tts.generate_speech_stream(text, SpeechOptions()))  # its block captures
+    log("tts", f"Qwen3-TTS: the first stream (its {Qwen3Tts(model).stream_frames}-frame block "
+               f"captured) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    stream = iter(tts.generate_speech_stream(text, SpeechOptions()))
+    first_chunk = next(stream)
+    first_direct = time.perf_counter() - t1
+    rest = [first_chunk] + list(stream)
+    with BackgroundServer(build_app(Server(None, tts=tts))) as srv:
+        status, _, wav = http_raw_bytes(srv.port, "/v1/audio/speech",
+                                        {"Content-Type": "application/json"},
+                                        json.dumps({"input": text}).encode())
+        first_http, pcm = http_pcm(srv.port, {"input": text, "stream": True})
+    if status != 200 or wav != encode_wav(direct, 24000):
+        raise AssertionError(f"Qwen3-TTS over HTTP: {status}, {len(wav)} bytes against the direct "
+                             f"synthesis' {len(encode_wav(direct, 24000))}")
+    frames = len(direct) // 1920
+    if len(direct) != frames * 1920 or len(pcm) != 2 * len(direct) \
+            or sum(len(x) for x in rest) != len(direct):
+        raise AssertionError(f"Qwen3-TTS stream: {len(pcm)} bytes for {len(direct)} samples")
+    log("tts", f"Qwen3-TTS over HTTP ({frames} frames, {frames * FRAME_S:.2f} s of audio): the WAV "
+               f"equals Qwen3Tts.generate_speech; streamed, {len(rest)} PCM chunks of 1920 samples "
+               f"a frame, the first after {first_http * 1e3:.1f} ms over HTTP "
+               f"({first_direct * 1e3:.1f} ms direct)")
+    counts = kernels.launch_counts()
+    model.release_graphs()
+    return counts
+
+
+def http_raw_bytes(port: int, path: str, headers: dict, body: bytes) -> tuple[int, dict, bytes]:
+    """POST ``body``: (status, headers, the response's bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def mimi_shapes(c: dict) -> dict:
+    """An HF MimiModel's state-dict names and shapes at the config ``c``, as
+    ``models/mimi.py`` ``map_mimi_weights`` reads them."""
+    nf, H, ratios = c["num_filters"], c["hidden_size"], c["upsampling_ratios"]
+    k, rk, lk = c["kernel_size"], c["residual_kernel_size"], c["last_kernel_size"]
+    shapes = {}
+
+    def conv(name, cout, cin, kk, bias=True):
+        shapes[name + ".conv.weight"] = (cout, cin, kk)
+        if bias:
+            shapes[name + ".conv.bias"] = (cout,)
+
+    def res(prefix, idx, ch):
+        conv(f"{prefix}.layers.{idx}.block.1", ch // 2, ch, rk)
+        conv(f"{prefix}.layers.{idx}.block.3", ch, ch // 2, 1)
+
+    conv("encoder.layers.0", nf, 1, k)
+    idx, ch = 1, nf
+    for r in reversed(ratios):
+        res("encoder", idx, ch)
+        conv(f"encoder.layers.{idx + 2}", 2 * ch, ch, 2 * r)
+        idx, ch = idx + 3, 2 * ch
+    conv(f"encoder.layers.{idx + 1}", H, ch, lk)
+    conv("decoder.layers.0", ch, H, k)
+    idx = 1
+    for r in ratios:
+        conv(f"decoder.layers.{idx + 1}", ch, ch // 2, 2 * r, bias=False)  # [Cin, Cout, k]
+        shapes[f"decoder.layers.{idx + 1}.conv.bias"] = (ch // 2,)
+        res("decoder", idx + 2, ch // 2)
+        idx, ch = idx + 3, ch // 2
+    conv(f"decoder.layers.{idx + 1}", 1, nf, lk)
+    for name in ("encoder_transformer", "decoder_transformer"):
+        for i in range(c["num_hidden_layers"]):
+            lp = f"{name}.layers.{i}."
+            for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                shapes[lp + f"self_attn.{n}.weight"] = (H, H)
+            shapes[lp + "mlp.fc1.weight"] = (c["intermediate_size"], H)
+            shapes[lp + "mlp.fc2.weight"] = (H, c["intermediate_size"])
+            for n in ("input_layernorm", "post_attention_layernorm"):
+                shapes[lp + n + ".weight"] = shapes[lp + n + ".bias"] = (H,)
+            shapes[lp + "self_attn_layer_scale.scale"] = shapes[lp + "mlp_layer_scale.scale"] = (H,)
+    dim, n_sem = c["codebook_dim"], c["num_semantic_quantizers"]
+    for name, n in (("semantic", n_sem), ("acoustic", c["num_quantizers"] - n_sem)):
+        q = f"quantizer.{name}_residual_vector_quantizer."
+        shapes[q + "input_proj.weight"] = (dim, H, 1)
+        shapes[q + "output_proj.weight"] = (H, dim, 1)
+        for i in range(n):
+            shapes[q + f"layers.{i}.codebook.embed_sum"] = (c["codebook_size"], dim)
+            shapes[q + f"layers.{i}.codebook.cluster_usage"] = (c["codebook_size"],)
+    shapes["downsample.conv.weight"] = (H, H, 4)
+    shapes["upsample.conv.weight"] = (H, H // c["upsample_groups"], 4)
+    return shapes
+
+
+def csm_state_dict(gen) -> dict:
+    """CSM_1B under the names ``map_csm_weights`` and ``map_mimi_weights``
+    read, drawn on ``gen``'s device in float32 (the codebooks' embedding
+    sums with std 1, the codebook heads with std 1024 ** -0.5), saved with
+    tied codebook tables as transformers saves it (no backbone audio
+    table)."""
+    import torch
+
+    from crane_tpu_torch.models.csm_tts import csm_config_from_hf
+
+    cfg = csm_config_from_hf(CSM_1B)
+    K, Va, E = cfg.num_codebooks, cfg.audio_vocab_size, cfg.backbone.hidden_size
+    Dd = cfg.depth.hidden_size
+    shapes = {"embed_text_tokens.weight": (cfg.text_vocab_size, E),
+              # the depth decoder embeds at the backbone's width, then projects
+              "depth_decoder.model.embed_tokens.weight": (K * Va, E),
+              "depth_decoder.model.inputs_embeds_projector.weight": (Dd, E),
+              "lm_head.weight": (Va, E)}
+    codec = {"codec_model." + n: s for n, s in mimi_shapes(CSM_1B["codec_config"]).items()}
+    sd = draw_checkpoint({**shapes, **codec}, gen, torch.float32,
+                         ["embed_text_tokens.weight", "depth_decoder.model.embed_tokens.weight"])
+    sd["depth_decoder.codebooks_head.weight"] = torch.randn(
+        (K - 1, Dd, Va), generator=gen, device=gen.device) * Dd ** -0.5
+    for name in codec:
+        if name.endswith("embed_sum"):
+            sd[name] = torch.randn(codec[name], generator=gen, device=gen.device)
+    sd.update(stack_state_dict(cfg.backbone, gen, "backbone_model."))
+    sd.update(stack_state_dict(cfg.depth, gen, "depth_decoder.model."))
+    return sd
+
+
+def csm_model(sd, dtype, device, backbone_layers=None):
+    """A CsmTtsModel from CSM_1B's drawn state dict (the backbone cut to
+    ``backbone_layers``), in ``dtype`` on ``device``, with the Mimi codec in
+    float32."""
+    import dataclasses
+
+    from crane_tpu_torch.models import csm_tts as ct
+    from crane_tpu_torch.models.mimi import MimiCodec, map_mimi_weights, mimi_config_from_hf
+
+    cfg = ct.csm_config_from_hf(CSM_1B)
+    if backbone_layers is not None:
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            cfg.backbone, num_layers=backbone_layers))
+    ccfg = mimi_config_from_hf(CSM_1B["codec_config"])
+    codec = MimiCodec(ccfg, map_mimi_weights(
+        ccfg, {k[len("codec_model."):]: v for k, v in sd.items() if k.startswith("codec_model.")},
+        device=device))
+    return ct.CsmTtsModel(cfg, ct.map_csm_weights(cfg, sd, dtype, device), codec=codec,
+                          dtype=dtype)
+
+
+def csm_frame_logits(model, ids, codes, f):
+    """The logits that chose frame ``f`` on ``model``'s own eager path with
+    ``codes[:f]`` fed back: code 0's ``[Va]`` (the backbone's head) and the
+    depth decoder's ``[K - 1, Va]`` over frame f's codes (one recompute of
+    all K positions: position i sees only the positions up to i, as in
+    each of the frame's recomputes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from crane_tpu_torch.models import csm_tts as ct
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, make_cache
+    from crane_tpu_torch.ops.kv_cache import KVCache
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    cfg, p, dev = model.config, model.params, model.device
+    K, Va = cfg.num_codebooks, cfg.audio_vocab_size
+    with torch.no_grad():
+        S = len(ids)
+        embeds = F.pad(model.prompt_embeds(ids, None), (0, 0, 0, bucket_length(S, floor=32) - S))
+        cache = make_cache(cfg.backbone, 1, bucket_length(S + len(codes) + 1, floor=256),
+                           model.dtype, device=dev)
+        h, cache = ct._backbone_prefill(cfg.backbone, p["backbone"], model.rope, cache,
+                                        embeds.to(model.dtype), S)
+        for step in range(f):
+            frame = torch.as_tensor(codes[step], device=dev)
+            h, cache = ct._backbone_step(cfg.backbone, p["backbone"], model.rope, cache,
+                                         model.frame_embed(frame).to(model.dtype))
+        c0 = h @ p["lm_head"]
+        frame = torch.as_tensor(codes[f], device=dev).long()
+        seq = torch.cat([(h @ p["depth_projector"])[None],
+                         p["depth_embed"][frame[:K - 1] + torch.arange(K - 1, device=dev) * Va]
+                         @ p["depth_projector"]])
+        hd, _ = forward_hidden(cfg.depth, p["depth"], torch.zeros((1, K), dtype=torch.int32,
+                                                                  device=dev),
+                               KVCache(layers=make_cache(cfg.depth, 1, K, model.dtype,
+                                                         device=dev).layers,
+                                       lengths=torch.zeros((1,), dtype=torch.int32, device=dev)),
+                               0, model.depth_rope, inputs_embeds=seq[None])
+        depth = torch.stack([hd[0, i] @ p["codebooks_head"][i - 1] for i in range(1, K)])
+    return c0, depth
+
+
+def csm_codes_tied(label, model, ids, ref, other) -> None:
+    """Where two greedy paths' CSM codes part, the reference path's logits
+    at the first difference (``csm_frame_logits``; a path that stopped
+    takes EOS, code 0 = 0) choose its code again and put the other within
+    LOGIT_TIE."""
+    import torch
+
+    ref, other = torch.as_tensor(ref), torch.as_tensor(other)
+    n = min(len(ref), len(other))
+    diff = torch.nonzero(ref[:n] != other[:n])
+    if not len(diff) and len(ref) == len(other):
+        log("tts", f"{label}: {len(ref)} frames x {ref.shape[1]} codes identical")
+        return
+    eos = model.config.codebook_eos_token_id
+    if len(diff):
+        f, g = (int(x) for x in diff[0])
+        a, b = int(ref[f, g]), int(other[f, g])
+    else:
+        f, g = n, 0
+        a = int(ref[f, 0]) if len(ref) > n else eos
+        b = int(other[f, 0]) if len(other) > n else eos
+    codes = ref if len(ref) > f else torch.cat([ref, torch.zeros_like(ref[:1])])
+    c0, depth = csm_frame_logits(model, ids, codes, f)
+    logits = (c0 if g == 0 else depth[g - 1]).float().cpu()
+    gap = (logits[a] - logits[b]).item()
+    log("tts", f"{label}: codes part at frame {f}, codebook {g} ({a} vs {b}); replayed, the "
+               f"reference chooses {int(logits.argmax())} and the gap is {gap:.4g} (tie "
+               f"{LOGIT_TIE})")
+    if int(logits.argmax()) != a or gap > LOGIT_TIE:
+        raise AssertionError(f"{label}: the codes part at frame {f} without a tie")
+
+
+def check_csm() -> dict[str, int]:
+    """CSM-1B (CSM_1B, Mimi at MimiConfig()), random weights under the
+    names the ``map_*`` functions read. Float32 with the backbone cut to
+    CSM_F32_LAYERS (depth decoder and codec whole) on the card against the
+    CPU: CSM_F32_FRAMES greedy frames (equal, or tied: ``csm_codes_tied``)
+    and Mimi's audio of the CPU's codes with TF32 off (F32_REL_L2). Then
+    bf16 whole: CSM_FRAMES greedy frames, each frame one graph replay
+    (counted), against the eager frames (the tie rule); a frame's ms as a
+    replay and eager, Mimi's decode, the RTF; voice clone once through
+    ``audio_context`` (a 2-s reference encoded by Mimi on the card).
+    Returns the bf16 path's launch counts."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.ops import cuda as kernels
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    sd = csm_state_dict(gen)
+    ids = torch.randint(0, 128000, (TTS_TEXT,), generator=torch.Generator().manual_seed(52)).tolist()
+    models = [csm_model(sd, torch.float32, d, CSM_F32_LAYERS) for d in ("cuda", "cpu")]
+    with graphs.eager():  # numerics here; graphs against eager below, in bf16
+        codes = [m.generate_codes(ids, max_frames=CSM_F32_FRAMES) for m in models]
+    csm_codes_tied(f"CSM-1B float32 (backbone {CSM_F32_LAYERS} of 16 layers), "
+                   f"{CSM_F32_FRAMES} frames, card vs CPU", models[1], ids, codes[1], codes[0])
+    if len(codes[1]):
+        with cudnn_tf32(False):
+            audio = [torch.as_tensor(m.codec.decode(codes[1].T[None])) for m in models]
+        check_f32("tts", f"Mimi's audio of {len(codes[1])} frames, cuDNN TF32 off", *audio)
+    log("tts", f"CSM-1B float32 checks done in {time.perf_counter() - t0:.1f} s")
+    del models
+
+    model = csm_model(sd, torch.bfloat16, "cuda")
+    del sd
+    torch.cuda.empty_cache()
+    reset_counts()
+    replays = graphs.replays
+    toks = model.generate_codes(ids, max_frames=CSM_FRAMES)
+    if graphs.replays - replays != len(toks):
+        raise AssertionError(f"CSM: {len(toks)} frames in {graphs.replays - replays} replays")
+    eager = []
+    with graphs.eager():
+        total_eager = sync_ms(lambda: eager.append(model.generate_codes(ids,
+                                                                        max_frames=CSM_FRAMES)))
+    eager = eager[0]
+    csm_codes_tied(f"CSM-1B bf16, {CSM_FRAMES} frames, graphs vs eager", model, ids, eager, toks)
+    counts = kernels.launch_counts()
+
+    launched = []
+    for frames in (1, 2):
+        before = kernels.launch_counts()
+        model.generate_codes(ids, max_frames=frames)
+        launched.append({k: n - before[k] for k, n in kernels.launch_counts().items()})
+    per_frame = {k: n - launched[0][k] for k, n in launched[1].items() if n != launched[0][k]}
+    log("tts", f"CSM-1B bf16: one frame's launches {json.dumps(per_frame)}")
+    total = sorted(sync_ms(lambda: model.generate_codes(ids, max_frames=CSM_FRAMES))
+                   for _ in range(3))[1]
+    prefill = sorted(sync_ms(lambda: model.generate_codes(ids, max_frames=0)) for _ in range(3))[1]
+    frame_ms, eager_ms = (total - prefill) / CSM_FRAMES, (total_eager - prefill) / CSM_FRAMES
+    decode_ms = sorted(sync_ms(lambda: model.codec.chunked_decode(toks.T[None], 300, 25))
+                       for _ in range(3))[1]
+    log_busy("tts", "CSM-1B bf16", f"{CSM_FRAMES} frames", lambda: model.generate_codes(
+        ids, max_frames=CSM_FRAMES))
+    n = max(len(toks), 1)
+    log("tts", f"CSM-1B bf16 ({len(ids)} text ids, {len(toks)} frames): prefill {prefill:.2f} ms, "
+               f"a frame (31 depth recomputes and a backbone step) {frame_ms:.2f} ms as one graph "
+               f"replay vs {eager_ms:.2f} ms eager; Mimi's decode of the frames {decode_ms:.2f} ms; "
+               f"RTF {(total + decode_ms) / 1e3 / (n * FRAME_S):.4f}")
+
+    # voice clone once: a 2-s reference, encoded by Mimi on the card, spliced
+    # at the audio tokens
+    cfg = model.config
+    wav = speech_wave(2.0, 53, 24000)
+    n_audio = model.codec.encode(wav[None], num_quantizers=cfg.num_codebooks).shape[-1]
+    clone_ids = ids[:8] + [cfg.audio_token_id] * n_audio + [cfg.audio_eos_token_id] + ids[8:12]
+    clone = model.generate_codes(clone_ids, audio_context=wav, max_frames=4)
+    log("tts", f"CSM-1B voice clone through audio_context ({n_audio} reference frames): "
+               f"{len(clone)} frames")
+    model.release_graphs()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -5644,6 +6521,7 @@ def main() -> int:
     family_rows = check_family_kernels()
     slice_rows = check_slice_kernels()
     audio_rows = check_audio_kernels()
+    tts_rows = check_tts_kernels()
     check_routed_configs()
     phase_done("kernels")
 
@@ -5654,6 +6532,8 @@ def main() -> int:
     read_launches("dense path", rows, kernels.launch_counts())
     no_plain_routes("dense path")
     graph_vs_eager(lm, "Qwen3-0.6B bf16")
+    log("time", "cut: the decode steps of log_decode_steps are timed at B=1 and B=8 after 300 "
+                "tokens (bf16, w4 kv4, LFM2); the step after 16,000 tokens is dropped")
     log_decode_steps(lm, "Qwen3-0.6B bf16")
     lm.release_graphs()
     phase_done("dense")
@@ -5752,7 +6632,7 @@ def main() -> int:
     graph_vs_eager(lm_conv, "LFM2-1.2B bf16")
     read_launches("lfm2 path", family_rows["lfm2"], kernels.launch_counts())
     no_plain_routes("lfm2 path")
-    log_decode_steps(lm_conv, "LFM2-1.2B bf16", shapes=DECODE_SHAPES[:2])
+    log_decode_steps(lm_conv, "LFM2-1.2B bf16")
     del lm_conv
     torch.cuda.empty_cache()
     phase_done("lfm2")
@@ -5821,10 +6701,24 @@ def main() -> int:
     check_vad()
     torch.cuda.empty_cache()
     phase_done("audio")
+
+    # speech out: Qwen3-TTS served over /v1/audio/speech (K3 for the talker's
+    # prefill; in each frame block's replay K3 at S=2 and K1 over the
+    # predictor's 32 slots, K1 for the talker's step) and CSM-1B with Mimi
+    # (K3 at S=32 over the depth cache, K1 for the backbone's step); each
+    # path's counts are zeroed just before its main path
+    for label, check, rows_of in (("Qwen3-TTS path", check_qwen3_tts, tts_rows[:2]),
+                                  ("CSM path", check_csm, tts_rows[2:])):
+        counts = check()
+        require_launched(label, counts, ("fp_decode_attention", "flash_attention_cached"))
+        no_plain_routes(label)
+        read_launches(label, rows_of, counts)
+        torch.cuda.empty_cache()
+    phase_done("tts")
     log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     rows += quant_rows + hybrid_rows + sp_rows + verify_rows + family_rows["lfm2"] \
-        + family_rows["moe"] + slice_rows + audio_rows
+        + family_rows["moe"] + slice_rows + audio_rows + tts_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -24,11 +24,6 @@ def detect_model_type(path: str) -> str:
     return load_hf_config(path).get("model_type", "llama")
 
 
-def _not_ported(model_type: str, item: int):
-    raise NotImplementedError(
-        f"{model_type} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _pick(kwargs: dict, *names: str) -> dict:
     return {k: v for k, v in kwargs.items() if k in names}
 
@@ -38,7 +33,7 @@ def load_model(path: str, **kwargs):
 
     Returns one of: CausalLM (text LMs incl. hybrid GDN/MoE), Qwen3VLModel,
     Gemma3VLModel, Gemma3nLM, PaddleOcrVL, Qwen3AsrModel, AudioLLM
-    (Qwen2-Audio), or the GGUF-backed CausalLM.
+    (Qwen2-Audio), Qwen3TTSModel, or the GGUF-backed CausalLM.
     ``dtype`` and ``device`` go to every loader; the text loaders take their
     other keywords (``quant_bits``, ``max_seq``) too."""
     mt = detect_model_type(path)
@@ -66,7 +61,9 @@ def load_model(path: str, **kwargs):
 
         return load_paddleocr_vl(path, **_pick(kwargs, "dtype", "device"))
     if mt == "qwen3_tts":
-        _not_ported(mt, 11)
+        from crane_tpu_torch.models.qwen3_tts import load_qwen3_tts
+
+        return load_qwen3_tts(path, **_pick(kwargs, "dtype", "device"))
     if mt in ("qwen3_asr", "qwen3_omni_moe_asr"):
         from crane_tpu_torch.models.qwen3_asr import load_qwen3_asr
 

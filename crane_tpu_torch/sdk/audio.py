@@ -1,12 +1,14 @@
-"""Audio SDK, speech-recognition half: the Asr protocol and its adapters
-(reference crane/src/audio/asr.rs: transcribe(...), streaming variants;
-crane-serve holds trait objects of these).
+"""Audio SDK: the Tts and Asr protocols and their adapters (reference
+crane/src/audio/{tts.rs,asr.rs}: audio_info(), generate_speech(...),
+transcribe(...), streaming variants; crane-serve holds trait objects of
+these).
 
-A copy of the ASR half of ``crane_tpu/sdk/audio.py`` (``AudioInfo``,
+A copy of ``crane_tpu/sdk/audio.py``'s ASR adapters (``AudioInfo``,
 ``Transcript``, ``Asr``, ``AsrBase``, ``QWEN3_ASR_LANGUAGES``,
-``Qwen3AsrAdapter``, ``MoonshineAsr``): the port imports nothing of
-``crane_tpu``. The speech-synthesis half waits for the TTS models (ROADMAP
-Queue 1 item 11).
+``Qwen3AsrAdapter``, ``MoonshineAsr``) and of its Qwen3-TTS and CSM
+adapters (``VoiceInfo``, ``Tts``, ``CsmTts``, ``Qwen3Tts``): the port
+imports nothing of ``crane_tpu``. The Kokoro and Voxtral adapters wait for
+their models (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Iterator, Optional, Protocol
 
 import numpy as np
 
-from crane_tpu_torch.generation.config import TranscribeOptions
+from crane_tpu_torch.generation.config import SpeechOptions, TranscribeOptions
 
 
 @dataclasses.dataclass
@@ -31,6 +33,27 @@ class Transcript:
     tokens: list[int] = dataclasses.field(default_factory=list)
     language: Optional[str] = None
     is_final: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class VoiceInfo:
+    """One voice a TTS model can produce, for service discovery
+    (reference crane/src/audio/tts.rs:13-27)."""
+
+    name: str
+    languages: list[str] = dataclasses.field(default_factory=list)
+
+
+class Tts(Protocol):
+    def audio_info(self) -> AudioInfo: ...
+
+    def voices(self) -> list[VoiceInfo]: ...
+
+    def generate_speech(
+        self, text: str, options: SpeechOptions | None = None
+    ) -> np.ndarray: ...
+
+    def supports_voice_cloning(self) -> bool: ...
 
 
 class Asr(Protocol):
@@ -104,3 +127,149 @@ class MoonshineAsr(AsrBase):
         ids = self.model.transcribe_ids(samples, options)
         text = self.model.tokenizer.decode(ids) if self.model.tokenizer else ""
         return Transcript(text=text, tokens=ids)
+
+
+class CsmTts:
+    """Tts adapter over the two-level AR codec TTS."""
+
+    def __init__(self, model, tokenizer=None, *, max_frames: int = 1000):
+        self.model = model
+        self.tokenizer = tokenizer or model.__dict__.get("tokenizer")
+        self.max_frames = max_frames
+
+    def audio_info(self) -> AudioInfo:
+        sr = 24000
+        if self.model.codec is not None:
+            sr = self.model.codec.config.sampling_rate
+        return AudioInfo(sample_rate=sr)
+
+    def supports_voice_cloning(self) -> bool:
+        return self.model.codec is not None
+
+    def voices(self) -> list[VoiceInfo]:
+        return []  # CSM voices come from reference audio, not named presets
+
+    def generate_speech(self, text: str, options: SpeechOptions | None = None) -> np.ndarray:
+        options = options or SpeechOptions()
+        if self.tokenizer is None:
+            raise ValueError("TTS adapter needs a text tokenizer")
+        ids = self.tokenizer.encode(text)
+        max_frames = min(self.max_frames, options.max_new_tokens)
+        return self.model.generate_speech(ids, max_frames=max_frames)
+
+    def generate_voice_clone(
+        self,
+        text: str,
+        reference_audio: np.ndarray,
+        options: SpeechOptions | None = None,
+    ) -> np.ndarray:
+        """Clone the voice of ``reference_audio`` (codec-frame ICL context —
+        reference generate_voice_clone, qwen3_tts/model.rs:389-480)."""
+        options = options or SpeechOptions()
+        ids = self.tokenizer.encode(text)
+        codes = self.model.generate_codes(
+            ids, audio_context=np.asarray(reference_audio, np.float32),
+            max_frames=min(self.max_frames, options.max_new_tokens),
+        )
+        if codes.shape[0] == 0:
+            return np.zeros((0,), np.float32)
+        return self.model.codec.chunked_decode(codes.T[None], chunk=300, overlap=25)[0]
+
+    def generate_speech_stream(
+        self, text: str, options: SpeechOptions | None = None
+    ) -> Iterator[np.ndarray]:
+        # default single-shot stream (reference TtsStream::once)
+        yield self.generate_speech(text, options)
+
+
+class Qwen3Tts:
+    """Tts adapter over the Qwen3-TTS Talker/CodePredictor model, with true
+    frame-chunked streaming (reference prepare_streaming/generate_one_frame,
+    qwen3_tts/modeling.rs:1497-1658 + chunked decode :1650-1698)."""
+
+    def __init__(self, model, *, stream_frames: int = 25, left_context: int = 25):
+        self.model = model
+        self.stream_frames = stream_frames
+        self.left_context = left_context
+
+    def audio_info(self) -> AudioInfo:
+        sr = self.model.decoder.sample_rate if self.model.decoder else 24000
+        return AudioInfo(sample_rate=sr)
+
+    def supports_voice_cloning(self) -> bool:
+        return self.model.speaker_encoder is not None
+
+    def voices(self) -> list[VoiceInfo]:
+        """CustomVoice checkpoints expose their named speakers; each voice
+        supports every talker language except "auto" and dialect aliases,
+        as ISO codes, sorted (reference tts_qwen3.rs:61-96)."""
+        from crane_tpu_torch.models.qwen3_tts import LANGUAGE_NAME_TO_CODE
+
+        s = self.model.sp_tokens
+        if not s.speaker_ids:
+            return []
+        dialects = {v for v in s.spk_is_dialect.values() if isinstance(v, str)}
+        langs = sorted(
+            LANGUAGE_NAME_TO_CODE.get(n, n)
+            for n in s.language_ids
+            if n != "auto" and n not in dialects
+        )
+        return [VoiceInfo(name=n, languages=list(langs)) for n in sorted(s.speaker_ids)]
+
+    def generate_speech(self, text: str, options: SpeechOptions | None = None) -> np.ndarray:
+        options = options or SpeechOptions()
+        wav, _ = self.model.generate_speech(
+            text, options.language or "auto", options.voice, options
+        )
+        return wav
+
+    def generate_voice_clone(
+        self,
+        text: str,
+        reference_audio: np.ndarray,
+        reference_text: str = "",
+        options: SpeechOptions | None = None,
+    ) -> np.ndarray:
+        options = options or SpeechOptions()
+        if self.model.speaker_encoder is None:
+            raise ValueError("no speaker encoder loaded")
+        spk = self.model.speaker_encoder(np.asarray(reference_audio, np.float32))
+        ref_codes = self.model.encode_reference(reference_audio)
+        ids = self.model.tokenizer.encode(text)
+        ref_ids = self.model.tokenizer.encode(reference_text) if reference_text else []
+        codes = self.model.generate_voice_clone_codes(
+            ids, ref_ids, ref_codes, spk, options.language or "auto", options
+        )
+        if codes.shape[0] == 0:
+            return np.zeros(0, np.float32)
+        return self.model.decoder.chunked_decode(codes[None], 300, 25)[0]
+
+    def generate_speech_stream(
+        self, text: str, options: SpeechOptions | None = None
+    ) -> Iterator[np.ndarray]:
+        """Yield PCM chunks as frames are generated: every ``stream_frames``
+        talker frames, decode the new frames with ``left_context`` frames of
+        warm-up context (trimmed), so audio starts before synthesis ends."""
+        options = options or SpeechOptions()
+        m = self.model
+        ids = m.tokenizer.encode(text)
+        state = m.prepare_streaming(ids, options.language or "auto", options.voice, options)
+        emitted = 0
+        remaining = options.max_new_tokens
+        while remaining > 0:
+            # one device dispatch per stream chunk (a frame block), instead
+            # of one per frame
+            out = m.generate_frames(state, self.stream_frames)
+            done = out is None or state.finished
+            if out is not None:
+                remaining -= len(out)
+            pending = len(state.codes) - emitted
+            if pending > 0:
+                ctx = min(self.left_context, emitted)
+                chunk = np.asarray(
+                    state.codes[emitted - ctx : len(state.codes)], np.int32
+                )[None]
+                yield m.decoder.decode_chunk(chunk, ctx)[0]
+                emitted = len(state.codes)
+            if done:
+                break

@@ -74,9 +74,10 @@ class Server:
         bespoke forwards (Gemma3n) pass ``text_backend`` instead (the
         reference serves every model via ModelBackend + concurrency cap,
         backend.rs:220-223) — chat/completions then route through it. With
-        neither, the server serves speech recognition alone (``asr``), and
-        a text request answers 400 (crane_tpu requires a text model)."""
-        assert engine is not None or text_backend is not None or asr is not None
+        neither, the server serves speech alone (``asr``, ``tts`` or both),
+        and a text request answers 400 (crane_tpu requires a text model)."""
+        assert (engine is not None or text_backend is not None or asr is not None
+                or tts is not None)
         self.engine = engine
         self.text_backend = text_backend
         self.model_name = model_name
@@ -838,6 +839,41 @@ def warm_up_asr(asr) -> None:
         log.warning("asr warmup failed (non-fatal): %s", e)
 
 
+def load_tts(path: str, dtype, device):
+    """The speech-synthesis adapter for the checkpoint at ``path``:
+    Qwen3-TTS where its config has a ``talker_config`` (or ``model_type``
+    ``qwen3_tts``), else CSM with its Mimi codec and the checkpoint's
+    tokenizer (crane_tpu/serve/api.py:880-895)."""
+    from crane_tpu_torch.models.auto import load_hf_config
+    from crane_tpu_torch.sdk.audio import CsmTts, Qwen3Tts
+
+    hf = load_hf_config(path)
+    if "talker_config" in hf or hf.get("model_type") == "qwen3_tts":
+        from crane_tpu_torch.models.qwen3_tts import load_qwen3_tts
+
+        return Qwen3Tts(load_qwen3_tts(path, dtype=dtype, device=device))
+    from crane_tpu_torch.models.csm_tts import load_csm
+    from crane_tpu_torch.tokenizer.autotokenizer import AutoTokenizer
+
+    return CsmTts(load_csm(path, dtype=dtype, with_codec=True, device=device),
+                  AutoTokenizer.from_pretrained(path))
+
+
+def warm_up_tts(tts) -> None:
+    """Synthesize "hi" (two frames at most) before serving, so the first
+    request does not pay the kernels' and the frame programs' set-up; a
+    failure is logged and serving goes on, as in crane_tpu
+    (``serve/api.py:921-932``)."""
+    from crane_tpu_torch.generation.config import SpeechOptions
+
+    try:
+        t0 = time.time()
+        tts.generate_speech("hi", SpeechOptions(max_new_tokens=2))
+        log.info("tts warmup done in %.1fs", time.time() - t0)
+    except Exception as e:
+        log.warning("tts warmup failed (non-fatal): %s", e)
+
+
 def main(argv=None):
     """``python -m crane_tpu_torch.serve --model-path <dir | file.gguf>``:
     load the model onto ``--device`` (the card by default; ``cpu`` only when
@@ -846,9 +882,12 @@ def main(argv=None):
     instead of the engine; ``--vlm-path`` adds a Qwen3-VL model for chat
     requests with images; ``--asr-path`` adds a speech-recognition model
     for /v1/audio/transcriptions (Qwen3-ASR for a ``qwen3*`` config without
-    a talker, else Moonshine), warmed up on one second of silence. With
-    ``--asr-path``, ``--model-path`` may be left out: the server then
-    serves speech recognition alone."""
+    a talker, else Moonshine), warmed up on one second of silence;
+    ``--tts-path`` adds a speech-synthesis model for /v1/audio/speech
+    (Qwen3-TTS for a config with a ``talker_config``, else CSM), warmed up
+    on "hi". With ``--asr-path``, ``--model-path`` may be left out: the
+    server then serves speech recognition (and synthesis) without a text
+    model."""
     import argparse
 
     import torch
@@ -893,7 +932,8 @@ def main(argv=None):
                     "sequence axis over the first N devices (contexts too "
                     "long for one card's memory; composes with --kv-quant)")
     ap.add_argument("--vlm-path", default=None, help="Qwen3-VL checkpoint for image chat")
-    ap.add_argument("--tts-path", default=None, help="codec-TTS checkpoint (not ported yet)")
+    ap.add_argument("--tts-path", default=None,
+                    help="Qwen3-TTS or CSM checkpoint for /v1/audio/speech")
     ap.add_argument("--asr-path", default=None,
                     help="Qwen3-ASR or Moonshine checkpoint for /v1/audio/transcriptions")
     args = ap.parse_args(argv)
@@ -903,8 +943,6 @@ def main(argv=None):
         _not_ported("tensor- and data-parallel serving (--tp/--dp)", 12)
     if args.model_path is None and args.asr_path is None:
         ap.error("--model-path is required unless --asr-path is given")
-    if args.tts_path:
-        _not_ported("speech synthesis (--tts-path)", 11)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     quant_bits = {"q8": 8, "q4": 4}.get(args.quant)
     # hub fallback (reference autotokenizer.rs:232-258): --model-path may be
@@ -939,6 +977,9 @@ def main(argv=None):
         from crane_tpu_torch.models.qwen3_vl import load_qwen3_vl
 
         vlm = load_qwen3_vl(args.vlm_path, dtype=dtype, device=args.device)
+    tts = load_tts(args.tts_path, dtype, args.device) if args.tts_path else None
+    if tts is not None:
+        warm_up_tts(tts)
     asr = load_asr(args.asr_path, dtype, args.device) if args.asr_path else None
     if asr is not None:
         warm_up_asr(asr)
@@ -947,7 +988,7 @@ def main(argv=None):
         engine.warmup()
         engine.start()
     name = args.model_name or (args.model_path or args.asr_path).rstrip("/").split("/")[-1]
-    server = Server(engine, model_name=name, vlm=vlm, asr=asr, text_backend=backend)
+    server = Server(engine, model_name=name, vlm=vlm, tts=tts, asr=asr, text_backend=backend)
     try:
         web.run_app(build_app(server), host=args.host, port=args.port)
     finally:

@@ -4,7 +4,12 @@
 tuples and lists whose leaves are numpy arrays or ``jax.Array``s) into the
 same tree of torch tensors, so both packages can run on the same weights;
 :func:`audio_params_from_jax` does the same for the audio models' trees,
-whose 1-D convs the port keeps in PyTorch's layout.
+whose 1-D convs the port keeps in PyTorch's layout (the speech recognizers'
+and the VAD's by default; ECAPA's and Mimi's with :data:`ECAPA_CONV_KEYS`
+and :data:`MIMI_CONV_KEYS`). The trees whose layout the two packages share
+come across through :func:`params_from_jax` as they are: Qwen3-TTS's talker
+and code predictor, the speech tokenizer's decoder and encoder (convs
+``[Cout, Cin, k]`` in both), CSM's backbone, depth decoder and tables.
 :func:`cache_from_jax` turns a ``crane_tpu`` ``KVCache`` (fp, int8/int4, GDN
 and short-conv layers) into the port's, so a decode step or a continuation can start
 from JAX's own state. Nothing here imports jax: a ``jax.Array`` leaf is read
@@ -86,13 +91,21 @@ def cache_from_jax(cache, device=None) -> KVCache:
 # Whisper's ``conv1_w``/``conv2_w``, Moonshine's frontend ``conv1_w``..
 # ``conv3_w``, and the VAD net's ``convs[i]["w"]``
 _CONV_KEYS = ("conv1_w", "conv2_w", "conv3_w", "w")
+# ECAPA's: the TDNN convs ``w``, the SE convs ``w1``/``w2``, the attentive
+# pool's ``conv_w`` and the output ``fc_w``
+ECAPA_CONV_KEYS = ("w", "w1", "w2", "conv_w", "fc_w")
+# Mimi's SEANet and frame-rate convs (its transposed convs ``up_w`` and
+# ``upsample_w`` are torch's ``[Cin, Cout / groups, k]`` in both packages)
+MIMI_CONV_KEYS = ("init_w", "conv1_w", "conv2_w", "down_w", "final_w", "downsample_w")
 
 
-def audio_params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
+def audio_params_from_jax(tree, device=None, dtype: torch.dtype | None = None,
+                          conv_keys=_CONV_KEYS):
     """A ``crane_tpu`` audio params tree (Qwen3-ASR's AuT tower and
     projector, Qwen2-Audio's encoder and projector, Whisper, Moonshine, the
-    VAD net, with or without a text model beside them) -> the port's tree,
-    as :func:`params_from_jax`, except that each 1-D conv weight becomes
+    VAD net, with or without a text model beside them; ECAPA and Mimi with
+    their ``conv_keys``) -> the port's tree, as :func:`params_from_jax`,
+    except that each 1-D conv weight named in ``conv_keys`` becomes
     PyTorch's ``[Cout, Cin, k]`` and Moonshine's GroupNorm affine (``gn_w``,
     ``gn_b``, ``[1, 1, C]``) becomes ``[C]``. AuT's 2-D convs are OIHW in
     both packages and come across as they are."""
@@ -101,8 +114,10 @@ def audio_params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(walk(v, key) for v in node)
+        if node is None:  # Mimi's acoustic branch when it has none
+            return None
         t = params_from_jax(node, device, dtype)
-        if key in _CONV_KEYS and t.ndim == 3:
+        if key in conv_keys and t.ndim == 3:
             return t.permute(2, 1, 0).contiguous()
         if key in ("gn_w", "gn_b"):
             return t.reshape(-1)

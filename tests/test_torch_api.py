@@ -522,7 +522,6 @@ class TestBackendServing:
 REFUSED = [
     (["--tp", "2"], "item 12"),
     (["--dp", "2"], "item 12"),
-    (["--tts-path", "t"], "item 11"),
 ]
 
 
@@ -1009,3 +1008,198 @@ def test_command_line_serves_a_transcription(asr_ckpt, tmp_path):
             proc.kill()
             proc.wait(5)
         log.close()
+
+
+# -- speech synthesis (--tts-path) ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tts_ckpt(tmp_path_factory):
+    """tests/test_torch_qwen3_tts.py's tiny Qwen3-TTS checkpoint with peaked
+    heads and a dominant EOS row (so both packages synthesize the same two
+    frames), the speech tokenizer and speaker encoder beside it, and a
+    tokenizer."""
+    from tests.fixtures import make_tiny_tokenizer
+    from tests.test_torch_qwen3_tts import PEAK, add_clone_stack, make_tts_checkpoint
+
+    d = tmp_path_factory.mktemp("tts") / "m"
+    make_tts_checkpoint(d, peak=PEAK, eos_bias=50.0)
+    add_clone_stack(d)
+    make_tiny_tokenizer(str(d))
+    return str(d)
+
+
+SPEECH = {"input": "hello world", "voice": None}
+
+
+def _serve_tts(monkeypatch, argv) -> dict:
+    """main(argv) with the serving loop replaced by a WAV and a streamed
+    /v1/audio/speech request and one chat completion."""
+    from crane_tpu_torch.serve import api, transport
+
+    seen = {}
+
+    def serve_once(app, *, host, port):
+        seen["server"] = app.router.routes[0][2].__self__
+        with transport.BackgroundServer(app) as srv:
+            client = PortClient(srv.port)
+            seen["wav"] = client.request("POST", "/v1/audio/speech", SPEECH)
+            seen["stream"] = client.request("POST", "/v1/audio/speech", {**SPEECH, "stream": True})
+            seen["chat"] = client.request("POST", "/v1/chat/completions", CHAT)
+
+    monkeypatch.setattr(transport, "run_app", serve_once)
+    api.main(argv)
+    return seen
+
+
+def _check_speech(seen, ref_samples, rate):
+    """The WAV holds crane_tpu's samples (to one int16 step); the stream's
+    PCM is the WAV's int16 data, chunk for chunk."""
+    from crane_tpu.audio.pcm import encode_wav as ref_encode_wav
+    from crane_tpu_torch.audio.pcm import decode_wav
+
+    status, headers, body = seen["wav"]
+    assert status == 200 and headers["Content-Type"].startswith("audio/wav"), body[:200]
+    samples, sr = decode_wav(body)
+    assert sr == rate and len(samples) == len(ref_samples) > 0
+    np.testing.assert_allclose(samples, decode_wav(ref_encode_wav(ref_samples, rate))[0],
+                               atol=1.5 / 32768)
+    status, headers, pcm = seen["stream"]
+    assert status == 200 and headers["X-Sample-Rate"] == str(rate)
+    assert len(body) == 44 + len(pcm) and pcm == body[44:]  # the WAV's header is 44 bytes
+
+
+def test_main_serves_speech_synthesis(ckpt, tts_ckpt, monkeypatch):
+    """``--tts-path`` on a Qwen3-TTS checkpoint serves /v1/audio/speech
+    beside the text model's engine: the WAV holds crane_tpu's
+    ``Qwen3Tts.generate_speech`` on the same checkpoint and text, the
+    streamed request the same samples as PCM (1920 / 48 samples a frame at
+    the tiny decoder's upsampling), and chat still goes to the engine."""
+    from crane_tpu.generation.config import SpeechOptions as RefOptions
+    from crane_tpu.models.qwen3_tts import load_qwen3_tts as ref_load
+    from crane_tpu.sdk.audio import Qwen3Tts as RefTts
+    from crane_tpu_torch.models.qwen3_tts import Qwen3TTSModel
+    from crane_tpu_torch.sdk.audio import Qwen3Tts
+
+    seen = _serve_tts(monkeypatch, ["--model-path", ckpt, "--tts-path", tts_ckpt, "--device",
+                                    "cpu", "--dtype", "f32", "--max-concurrent", "2",
+                                    "--max-seq-len", "256"])
+    server = seen["server"]
+    assert isinstance(server.tts, Qwen3Tts) and isinstance(server.tts.model, Qwen3TTSModel)
+    assert server.engine is not None and seen["chat"][0] == 200
+    ref = RefTts(ref_load(tts_ckpt)).generate_speech(SPEECH["input"], RefOptions())
+    assert len(ref) == 2 * server.tts.model.decoder.config.total_upsample
+    _check_speech(seen, ref, 24000)
+
+
+def _tiny_csm(dirpath) -> str:
+    """tests/test_csm_tts_parity.py's tiny CSM, saved by transformers with a
+    tokenizer: its text vocabulary widened to the tiny tokenizer's 400 ids,
+    and its positions to CSM-1B's 2048 (the handler asks for up to 1000
+    frames, and a position past the rope table is an error in the port
+    where jax's gather clamps it)."""
+    import transformers
+
+    from tests.fixtures import make_tiny_tokenizer
+
+    torch.manual_seed(0)
+    cfg = transformers.CsmConfig(
+        num_codebooks=4, vocab_size=64, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, intermediate_size=96,
+        max_position_embeddings=2048, text_vocab_size=512, rope_scaling=None,
+        audio_token_id=450, audio_eos_token_id=451,
+        depth_decoder_config=dict(
+            num_codebooks=4, vocab_size=64, backbone_hidden_size=64, hidden_size=32,
+            num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+            intermediate_size=48, rope_scaling=None),
+        codec_config=dict(
+            model_type="mimi", hidden_size=32, num_filters=8, num_residual_layers=1,
+            upsampling_ratios=[4, 3], codebook_size=64, codebook_dim=16, num_quantizers=4,
+            num_semantic_quantizers=1, vector_quantization_hidden_dimension=16,
+            num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2, head_dim=16,
+            intermediate_size=32, sliding_window=16, upsample_groups=32),
+    )
+    transformers.CsmForConditionalGeneration(cfg).eval().save_pretrained(
+        str(dirpath), safe_serialization=True)
+    make_tiny_tokenizer(str(dirpath))
+    return str(dirpath)
+
+
+def test_main_chooses_csm_by_its_config(tmp_path, monkeypatch):
+    """A ``--tts-path`` config without a talker loads CSM with its Mimi codec
+    and tokenizer, whose WAV and stream hold crane_tpu's ``CsmTts`` samples;
+    a Gemma3n ``--model-path`` beside it keeps its ``TextBackend`` for chat."""
+    from crane_tpu.generation.config import SpeechOptions as RefOptions
+    from crane_tpu.models.csm_tts import load_csm as ref_load
+    from crane_tpu.sdk.audio import CsmTts as RefTts
+    from crane_tpu.tokenizer.autotokenizer import AutoTokenizer as RefTokenizer
+    from crane_tpu_torch.models.csm_tts import CsmTtsModel
+    from crane_tpu_torch.models.gemma3n import Gemma3nLM
+    from crane_tpu_torch.sdk.audio import CsmTts
+
+    csm = _tiny_csm(tmp_path / "csm")
+    g3n = _tiny_gemma3n(tmp_path / "g3n")
+    seen = _serve_tts(monkeypatch, ["--model-path", g3n, "--tts-path", csm, "--device", "cpu",
+                                    "--dtype", "f32", "--max-seq-len", "64"])
+    server = seen["server"]
+    assert isinstance(server.tts, CsmTts) and isinstance(server.tts.model, CsmTtsModel)
+    assert server.engine is None and isinstance(server.text_backend.model, Gemma3nLM)
+    assert seen["chat"][0] == 200, seen["chat"]
+    ref = RefTts(ref_load(csm, dtype=jnp.float32, with_codec=True),
+                 RefTokenizer.from_pretrained(csm)).generate_speech(SPEECH["input"], RefOptions())
+    _check_speech(seen, ref, 24000)
+
+
+def test_command_line_serves_speech(ckpt, tts_ckpt, tmp_path):
+    """``python -m crane_tpu_torch.serve --model-path <qwen3> --tts-path
+    <qwen3_tts> --device cpu`` answers /v1/audio/speech with a WAV of two
+    frames and the same samples streamed as PCM; the process is terminated
+    at the end; bounded at 60 s."""
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "2"}
+    log = open(tmp_path / "serve.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crane_tpu_torch.serve", "--model-path", ckpt, "--tts-path",
+         tts_ckpt, "--device", "cpu", "--host", "127.0.0.1", "--port", str(port), "--dtype",
+         "f32", "--max-concurrent", "2", "--max-seq-len", "256"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 60
+    try:
+        client = PortClient(port)
+        while True:
+            assert proc.poll() is None, (tmp_path / "serve.log").read_text()[-4000:]
+            assert time.monotonic() < deadline - 10, "the server never answered /health"
+            try:
+                if client.request("GET", "/health")[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        status, headers, wav = client.request("POST", "/v1/audio/speech", SPEECH)
+        assert status == 200 and headers["Content-Type"].startswith("audio/wav"), wav[:200]
+        status, _, pcm = client.request("POST", "/v1/audio/speech", {**SPEECH, "stream": True})
+        assert status == 200 and len(pcm) == 2 * 2 * 48 and wav[44:] == pcm
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(5)
+        log.close()
+
+
+def test_server_serves_speech_alone(tts_ckpt):
+    """A ``Server`` with a TTS model and no text model (as ``chip_smoke.py``
+    builds it): /v1/audio/speech answers a WAV, chat answers 400."""
+    from crane_tpu_torch.models.qwen3_tts import load_qwen3_tts
+    from crane_tpu_torch.sdk.audio import Qwen3Tts
+    from crane_tpu_torch.serve.api import Server, build_app
+    from crane_tpu_torch.serve.transport import BackgroundServer
+
+    tts = Qwen3Tts(load_qwen3_tts(tts_ckpt, device="cpu"))
+    with BackgroundServer(build_app(Server(None, tts=tts))) as srv:
+        client = PortClient(srv.port)
+        status, headers, wav = client.request("POST", "/v1/audio/speech", SPEECH)
+        assert status == 200 and headers["Content-Type"].startswith("audio/wav")
+        assert len(wav) == 44 + 2 * 2 * tts.model.decoder.config.total_upsample
+        assert client.request("POST", "/v1/chat/completions", CHAT)[0] == 400

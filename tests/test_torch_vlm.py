@@ -18,8 +18,6 @@ Features and logits agree within rtol/atol 2e-4; greedy tokens are
 identical.
 """
 
-import json
-
 import numpy as np
 import pytest
 import torch
@@ -429,11 +427,16 @@ def test_factory_detects_and_loads_each_family(vl_tiny, g3_tiny, ocr_dir, qa_tin
         assert type(model) is cls
         assert model.__class__.__name__ == type(jf.load_model(path, dtype=jnp.float32)).__name__
     assert tf.detect_model_type(str(tmp_path / "x.gguf")) == "gguf"
-    d = tmp_path / "qwen3_tts"
-    d.mkdir()
-    (d / "config.json").write_text(json.dumps({"model_type": "qwen3_tts"}))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tf.load_model(str(d), device="cpu")
+    # a Qwen3-TTS checkpoint loads as the port's Qwen3TTSModel (ROADMAP
+    # Queue 1 item 11)
+    from crane_tpu_torch.models.qwen3_tts import Qwen3TTSModel
+    from tests.test_torch_qwen3_tts import make_tts_checkpoint
+
+    tts = make_tts_checkpoint(tmp_path / "qwen3_tts")
+    assert tf.detect_model_type(tts) == jf.detect_model_type(tts) == "qwen3_tts"
+    model = tf.load_model(tts, dtype=torch.float32, device="cpu")
+    assert type(model) is Qwen3TTSModel and model.device.type == "cpu"
+    assert model.__class__.__name__ == type(jf.load_model(tts, dtype=jnp.float32)).__name__
     # the audio LLMs load as the port's classes (ROADMAP Queue 1 item 10)
     from crane_tpu_torch.models.qwen2_audio import AudioLLM
     from crane_tpu_torch.models.qwen3_asr import Qwen3AsrModel
