@@ -217,8 +217,9 @@ each reported on its own line:
    against the CPU (codes, Mimi's audio), then bf16 whole: 24 greedy
    frames, each frame (31 depth recomputes and the backbone step) one
    graph replay against eager, Mimi's decode and the RTF, a voice clone
-   through ``audio_context``. K1 and K3 were launched by both paths; the
-   rows at the predictor's and the depth decoder's shapes
+   through ``audio_context``, and a 2044-id prompt whose 8 frames run past
+   the backbone's 2048 rope positions. K1 and K3 were launched by both
+   paths; the rows at the predictor's and the depth decoder's shapes
    (check_tts_kernels: K3 at S=2 and K1 over a 32-slot cache with 16 / 8
    heads of 64, K3 at S=32 over 32 slots with 8 / 2 of 128) read their
    path's launches.
@@ -227,7 +228,10 @@ Where two paths' greedy tokens part (graphs against eager, speculative
 against plain, HTTP against ``engine.submit``, the GGUF model on the card
 against the CPU), the first difference must be a tie on the reference path's
 own state: its step is replayed over the cache it left, must choose its
-token again, and the other token must lie within LOGIT_TIE of it.
+token again, and the other token must lie within LOGIT_TIE of it. The TTS
+phase rebuilds a frame's logits outside the frame's body for that rule
+(``tts_frame_logits``, ``csm_frame_logits``); each is held once a path
+against the body's own codes at frames 0 and 1 (``frame_logits_hold``).
 
 Decode blocks run as CUDA graphs on every path; ``graphs.eager()`` gives
 the eager loop they are held against. The decode-step lines time both in
@@ -241,7 +245,7 @@ Moonshine's decoders' are plain by design, as in crane_tpu, and not
 routed). ``[profile]`` lines split a chunk's, a prefill's
 and a decode step's kernel time by kernel family (K1-K7, cuBLAS, aten copy,
 elementwise, reduce, index) and name the largest kernels; the decode steps
-(bf16 and w4 kv4 at B=1 and B=8 after 300 tokens)
+(bf16 and w4 kv4 at B=1 and B=8 after 300 tokens, and B=1 after 16,000)
 also give their wall time on the host clock and the device's idle share,
 eager and as graphs.
 
@@ -1939,18 +1943,17 @@ STEP_BLOCK = 8  # decode steps a timed block runs (the engine's decode_tokens_pe
 
 
 # (B, T, context) of log_decode_steps' decode steps: B=1 and B=8 after a
-# 300-token prefill into 2048-slot rows (the step after 16,000 tokens, PR 7-13,
-# was cut to keep the run inside its limit on a slow host; the 16K kernel
-# rows of phase 3 stay)
-DECODE_SHAPES = ((1, 2048, 300), (8, 2048, 300))
+# 300-token prefill into 2048-slot rows, and B=1 after LONG_LIVE tokens in a
+# LONG_T-slot row, where the decode kernels split
+DECODE_SHAPES = ((1, 2048, 300), (8, 2048, 300), (1, LONG_T, LONG_LIVE))
 
 
-def log_decode_steps(model, label, kv_bits=None) -> dict:
+def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
     """[profile] lines of a decode step, the eager loop beside the CUDA
     graph, in this one process: the kernels' device time by family
     (log_device_ms, over one block of STEP_BLOCK steps) and the wall time a
     step on the host clock (4 blocks after a synchronize, ended by one), at
-    each of DECODE_SHAPES. The device idle share is 1 - busy / wall. Where the profiler
+    each of ``shapes``. The device idle share is 1 - busy / wall. Where the profiler
     sees no device time inside a graph replay, the graph's busy time is the
     eager block's (the same kernels), and the line says so. Returns
     {(B, T): {mode: (wall ms, busy ms)}}."""
@@ -1961,7 +1964,7 @@ def log_decode_steps(model, label, kv_bits=None) -> dict:
 
     dev = model.device
     table = {}
-    for B, T, ctx in DECODE_SHAPES:
+    for B, T, ctx in shapes:
         ids = [i % model.config.vocab_size for i in range(1, ctx + 1)]
         _, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), [ids] * B, [ctx] * B)
         tokens = torch.ones(B, dtype=torch.int32, device=dev)
@@ -3150,6 +3153,17 @@ def kernel_family(name: str) -> str:
                 "other")
 
 
+def device_events(prof) -> list:
+    """The device's events of a ``torch.profiler`` run (kernels, copies and
+    sets), as the profiler's own tables count them: no host event, no
+    user-annotated range, no event the profiler hides."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+            and not getattr(e, "is_hidden_event", lambda: False)() and not e.is_async()]
+
+
 def log_device_ms(label, what, run) -> dict[str, float]:
     """Log the device time of one call of ``run``: its kernels' own times
     summed from ``torch.profiler`` (device-side events only), by family
@@ -3157,7 +3171,6 @@ def log_device_ms(label, what, run) -> dict[str, float]:
     by name; "not measured" where the profiler saw no device time. Returns
     ms by family."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()  # warm
@@ -3166,14 +3179,16 @@ def log_device_ms(label, what, run) -> dict[str, float]:
         run()
         torch.cuda.synchronize()
     families: dict[str, float] = {}
-    names = []
-    for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:
-            continue
-        ms = event.self_device_time_total / 1e3
-        fam = kernel_family(event.key)
+    by_name: dict[str, tuple[float, int]] = {}
+    # the recorded device events summed as they stand: key_averages() builds
+    # an object for each, tens of seconds for a TTS block's ~60,000 kernels
+    for event in device_events(prof):
+        ms, name = event.duration_ns() / 1e6, event.name()
+        fam = kernel_family(name)
         families[fam] = families.get(fam, 0.0) + ms
-        names.append((ms, event.count, event.key))
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + ms, n + 1)
+    names = [(ms, n, name) for name, (ms, n) in by_name.items()]
     total = sum(families.values())
     if total <= 0:
         log("profile", f"{label}, {what}: device time not measured (the profiler saw no "
@@ -3660,7 +3675,8 @@ def log_moe_decode(lm) -> None:
     experts = expert_bytes(params)
     weights = sum(t.numel() * t.element_size() for t in _leaves(params)) \
         - params["embed"].numel() * params["embed"].element_size()
-    table = log_decode_steps(lm, f"Qwen3-Next {MOE_LAYERS} layers bf16")
+    table = log_decode_steps(lm, f"Qwen3-Next {MOE_LAYERS} layers bf16",
+                             shapes=((1, 2048, 300), (8, 2048, 300)))
     ids = [i % lm.config.vocab_size for i in range(1, 301)]
     _, cache = lm.prefill(lm.init_cache(1, 2048), [ids], [300])
     args = (cache, torch.ones(1, dtype=torch.int32, device="cuda"),
@@ -5871,6 +5887,25 @@ def tts_frame_logits(model, ids, codes, f):
                                       (emb + guidance)[None, None].to(dt))
 
 
+def frame_logits_hold(label, logits_of, codes, unit: float = 1.0) -> None:
+    """The tie rule's own check, once a phase: the logits that a frame
+    helper (``tts_frame_logits``, ``csm_frame_logits``) rebuilds outside the
+    frame's body choose the codes the body chose at frames 0 and 1, each
+    code its logits' argmax or within LOGIT_TIE of it (in ``unit``s of the
+    logits), so a helper that drifts from the body fails here, where no
+    codes part."""
+    worst = 0.0
+    for f in range(min(2, len(codes))):
+        c0, rest = logits_of(f)
+        for g, logits in enumerate([c0, *rest]):
+            logits = logits.float().cpu()
+            worst = max(worst, (logits.max() - logits[int(codes[f][g])]).item() / unit)
+    log("tts", f"{label}: the tie helper's logits at frames 0 and 1 choose the path's codes "
+               f"(the largest gap to a chosen code {worst:.3g}, tie {LOGIT_TIE})")
+    if not worst <= LOGIT_TIE:
+        raise AssertionError(f"{label}: the tie helper's logits part from the frame's body")
+
+
 def tts_codes_tied(phase, label, model, ids, ref, other) -> None:
     """Where two paths' sampled codes part, the reference path's logits at
     the first difference (``tts_frame_logits`` on its model; a path that
@@ -6076,6 +6111,9 @@ def check_qwen3_tts() -> dict[str, int]:
         codes = [m.generate_speech_codes(ids, "english", None, opts) for m in models]
     tts_codes_tied("tts", f"Qwen3-TTS float32, {TTS_F32_FRAMES} frames, card vs CPU", models[1],
                    ids, codes[1], codes[0])
+    frame_logits_hold("Qwen3-TTS float32 on the card",
+                      lambda f: tts_frame_logits(models[0], ids, codes[0], f), codes[0],
+                      unit=TTS_PEAK)
     cpu_audio = torch.as_tensor(decoders[1].decode(codes[1][None]))
     for tf32 in (False, True):
         with cudnn_tf32(tf32):
@@ -6106,6 +6144,7 @@ def check_qwen3_tts() -> dict[str, int]:
     encoder_codes_tied(f"the reference encoder's codes of 3 s, {ref_codes[1].shape}",
                        encoders[1], ref_wav, ref_codes[1], ref_codes[0])
     log("tts", f"Qwen3-TTS float32 checks done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     # bf16, the whole talker: the main path is counted from here
     model = qwen3_tts_model(sd, torch.bfloat16, "cuda", decoder=decoders[0])
@@ -6131,6 +6170,8 @@ def check_qwen3_tts() -> dict[str, int]:
     block_ms, block_eager = blocks["graph"][2], blocks["eager"][2]
     log("tts", f"Qwen3-TTS bf16: the block's first call (its capture) took "
                f"{blocks['capture'][2] / 1e3:.1f} s")
+    log("time", f"tts: the bf16 model mapped and its blocks run in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     def block():
         model.generate_frames(model.prepare_streaming(ids, "english", None, opts), TTS_BLOCK)
@@ -6157,6 +6198,10 @@ def check_qwen3_tts() -> dict[str, int]:
                f"RTF {gen_s / (n_frames * FRAME_S):.4f} (synthesis seconds an audio second); a "
                f"streaming chunk's decode (25 new + 25 context frames, float32) {chunk_ms:.2f} ms")
 
+    log("time", f"tts: launches a frame, the RTF, a chunk's decode and the busy share in "
+                f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
     # voice clone once: ECAPA, the reference encoder, the ICL prompt, one
     # replay a frame
     replays = graphs.replays
@@ -6168,6 +6213,9 @@ def check_qwen3_tts() -> dict[str, int]:
                              f"{graphs.replays - replays} replays")
     log("tts", f"Qwen3-TTS voice clone (ICL over {len(model.encode_reference(ref_wav))} "
                f"reference frames): {len(clone)} frames, one replay a frame")
+
+    log("time", f"tts: the voice clone in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     # over HTTP: the WAV equals the direct synthesis; the stream's first chunk
     tts = CappedTts(Qwen3Tts(model), TTS_HTTP_FRAMES)
@@ -6197,6 +6245,7 @@ def check_qwen3_tts() -> dict[str, int]:
                f"equals Qwen3Tts.generate_speech; streamed, {len(rest)} PCM chunks of 1920 samples "
                f"a frame, the first after {first_http * 1e3:.1f} ms over HTTP "
                f"({first_direct * 1e3:.1f} ms direct)")
+    log("time", f"tts: the synthesis over HTTP and streamed in {time.perf_counter() - t0:.1f} s")
     counts = kernels.launch_counts()
     model.release_graphs()
     return counts
@@ -6420,12 +6469,15 @@ def check_csm() -> dict[str, int]:
         codes = [m.generate_codes(ids, max_frames=CSM_F32_FRAMES) for m in models]
     csm_codes_tied(f"CSM-1B float32 (backbone {CSM_F32_LAYERS} of 16 layers), "
                    f"{CSM_F32_FRAMES} frames, card vs CPU", models[1], ids, codes[1], codes[0])
+    frame_logits_hold("CSM-1B float32 on the card",
+                      lambda f: csm_frame_logits(models[0], ids, codes[0], f), codes[0])
     if len(codes[1]):
         with cudnn_tf32(False):
             audio = [torch.as_tensor(m.codec.decode(codes[1].T[None])) for m in models]
         check_f32("tts", f"Mimi's audio of {len(codes[1])} frames, cuDNN TF32 off", *audio)
     log("tts", f"CSM-1B float32 checks done in {time.perf_counter() - t0:.1f} s")
     del models
+    t0 = time.perf_counter()
 
     model = csm_model(sd, torch.bfloat16, "cuda")
     del sd
@@ -6464,6 +6516,9 @@ def check_csm() -> dict[str, int]:
                f"replay vs {eager_ms:.2f} ms eager; Mimi's decode of the frames {decode_ms:.2f} ms; "
                f"RTF {(total + decode_ms) / 1e3 / (n * FRAME_S):.4f}")
 
+    log("time", f"tts: CSM-1B bf16 mapped, run against eager and timed in "
+                f"{time.perf_counter() - t0:.1f} s")
+
     # voice clone once: a 2-s reference, encoded by Mimi on the card, spliced
     # at the audio tokens
     cfg = model.config
@@ -6473,6 +6528,19 @@ def check_csm() -> dict[str, int]:
     clone = model.generate_codes(clone_ids, audio_context=wav, max_frames=4)
     log("tts", f"CSM-1B voice clone through audio_context ({n_audio} reference frames): "
                f"{len(clone)} frames")
+
+    # a prompt that ends 4 positions short of the backbone's rope table: its
+    # frames' positions run past it and read the table's last row, as
+    # crane_tpu's gather does (an index past the table would assert on the
+    # card and end the process)
+    max_pos = cfg.backbone.max_position_embeddings
+    long_ids = (ids * (max_pos // len(ids) + 1))[:max_pos - 4]
+    far = model.generate_codes(long_ids, max_frames=8, stop_on_eos=False)
+    if far.shape != (8, cfg.num_codebooks) or far.min() < 0 or far.max() >= cfg.audio_vocab_size:
+        raise AssertionError(f"CSM past its rope table: codes {far.shape}, {far.min()}..{far.max()}")
+    log("tts", f"CSM-1B, {len(long_ids)} prompt ids and 8 frames (positions up to "
+               f"{len(long_ids) + 7} of a {max_pos}-row rope table): codes in range, the "
+               f"process goes on")
     model.release_graphs()
     return counts
 
@@ -6532,8 +6600,6 @@ def main() -> int:
     read_launches("dense path", rows, kernels.launch_counts())
     no_plain_routes("dense path")
     graph_vs_eager(lm, "Qwen3-0.6B bf16")
-    log("time", "cut: the decode steps of log_decode_steps are timed at B=1 and B=8 after 300 "
-                "tokens (bf16, w4 kv4, LFM2); the step after 16,000 tokens is dropped")
     log_decode_steps(lm, "Qwen3-0.6B bf16")
     lm.release_graphs()
     phase_done("dense")
@@ -6632,7 +6698,7 @@ def main() -> int:
     graph_vs_eager(lm_conv, "LFM2-1.2B bf16")
     read_launches("lfm2 path", family_rows["lfm2"], kernels.launch_counts())
     no_plain_routes("lfm2 path")
-    log_decode_steps(lm_conv, "LFM2-1.2B bf16")
+    log_decode_steps(lm_conv, "LFM2-1.2B bf16", shapes=DECODE_SHAPES[:2])
     del lm_conv
     torch.cuda.empty_cache()
     phase_done("lfm2")

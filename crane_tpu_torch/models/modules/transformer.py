@@ -602,7 +602,9 @@ def forward_hidden(
         new_lengths = cache.lengths + S
 
     if rope_embeds is None:
-        idx = positions.long()
+        # a position past the tables reads their last row, as jax's gather
+        # clamps it (an index past them asserts on the card and ends the process)
+        idx = positions.long().clamp(max=next(iter(rope.values())).shape[0] - 1)
         rope_embeds = {name: table[idx] for name, table in rope.items()}
     x = params["embed"][tokens.long()] if inputs_embeds is None else inputs_embeds
     if cfg.embed_scale is not None:

@@ -36,7 +36,9 @@ truncates at (a block runs past EOS, and the state is then finished). The
 model owns one 32-slot predictor cache, rewritten from slot 0 each frame, so
 the captured programs read the same buffers every replay; the talker cache
 and the sampling ``torch.Generator`` are kept per cache length and reset by
-each ``prepare_streaming``. Calls on one model therefore must not overlap.
+each ``prepare_streaming``, which makes its state their owner: a state whose
+kept cache a newer stream of the same length took raises in
+``generate_frames``. Calls on one model therefore must not overlap.
 Sampling draws from that generator in the same order on the block path and
 the one-frame path, so both give the same codes from one seed; the numbers
 are not ``jax.random``'s (ROADMAP Queue 3).
@@ -223,6 +225,7 @@ class StreamingState:
     # block reads each step's guidance row on the device
     trailing_pad: torch.Tensor
     finished: bool = False
+    ticket: int = -1  # prepare_streaming's mark of the owner of the kept cache
 
 
 class Qwen3TTSModel:
@@ -267,7 +270,8 @@ class Qwen3TTSModel:
         eos_m[specials.codec_eos] = -np.inf
         self._eos_suppress = torch.as_tensor(eos_m, device=self.device)
         self._programs: dict = {}  # the captured frame blocks (models/graphs.py)
-        self._streams: dict = {}  # max_seq -> (talker cache, generator)
+        self._streams: dict = {}  # max_seq -> [talker cache, generator, owner's ticket]
+        self._tickets = 0
         self._pred_cache = make_cache(pred_cfg, 1, PRED_SLOTS, dtype, device=self.device)
 
     def release_graphs(self) -> None:
@@ -339,9 +343,9 @@ class Qwen3TTSModel:
         second stream of the same length replays the blocks the first
         captured, as a jitted function compiles once)."""
         if max_seq not in self._streams:
-            self._streams[max_seq] = (
+            self._streams[max_seq] = [
                 make_cache(self.tcfg, 1, max_seq, self.dtype, device=self.device),
-                torch.Generator(device=self.device))
+                torch.Generator(device=self.device), -1]
         return self._streams[max_seq]
 
     @torch.no_grad()
@@ -358,8 +362,9 @@ class Qwen3TTSModel:
     ) -> StreamingState:
         """Prefill the talker (K3) over the kept cache of
         ``bucket_length(S + max_new_tokens, floor=512)`` slots, reseed the
-        kept generator from ``opts.seed`` and return the stream's state. A
-        new stream of the same cache length resets the previous one's."""
+        kept generator from ``opts.seed`` and return the stream's state, their
+        owner. A new stream of the same cache length resets them and takes
+        them over: the previous state's ``generate_frames`` then raises."""
         opts = opts or SpeechOptions()
         if prefill_embeds is None:
             prefill_embeds, trailing, tts_pad = self.build_prefill_embeds(
@@ -367,7 +372,10 @@ class Qwen3TTSModel:
         S = prefill_embeds.shape[1]
         padded = F.pad(prefill_embeds, (0, 0, 0, bucket_length(S, floor=32) - S))
         max_new = opts.max_new_tokens
-        cache, generator = self._stream(bucket_length(S + max_new, floor=512))
+        kept = self._stream(bucket_length(S + max_new, floor=512))
+        cache, generator = kept[0], kept[1]
+        self._tickets += 1
+        kept[2] = self._tickets
         cache.lengths.zero_()
         generator.manual_seed(opts.seed)
         hidden, cache = _prefill_embeds(self.tcfg, self.params["talker"]["tree"], self.rope,
@@ -395,6 +403,7 @@ class Qwen3TTSModel:
             sp=sp,
             codes=[],
             trailing_pad=trailing_pad,
+            ticket=self._tickets,
         )
 
     def _frame_block_body(self, *, layers, generator, n_frames, hidden, recent, step, lengths,
@@ -435,9 +444,16 @@ class Qwen3TTSModel:
         """Up to ``n_frames`` frames in one block (one graph replay on the
         card). Returns ``[k, num_code_groups]`` int32 with ``k < n_frames``
         iff EOS was hit inside the block, or ``None`` if the very first
-        frame was EOS / the state is finished."""
+        frame was EOS / the state is finished. Raises ``RuntimeError`` if a
+        newer ``prepare_streaming`` took the state's kept cache over."""
         if state.finished:
             return None
+        kept = self._streams.get(state.cache.max_seq)
+        if kept is not None and kept[1] is state.generator and kept[2] != state.ticket:
+            raise RuntimeError(
+                "this stream's talker cache and generator were taken over by a newer "
+                "prepare_streaming of the same length; streams of one length on one model "
+                "run one after another")
         inputs = dict(
             hidden=state.past_hidden, recent=state.recent0,
             step=torch.tensor([state.step], dtype=torch.int32, device=self.device),

@@ -1095,9 +1095,9 @@ def test_main_serves_speech_synthesis(ckpt, tts_ckpt, monkeypatch):
 def _tiny_csm(dirpath) -> str:
     """tests/test_csm_tts_parity.py's tiny CSM, saved by transformers with a
     tokenizer: its text vocabulary widened to the tiny tokenizer's 400 ids,
-    and its positions to CSM-1B's 2048 (the handler asks for up to 1000
-    frames, and a position past the rope table is an error in the port
-    where jax's gather clamps it)."""
+    its 256 positions kept (the handler asks for up to 1000 frames, so a
+    request runs past the rope table, whose last row both packages read
+    there)."""
     import transformers
 
     from tests.fixtures import make_tiny_tokenizer
@@ -1106,7 +1106,7 @@ def _tiny_csm(dirpath) -> str:
     cfg = transformers.CsmConfig(
         num_codebooks=4, vocab_size=64, hidden_size=64, num_hidden_layers=2,
         num_attention_heads=4, num_key_value_heads=2, intermediate_size=96,
-        max_position_embeddings=2048, text_vocab_size=512, rope_scaling=None,
+        max_position_embeddings=256, text_vocab_size=512, rope_scaling=None,
         audio_token_id=450, audio_eos_token_id=451,
         depth_decoder_config=dict(
             num_codebooks=4, vocab_size=64, backbone_hidden_size=64, hidden_size=32,
@@ -1128,7 +1128,9 @@ def _tiny_csm(dirpath) -> str:
 def test_main_chooses_csm_by_its_config(tmp_path, monkeypatch):
     """A ``--tts-path`` config without a talker loads CSM with its Mimi codec
     and tokenizer, whose WAV and stream hold crane_tpu's ``CsmTts`` samples;
-    a Gemma3n ``--model-path`` beside it keeps its ``TextBackend`` for chat."""
+    a Gemma3n ``--model-path`` beside it keeps its ``TextBackend`` for chat.
+    The request's frames run past the backbone's 256 rope positions, and the
+    server answers it and the requests after it."""
     from crane_tpu.generation.config import SpeechOptions as RefOptions
     from crane_tpu.models.csm_tts import load_csm as ref_load
     from crane_tpu.sdk.audio import CsmTts as RefTts
@@ -1148,6 +1150,9 @@ def test_main_chooses_csm_by_its_config(tmp_path, monkeypatch):
     ref = RefTts(ref_load(csm, dtype=jnp.float32, with_codec=True),
                  RefTokenizer.from_pretrained(csm)).generate_speech(SPEECH["input"], RefOptions())
     _check_speech(seen, ref, 24000)
+    codec = server.tts.model.codec.config
+    hop = int(np.prod(codec.upsampling_ratios)) * codec.upsample_stride  # samples a frame
+    assert len(ref) // hop > server.tts.model.config.backbone.max_position_embeddings
 
 
 def test_command_line_serves_speech(ckpt, tts_ckpt, tmp_path):

@@ -3,7 +3,8 @@ crane_tpu (CPU, float32), on tests/test_csm_tts_parity.py's tiny checkpoint
 (transformers' CsmForConditionalGeneration, saved): greedy codes equal to
 crane_tpu's (and to transformers' generate, the JAX test's oracle), the
 voice-clone ``audio_context`` splice (the prompt embeddings and the codes),
-a tied-codebook checkpoint's missing backbone table, speech through the
+positions past the backbone's rope table (a long request, a long
+prompt), a tied-codebook checkpoint's missing backbone table, speech through the
 codec within 1e-4, the trees carried across by ``utils/bridge.py``, and
 each frame as one replay of the stand-in graph with the eager frames'
 codes.
@@ -47,6 +48,19 @@ def test_greedy_codes_match(pair, text):
         hf = model.generate(input_ids=torch.tensor([text]), max_new_tokens=8, do_sample=False,
                             depth_decoder_do_sample=False, output_audio=False)[0].numpy()
     np.testing.assert_array_equal(got[:len(hf)], hf[:len(got)])
+
+
+@pytest.mark.parametrize("n_text", [250, 270])
+def test_positions_past_the_rope_table_match(pair, n_text):
+    """Frames past the backbone's 256 rope positions, and a prompt longer
+    than the table (its bucket padded to 512): the port reads the table's
+    last row there, as crane_tpu's gather does, and gives its codes."""
+    _, jm, tm = pair
+    text = [(7 * i) % 200 for i in range(n_text)]
+    max_pos = tm.config.backbone.max_position_embeddings
+    got = tm.generate_codes(text, max_frames=12, stop_on_eos=False)
+    assert len(got) == 12 and n_text + len(got) > max_pos
+    np.testing.assert_array_equal(got, jm.generate_codes(text, max_frames=12, stop_on_eos=False))
 
 
 def test_voice_clone_splice_matches(pair):

@@ -15,7 +15,8 @@ Both packages load the same tiny checkpoint in the released layout
 - with ordinary heads, the code-0 and per-group logits of every frame of
   crane_tpu's own codes, teacher-forced through each package's public
   functions (``forward_hidden`` and the params), within 2e-4;
-- the port's block path against its one-frame path from one seed, the
+- the port's block path against its one-frame path from one seed, a
+  stream whose kept cache a newer stream took over raising, the
   control ids never sampled and no EOS in the first two frames, a block
   past EOS truncated, the frame block as one replay of the stand-in graph;
 - ``load_qwen3_tts`` wiring the decoder, the reference encoder and ECAPA
@@ -297,6 +298,29 @@ def test_streaming_equals_block_path(ordinary):
     assert len(block) == 12
     np.testing.assert_array_equal(small, block)
     np.testing.assert_array_equal(stream, block)
+
+
+def test_a_stream_taken_over_raises(ordinary):
+    """Streams of one cache length share the model's kept talker cache and
+    generator: a newer ``prepare_streaming`` takes them over, and the older
+    state's next block raises instead of reading the newer stream's cache.
+    A stream of another length keeps its own and goes on with the codes it
+    gives alone."""
+    _, tm = ordinary
+    opts = SpeechOptions(max_new_tokens=6, seed=0)
+    alone = tm.generate_speech_codes([9, 10, 11], "auto", None, opts)
+    first = tm.prepare_streaming([9, 10, 11], "auto", None, opts)
+    tm.generate_frames(first, 2)
+    other = tm.prepare_streaming([5, 6], "auto", None, SpeechOptions(max_new_tokens=600, seed=3))
+    assert other.generator is not first.generator
+    tm.generate_frames(other, 2)
+    tm.generate_frames(first, 4)
+    np.testing.assert_array_equal(np.asarray(first.codes, np.int32), alone)
+    second = tm.prepare_streaming([5, 6, 7], "auto", None, opts)
+    assert second.generator is first.generator
+    with pytest.raises(RuntimeError, match="taken over"):
+        tm.generate_frames(first, 2)
+    assert len(tm.generate_frames(second, 2)) == 2
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
