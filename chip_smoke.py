@@ -222,7 +222,31 @@ each reported on its own line:
    paths; the rows at the predictor's and the depth decoder's shapes
    (check_tts_kernels: K3 at S=2 and K1 over a 32-slot cache with 16 / 8
    heads of 64, K3 at S=32 over 32 slots with 8 / 2 of 128) read their
-   path's launches.
+   path's launches;
+23. voxtral: Voxtral-4B TTS at full width (``VoxtralConfig()``: backbone 26
+   x 3072 with 32 / 8 heads of 96, acoustic transformer 3 x 3072, codec 8
+   layers of 1024; 3.79 B parameters drawn in bf16 on the card), a random
+   voice of 32 rows and 30 text ids. Float32 with the backbone cut to 2 of
+   26 layers against the CPU: the prefill's last hidden, 4 frames from the
+   same noise, teacher-forced with the CPU's codes (semantic logits,
+   flow-matched latents, codes equal or tied), the codec's audio (TF32
+   off), 1- and 2-frame decodes (the reflect pad as long as the input) and
+   the chunked decode against the whole. Then bf16 whole: 64 frames in
+   blocks of 16, each block one graph replay, against the eager blocks
+   (codes equal), the RTF, a run stopped by END_AUDIO inside a block, the
+   codec's ms, the idle share, the ``VoxtralTts`` SDK adapter with the
+   stand-in tokenizer. No kernel takes heads of 96: the path's plain
+   attention routes must be exactly the backbone's (26 a prefill, 26 a
+   frame) and it launches no kernel;
+24. kokoro: Kokoro's native net at ``KokoroNetConfig()`` on bench.py's 96
+   phoneme ids, float32 card against CPU (features, durations, waveform),
+   the synthesis RTF; ``KokoroTts`` end to end through the copied G2P over
+   two 510-codepoint chunks;
+25. ocr: the native DB detector and SVTR/CTC recognizer at their defaults
+   over a synthetic 6623-symbol dictionary and a synthetic page at the
+   960-pixel limit, float32 card against CPU (the probability map, the
+   regions, the CTC logits, ``PaddleOcrPipeline.recognize``'s regions and
+   texts); the nets' ms. Kokoro and OCR launch no kernel.
 
 Where two paths' greedy tokens part (graphs against eager, speculative
 against plain, HTTP against ``engine.submit``, the GGUF model on the card
@@ -238,8 +262,9 @@ the eager loop they are held against. The decode-step lines time both in
 this one process, 4 blocks of 8 steps each. Each phase logs its seconds.
 
 Every model path (dense, quantized, hybrid, sp, the three once-unrun
-paths, lfm2, moe, gemma3n, the three vision-language models, Qwen3-ASR and
-Qwen2-Audio) must route no attention call to a plain version (Gemma 3n's
+paths, lfm2, moe, gemma3n, the three vision-language models, Qwen3-ASR,
+Qwen2-Audio, Qwen3-TTS, CSM, Kokoro and OCR) must route no attention call
+to a plain version, and Voxtral's exactly its backbone's (Gemma 3n's
 prefill attention, the vision and audio towers' and Whisper's and
 Moonshine's decoders' are plain by design, as in crane_tpu, and not
 routed). ``[profile]`` lines split a chunk's, a prefill's
@@ -2931,6 +2956,16 @@ def check_http(lm, label: str, kv_bits=None) -> dict[str, int]:
     return counts
 
 
+def require_none_launched(path: str) -> None:
+    """Fail if the path launched any kernel: no kernel lies on it."""
+    from crane_tpu_torch.ops import cuda as kernels
+
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    if launched:
+        raise AssertionError(f"the {path} launched kernels: {launched}")
+    log("launches", f"{path}: no kernel launched (none lies on it)")
+
+
 def require_launched(path: str, counts: dict[str, int], names) -> None:
     """Fail if a kernel of ``names`` was not launched on ``path``."""
     log("launches", f"{path}: {json.dumps({k: n for k, n in counts.items() if n})}")
@@ -4767,13 +4802,13 @@ class PageTokenizer(StandInTokenizer):
         return self.SPECIAL.get(token)
 
 
-def synthetic_page(seed: int):
-    """A white page (PADDLE_PAGE pixels, uint8 HWC) with dark lines of
-    seeded lengths, as a numpy array."""
+def synthetic_page(seed: int, size: tuple[int, int] = PADDLE_PAGE):
+    """A white page (``size`` pixels, uint8 HWC) with dark lines of seeded
+    lengths, as a numpy array."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    h, w = PADDLE_PAGE
+    h, w = size
     page = torch.full((h, w, 3), 255, dtype=torch.uint8)
     for row in range(30, h - 30, 28):
         n = int(torch.randint(w // 3, w - 40, (1,), generator=g))
@@ -6545,6 +6580,491 @@ def check_csm() -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 23 (voxtral), 24 (kokoro) and 25 (ocr): the rest of speech and
+# vision. No kernel lies on these paths: Voxtral's backbone has heads of 96,
+# which no attention kernel takes (plain, counted in plain_routes, as
+# crane_tpu sends them to XLA's gqa_attention); its acoustic transformer and
+# codec, Kokoro's net and the OCR nets are plain PyTorch, as they are plain
+# einsums and convs in crane_tpu.
+
+VOX_F32_LAYERS = 2  # of the backbone's 26, for the float32 check (acoustic and codec whole)
+VOX_F32_FRAMES = 4
+VOX_TEXT = 30  # text ids of a request
+VOX_VOICE_ROWS = 32  # rows of the random voice embedding (the released voices are not here)
+VOX_FRAMES = 64  # frames of a run: 5.12 s of audio
+VOX_BLOCK = 16  # frames a block (one graph replay)
+VOX_END_FRAME = 21  # the END_AUDIO run stops at or before this frame (the second block)
+VOX_FRAME_S = 0.08  # 12.5 Hz, 1920 samples at 24 kHz
+# a semantic code whose float32 logit lies this close to the chosen one's, or
+# an acoustic latent this close (in FSQ levels) to a rounding boundary, may
+# go either way between the card and the CPU (the tie rule)
+SEM_TIE = 1e-3
+FSQ_TIE = 1e-3
+
+KOKORO_IDS = 96  # bench.py's phoneme ids (bench_kokoro): ~a sentence
+KOKORO_DURATION_BIAS = 2.0  # added to the duration head's bias: 1-3 frames a phoneme
+KOKORO_TIE = 1e-4  # a duration value this close to a .5 boundary may round either way
+# an in-memory Kokoro vocabulary: "$" (pad/BOS/EOS), punctuation, the
+# normalizer's single-codepoint letters and the phonemizer's IPA
+KOKORO_VOCAB = "$;:,.!?¡¿—…\"«»“” AIOQWYabcdefhijklmnopqrstuvwxyzæçðøħŋœɐɑɒɔɕɖəɚɛɜɞɟɡɣɤɥɨɪɬɭɮɯɰɱɲɳɴɸɹɻɽɾʀʁʃʈʉʊʋʌʎʒʔʕʤʧʰʲˈˌːʼ̃θχ"
+
+OCR_CLASSES = 6623  # PaddleOCR's ppocr_keys_v1.txt symbols (plus the blank and the space)
+OCR_PAGE = (720, 960)  # a synthetic page at the pipeline's 960-pixel limit
+OCR_TIE = 1e-4  # a probability this close to the detector's 0.3 threshold may fall either way
+
+
+def voxtral_frames(model, ids, noises, forced=None):
+    """VoxtralTts's frame loop on ``model``'s device, eagerly, from the
+    given noise (one ``[36]`` float32 tensor a frame): the prefill's last
+    hidden and, per frame, (semantic logits, acoustic latent, codes). With
+    ``forced`` (a list of code tensors) each decode step takes those codes
+    instead of the frame's own, so every frame is computed from the same
+    history as the run that gave them."""
+    import torch
+
+    from crane_tpu_torch.models import voxtral_tts as vt
+    from crane_tpu_torch.models.modules.transformer import forward_hidden
+
+    cfg, p, dev = model.cfg, model.params, model.device
+    with torch.no_grad():
+        h = first = model.prefill(ids, "smoke")
+        cache = model._cache
+        tokens = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        frames = []
+        for i, noise in enumerate(noises):
+            logits = vt.predict_semantic_logits(cfg, p["acoustic"], h[0])
+            latent = vt.flow_latent(cfg, p["acoustic"], h[0], noise.to(dev, model.dtype),
+                                    model._time_tokens)
+            codes = torch.cat([logits.argmax().to(torch.int32)[None],
+                               vt.fsq_quantize(latent, cfg.fsq_levels)])
+            frames.append((logits, latent, codes))
+            step = codes if forced is None else forced[i].to(dev)
+            emb = vt.embed_frame_codes(p["codebook_table"], model.offsets, step)
+            hidden, cache = forward_hidden(model.llm_cfg, p["llm"], tokens, cache, cache.lengths,
+                                           model.rope, inputs_embeds=emb[None, None, :])
+            h = hidden[:, -1]
+    return first, frames
+
+
+def voxtral_codes_tied(label, ref, other, levels: int) -> None:
+    """Each frame's codes on the card equal the CPU's, or part at a tie: a
+    semantic code whose CPU logit lies within SEM_TIE of the chosen one, an
+    acoustic code one level off where the CPU's latent lies within FSQ_TIE
+    (in levels) of the rounding boundary."""
+    import torch
+
+    ties = 0
+    for f, ((logits, latent, codes), (_, _, got)) in enumerate(zip(ref, other)):
+        got = got.cpu()
+        for j in torch.nonzero(got != codes).flatten().tolist():
+            if j == 0:
+                gap = (logits[codes[0]] - logits[got[0]]).item()
+                ok = gap <= SEM_TIE
+                what = f"semantic code {int(codes[0])} vs {int(got[0])}, logit gap {gap:.3g}"
+            else:
+                half = (levels - 1) / 2.0
+                u = float(latent[j - 1].clamp(-1, 1) * half + half)
+                off = abs(u % 1.0 - 0.5)
+                ok = abs(int(codes[j]) - int(got[j])) == 1 and off <= FSQ_TIE
+                what = f"acoustic code {j}: {int(codes[j])} vs {int(got[j])}, {off:.3g} from a boundary"
+            log("voxtral", f"{label}: frame {f} parts, {what}")
+            if not ok:
+                raise AssertionError(f"{label}: frame {f} parts without a tie")
+            ties += 1
+    log("voxtral", f"{label}: {len(ref)} frames x {len(ref[0][2])} codes equal but {ties} ties")
+
+
+def tree_to(tree, device):
+    """A parameter tree moved to ``device``, its ``None`` leaves kept (a
+    Voxtral codec's last stage has no upsampling conv)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return None if tree is None else tree.to(device)
+
+
+def random_codes(cfg, n: int, seed: int):
+    """Codes ``[1, n, 37]`` of the codec's ranges (+2 offsets), seeded."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sem = torch.randint(2, cfg.semantic_valid_end, (1, n, 1), generator=g)
+    ac = torch.randint(2, 2 + cfg.fsq_levels, (1, n, cfg.n_acoustic), generator=g)
+    return torch.cat([sem, ac], -1).to(torch.int32)
+
+
+def check_voxtral_f32() -> None:
+    """Voxtral's float32 checks, card against CPU, the backbone cut to
+    VOX_F32_LAYERS of 26 (the acoustic transformer and the codec whole):
+    the prefill's last hidden state, then VOX_F32_FRAMES frames from the
+    same noise, teacher-forced with the CPU's codes (each frame's semantic
+    logits and acoustic latent within F32_REL_L2, its codes equal or tied:
+    ``voxtral_codes_tied``); the codec's audio of those frames with cuDNN's
+    TF32 off; the codec chunked (16 new frames, 16 of context) against
+    whole on 40 frames, and 1- and 2-frame decodes (the reflect pad as long
+    as the input) against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from crane_tpu_torch.models import voxtral_tts as vt
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(vt.VoxtralConfig(), n_layers=VOX_F32_LAYERS)
+    params = vt.init_voxtral_params(cfg, seed=61, dtype=torch.float32, device="cuda")
+    g = torch.Generator().manual_seed(62)
+    voice = torch.randn(VOX_VOICE_ROWS, cfg.dim, generator=g) * 0.02
+    ids = torch.randint(0, cfg.vocab_size, (VOX_TEXT,), generator=g).tolist()
+    models = [vt.VoxtralTts(cfg, tree_to(params, d), voices={"smoke": voice}) for d in ("cuda", "cpu")]
+    del params
+    noises = [torch.randn(cfg.n_acoustic, generator=g) for _ in range(VOX_F32_FRAMES)]
+    log("time", f"voxtral: the float32 model ({VOX_F32_LAYERS} backbone layers) drawn and copied "
+                f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    h_cpu, ref = voxtral_frames(models[1], ids, noises)
+    log("time", f"voxtral: {VOX_F32_FRAMES} float32 frames on the CPU in "
+                f"{time.perf_counter() - t0:.1f} s")
+    h_gpu, got = voxtral_frames(models[0], ids, noises, forced=[c for _, _, c in ref])
+    label = f"Voxtral float32 ({VOX_F32_LAYERS} of 26 backbone layers)"
+    check_f32("voxtral", f"{label} prefill's last hidden, {VOX_VOICE_ROWS} voice rows + "
+                         f"{len(ids)} text ids + 5 specials", h_gpu, h_cpu)
+    for f in (0, VOX_F32_FRAMES - 1):
+        finite = torch.isfinite(ref[f][0])
+        check_f32("voxtral", f"{label} frame {f} semantic logits", got[f][0].cpu()[finite],
+                  ref[f][0][finite])
+        check_f32("voxtral", f"{label} frame {f} flow-matched latent (same noise)", got[f][1],
+                  ref[f][1])
+    voxtral_codes_tied(f"{label}, teacher-forced", ref, got, cfg.fsq_levels)
+    codes = torch.stack([c for _, _, c in ref])[None]
+    cpu_pcm = vt.codec_decode(cfg, models[1].params["codec"], codes)
+    with cudnn_tf32(False):
+        check_f32("voxtral", f"codec audio of {VOX_F32_FRAMES} frames, cuDNN TF32 off",
+                  vt.codec_decode(cfg, models[0].params["codec"], codes.cuda()), cpu_pcm)
+        for n in (1, 2):  # the input conv's reflect pad as long as the input
+            short = random_codes(cfg, n, 63 + n)
+            check_f32("voxtral", f"codec audio of a {n}-frame input (reflect pad >= its length)",
+                      vt.codec_decode(cfg, models[0].params["codec"], short.cuda()),
+                      vt.codec_decode(cfg, models[1].params["codec"], short))
+        long = random_codes(cfg, 40, 66).cuda()
+        check_f32("voxtral", "codec_chunked_decode (16 new + 16 context frames) vs codec_decode, "
+                             "40 frames on the card",
+                  vt.codec_chunked_decode(cfg, models[0].params["codec"], long, chunk_size=16,
+                                          left_context=16),
+                  vt.codec_decode(cfg, models[0].params["codec"], long))
+    log("voxtral", f"the codec audio: rms {cpu_pcm.pow(2).mean().sqrt().item():.4g}, max "
+                   f"{cpu_pcm.abs().max().item():.4g}")
+    log("time", f"voxtral: float32 checks done in {time.perf_counter() - t0:.1f} s")
+
+
+def check_voxtral() -> dict[str, int]:
+    """Voxtral-4B TTS at full width (``VoxtralConfig()``: backbone 26 x
+    3072 with 32 / 8 heads of 96, acoustic transformer 3 x 3072, codec 8
+    layers of 1024), random bf16 weights drawn on the card, a random voice
+    of VOX_VOICE_ROWS rows and VOX_TEXT text ids. After ``check_voxtral_f32``:
+    the prefill's ms; ``generate_codes`` of VOX_FRAMES frames in blocks of
+    VOX_BLOCK, each block one graph replay (counted), against the eager
+    blocks on the card (codes equal); the RTF; a block's ms both ways; a
+    run stopped by END_AUDIO inside a block (the semantic head's END column
+    raised to just above the column of the code chosen at VOX_END_FRAME),
+    graph against eager; the codec's ms; the device's idle share; the
+    ``VoxtralTts`` SDK adapter with the stand-in tokenizer against
+    ``generate``. The plain attention routes must be exactly the backbone's
+    (26 "chunk" calls a prefill, 26 "decode" calls a frame run) and no
+    kernel launched. Returns the launch counts."""
+    import torch
+
+    from crane_tpu_torch.generation.config import SpeechOptions
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models import voxtral_tts as vt
+    from crane_tpu_torch.models.modules.transformer import attention_block
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.sdk.audio import VoxtralTts
+
+    check_voxtral_f32()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = vt.VoxtralConfig()
+    params = vt.init_voxtral_params(cfg, seed=71, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params) if t is not None)
+    g = torch.Generator().manual_seed(72)
+    voice = torch.randn(VOX_VOICE_ROWS, cfg.dim, generator=g) * 0.02
+    ids = torch.randint(0, cfg.vocab_size, (VOX_TEXT,), generator=g).tolist()
+    model = vt.VoxtralTts(cfg, params, voices={"smoke": voice})
+    torch.cuda.synchronize()
+    log("voxtral", f"Voxtral-4B bf16: {n_params / 1e9:.3f} B parameters drawn on the card in "
+                   f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    reset_counts()
+    prefills, blocks = [], {"graph": 0, "eager": 0}
+    counted_calls(model, "prefill", {}, prefills)
+
+    def run(mode):
+        """generate_codes of VOX_FRAMES frames, graph or eager: (codes, ms,
+        blocks run). A block runs to its end, END_AUDIO or not."""
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            replays, out = graphs.replays, []
+            ms = sync_ms(lambda: out.append(model.generate_codes(
+                ids, voice="smoke", max_frames=VOX_FRAMES, block_frames=VOX_BLOCK)))
+        n = min(len(out[0]) // VOX_BLOCK + 1, VOX_FRAMES // VOX_BLOCK)
+        if mode == "graph" and graphs.replays - replays != n:
+            raise AssertionError(f"Voxtral: {graphs.replays - replays} replays for {n} blocks")
+        blocks[mode] += n
+        return out[0], ms, n
+
+    prefill_ms = sorted(sync_ms(lambda: model.prefill(ids, "smoke")) for _ in range(3))[1]
+    captures = graphs.captures
+    codes, capture_ms, _ = run("graph")
+    capture_s = capture_ms / 1e3
+    runs = [run("graph") for _ in range(3)]
+    graph_codes, gen_ms, n_replays = sorted(runs, key=lambda r: r[1])[1]
+    eager_codes, eager_ms, _ = run("eager")
+    if graphs.captures - captures != 1 or n_replays != VOX_FRAMES // VOX_BLOCK:
+        raise AssertionError(f"Voxtral: {graphs.captures - captures} captures, {n_replays} replays "
+                             f"for {VOX_FRAMES} frames")
+    for other in [codes] + [r[0] for r in runs]:
+        if not torch.equal(torch.as_tensor(other), torch.as_tensor(eager_codes)):
+            raise AssertionError("Voxtral bf16: the graph blocks' codes differ from the eager loop's")
+    if len(eager_codes) != VOX_FRAMES:
+        raise AssertionError(f"Voxtral: {len(eager_codes)} frames of {VOX_FRAMES}")
+    block_ms = (gen_ms - prefill_ms) / (VOX_FRAMES // VOX_BLOCK)
+    block_eager = (eager_ms - prefill_ms) / (VOX_FRAMES // VOX_BLOCK)
+    rtf = gen_ms / 1e3 / (VOX_FRAMES * VOX_FRAME_S)
+    log("voxtral", f"Voxtral-4B bf16: {VOX_FRAMES} frames, codes equal in {n_replays} graph "
+                   f"replays and eagerly; the block's capture (first run) {capture_s:.1f} s")
+    log("time", f"voxtral: the bf16 runs in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    # END_AUDIO inside a block: its column raised to 1.01 x the column of the
+    # code chosen at VOX_END_FRAME, which wins there (its logit the largest,
+    # and positive) and wherever that code's logit lies within 1% of the top
+    head = model.params["acoustic"]["semantic_head"]
+    saved = head[:, vt.END_AUDIO_CODE].clone()
+    head[:, vt.END_AUDIO_CODE] = head[:, int(eager_codes[VOX_END_FRAME, 0])] * 1.01
+    ended = {mode: run(mode)[0] for mode in ("graph", "eager")}
+    head[:, vt.END_AUDIO_CODE] = saved
+    k = len(ended["eager"])
+    if not torch.equal(torch.as_tensor(ended["graph"]), torch.as_tensor(ended["eager"])) \
+            or not 1 <= k <= VOX_END_FRAME \
+            or not torch.equal(torch.as_tensor(ended["eager"]), torch.as_tensor(eager_codes[:k])):
+        raise AssertionError(f"Voxtral END_AUDIO run: {len(ended['graph'])} graph frames, {k} eager")
+    log("voxtral", f"Voxtral-4B bf16, END_AUDIO raised: both ways stop after {k} frames (frame "
+                   f"{k % VOX_BLOCK} of block {k // VOX_BLOCK}), their codes the plain run's")
+
+    full = torch.as_tensor(eager_codes, device="cuda")[None]
+    codec_ms = sorted(sync_ms(lambda: vt.codec_decode(cfg, model.params["codec"], full))
+                      for _ in range(3))[1]
+    pcm = vt.codec_decode(cfg, model.params["codec"], full).float()
+    if pcm.shape != (1, VOX_FRAMES * 1920) or not bool(pcm.isfinite().all()):
+        raise AssertionError(f"Voxtral codec: {tuple(pcm.shape)}")
+    log_busy("voxtral", "Voxtral-4B bf16", f"a prefill and one {VOX_BLOCK}-frame block",
+             lambda: model.generate_codes(ids, voice="smoke", max_frames=VOX_BLOCK,
+                                          block_frames=VOX_BLOCK))
+    blocks["graph"] += 3  # log_busy runs it three times, each one replay
+
+    # the SDK adapter with the stand-in tokenizer: the same audio as generate
+    model.tokenizer = StandInTokenizer(cfg.vocab_size)
+    wav = VoxtralTts(model, max_frames=VOX_BLOCK).generate_speech(
+        model.tokenizer.decode(ids), SpeechOptions(voice="smoke"))
+    ref, sr = model.generate(ids, voice="smoke", max_frames=VOX_BLOCK, seed=0)
+    blocks["graph"] += 2
+    if sr != 24_000 or wav.shape != ref.shape or not bool((torch.as_tensor(wav)
+                                                           == torch.as_tensor(ref)).all()):
+        raise AssertionError("Voxtral SDK adapter: its audio differs from generate's")
+
+    layers = cfg.n_layers
+    want = {"prefill": 0, "chunk": layers * len(prefills),
+            "decode": layers * VOX_BLOCK * (blocks["graph"] + blocks["eager"])}
+    routes = dict(attention_block.plain_routes)
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    log("routes", f"Voxtral path: plain routes {json.dumps(routes)}; the backbone's calls "
+                  f"{json.dumps(want)} ({len(prefills)} prefills, {blocks['graph']} replayed and "
+                  f"{blocks['eager']} eager blocks of {VOX_BLOCK} frames); launches "
+                  f"{json.dumps(launched)}")
+    if routes != want:
+        raise AssertionError("the Voxtral path's plain routes are not exactly the backbone's")
+    if launched:
+        raise AssertionError(f"the Voxtral path launched kernels: {launched}")
+    del model.prefill
+    log("voxtral", f"Voxtral-4B bf16 ({VOX_VOICE_ROWS} voice rows + {len(ids)} text ids): prefill "
+                   f"{prefill_ms:.2f} ms; a {VOX_BLOCK}-frame block {block_ms:.1f} ms as one graph "
+                   f"replay vs {block_eager:.1f} ms eager ({block_ms / VOX_BLOCK:.2f} ms a frame); "
+                   f"generate_codes of {VOX_FRAMES} frames {gen_ms:.1f} ms (median of 3), RTF "
+                   f"{rtf:.4f} (synthesis seconds an audio second; eager "
+                   f"{eager_ms / 1e3 / (VOX_FRAMES * VOX_FRAME_S):.4f}); the codec's decode of "
+                   f"{VOX_FRAMES} frames {codec_ms:.2f} ms; audio rms "
+                   f"{pcm.pow(2).mean().sqrt().item():.4g}; graphs: {graphs.replays} replays in "
+                   f"the process, the block captured once in {capture_s:.1f} s")
+    log("time", f"voxtral: END, codec, busy share and the SDK in {time.perf_counter() - t0:.1f} s")
+    counts = kernels.launch_counts()
+    model.release_graphs()
+    return counts
+
+
+def kokoro_inputs(cfg):
+    """bench.py's Kokoro workload (bench_kokoro): from numpy's generator
+    seeded 0, the style ``[256]``, then 96 phoneme ids in [1, vocab)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    style = rng.standard_normal(256)
+    return rng.integers(1, cfg.vocab_size, KOKORO_IDS), style
+
+
+def check_kokoro() -> None:
+    """Kokoro's native net at ``KokoroNetConfig()`` (vocabulary 178, dim
+    128, hop 600), random weights at crane_tpu's scales with the duration
+    head's bias raised by KOKORO_DURATION_BIAS (1-3 frames a phoneme), on
+    bench.py's workload shape (96 phoneme ids, a random style row). Float32
+    card against CPU: the encoder's features, the durations equal (or tied
+    within KOKORO_TIE of a .5 boundary), the waveform within F32_REL_L2 with
+    cuDNN's TF32 off; the synthesis RTF on the card; ``KokoroTts``
+    end to end through the copied ``text/g2p.Phonemizer`` with an in-memory
+    vocabulary and a random voice pack, on a text of two 510-codepoint
+    chunks, the card's waveform against the CPU's."""
+    import torch
+
+    from crane_tpu_torch.models import kokoro_tts as kt
+    from crane_tpu_torch.text.g2p import Phonemizer
+
+    t0 = time.perf_counter()
+    cfg = kt.KokoroNetConfig()
+    params = kt.init_kokoro_net(cfg, seed=81, device="cpu")
+    params["duration"]["b2"] += KOKORO_DURATION_BIAS
+    synths = [kt.KokoroSynthesizer(cfg, tree_to(params, d)) for d in ("cuda", "cpu")]
+    ids, style = kokoro_inputs(cfg)
+    with cudnn_tf32(False):
+        (feats, durs, st), (rfeats, rdurs, rst) = (s.features(ids, style) for s in synths)
+        check_f32("kokoro", f"Kokoro encoder features of {len(ids)} phoneme ids", feats, rfeats)
+        values = kt.duration_values(synths[1].params["duration"], rfeats, rst, 1.0)
+        diff = torch.nonzero(durs.cpu() != rdurs).flatten().tolist()
+        for i in diff:
+            off = abs(float(values[i]) % 1.0 - 0.5)
+            log("kokoro", f"duration {i}: {int(durs[i])} vs {int(rdurs[i])}, {off:.3g} from .5")
+            if off > KOKORO_TIE or abs(int(durs[i]) - int(rdurs[i])) != 1:
+                raise AssertionError("Kokoro durations part without a tie")
+        log("kokoro", f"Kokoro durations: {int(rdurs.sum())} frames for {len(ids)} phonemes, "
+                      f"{len(diff)} ties, per-phoneme counts {torch.bincount(rdurs.long()).tolist()}")
+        wav = synths[0].synthesize(feats, rdurs.numpy(), st)
+        ref = synths[1].synthesize(rfeats, rdurs.numpy(), rst)
+        check_f32("kokoro", f"Kokoro waveform ({len(ref)} samples), cuDNN TF32 off",
+                  torch.as_tensor(wav), torch.as_tensor(ref))
+    log("kokoro", f"the waveform: rms {torch.as_tensor(ref).pow(2).mean().sqrt().item():.4g}, "
+                  f"|x| > 0.99 share {(torch.as_tensor(ref).abs() > 0.99).float().mean().item():.4g}")
+    synth = synths[0]
+    synth(ids, style)  # warm
+    ms = sorted(sync_ms(lambda: synth(ids, style)) for _ in range(5))[2]
+    audio_s = len(ref) / 24_000
+    log("kokoro", f"Kokoro synthesis on the card (float32, {len(ids)} ids, {audio_s:.2f} s of "
+                  f"audio): {ms:.2f} ms (median of 5), RTF {ms / 1e3 / audio_s:.4f}")
+    log_busy("kokoro", "Kokoro float32", f"{len(ids)} ids to {audio_s:.2f} s of audio",
+             lambda: synth(ids, style))
+
+    # the pipeline end to end: text -> IPA -> normalized phonemes -> two chunks
+    vocab = {c: i for i, c in enumerate(dict.fromkeys(KOKORO_VOCAB))}
+    g = torch.Generator().manual_seed(82)
+    voices = {"af_heart": torch.randn(510, kt.STYLE_DIM, generator=g).numpy()}
+    text = ("The quick brown fox jumps over the lazy dog near the riverbank, while seventeen "
+            "curious engineers measured forty two kilometers of cable. ") * 5
+    tts = [kt.KokoroTts(vocab, voices, s, phonemizer=Phonemizer()) for s in synths]
+    phonemes = kt.KokoroIpaNormalizer("en_us", vocab).normalize(Phonemizer().phonemize(text))
+    chunks = kt.chunk_phonemes(phonemes)
+    if len(chunks) != 2:
+        raise AssertionError(f"Kokoro: {len(chunks)} chunks of {len(phonemes)} codepoints")
+    with cudnn_tf32(False):
+        t1 = time.perf_counter()
+        got, sr = tts[0].generate_speech(text)
+        card_s = time.perf_counter() - t1
+        want, _ = tts[1].generate_speech(text)
+    check_f32("kokoro", f"KokoroTts.generate_speech of {len(text)} characters ({len(phonemes)} "
+                        f"phoneme codepoints in {len(chunks)} chunks, {len(got) / sr:.2f} s)",
+              torch.as_tensor(got), torch.as_tensor(want))
+    log("kokoro", f"KokoroTts end to end on the card: {card_s * 1e3:.1f} ms host clock, RTF "
+                  f"{card_s / (len(got) / sr):.4f}")
+    log("time", f"kokoro: done in {time.perf_counter() - t0:.1f} s")
+
+
+def check_ocr() -> None:
+    """The native OCR nets at their defaults (detector 24 channels;
+    recognizer 64 channels, 2 layers, 4 heads) over a synthetic dictionary
+    of OCR_CLASSES symbols and a synthetic page at the 960-pixel limit. The
+    detector's head is rescaled on the CPU's map of this page (its logits
+    standardized, times -3) so that random weights outline the page's text
+    lines. Float32 card against CPU (cuDNN TF32 off): the probability map,
+    the regions (equal, or parting only where a pixel lies within OCR_TIE of
+    the 0.3 threshold), the CTC logits of the CPU's crops, and
+    ``PaddleOcrPipeline.recognize``'s regions and texts. The detector's and
+    the recognizer's ms on the card."""
+    import torch
+
+    from crane_tpu_torch.ocr import nets, pipeline
+
+    t0 = time.perf_counter()
+    det = nets.init_detector_params(24, seed=91, device="cpu")
+    rec = nets.init_recognizer_params(OCR_CLASSES + 2, seed=92, device="cpu")
+    dictionary = [""] + [chr(0x4E00 + i) for i in range(OCR_CLASSES)] + [" "]
+    img = synthetic_page(93, OCR_PAGE)
+    x, size = pipeline.detect_preprocess(img)
+    xt = torch.from_numpy(x)
+    z = torch.logit(nets.db_detector(det, xt).double())
+    s = -3.0 / z.std().item()
+    det["head2"] = {"w": det["head2"]["w"] * s, "b": (det["head2"]["b"] - z.mean().item()) * s}
+    dets = [tree_to(det, d) for d in ("cuda", "cpu")]
+    recs = [tree_to(rec, d) for d in ("cuda", "cpu")]
+    with cudnn_tf32(False):
+        probs = [nets.db_detector(d, xt.to(d["stem"]["w"].device)).cpu()[0, 0] for d in dets]
+        check_f32("ocr", f"DB detector probability map of a {OCR_PAGE[1]}x{OCR_PAGE[0]} page "
+                         f"({tuple(x.shape)})", probs[0], probs[1])
+        boxes = [pipeline.db_regions(p.numpy(), size, (img.shape[1], img.shape[0])) for p in probs]
+        coords = [[b[:4] for b in bx] for bx in boxes]
+        if coords[0] != coords[1]:
+            # a tie: a pixel on the other side of the 0.3 threshold, or a
+            # component's mean score at the 0.6 box threshold, within OCR_TIE
+            flips = (probs[0] > 0.3) != (probs[1] > 0.3)
+            near = (probs[1][flips] - 0.3).abs().min().item() if bool(flips.any()) else 1.0
+            at_box = min(abs(b[4] - 0.6) for bx in boxes for b in bx)
+            log("ocr", f"regions part: {int(flips.sum())} pixels on the other side of 0.3, the "
+                       f"nearest {near:.3g} from it; a box score {at_box:.3g} from 0.6")
+            if min(near, at_box) > OCR_TIE:
+                raise AssertionError("the OCR regions part without a tie")
+        else:
+            worst = max(abs(a[4] - b[4]) for a, b in zip(*boxes))
+            log("ocr", f"DB regions: {len(boxes[1])} boxes, equal on the card and the CPU "
+                       f"(scores within {worst:.3g})")
+        batch, _ = pipeline.prepare_crops(img, boxes[1])
+        logits = [nets.ctc_recognizer(r, torch.from_numpy(batch).to(r["c1"]["w"].device)).cpu()
+                  for r in recs]
+        check_f32("ocr", f"CTC recognizer logits of {batch.shape[0]} crops ({tuple(batch.shape)}, "
+                         f"{OCR_CLASSES + 2} classes)", logits[0], logits[1])
+        pipes = [pipeline.PaddleOcrPipeline(nets.NetCallable(nets.db_detector, d),
+                                            nets.NetCallable(nets.ctc_recognizer, r),
+                                            dictionary, rec_batch_size=8)
+                 for d, r in zip(dets, recs)]
+        docs = [p.recognize(img) for p in pipes]
+    regions = [[(r.left, r.top, r.right, r.bottom, r.text) for r in d.regions] for d in docs]
+    if coords[0] == coords[1] and regions[0] != regions[1]:
+        raise AssertionError("PaddleOcrPipeline.recognize: the card's regions or texts differ")
+    if not regions[1]:
+        raise AssertionError("the OCR page gave no region")
+    log("ocr", f"PaddleOcrPipeline.recognize: {len(regions[1])} regions, "
+               f"{sum(len(r[4]) for r in regions[1])} characters, identical on the card and the "
+               f"CPU (the first boxes {coords[1][:3]})")
+    xd = xt.cuda()
+    bd = torch.from_numpy(batch).cuda()
+    det_ms = sorted(sync_ms(lambda: nets.db_detector(dets[0], xd)) for _ in range(5))[2]
+    rec_ms = sorted(sync_ms(lambda: nets.ctc_recognizer(recs[0], bd)) for _ in range(5))[2]
+    page_ms = sorted(sync_ms(lambda: pipes[0].recognize(img)) for _ in range(3))[1]
+    log("ocr", f"OCR on the card (float32): the detector {det_ms:.2f} ms at {tuple(x.shape)}, the "
+               f"recognizer {rec_ms:.2f} ms for {batch.shape[0]} crops {tuple(batch.shape)}; "
+               f"recognize of the page {page_ms:.1f} ms host clock (preprocessing, DB regions and "
+               f"crops on the host)")
+    log_busy("ocr", "OCR detector", f"one page {tuple(x.shape)}",
+             lambda: nets.db_detector(dets[0], xd))
+    log("time", f"ocr: done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6781,6 +7301,21 @@ def main() -> int:
         read_launches(label, rows_of, counts)
         torch.cuda.empty_cache()
     phase_done("tts")
+
+    # the rest of speech and vision, which launch no kernel: Voxtral-4B TTS
+    # (its backbone's heads of 96 routed plain by shape, and only those),
+    # Kokoro's net and the OCR nets; the counts are zeroed in check_voxtral
+    # just before its main path
+    check_voxtral()
+    torch.cuda.empty_cache()
+    phase_done("voxtral")
+    for label, check in (("kokoro", check_kokoro), ("ocr", check_ocr)):
+        reset_counts()
+        check()
+        require_none_launched(f"{label} path")
+        no_plain_routes(f"{label} path")
+        torch.cuda.empty_cache()
+        phase_done(label)
     log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     rows += quant_rows + hybrid_rows + sp_rows + verify_rows + family_rows["lfm2"] \

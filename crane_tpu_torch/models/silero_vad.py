@@ -16,8 +16,9 @@ copied as it is (per-chunk control flow, not tensor math), and accepts any
 weights with ``jax.random``, which the port cannot reproduce: the port
 draws them from a seeded ``torch.Generator`` (ROADMAP Queue 3), and
 ``crane_tpu``'s weights come across through ``utils/bridge.py``. The
-released checkpoint's ONNX path waits for the port of ``onnx/`` (ROADMAP
-Queue 1 item 11).
+released checkpoint's ONNX graph runs through the port's copy of the NumPy
+ONNX evaluator (:class:`OnnxVadModel`, :func:`load_silero_onnx`, copied from
+``crane_tpu`` as they are: host code, no tensor of the card).
 """
 
 from __future__ import annotations
@@ -170,11 +171,60 @@ def energy_vad(scale: float = 20.0) -> Callable:
     return fn
 
 
-def load_silero_onnx(path: str, sample_rate: int = 16000):
-    """The released Silero VAD ``model.onnx`` through the ONNX evaluator,
-    which is not ported yet."""
-    raise NotImplementedError(
-        "the ONNX Silero VAD path is not ported yet (ROADMAP Queue 1 item 11)")
+# -- released-checkpoint path (ONNX) -----------------------------------------
+
+
+class OnnxVadModel:
+    """Probability model over the released Silero VAD ONNX graph, evaluated
+    by ``crane_tpu_torch.onnx`` (reference model.rs:527-585): per chunk the
+    previous chunk's tail (context, 64 samples @16 kHz / 32 @8 kHz) is
+    prepended, so the graph sees ``input`` ``[1, context+window]``, plus
+    ``sr`` (int64 scalar) and the recurrent ``state`` ``[2, 1, 128]``; the
+    graph's first output is the speech probability, the second the next
+    state (output order, not names — model.rs:558-576)."""
+
+    def __init__(self, session, sample_rate: int = 16000, state_dim: int | None = None):
+        if sample_rate not in (8000, 16000):
+            raise ValueError(f"unsupported sample rate {sample_rate}")
+        self.session = session
+        self.sample_rate = sample_rate
+        self.context_size = 64 if sample_rate == 16000 else 32
+        ins = list(session.input_names)
+        if len(ins) != 3:
+            raise ValueError(f"expected 3 graph inputs (input, sr, state), got {ins}")
+        self.in_input, self.in_sr, self.in_state = ins
+        if state_dim is None:
+            # released graph declares state [2, B, 128]; trust its spec
+            spec = session.model.graph.input_specs.get(self.in_state)
+            state_dim = int(spec[1][-1]) if spec and spec[1][-1] > 0 else 128
+        self.state_dim = state_dim
+
+    def initial_state(self):
+        return (
+            np.zeros((2, 1, self.state_dim), np.float32),
+            np.zeros((1, self.context_size), np.float32),
+        )
+
+    def __call__(self, chunk: np.ndarray, state):
+        st, ctx = state
+        x = np.concatenate([ctx, np.asarray(chunk, np.float32)[None]], axis=1)
+        out = self.session.run({
+            self.in_input: x,
+            self.in_sr: np.asarray(self.sample_rate, np.int64),
+            self.in_state: st,
+        })
+        names = self.session.output_names
+        prob = float(np.asarray(out[names[0]]).reshape(-1)[0])
+        new_state = np.asarray(out[names[1]], np.float32)
+        return prob, (new_state, x[:, -self.context_size :])
+
+
+def load_silero_onnx(path: str, sample_rate: int = 16000) -> OnnxVadModel:
+    """Load a released Silero VAD ``model.onnx`` (onnx-community/silero-vad)
+    as a ``Vad``-compatible probability model."""
+    from crane_tpu_torch.onnx import Session, read_file
+
+    return OnnxVadModel(Session(read_file(path)), sample_rate)
 
 
 # -- streaming state machine (reference Vad::segment_audio) ------------------

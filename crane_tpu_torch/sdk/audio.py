@@ -3,12 +3,13 @@ crane/src/audio/{tts.rs,asr.rs}: audio_info(), generate_speech(...),
 transcribe(...), streaming variants; crane-serve holds trait objects of
 these).
 
-A copy of ``crane_tpu/sdk/audio.py``'s ASR adapters (``AudioInfo``,
+A copy of ``crane_tpu/sdk/audio.py``: its ASR adapters (``AudioInfo``,
 ``Transcript``, ``Asr``, ``AsrBase``, ``QWEN3_ASR_LANGUAGES``,
-``Qwen3AsrAdapter``, ``MoonshineAsr``) and of its Qwen3-TTS and CSM
-adapters (``VoiceInfo``, ``Tts``, ``CsmTts``, ``Qwen3Tts``): the port
-imports nothing of ``crane_tpu``. The Kokoro and Voxtral adapters wait for
-their models (ROADMAP Queue 1 item 11).
+``Qwen3AsrAdapter``, ``MoonshineAsr``) and its TTS adapters (``VoiceInfo``,
+``Tts``, ``kokoro_voice_language``, ``VOXTRAL_LANGUAGE_PREFIXES``,
+``voxtral_voice_languages``, ``CsmTts``, ``Qwen3Tts``, ``KokoroTts``,
+``VoxtralTts``) over the port's models: the port imports nothing of
+``crane_tpu``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,29 @@ class Tts(Protocol):
     ) -> np.ndarray: ...
 
     def supports_voice_cloning(self) -> bool: ...
+
+
+def kokoro_voice_language(name: str) -> str:
+    """Kokoro voice names carry a single-character language prefix
+    (reference crane/src/audio/tts_kokoro.rs:25-37); unknown -> en."""
+    first = name[:1]
+    return {
+        "a": "en", "b": "en", "e": "es", "f": "fr", "h": "hi",
+        "i": "it", "j": "ja", "k": "ko", "p": "pt", "z": "zh",
+    }.get(first, "en")
+
+
+# ISO 639-1 codes used as voice-name prefixes for Voxtral's non-English
+# presets (reference crane/src/audio/tts_voxtral.rs:12).
+VOXTRAL_LANGUAGE_PREFIXES = ("ar", "de", "es", "fr", "hi", "it", "nl", "pt")
+
+
+def voxtral_voice_languages(name: str) -> list[str]:
+    """Non-English Voxtral presets are named ``<lang>_<style>``; English
+    presets have no prefix (reference tts_voxtral.rs:23-27). A naming
+    heuristic, not config-derived."""
+    prefix = name.split("_", 1)[0]
+    return [prefix if prefix in VOXTRAL_LANGUAGE_PREFIXES else "en"]
 
 
 class Asr(Protocol):
@@ -273,3 +297,122 @@ class Qwen3Tts:
                 emitted = len(state.codes)
             if done:
                 break
+
+
+class KokoroTts:
+    """Tts adapter over the Kokoro pipeline (reference tts_kokoro.rs)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def audio_info(self) -> AudioInfo:
+        from crane_tpu_torch.models.kokoro_tts import SAMPLE_RATE
+
+        return AudioInfo(sample_rate=SAMPLE_RATE)
+
+    def supports_voice_cloning(self) -> bool:
+        return False
+
+    def voices(self) -> list[VoiceInfo]:
+        return [
+            VoiceInfo(name=n, languages=[kokoro_voice_language(n)])
+            for n in self.model.available_voices()
+        ]
+
+    def generate_speech(self, text: str, options: SpeechOptions | None = None) -> np.ndarray:
+        options = options or SpeechOptions()
+        wav, _sr = self.model.generate_speech(
+            text,
+            language=options.language or "en_us",
+            voice=options.voice,
+            speed=options.speed,
+        )
+        return wav
+
+    def generate_speech_stream(
+        self, text: str, options: SpeechOptions | None = None
+    ) -> Iterator[np.ndarray]:
+        yield self.generate_speech(text, options)
+
+
+class VoxtralTts:
+    """Tts adapter over Voxtral's 3-stage TTS (reference tts_voxtral.rs)."""
+
+    def __init__(self, model, *, max_frames: int = 250):
+        self.model = model
+        self.max_frames = max_frames
+
+    def audio_info(self) -> AudioInfo:
+        return AudioInfo(sample_rate=self.model.cfg.sample_rate)
+
+    def supports_voice_cloning(self) -> bool:
+        return False
+
+    def voices(self) -> list[VoiceInfo]:
+        return [
+            VoiceInfo(name=n, languages=voxtral_voice_languages(n))
+            for n in sorted(self.model.voices)
+        ]
+
+    def generate_speech(self, text: str, options: SpeechOptions | None = None) -> np.ndarray:
+        options = options or SpeechOptions()
+        wav, _sr = self.model.generate_speech(
+            text, voice=options.voice,
+            max_frames=min(self.max_frames, options.max_new_tokens),
+        )
+        return wav
+
+    def generate_speech_stream(
+        self, text: str, options: SpeechOptions | None = None
+    ) -> Iterator[np.ndarray]:
+        yield self.generate_speech(text, options)
+
+
+# BCP-47 codes Qwen3-ASR claims per its model card, sorted
+# (reference crane/src/audio/asr_qwen3.rs:10-13).
+QWEN3_ASR_LANGUAGES = (
+    "ar", "cs", "da", "de", "el", "en", "es", "fa", "fi", "fil", "fr", "hi",
+    "hu", "id", "it", "ja", "ko", "mk", "ms", "nl", "pl", "pt", "ro", "ru",
+    "sv", "th", "tr", "vi", "yue", "zh",
+)
+
+
+class Qwen3AsrAdapter(AsrBase):
+    """Asr adapter over Qwen3-ASR (AuT encoder + Qwen3 LLM)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def input_sample_rate(self) -> int:
+        return 16000
+
+    def supported_languages(self) -> list[str]:
+        return list(QWEN3_ASR_LANGUAGES)
+
+    def transcribe(
+        self, samples: np.ndarray, options: TranscribeOptions | None = None
+    ) -> Transcript:
+        options = options or TranscribeOptions()
+        text = self.model.transcribe(
+            samples,
+            context=options.context or "",
+            max_new_tokens=options.max_new_tokens,
+        )
+        return Transcript(text=text, tokens=[])
+
+
+class MoonshineAsr(AsrBase):
+    """Asr adapter over the Moonshine encoder-decoder."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def input_sample_rate(self) -> int:
+        return 16000
+
+    def transcribe(
+        self, samples: np.ndarray, options: TranscribeOptions | None = None
+    ) -> Transcript:
+        ids = self.model.transcribe_ids(samples, options)
+        text = self.model.tokenizer.decode(ids) if self.model.tokenizer else ""
+        return Transcript(text=text, tokens=ids)

@@ -10,6 +10,9 @@ and :data:`MIMI_CONV_KEYS`). The trees whose layout the two packages share
 come across through :func:`params_from_jax` as they are: Qwen3-TTS's talker
 and code predictor, the speech tokenizer's decoder and encoder (convs
 ``[Cout, Cin, k]`` in both), CSM's backbone, depth decoder and tables.
+:func:`voxtral_params_from_jax`, :func:`kokoro_params_from_jax` and
+:func:`ocr_params_from_jax` carry the Voxtral TTS, Kokoro and OCR nets'
+trees, whose convs the port keeps in PyTorch's layouts.
 :func:`cache_from_jax` turns a ``crane_tpu`` ``KVCache`` (fp, int8/int4, GDN
 and short-conv layers) into the port's, so a decode step or a continuation can start
 from JAX's own state. Nothing here imports jax: a ``jax.Array`` leaf is read
@@ -124,3 +127,64 @@ def audio_params_from_jax(tree, device=None, dtype: torch.dtype | None = None,
         return t
 
     return walk(tree, "")
+
+
+def _convs_from_jax(tree, key, device, dtype, perms: dict):
+    """:func:`params_from_jax` over ``tree``, each leaf under a key in
+    ``perms`` whose rank has a permutation there permuted to it."""
+    if isinstance(tree, dict):
+        return {k: _convs_from_jax(v, k, device, dtype, perms) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_convs_from_jax(v, key, device, dtype, perms) for v in tree)
+    if tree is None:
+        return None
+    t = params_from_jax(tree, device, dtype)
+    perm = perms.get(key, {}).get(t.ndim)
+    return t.permute(*perm).contiguous() if perm else t
+
+
+def kokoro_params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
+    """crane_tpu's Kokoro net tree -> the port's: its 1-D convs (the
+    encoder's ``convs[i]["w"]``, the duration head's ``w1``, the decoder
+    blocks' ``w1``/``w2``), WIO ``[k, Cin, Cout]`` there, become PyTorch's
+    ``[Cout, Cin, k]``; the 2-D ``w2`` of the duration head (a linear) and
+    every other leaf come across as they are."""
+    perm = {3: (2, 1, 0)}
+    return _convs_from_jax(tree, "", device, dtype, {"w": perm, "w1": perm, "w2": perm})
+
+
+def ocr_params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
+    """crane_tpu's OCR detector or recognizer tree -> the port's: each conv
+    weight ``w``, HWIO ``[kh, kw, Cin, Cout]`` there, becomes PyTorch's
+    ``[Cout, Cin, kh, kw]``."""
+    return _convs_from_jax(tree, "", device, dtype, {"w": {4: (3, 2, 0, 1)}})
+
+
+def voxtral_params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
+    """crane_tpu's Voxtral TTS tree -> the port's. The backbone, the
+    acoustic transformer and the tables share their layout. The codec's
+    convs (``input_conv``, ``output_conv``), WIO ``[k, Cin, Cout]`` there,
+    become PyTorch's ``[Cout, Cin, k]``; its transposed convs (each
+    stage's ``upsample``), which crane_tpu keeps flipped along k as
+    ``[k, Cin, Cout]`` for its lhs-dilated convolution, become PyTorch's
+    unflipped ``[Cin, Cout, k]``, the checkpoint's own layout."""
+    out = params_from_jax({k: v for k, v in tree.items() if k != "codec"}, device, dtype)
+    codec = tree["codec"]
+
+    def conv(c, flipped=False):
+        if c is None:
+            return None
+        w = params_from_jax(c["w"], device, dtype)
+        w = w.flip(0).permute(1, 2, 0) if flipped else w.permute(2, 1, 0)
+        b = None if c["b"] is None else params_from_jax(c["b"], device, dtype)
+        return {"w": w.contiguous(), "b": b}
+
+    out["codec"] = {
+        "semantic_codebook": params_from_jax(codec["semantic_codebook"], device, dtype),
+        "input_conv": conv(codec["input_conv"]),
+        "stages": tuple({"layers": params_from_jax(s["layers"], device, dtype),
+                         "upsample": conv(s.get("upsample"), flipped=True)}
+                        for s in codec["stages"]),
+        "output_conv": conv(codec["output_conv"]),
+    }
+    return out

@@ -2,8 +2,8 @@
 
 - Every module imports with jax, crane_tpu (the JAX package, whose jax-free
   modules the port keeps its own copies of) and the packages the card
-  machine lacks (PIL among them) blocked, in a fresh interpreter: tests/conftest.py has
-  already imported jax into this one. A root of exactly ``crane_tpu`` does
+  machine lacks (PIL and regex among them) blocked, in a fresh interpreter:
+  tests/conftest.py has already imported jax into this one. A root of exactly ``crane_tpu`` does
   not match ``crane_tpu_torch``.
 - The kernel build directory is ignored by git.
 - No CUDA wrapper catches an exception or reads an environment switch, so
@@ -29,7 +29,7 @@ IMPORT_ALL = r"""
 import importlib.abc, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "crane_tpu", "tokenizers", "safetensors", "transformers", "aiohttp",
-           "jinja2", "PIL")
+           "jinja2", "PIL", "regex")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 76  # every module of the slices so far was walked
+    assert int(res.stdout.split()[-1]) >= 96  # every module of the slices so far was walked
     walked = set(res.stdout.split())
     # the server, its transport, GGUF loading and the SDK import without aiohttp
     assert {"crane_tpu_torch.serve.api", "crane_tpu_torch.serve.transport",
@@ -81,6 +81,18 @@ def test_every_module_imports_without_jax():
     assert {"crane_tpu_torch.models.qwen3_tts", "crane_tpu_torch.models.speech_tokenizer",
             "crane_tpu_torch.models.speaker_encoder", "crane_tpu_torch.models.csm_tts",
             "crane_tpu_torch.models.mimi"} <= walked
+    # the rest of speech and vision: Voxtral TTS, Kokoro, the OCR nets and
+    # pipeline, SNAC, the ONNX evaluator, the G2P modules, the Tekken
+    # tokenizer (regex is imported at first use: blocked here)
+    assert {"crane_tpu_torch.models.voxtral_tts", "crane_tpu_torch.models.kokoro_tts",
+            "crane_tpu_torch.models.snac_onnx", "crane_tpu_torch.ocr.nets",
+            "crane_tpu_torch.ocr.pipeline", "crane_tpu_torch.onnx.wire",
+            "crane_tpu_torch.onnx.session", "crane_tpu_torch.onnx.optimizer",
+            "crane_tpu_torch.text.g2p", "crane_tpu_torch.text.german",
+            "crane_tpu_torch.text.english_rules", "crane_tpu_torch.text.oov",
+            "crane_tpu_torch.text.lexicon", "crane_tpu_torch.text.ipa_postprocess",
+            "crane_tpu_torch.text.cer", "crane_tpu_torch.text.seed_lexicon",
+            "crane_tpu_torch.tokenizer.tekken"} <= walked
 
 
 def test_kernel_build_directory_is_git_ignored():
@@ -117,7 +129,7 @@ def test_chip_smoke_imports_and_refusals(tmp_path):
     assert "jax" not in roots and "crane_tpu" not in roots
     assert roots <= {"__future__", "concurrent", "contextlib", "dataclasses", "http", "json",
                      "os", "struct", "subprocess", "sys", "tempfile", "threading", "time", "uuid",
-                     "torch", "crane_tpu_torch"}
+                     "numpy", "torch", "crane_tpu_torch"}
     # this interpreter's torch has no CUDA device: no result, non-zero exit
     res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -8,7 +8,9 @@ against crane_tpu (CPU, float32).
 - ``Vad.segment_audio`` gives crane_tpu's segments with the energy model
   (tests/test_vad.py's patterns) and with the native net on both sides;
 - the port's own default draw (a seeded ``torch.Generator``, not
-  ``jax.random``) has crane_tpu's scales; the ONNX path refuses.
+  ``jax.random``) has crane_tpu's scales; the ONNX path loads through the
+  port's evaluator (tests/test_torch_onnx.py holds it against crane_tpu's)
+  and, as crane_tpu's, fails on a missing file.
 """
 
 import numpy as np
@@ -87,5 +89,5 @@ def test_default_draw_and_the_onnx_refusal():
     assert a.lstm.bias_hh.abs().sum() == 0
     p, (h, c) = a(np.zeros(512, np.float32), a.initial_state())
     assert 0.0 <= p <= 1.0 and h.shape == c.shape == (64,)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tv.load_silero_onnx("model.onnx")
+    with pytest.raises(FileNotFoundError):
+        tv.load_silero_onnx("no-such-model.onnx")
