@@ -101,6 +101,10 @@ each reported on its own line:
    four slabs against the unsharded plain engine, and generate on an int8
    cache in four slabs. A control (w4 kv4 generate whose verify forwards
    write only their first row's K/V) must fail the tie rule below; the
+   K/V that plain and speculative generate write for the same tokens (four
+   prompts) agree slot by slot (bf16, w4 kv4; check_spec_kv), and the same
+   rows shifted
+   one slot (a control) do not; the
    sound margin shifts (one context's K/V written by decode steps and by
    one chunk) are logged for the bf16, int8 and int4 caches. K3, K5 kv4,
    K3-S and K5-S kv8 are launched there only by verify forwards; the rows
@@ -246,7 +250,24 @@ each reported on its own line:
    over a synthetic 6623-symbol dictionary and a synthetic page at the
    960-pixel limit, float32 card against CPU (the probability map, the
    regions, the CTC logits, ``PaddleOcrPipeline.recognize``'s regions and
-   texts); the nets' ms. Kokoro and OCR launch no kernel.
+   texts); the nets' ms. Kokoro and OCR launch no kernel;
+26. tp (after paths): tensor and data parallelism on meshes of the one
+   card (``make_mesh(dp, tp, ["cuda:0"] * n)``), each run against the
+   unsharded port on the card (the tie rule in bf16, F32_REL_L2 in
+   float32) with every kernel launched once a shard where the unsharded
+   run launched it once: Qwen3-0.6B at tp=2 (a 300-token prefill, 64
+   greedy tokens, the float32 prefill's logits, the decode step's time
+   beside the unsharded one), the engine at dp=2 x tp=2 over phase 5's
+   greedy mix on an fp and an int8 cache (graph decode blocks), one
+   /generate request to a tp=2 engine over HTTP; Qwen3.5-0.8B at tp=2
+   (K7 and K2 per shard); Qwen3-Next-80B-A3B at tp=2, expert parallel,
+   its depth cut to 4 layers (the unsharded model shares the card), its
+   bf16 and float32 tokens and float32 logits; the
+   train step of Qwen3-0.6B in float32 at dp=2 x tp=2 (B=4, S=512, three
+   AdamW steps with remat: losses and first-step gradients against the
+   unsharded steps, remat against none, attention on the plain route);
+   the rows at the per-shard heads (check_tp_kernels: 8 / 4 of 128, 4 / 1
+   and 8 / 1 of 256, K7 at 8 value heads) read the tp paths' launches.
 
 Where two paths' greedy tokens part (graphs against eager, speculative
 against plain, HTTP against ``engine.submit``, the GGUF model on the card
@@ -2625,12 +2646,14 @@ def slot_rows(layers, slot: int) -> list:
 GREEDY_HTTP = {"temperature": 0, "repetition_penalty": 1.0}
 
 
-def direct_engine_run(lm, kv_bits, prompts: dict, tail: list[int]):
+def direct_engine_run(lm, kv_bits, prompts: dict, tail: list[int], firsts: dict | None = None):
     """The reference for the HTTP run: check_engine's greedy requests through
     ``engine.submit`` on a fresh engine of its shape, stepped inline; when
     p300 finishes, the follow-up (its prompt, its tokens and ``tail``) is
     submitted. Returns the tokens by request and, for each request, its
-    slot's cache row as the request left it (copied when it finished)."""
+    slot's cache row as the request left it (copied when it finished).
+    ``firsts``, if given, gets each request's admission logits (float32,
+    on the CPU): those that chose its first token."""
     import torch
 
     from crane_tpu_torch.serve.engine import (
@@ -2651,6 +2674,14 @@ def direct_engine_run(lm, kv_bits, prompts: dict, tail: list[int]):
         return emit(seq, token)
 
     engine._emit = emit_noting_slot
+    if firsts is not None:
+        admit = engine._finish_admission
+
+        def admit_noting_logits(seq, logits, ctx):
+            firsts[seq.request_id] = logits[0].float().cpu()
+            return admit(seq, logits, ctx)
+
+        engine._finish_admission = admit_noting_logits
     asked = {rid: n for rid, (_, n) in prompts.items()}
     queues = {rid: engine.submit(EngineRequest(rid, p, n, greedy))
               for rid, (p, n) in prompts.items()}
@@ -4038,7 +4069,7 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     for row in rows:
         name = row["name"]
         for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32, G3N_HEADS, SEG_HEADS,
-                    MHA_HEADS, PRED_PREFILL, PRED_STEP, DEPTH_CHUNK):
+                    MHA_HEADS, PRED_PREFILL, PRED_STEP, DEPTH_CHUNK, TP_06, TP_35, TP_NEXT, TP_H8):
             name = name.removesuffix(tag)
         row["launches"] = counts[name]
         if row["launches"] <= 0:
@@ -4177,13 +4208,14 @@ def rel_l2(got, ref) -> float:
     return ((got - ref).norm() / ref.norm()).item()
 
 
-def check_f32(phase: str, label: str, got, ref, limit: float = F32_REL_L2) -> float:
-    """float32 card output against float32 on the CPU: finite, same shape,
-    relative L2 within ``limit``."""
+def check_f32(phase: str, label: str, got, ref, limit: float = F32_REL_L2,
+              versus: str = "float32 card vs CPU") -> float:
+    """float32 card output against float32 on the CPU (or the reference
+    ``versus`` names): finite, same shape, relative L2 within ``limit``."""
     err = rel_l2(got, ref)
-    log(phase, f"{label}: rel L2 {err:.3g} (limit {limit:g}), float32 card vs CPU")
+    log(phase, f"{label}: rel L2 {err:.3g} (limit {limit:g}), {versus}")
     if err > limit:
-        raise AssertionError(f"{label}: the card's float32 disagrees with the CPU's")
+        raise AssertionError(f"{label}: {versus} disagree")
     return err
 
 
@@ -7065,6 +7097,588 @@ def check_ocr() -> None:
     log("time", f"ocr: done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 'spec', the K/V check: speculative against plain decoding, slot by slot
+
+# the largest per-slot relative distance between the K/V that speculative
+# and plain decoding write for the same tokens (ops/kv_cache.py
+# slot_errors): the two compute a slot's K/V in other products (a verify
+# chunk of k + 1 rows, one row a step), which may round apart in bf16, and
+# an int4 code may land one step over; a K/V written one slot off reads near
+# 1 or more (the control)
+SPEC_KV_BOUND = {"bf16": 0.05, "w4 kv4": 0.2}
+
+
+def shifted_layers(layers) -> list:
+    """The control's fault: every slot's K/V (codes and scales) moved one
+    slot on, as a verify that wrote its rows one position late would
+    leave them."""
+    import dataclasses
+
+    import torch
+
+    return [dataclasses.replace(layer, **{
+        f.name: torch.roll(getattr(layer, f.name), 1, dims=2 if f.name.endswith("scale") else 1)
+        for f in dataclasses.fields(layer) if isinstance(getattr(layer, f.name), torch.Tensor)})
+        for layer in layers]
+
+
+def check_spec_kv(lm, lm4) -> None:
+    """The same greedy tokens decoded plainly and speculatively (generate,
+    spec_k 8, on four repetitive prompts of 180-228 tokens) in bf16 and in
+    w4 kv4: the K/V rows each path left in generate's kept cache agree slot
+    by slot within SPEC_KV_BOUND, over every slot both wrote for the same
+    tokens (up to a first difference of the tokens, which the tie rule of
+    spec_generate judges). The control, the speculative rows shifted one
+    slot, must exceed the bound."""
+    import torch
+
+    from crane_tpu_torch.models.causal_lm import GenerationConfig
+    from crane_tpu_torch.ops.kv_cache import slot_errors
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    n = 128
+    for label, model, kv_bits in (("bf16", lm, None), ("w4 kv4", lm4, 4)):
+        errs, ctrls, decoded = [], [], 0
+        for prompt in repetitive_prompts(model.config.vocab_size, 31, 4, base=180).values():
+            key = (bucket_length(len(prompt) + n, floor=256), kv_bits)
+            plain = model.generate(prompt, GenerationConfig.greedy(n, kv_quant_bits=kv_bits))
+            cache = model._generate_caches[key][0]
+            plain_layers = clone_layers(cache.layers)
+            spec = model.generate(prompt, GenerationConfig.greedy(n, speculative="ngram",
+                                                                  kv_quant_bits=kv_bits))
+            if model._generate_caches[key][0] is not cache:
+                raise AssertionError("plain and speculative generate used different caches")
+            j = next((i for i, (a, b) in enumerate(zip(plain, spec)) if a != b), n - 1)
+            live = len(prompt) + min(j, n - 1)  # the slots of the same tokens
+            decoded += live - len(prompt)
+            errs.append(slot_errors(cache.layers, plain_layers, 0, live))
+            ctrls.append(slot_errors(shifted_layers(cache.layers), plain_layers, 0, live))
+        errs, ctrls = torch.cat(errs), torch.cat(ctrls)
+        bound_ = SPEC_KV_BOUND[label]
+        log("spec", f"Qwen3-0.6B {label}: K/V of {errs.numel()} slots of 4 prompts ({decoded} "
+                    f"of them decoded), speculative vs plain: largest per-slot rel L2 "
+                    f"{errs.max().item():.4g} (mean {errs.mean().item():.4g}, bound {bound_}); "
+                    f"the control shifted one slot: largest {ctrls.max().item():.4g}, median "
+                    f"{ctrls.median().item():.4g}")
+        if errs.max().item() >= bound_:
+            raise AssertionError(f"spec K/V {label}: a slot parts from plain decoding's")
+        if ctrls.max().item() <= bound_:
+            raise AssertionError(f"spec K/V {label}: the shifted control passed the check")
+        model.release_graphs()
+
+
+# ---------------------------------------------------------------------------
+# Phase 'tp': tensor and data parallelism on the one card
+
+# kernel-row tags of the tp path's per-shard shapes
+TP_06 = "[tp2 D128-8/4]"  # Qwen3-0.6B's 16 / 8 heads at tp=2
+TP_35 = "[tp2 D256-4/1]"  # Qwen3.5-0.8B's 8 / 2 at tp=2
+TP_NEXT = "[tp2 D256-8/1]"  # Qwen3-Next-80B-A3B's 16 / 2 at tp=2
+TP_H8 = "[tp2 H8]"  # Qwen3.5-0.8B's 16 GDN value heads at tp=2
+TP_VALID = [1, 300, 1500, 2048]  # a dp group's 4 decode rows of 8 slots
+TP_VERSUS = "float32 tp=2 vs unsharded on the card"
+# Qwen3-Next's depth in the tp check: one [gdn, gdn, gdn, full] block, so the
+# unsharded model and its shards (12.9 GB of bf16 weights each) share the card
+TP_MOE_LAYERS = 4
+# the train step against the unsharded step, float32 both: sums in other
+# orders (tests/test_parallel.py's loss bar)
+TRAIN_LOSS_RTOL = 1e-5
+# what the train check may leave allocated once it returns (autograd's
+# cuBLAS workspaces); a reference cycle through its frames held 17 GB
+TRAIN_HELD_GB = 1.0
+
+
+def tp_attention_rows(rnd, tag, Hq, Hkv, D, kinds) -> list[dict]:
+    """K2 (S=1024), K3 (a 256-token chunk at offsets 0 and 1000 of a
+    2048-slot row) and K1 (a dp group's 4 rows over T=2048, ragged) in bf16
+    at one shard's heads, the ``kinds`` of them, each against its plain
+    version and timed beside it and SDPA."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import decode_attention as k1
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    scale, heads = D ** -0.5, f"Hq={Hq} Hkv={Hkv} D={D}"
+    rows = []
+    if "prefill" in kinds:
+        q, k, v = rnd(1, 1024, Hq, D), rnd(1, 1024, Hkv, D), rnd(1, 1024, Hkv, D)
+        errs = [compare(f"K2 {heads}", k23.flash_attention_causal(q, k, v, scale=scale),
+                        k23.flash_attention_causal_plain(q, k, v, scale=scale))]
+        rows.append(timed_row(
+            "flash_attention_causal" + tag, "flash_attention_mma.cu",
+            "crane_tpu/ops/pallas/flash_attention.py:187", errs,
+            lambda: k23.flash_attention_causal(q, k, v, scale=scale),
+            lambda: k23.flash_attention_causal_plain(q, k, v, scale=scale),
+            f"B=1 S=1024 {heads}", attn_work(1, 1024, Hq, Hkv, D, 1024 * 1025 // 2, 1024, 2 * D, 0),
+            lambda: sdpa(q, k, v, causal=True)))
+    if "chunk" in kinds:
+        kc, vc = rnd(1, 2048, Hkv, D), rnd(1, 2048, Hkv, D)
+        errs = []
+        for off in (0, 1000):
+            qc = rnd(1, 256, Hq, D)
+            pos = (torch.arange(256, dtype=torch.int32, device="cuda") + off)[None].contiguous()
+            errs.append(compare(f"K3 {heads} offset={off}",
+                                k23.flash_attention_cached(qc, kc, vc, pos, scale=scale),
+                                k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale)))
+        rows.append(timed_row(
+            "flash_attention_cached" + tag, "flash_attention_mma.cu",
+            "crane_tpu/ops/pallas/flash_attention.py:384", errs,
+            lambda: k23.flash_attention_cached(qc, kc, vc, pos, scale=scale),
+            lambda: k23.flash_attention_cached_plain(qc, kc, vc, pos, scale=scale),
+            f"B=1 S=256 at offset 1000, T=2048, {heads}", chunk_work(qc, Hkv, 2048, pos),
+            lambda: sdpa(qc, kc, vc, mask=chunk_mask(pos, 2048))))
+    if "decode" in kinds:
+        valid = torch.tensor(TP_VALID, dtype=torch.int32, device="cuda")
+        qd, kd, vd = rnd(4, 1, Hq, D), rnd(4, 2048, Hkv, D), rnd(4, 2048, Hkv, D)
+        errs = [compare(f"K1 {heads}", k1.fp_decode_attention(qd, kd, vd, valid, scale=scale),
+                        k1.fp_decode_attention_plain(qd, kd, vd, valid, scale=scale))]
+        rows.append(timed_row(
+            "fp_decode_attention" + tag, "decode_attention.cu",
+            "crane_tpu/ops/pallas/quant_attention.py:266", errs,
+            lambda: k1.fp_decode_attention(qd, kd, vd, valid, scale=scale),
+            lambda: k1.fp_decode_attention_plain(qd, kd, vd, valid, scale=scale),
+            f"B=4 T=2048 ragged kv_valid, {heads}", decode_work(qd, Hkv, valid),
+            lambda: sdpa(qd, kd, vd, mask=decode_mask(valid, 2048))))
+    return rows
+
+
+def check_tp_kernels() -> dict[str, list[dict]]:
+    """Phase 3 at the tp path's per-shard shapes, which no earlier path
+    gave the kernels: Qwen3-0.6B's heads at tp=2 (8 / 4 of 128: K1 over a
+    dp group's 4 rows, K2, K3; K4 and K5 kv8), Qwen3.5-0.8B's (4 / 1 of
+    256: K1, K2; K7 at 8 value heads over the 512-token prefill bucket) and
+    Qwen3-Next's (8 / 1 of 256: K1, K2). Each against its plain version,
+    timed beside it (and SDPA for K1-K3). Returns the rows by the path
+    whose launches they read, launches 0."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import quant_attention as k45
+    from crane_tpu_torch.ops.cuda.gdn_scan import gdn_route, gdn_scan, gdn_scan_plain
+    from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(1216)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    every = ("prefill", "chunk", "decode")
+    rows = {"dense": tp_attention_rows(rnd, TP_06, 8, 4, 128, every),
+            "hybrid": tp_attention_rows(rnd, TP_35, 4, 1, 256, ("prefill", "decode")),
+            "moe": tp_attention_rows(rnd, TP_NEXT, 8, 1, 256, ("prefill", "decode"))}
+
+    Hq, Hkv, D, bits = 8, 4, 128, 8
+    cache = QuantLayerKVCache.empty(4, 2048, Hkv, D, bits=bits, device="cuda")
+    kf, vf = rnd(4, 2048, Hkv, D), rnd(4, 2048, Hkv, D)
+    cache.update(kf, vf, 0)
+    ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    row = cache.row(1)
+    row_ops = (row.k, row.v, row.k_scale, row.v_scale)
+    valid = torch.tensor(TP_VALID, dtype=torch.int32, device="cuda")
+    qd, qc = rnd(4, 1, Hq, D), rnd(1, 256, Hq, D)
+    pos = (torch.arange(256, dtype=torch.int32, device="cuda") + 1000)[None]
+    kw = dict(bits=bits, scale=D ** -0.5)
+    errs = [compare("K4 kv8 tp2", k45.quant_decode_attention(qd, *ops, valid, **kw),
+                    k45.quant_decode_attention_plain(qd.float(), *ops, valid, **kw))]
+    rows["dense"].append(timed_row(
+        "quant_decode_attention[kv8]" + TP_06, K4_SOURCE[bits],
+        "crane_tpu/ops/pallas/quant_attention.py:367", errs,
+        lambda: k45.quant_decode_attention(qd, *ops, valid, **kw),
+        lambda: k45.quant_decode_attention_plain(qd, *ops, valid, **kw),
+        f"B=4 T=2048 ragged kv_valid, Hq={Hq} Hkv={Hkv} D={D}",
+        decode_work(qd, Hkv, valid, bits)))
+    errs = [compare("K5 kv8 tp2", k45.quant_cached_attention(qc, *row_ops, pos, **kw),
+                    k45.quant_cached_attention_plain(qc.float(), *row_ops, pos, **kw))]
+    rows["dense"].append(timed_row(
+        "quant_cached_attention[kv8]" + TP_06, "quant_cached_attention_mma.cu",
+        "crane_tpu/ops/pallas/quant_attention.py:647", errs,
+        lambda: k45.quant_cached_attention(qc, *row_ops, pos, **kw),
+        lambda: k45.quant_cached_attention_plain(qc, *row_ops, pos, **kw),
+        f"B=1 S=256 at offset 1000, T=2048, Hq={Hq} Hkv={Hkv} D={D}",
+        chunk_work(qc, Hkv, 2048, pos, bits)))
+
+    B, S, H, K, V = 1, 512, 8, 128, 128
+    q, k, v = (torch.randn(B, S, H, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for d in (K, K, V))
+    g = -torch.rand(B, S, H, generator=gen, device="cuda") * 0.5
+    beta = torch.rand(B, S, H, generator=gen, device="cuda")
+    y, st = gdn_scan(q, k, v, g, beta)
+    yr, sr = gdn_scan_plain(q, k, v, g, beta)
+    err = compare(f"K7 tp2 B={B} S={S} H={H} y", y, yr)
+    compare(f"K7 tp2 B={B} S={S} H={H} state", st, sr, rtol=STATE_RTOL, atol=STATE_ATOL)
+    route = gdn_route(S)
+    p1, k1_ms, k2_ms, p2 = (cuda_ms(f, n, warmup=1) for f, n in (
+        (lambda: gdn_scan_plain(q, k, v, g, beta), 2), (lambda: gdn_scan(q, k, v, g, beta), 20),
+        (lambda: gdn_scan(q, k, v, g, beta), 20), (lambda: gdn_scan_plain(q, k, v, g, beta), 2)))
+    ms, plain_ms = (k1_ms + k2_ms) / 2, (p1 + p2) / 2
+    bound_ms, bound_by = bound(*gdn_work(B, S, H, K, V), peak="tf32")
+    shape = f"B={B} S={S} H={H} K=V={K}"
+    log("kernels", f"K7 {shape} (tp=2): the {route} route {ms:.4f} ms vs plain {plain_ms:.4f} "
+                   f"ms, bound {bound_ms:.4f} ms ({bound_by}); max|err| of y {err:.3g}")
+    rows["hybrid"].append({"name": f"gdn_scan[{route}]" + TP_H8, "route": "cuda",
+                           "source": "crane_tpu_torch/csrc/gdn_chunk.cu",
+                           "replaces": "crane_tpu/ops/pallas/gdn_scan.py:126", "launches": 0,
+                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                           "shape": shape})
+    return rows
+
+
+def counted(run):
+    """(what ``run`` returns, the launches it made, its plain routes), the
+    counts zeroed just before it."""
+    from crane_tpu_torch.models import graphs
+
+    reset_counts()
+    out = run()
+    launches, routes = graphs.counts()
+    launches.pop(graphs.SEGMENTS)
+    return out, launches, routes
+
+
+def require_scaled(label: str, got: dict, ref: dict, factor) -> None:
+    """Every kernel's launches on the sharded run equal ``factor`` (a
+    number, or a dict by kernel name) times the unsharded run's: one launch
+    a shard where the unsharded model made one."""
+    made = {k: (ref[k], n) for k, n in got.items() if n or ref[k]}
+    log("launches", f"{label}: unsharded vs sharded {json.dumps(made)}")
+    for name, (r, n) in made.items():
+        f = factor.get(name, 0) if isinstance(factor, dict) else factor
+        if n != f * r or r <= 0:
+            raise AssertionError(f"{label}: {name} launched {n} times, want {f} x {r}")
+
+
+def generate_step_logits(model, prompt, ref, i):
+    """The logits that chose ``ref[i]`` in ``model.generate(prompt,
+    greedy(len(ref)))``, recomputed on that path's own state: its prefill
+    into a cache of generate's size, then decode steps fed ``ref[:i]``."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits
+    from crane_tpu_torch.utils.buckets import bucket_length
+
+    max_seq = bucket_length(len(prompt) + len(ref), floor=256)
+    padded = prompt + [0] * (bucket_length(len(prompt), floor=64, ceiling=max_seq) - len(prompt))
+    with torch.no_grad():
+        logits, cache = model.prefill(model.init_cache(1, max_seq), [padded], [len(prompt)])
+        logits = logits[0]
+        for t in ref[:i]:
+            tok = torch.tensor([[t]], dtype=torch.int32, device=model.device)
+            hidden, cache = forward_hidden(model.config, model.params, tok, cache, cache.lengths,
+                                           model.rope)
+            logits = lm_logits(model.config, model.params, hidden)[0, 0]
+    return logits
+
+
+def greedy_tied(label, ref_model, prompt, ref, got) -> None:
+    """The sharded greedy tokens ``got`` against the unsharded ``ref``: equal,
+    or parting at a tie on the unsharded generate's own state."""
+    tie_at_first_difference("tp", label, ref, got,
+                            lambda i: generate_step_logits(ref_model, prompt, ref, i))
+
+
+def tp_generate(label, lm, slm, prompt, n, factor=2) -> dict:
+    """greedy generate of ``n`` tokens on the unsharded and the sharded
+    model: the tokens tied, every kernel launched ``factor`` times as
+    often. Returns the sharded run's launches."""
+    from crane_tpu_torch.models.causal_lm import GenerationConfig
+
+    ref, ref_counts, _ = counted(lambda: lm.generate(prompt, GenerationConfig.greedy(n)))
+    got, got_counts, routes = counted(lambda: slm.generate(prompt, GenerationConfig.greedy(n)))
+    greedy_tied(label, lm, prompt, ref, got)
+    require_scaled(label, got_counts, ref_counts, factor)
+    if any(routes.values()):
+        raise AssertionError(f"{label} routed attention to a plain version: {routes}")
+    return got_counts
+
+
+def engine_tie(label, lm, ctx, got, ref, rows, first_logits):
+    """An engine request's greedy tokens ``got`` against the unsharded
+    engine's ``ref``: None where they agree, else (step, gap) of a tie on
+    the unsharded engine's own state. A first token comes from the
+    admission's prefill, so its own logits (``first_logits``, recorded by
+    direct_engine_run) judge it; a later one, the replayed decode step over
+    the request's cache row ``rows`` (ties_on_reference_state)."""
+    if got[:1] != ref[:1]:
+        gap = (first_logits[ref[0]] - first_logits[got[0]]).item()
+        if int(first_logits.argmax()) != ref[0] or gap >= LOGIT_TIE:
+            raise AssertionError(f"{label}: first token {got[0]} vs {ref[0]}, admission logit "
+                                 f"gap {gap:.4g} is no tie")
+        return 0, round(gap, 4)
+    tie = ties_on_reference_state(lm, label, rows, 1, {0: (ctx, got, ref)}, LOGIT_TIE)
+    return tie.get(0)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def check_tp(lm, lm35, rows: dict) -> None:
+    """Phase 'tp': tensor and data parallelism on the one card, over meshes
+    of ``["cuda:0"] * n`` (``make_mesh``), each run against the unsharded
+    port on the same card, under the tie rule in bf16 and F32_REL_L2 in
+    float32, and each kernel launched once a shard where the unsharded run
+    launched it once:
+
+    - Qwen3-0.6B bf16 at tp=2: a 300-token prefill and 64 greedy tokens;
+      its float32 prefill's logits; the engine at dp=2 x tp=2 over the mix
+      of check_engine_prompts on an fp and an int8 cache (decode blocks as
+      graphs); one /generate request over HTTP to a tp=2 engine;
+    - Qwen3.5-0.8B bf16 at tp=2: prefill and 32 greedy tokens (K7 and K2
+      per shard);
+    - Qwen3-Next-80B-A3B at tp=2 and TP_MOE_LAYERS layers, expert
+      parallel (256 experts a shard), dense dispatch: 16 greedy tokens in
+      bf16 and in float32, and the float32 prefill's logits;
+    - the train step: Qwen3-0.6B in float32 at full width, dp=2 x tp=2, B=4,
+      S=512, three AdamW steps with remat against the unsharded model's
+      steps (the losses of each step to TRAIN_LOSS_RTOL, the first step's
+      gradients per weight to F32_REL_L2, and with and without remat alike),
+      attention on the plain route by argument; a kernel wrapper given
+      inputs that require grad raises; the check leaves under
+      TRAIN_HELD_GB allocated once it returns, with no garbage collection.
+
+    ``rows`` (check_tp_kernels') get the launches of the tp paths."""
+    import torch
+
+    from crane_tpu_torch.models import graphs
+    from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
+    from crane_tpu_torch.models.init import init_params
+    from crane_tpu_torch.ops import cuda as kernels
+    from crane_tpu_torch.parallel.inference import shard_lm
+    from crane_tpu_torch.parallel.sharding import make_mesh
+
+    def mesh(dp, tp):
+        return make_mesh(dp, tp, ["cuda:0"] * (dp * tp))
+
+    totals: dict[str, dict] = {"dense": {}, "hybrid": {}, "moe": {}}
+    cfg = lm.config
+    gen = torch.Generator().manual_seed(16)
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=gen).tolist()
+
+    # Qwen3-0.6B at tp=2: generate, the float32 prefill, the decode step's time
+    t0 = time.perf_counter()
+    slm = shard_lm(lm, mesh(1, 2))
+    add_counts(totals["dense"], tp_generate("Qwen3-0.6B bf16 tp=2 generate(64)", lm, slm,
+                                            prompt, 64))
+    times = {name: time_generate(m, prompt, GenerationConfig.greedy(16))
+             for name, m in (("unsharded", lm), ("tp=2", slm))}
+    log("tp", "Qwen3-0.6B bf16 batch 1, one graph block of 15 decode steps (host clock): "
+              + ", ".join(f"{name} {1e3 / tps:.3f} ms a step (prefill 300 tokens {ms:.2f} ms)"
+                          for name, (ms, tps) in times.items()))
+    lm32 = CausalLM(cfg, _tree(lm.params, lambda t: t.float()), dtype=torch.float32)
+    check_f32("tp", "Qwen3-0.6B float32 300-token prefill logits",
+              prefill_300(shard_lm(lm32, mesh(1, 2)), prompt), prefill_300(lm32, prompt),
+              versus=TP_VERSUS)
+    del lm32
+    slm.release_graphs()
+    lm.release_graphs()
+    log("time", f"tp: Qwen3-0.6B generate and float32 prefill {time.perf_counter() - t0:.1f} s")
+
+    # the engine at dp=2 x tp=2 on an fp and an int8 cache
+    t0 = time.perf_counter()
+    prompts, tail = check_engine_prompts(cfg.vocab_size)
+    slm22 = shard_lm(lm, mesh(2, 2))
+    direct = None
+    for kv_bits, decode, others in ((None, "fp_decode_attention", (
+            "flash_attention_causal", "flash_attention_cached")), (8, "quant_decode_attention[kv8]", (
+            "flash_attention_causal", "quant_cached_attention[kv8]"))):
+        label = f"Qwen3-0.6B dp=2 x tp=2 engine, {'int8' if kv_bits else 'fp'} cache"
+        firsts = {}
+        (ref, rows_ref), ref_counts, _ = counted(
+            lambda: direct_engine_run(lm, kv_bits, prompts, tail, firsts))
+        replays = graphs.replays
+        (got, _), got_counts, routes = counted(
+            lambda: direct_engine_run(slm22, kv_bits, prompts, tail))
+        if graphs.replays == replays:
+            raise AssertionError(f"{label}: no decode block ran as a graph")
+        # a decode step runs every slot on both groups' shards, a slot's
+        # prefill or chunk on its group's shards only
+        require_scaled(label, got_counts, ref_counts, {decode: 4, **dict.fromkeys(others, 2)})
+        if any(routes.values()):
+            raise AssertionError(f"{label} routed attention to a plain version: {routes}")
+        ties = {}
+        for rid, (ids, _) in list(prompts.items()) + [("followup", (None, 16))]:
+            if rid == "followup":
+                if got["p300"] != ref["p300"]:
+                    continue  # the follow-up prompts differ (p300 parted at a tie)
+                ids = prompts["p300"][0] + ref["p300"] + tail
+            tie = engine_tie(f"{label} {rid}", lm, ids, got[rid], ref[rid], rows_ref[rid],
+                             firsts[rid])
+            if tie:
+                ties[rid] = tie
+        log("tp", f"{label}: {len(got)} greedy requests (17, 64, 300, 1000 tokens and the "
+                  f"follow-up) vs the unsharded engine: "
+                  f"{'identical' if not ties else f'first differences at ties {ties}'}; "
+                  f"{graphs.replays - replays} graph replays")
+        add_counts(totals["dense"], got_counts)
+        if kv_bits is None:
+            direct = (ref, rows_ref, firsts)
+    del slm22
+    log("time", f"tp: the dp=2 x tp=2 engines {time.perf_counter() - t0:.1f} s")
+
+    # one request over HTTP to a tp=2 engine, against the unsharded engine's
+    t0 = time.perf_counter()
+    slm.tokenizer = StandInTokenizer(cfg.vocab_size)
+    engine, srv = serve_http(slm)
+    try:
+        reset_counts()
+        ids, n = prompts["p300"]
+        status, body = http_json(srv.port, "POST", "/generate", {
+            "input_ids": ids, "rid": "tp-http",
+            "sampling_params": {"max_new_tokens": n, **GREEDY_HTTP}})
+        got = StandInTokenizer.ids(body.get("text", "")) if status == 200 else None
+        if got is None or len(got) != n:
+            raise AssertionError(f"tp /generate: status {status}, {str(body)[:300]}")
+        add_counts(totals["dense"], kernels.launch_counts())
+        tie = engine_tie("tp=2 /generate p300", lm, ids, got, direct[0]["p300"],
+                         direct[1]["p300"], direct[2]["p300"])
+        log("tp", f"/generate to a tp=2 engine, 300-token prompt, {n} tokens vs the unsharded "
+                  f"engine: {'identical' if not tie else f'first difference at a tie {tie}'}")
+    finally:
+        srv.close()
+        engine.stop()
+        slm.release_graphs()
+        slm.tokenizer = None
+    del slm
+    log("time", f"tp: HTTP {time.perf_counter() - t0:.1f} s")
+
+    # Qwen3.5-0.8B at tp=2
+    t0 = time.perf_counter()
+    prompt35 = torch.randint(0, lm35.config.vocab_size, (300,), generator=gen).tolist()
+    slm35 = shard_lm(lm35, mesh(1, 2))
+    add_counts(totals["hybrid"], tp_generate("Qwen3.5-0.8B bf16 tp=2 generate(32)", lm35, slm35,
+                                             prompt35, 32))
+    slm35.release_graphs()
+    lm35.release_graphs()
+    del slm35
+    log("time", f"tp: Qwen3.5-0.8B {time.perf_counter() - t0:.1f} s")
+
+    # Qwen3-Next-80B-A3B at TP_MOE_LAYERS layers, tp=2, expert parallel:
+    # bf16 and float32 tokens under the tie rule, float32 logits too
+    t0 = time.perf_counter()
+    cfg_n = moe_config(TP_MOE_LAYERS)
+    gen_n = torch.Generator(device="cuda").manual_seed(81)
+    params_n = init_params(cfg_n, gen_n, device="cuda", dtype=torch.bfloat16)
+    prompt_n = torch.randint(0, cfg_n.vocab_size, (300,), generator=gen).tolist()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "float32"
+        lmn = CausalLM(cfg_n, params_n if dtype == torch.bfloat16 else _tree(
+            params_n, lambda t: t.float()), dtype=dtype)
+        if dtype == torch.float32:
+            del params_n
+        slmn = shard_lm(lmn, mesh(1, 2))
+        experts = slmn.params.trees[0][1]["layers"][0]["mlp"]["experts_gate"].shape[0]
+        log("tp", f"Qwen3-Next-80B-A3B at {TP_MOE_LAYERS} of 48 layers, full width, {name}, "
+                  f"tp=2: {experts} experts a shard; {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+                  f"allocated on the card with the unsharded model beside it")
+        label = f"Qwen3-Next {TP_MOE_LAYERS} layers {name} tp=2"
+        if dtype == torch.float32:
+            check_f32("tp", f"{label} 300-token prefill logits", prefill_300(slmn, prompt_n),
+                      prefill_300(lmn, prompt_n), versus=TP_VERSUS)
+        add_counts(totals["moe"], tp_generate(f"{label} generate(16)", lmn, slmn, prompt_n, 16))
+        lmn.release_graphs()
+        slmn.release_graphs()
+        del lmn, slmn
+        torch.cuda.empty_cache()
+    log("time", f"tp: Qwen3-Next {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    check_tp_train(lm, mesh(2, 2))
+    held = (torch.cuda.memory_allocated() - before) / 1e9
+    log("tp", f"memory allocated on the card across the train check, with no garbage "
+              f"collection: {held:+.3f} GB (limit +{TRAIN_HELD_GB} GB)")
+    if held > TRAIN_HELD_GB:
+        raise AssertionError("the train step's tensors outlive it (a reference cycle)")
+    torch.cuda.empty_cache()
+    log("time", f"tp: the train step {time.perf_counter() - t0:.1f} s")
+
+    for path, label in (("dense", "tp path, Qwen3-0.6B"), ("hybrid", "tp path, Qwen3.5-0.8B"),
+                        ("moe", "tp path, Qwen3-Next")):
+        read_launches(label, rows[path], totals[path])
+    log("tp", f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the card after the "
+              f"phase")
+
+
+def check_tp_train(lm, mesh) -> None:
+    """check_tp's train step (see there)."""
+    import torch
+
+    from crane_tpu_torch.models.modules.transformer import attention_block, make_rope_tables
+    from crane_tpu_torch.ops.cuda.flash_attention import flash_attention_causal
+    from crane_tpu_torch.parallel import train
+    from crane_tpu_torch.parallel.sharding import gather_params, leaves, shard_params
+
+    cfg = lm.config
+    gen = torch.Generator().manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen, dtype=torch.int32)
+    tokens = tokens.to("cuda")
+    rope = make_rope_tables(cfg, device="cuda")
+
+    def fresh():  # float32 copies, apart from the served model's weights
+        return _tree(lm.params, lambda t: t.to(torch.float32, copy=True))
+
+    def worst(got: dict, ref: dict) -> float:
+        return max(rel_l2(got[k], ref[k]) for k in ref)
+
+    # the unsharded model: first-step gradients with and without remat
+    params = fresh()
+    train.train_parameters(params)
+    grads = {}
+    for remat in (True, False):
+        before = attention_block.plain_routes["chunk"]
+        loss = train.next_token_loss(cfg, params, rope, tokens, remat=remat)
+        loss.backward()
+        grads[remat] = {k: x.grad.clone() for k, x in leaves(params)}
+        for x in (x for _, x in leaves(params)):
+            x.grad = None
+        routes = attention_block.plain_routes["chunk"] - before
+    log("tp", f"train step: the unsharded first-step gradients with and without remat: worst "
+              f"per-weight rel L2 {worst(grads[False], grads[True]):.3g} "
+              f"(limit {F32_REL_L2:g}); attention on the plain route ({routes} calls a "
+              f"forward without remat, counted in plain_routes)")
+    if worst(grads[False], grads[True]) > F32_REL_L2:
+        raise AssertionError("train step: remat changes the gradients")
+
+    del grads[False]
+    losses, firsts = {}, {}
+    for name in ("unsharded", "dp=2 x tp=2"):
+        p = params if name == "unsharded" else shard_params(cfg, fresh(), mesh)
+        params = None
+        optimizer = torch.optim.AdamW(train.train_parameters(p), lr=1e-4, weight_decay=1e-4)
+
+        def read_first(opt, args, kwargs, p=p, name=name):
+            """The first step's gradients, as the optimizer is about to take
+            them (summed over the copies on the mesh)."""
+            if name not in firsts:
+                firsts[name] = dict(leaves(gather_params(cfg, p, grads=True))) \
+                    if name != "unsharded" else {k: x.grad.clone() for k, x in leaves(p)}
+
+        optimizer.register_step_pre_hook(read_first)
+        step = train.make_train_step(cfg, optimizer)
+        losses[name] = [float(step(p, rope, tokens)) for _ in range(3)]
+        del optimizer, step, p
+        torch.cuda.empty_cache()
+    ref, got = losses["unsharded"], losses["dp=2 x tp=2"]
+    err = worst(firsts["dp=2 x tp=2"], firsts["unsharded"])
+    log("tp", f"train step, Qwen3-0.6B float32, B=4 S=512, AdamW(lr 1e-4, weight decay 1e-4), "
+              f"remat: losses unsharded {ref} vs dp=2 x tp=2 {got}; first-step gradients worst "
+              f"per-weight rel L2 {err:.3g} (limit {F32_REL_L2:g})")
+    if any(abs(a - b) > TRAIN_LOSS_RTOL * abs(a) for a, b in zip(ref, got)):
+        raise AssertionError("train step: the sharded losses part from the unsharded ones")
+    if err > F32_REL_L2:
+        raise AssertionError("train step: the sharded gradients part from the unsharded ones")
+    q = torch.randn(1, 256, 16, 128, device="cuda", requires_grad=True)
+    k = torch.randn(1, 256, 8, 128, device="cuda")
+    try:
+        flash_attention_causal(q, k, k, scale=128 ** -0.5)
+    except RuntimeError as e:
+        log("tp", f"K2 given a query that requires grad raises: {e}")
+    else:
+        raise AssertionError("K2 took a query that requires grad")
+
+
 def main() -> int:
     import torch
 
@@ -7107,6 +7721,7 @@ def main() -> int:
     quant_rows += long_rows["quantized"]
     hybrid_rows += long_rows["hybrid"]
     family_rows = check_family_kernels()
+    tp_rows = check_tp_kernels()
     slice_rows = check_slice_kernels()
     audio_rows = check_audio_kernels()
     tts_rows = check_tts_kernels()
@@ -7176,12 +7791,20 @@ def main() -> int:
     # paths the card had not run: an int8 KV cache on the hybrid, the
     # hybrid in four slabs, int8 ISQ weights in four slabs
     check_unrun_paths(lm, lm35)
-    del lm35
     phase_done("paths")
+
+    # tensor and data parallelism on the card: Qwen3-0.6B, Qwen3.5-0.8B and
+    # Qwen3-Next over meshes of cuda:0 (K1-K5 and K7 per shard at local
+    # heads), and the dp x tp train step (attention on the plain route)
+    check_tp(lm, lm35, tp_rows)
+    del lm35
+    torch.cuda.empty_cache()
+    phase_done("tp")
 
     # speculative decoding: verify forwards (K3, K5, K3-S, K5-S; K6 at
     # B (k + 1) rows) inside chained propose/verify graphs
     check_spec(lm, lm4, verify_rows)
+    check_spec_kv(lm, lm4)
     phase_done("spec")
 
     # the server over HTTP (the main path's last link): K1-K3 in bf16, and
@@ -7319,7 +7942,8 @@ def main() -> int:
     log("time", f"phases (s): {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     rows += quant_rows + hybrid_rows + sp_rows + verify_rows + family_rows["lfm2"] \
-        + family_rows["moe"] + slice_rows + audio_rows + tts_rows
+        + family_rows["moe"] + slice_rows + audio_rows + tts_rows + tp_rows["dense"] \
+        + tp_rows["hybrid"] + tp_rows["moe"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -47,6 +47,7 @@ from crane_tpu_torch.models.modules.transformer import (
 )
 from crane_tpu_torch.ops.kv_cache import KVCache
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
+from crane_tpu_torch.parallel.sharding import ShardedParams
 
 
 def _greedy_accept(logits: torch.Tensor, tokens: torch.Tensor):
@@ -133,7 +134,8 @@ def prompt_ids_error(ids, vocab_size: int) -> str | None:
 class CausalLM:
     """A loaded model: static config + parameter tree + step functions."""
 
-    # the slab devices of a sequence-parallel model (parallel/sequence.py);
+    # the devices of a sequence-parallel model's slabs (parallel/sequence.py)
+    # or of a tensor/data-parallel model's shards (parallel/inference.py);
     # none for one device
     mesh: tuple = ()
 
@@ -151,7 +153,7 @@ class CausalLM:
         self.tokenizer = tokenizer
         self.eos_token_ids = tuple(eos_token_ids)
         self.dtype = dtype
-        self.device = params["embed"].device
+        self.device = params.device if isinstance(params, ShardedParams) else params["embed"].device
         self.rope = make_rope_tables(config, device=self.device)
         self._programs: dict = {}  # captured decode blocks (models/graphs.py)
         self._generate_caches: dict = {}

@@ -35,11 +35,11 @@ results are read out of the static buffers.
   what they were before the warm-up, the capture's change is recorded, and
   every replay adds it, so the counts after N replays equal the eager
   loop's for the same work.
-- **Device rule.** A model on a CUDA device whose slabs (if any) share its
-  device runs programs; a CPU model, and a sequence-parallel model over
-  several devices (which one graph cannot hold, ROADMAP Queue 1 item 12),
-  run the same block functions eagerly. The choice is made by device,
-  never by failure. :func:`eager` forces the eager loop on the card, for the
+- **Device rule.** A model on a CUDA device whose slabs or shards (if
+  any) all share its device runs programs; a CPU model, and a sequence- or
+  tensor-parallel model over several devices (which one graph cannot
+  hold), run the same block functions eagerly. The choice is made by
+  device, never by failure. :func:`eager` forces the eager loop on the card, for the
   card tests and ``chip_smoke.py`` to compare against.
 """
 
@@ -81,8 +81,9 @@ def eager():
 
 def takes_graphs(device: torch.device, mesh=()) -> bool:
     """True when decode blocks on ``device`` run as CUDA graphs: a CUDA
-    device whose slab devices ``mesh`` (a sequence-parallel model's) are all
-    itself, outside :func:`eager`."""
+    device whose mesh devices ``mesh`` (a sequence-parallel model's slabs, a
+    tensor/data-parallel model's shards) are all itself, outside
+    :func:`eager`."""
     if device.type != "cuda" or getattr(_local, "eager", False):
         return False
     return all(torch.device(d) == device for d in mesh)

@@ -23,6 +23,7 @@ from crane_tpu_torch.ops.gdn import (
     gdn_decode_step,
     gdn_recurrence,
 )
+from crane_tpu_torch.ops.cuda.quant_matmul import matmul_f32
 from crane_tpu_torch.ops.kv_cache import GdnLayerCache
 from crane_tpu_torch.ops.linear import linear
 from crane_tpu_torch.ops.norm import gated_rms_norm
@@ -83,6 +84,7 @@ def gdn_block(
     backend: str | None = None,
     true_lengths: torch.Tensor | None = None,
     continuation: bool = False,
+    partial: bool = False,
 ):
     """x ``[B, S, E]`` -> (out ``[B, S, E]``, the layer cache, written in
     place).
@@ -95,7 +97,9 @@ def gdn_block(
     prefill equals whole prefill; the cache rows must line up with the
     batch, so ``cache_row`` must be None). ``true_lengths [B]`` masks
     bucket-padded tail steps out of the state: they get beta=0, g=0 (the
-    identity update) and the conv window ends at the true length."""
+    identity update) and the conv window ends at the true length.
+    ``partial``: a tensor-parallel shard's product over its rows of
+    ``out_proj``, returned in float32."""
     if continuation and (decode or cache_row is not None):
         raise ValueError("continuation excludes decode/cache_row (documented contract)")
     B, S, _ = x.shape
@@ -152,5 +156,7 @@ def gdn_block(
 
     new_cache = layer_cache.replace_rows(new_conv, new_state, row=cache_row, active=active)
 
-    y = gated_rms_norm(y, z, p["norm"], eps=eps)
-    return linear(y.reshape(B, S, gcfg.value_dim), p["out_proj"]), new_cache
+    y = gated_rms_norm(y, z, p["norm"], eps=eps).reshape(B, S, gcfg.value_dim)
+    if partial:
+        return matmul_f32(y, p["out_proj"].to(y.dtype)), new_cache
+    return linear(y, p["out_proj"]), new_cache

@@ -52,8 +52,12 @@ are plain PyTorch here.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib
 import math
 import os
+import sys
+import threading
 from typing import Any
 
 import torch
@@ -91,6 +95,7 @@ from crane_tpu_torch.ops.kv_cache import (
 from crane_tpu_torch.ops.linear import QuantizedWeight, linear
 from crane_tpu_torch.ops.norm import rms_norm
 from crane_tpu_torch.ops.rope import apply_rope_embeds, inv_frequencies, rope_table
+from crane_tpu_torch.parallel.sharding import ShardedParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,12 +244,17 @@ def _activation(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {cfg.act!r}")
 
 
-def mlp_block(cfg: TransformerConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(cfg: TransformerConfig, p: dict, x: torch.Tensor, expert_offset: int = 0,
+              partial: bool = False) -> torch.Tensor:
     """SwiGLU: down(act(gate(x)) * up(x)); the sparse-MoE MLP where the
-    layer's params carry a router."""
+    layer's params carry a router (``expert_offset``: see :func:`moe_block`).
+    ``partial``: a tensor-parallel shard's product over its rows of
+    ``down``, returned in float32 (the shards' partials are summed before
+    one rounding)."""
     if "router" in p:
-        return moe_block(cfg, p, x)
-    return linear(_activation(cfg, linear(x, p["gate"])) * linear(x, p["up"]), p["down"])
+        return moe_block(cfg, p, x, expert_offset, partial)
+    h = _activation(cfg, linear(x, p["gate"])) * linear(x, p["up"])
+    return matmul_f32(h, p["down"].to(h.dtype)) if partial else linear(h, p["down"])
 
 
 # the dense dispatch's [n_experts, tokens, I] intermediates hold at most this
@@ -253,17 +263,21 @@ MOE_BLOCK_ELEMENTS = 1 << 27
 
 
 def _moe_dispatch_dense(cfg: TransformerConfig, p: dict, xt: torch.Tensor,
-                        w: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+                        w: torch.Tensor, sel: torch.Tensor, offset: int = 0,
+                        partial: bool = False) -> torch.Tensor:
     """Dense one-hot dispatch, the reference's default: every expert computes
     every token, weighted by the sparse combine matrix. xt ``[T, E]``; w,
     sel ``[T, k]``. The gate and up projections are one batched product over
     the experts (``[n, t, I]``); the combine weights scale ``h`` first, so the
     down projection is one contraction over (expert, I) and never builds a
-    ``[t, n, E]`` product."""
+    ``[t, n, E]`` product. ``p`` may hold the experts ``offset ..
+    offset + n`` only (a tensor-parallel shard): their columns of the
+    combine matrix weight them, and an expert the router did not pick
+    weighs 0; with ``partial`` the down projection writes float32."""
     T, E = xt.shape
-    n, I = cfg.num_experts, p["experts_down"].shape[1]
-    cw = torch.zeros((T, n), dtype=torch.float32, device=xt.device)
-    cw = cw.scatter_add_(1, sel, w.float()).to(xt.dtype)
+    n, I = p["experts_down"].shape[0], p["experts_down"].shape[1]
+    cw = torch.zeros((T, cfg.num_experts), dtype=torch.float32, device=xt.device)
+    cw = cw.scatter_add_(1, sel, w.float())[:, offset:offset + n].to(xt.dtype)
     down = p["experts_down"].reshape(n * I, E)
     block = max(1, MOE_BLOCK_ELEMENTS // (n * I))
     out = []
@@ -271,40 +285,58 @@ def _moe_dispatch_dense(cfg: TransformerConfig, p: dict, xt: torch.Tensor,
         x = xt[s:s + block]
         h = _activation(cfg, torch.matmul(x, p["experts_gate"])) * torch.matmul(x, p["experts_up"])
         h = h * cw[s:s + block].T[:, :, None]
-        out.append(h.transpose(0, 1).reshape(x.shape[0], n * I) @ down)
+        h = h.transpose(0, 1).reshape(x.shape[0], n * I)
+        out.append(matmul_f32(h, down) if partial else h @ down)
     return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _moe_dispatch_ragged(cfg: TransformerConfig, p: dict, xt: torch.Tensor,
-                         w: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+                         w: torch.Tensor, sel: torch.Tensor, offset: int = 0,
+                         partial: bool = False) -> torch.Tensor:
     """Token-sorted grouped-product dispatch (``CRANE_MOE_DISPATCH=ragged``):
     the T k (token, expert) slots are sorted by expert (stably), each expert
     multiplies its contiguous group (``torch._grouped_mm``, the counterpart
     of ``lax.ragged_dot``), and the weighted results add back per token.
     Group ends are counted on the device, with no host read, so a CUDA graph
-    captures it."""
+    captures it. ``p`` may hold the experts ``offset .. offset + n`` only
+    (a tensor-parallel shard): the slots routed to them sort first and the
+    grouped products stop at their count; the other slots sort last and add
+    0, so the shapes stay those of all T k slots. With ``partial`` the
+    weighted rows add up in float32 (the grouped product itself writes the
+    input's dtype)."""
     T, E = xt.shape
+    n = p["experts_down"].shape[0]
     flat = sel.reshape(-1)
-    order = torch.argsort(flat, stable=True)
+    local = (flat >= offset) & (flat < offset + n)
+    key = torch.where(local, flat - offset, n)
+    order = torch.argsort(key, stable=True)
     token_idx = torch.div(order, cfg.num_experts_per_tok, rounding_mode="floor")
     xs = xt[token_idx]
-    sizes = torch.zeros(cfg.num_experts, dtype=torch.int32, device=xt.device)
-    sizes.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
-    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    sizes = torch.zeros(n + 1, dtype=torch.int32, device=xt.device)
+    sizes.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    offs = torch.cumsum(sizes[:n], 0, dtype=torch.int32)
     h = _activation(cfg, torch._grouped_mm(xs, p["experts_gate"], offs=offs)) \
         * torch._grouped_mm(xs, p["experts_up"], offs=offs)
     out = torch._grouped_mm(h, p["experts_down"], offs=offs)
-    out = out * w.reshape(-1)[order][:, None].to(out.dtype)
+    if partial:
+        out = out.float()
+    # rows past the last group end are not computed: where() drops them
+    out = torch.where(local[order][:, None], out * w.reshape(-1)[order][:, None].to(out.dtype), 0)
     return torch.zeros((T, E), dtype=out.dtype, device=xt.device).index_add_(0, token_idx, out)
 
 
-def moe_block(cfg: TransformerConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def moe_block(cfg: TransformerConfig, p: dict, x: torch.Tensor,
+              expert_offset: int = 0, partial: bool = False) -> torch.Tensor:
     """Sparse-MoE SwiGLU with a sigmoid-gated shared expert (Qwen3-Next).
 
     Routing as the reference does it (HF ``Qwen3NextSparseMoeBlock``): a
     softmax over the experts in float32, top-k, renormalised when
     ``norm_topk_prob``. The dispatch is dense unless
-    ``CRANE_MOE_DISPATCH=ragged``, the reference's own switch."""
+    ``CRANE_MOE_DISPATCH=ragged``, the reference's own switch. A
+    tensor-parallel shard (:mod:`crane_tpu_torch.parallel.inference`)
+    passes its experts ``expert_offset ..`` and its columns of the shared
+    expert; the router runs whole, and the result is the shard's partial
+    sum (in float32 with ``partial``)."""
     B, S, E = x.shape
     xt = x.reshape(B * S, E)
     probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
@@ -312,14 +344,15 @@ def moe_block(cfg: TransformerConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm_topk_prob:
         w = w / w.sum(dim=-1, keepdim=True)
     if os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged":
-        y = _moe_dispatch_ragged(cfg, p, xt, w, sel)
+        y = _moe_dispatch_ragged(cfg, p, xt, w, sel, expert_offset, partial)
     else:
-        y = _moe_dispatch_dense(cfg, p, xt, w, sel)
+        y = _moe_dispatch_dense(cfg, p, xt, w, sel, expert_offset, partial)
     if "shared_gate" in p:
-        sh = linear(_activation(cfg, linear(xt, p["shared_gate_proj"]))
-                    * linear(xt, p["shared_up"]), p["shared_down"])
+        hs = _activation(cfg, linear(xt, p["shared_gate_proj"])) * linear(xt, p["shared_up"])
+        sh = matmul_f32(hs, p["shared_down"].to(hs.dtype)) if partial else \
+            linear(hs, p["shared_down"])
         gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()).to(x.dtype)
-        y = y + gate * sh
+        y = y + gate.to(sh.dtype) * sh
     return y.reshape(B, S, E)
 
 
@@ -338,6 +371,8 @@ def attention_block(
     use_local_rope: bool = False,
     extra_mask: torch.Tensor | None = None,
     segments: torch.Tensor | None = None,
+    plain: bool = False,
+    partial: bool = False,
 ):
     """GQA attention with QK-norm, RoPE, the KV-cache append and the
     optional sigmoid output gate.
@@ -360,6 +395,14 @@ def attention_block(
     (or over the cache) goes to the plain :func:`gqa_attention`, as in
     crane_tpu, and counts in ``plain_routes``. The route follows the
     arguments, never a failed launch.
+
+    ``plain=True`` sends every call to the plain version (counted in
+    ``plain_routes`` too): the kernels have no backward, so a forward that
+    is differentiated (:mod:`crane_tpu_torch.parallel.train`) asks for the
+    plain route, as crane_tpu trains through ``gqa_attention``.
+    ``partial``: a tensor-parallel shard's product over its rows of ``wo``,
+    returned in float32 (the shards' partials are summed before one
+    rounding).
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -394,8 +437,8 @@ def attention_block(
     softcap = cfg.attn_logit_softcap
     kind = "prefill" if not read_cache else ("decode" if S == 1 else "chunk")
 
-    def route(kernel, plain):
-        return attention_route(kind, kernel, plain, D, H, Hkv)
+    def route(kernel, plain_fn):
+        return attention_route(kind, kernel, plain_fn, D, H, Hkv, force_plain=plain)
 
     if extra_mask is not None and (read_cache or segments is None):
         attention_block.plain_routes[kind] += 1
@@ -439,15 +482,19 @@ def attention_block(
 
     if gate is not None:
         out = out * torch.sigmoid(gate.float()).to(out.dtype)
-    return linear(out.reshape(B, S, H * D), p["wo"], p.get("bo")), new_cache
+    out = out.reshape(B, S, H * D)
+    if partial:
+        return matmul_f32(out, p["wo"].to(out.dtype)), new_cache
+    return linear(out, p["wo"], p.get("bo")), new_cache
 
 
-def attention_route(kind: str, kernel, plain, head_dim: int, n_heads: int, n_kv_heads: int):
+def attention_route(kind: str, kernel, plain, head_dim: int, n_heads: int, n_kv_heads: int,
+                    *, force_plain: bool = False):
     """``kernel`` (a wrapper) where the ``kind`` kernels take these heads,
     else ``plain``, its plain version, counted once in
-    ``attention_block.plain_routes[kind]``. The route is chosen by shape,
-    never by a failed launch."""
-    if attention_kernel_takes(kind, head_dim, n_heads, n_kv_heads):
+    ``attention_block.plain_routes[kind]``. The route is chosen by shape
+    (or by the caller's ``force_plain``), never by a failed launch."""
+    if not force_plain and attention_kernel_takes(kind, head_dim, n_heads, n_kv_heads):
         return kernel
     attention_block.plain_routes[kind] += 1
     return plain
@@ -491,6 +538,19 @@ def short_conv_block(
     return out, layer_cache.replace_rows(new_state, row=cache_row, active=active)
 
 
+@dataclasses.dataclass(frozen=True)
+class LayerBlocks:
+    """The calls a decoder layer makes for its mixer and its MLP, each with
+    the signature of its default. A tensor-parallel model
+    (:mod:`crane_tpu_torch.parallel.inference`) passes calls that run the
+    block on every shard and sum the partials."""
+
+    attention: Any = attention_block
+    gdn: Any = gdn_block
+    conv: Any = short_conv_block
+    mlp: Any = mlp_block
+
+
 def decoder_layer(
     cfg: TransformerConfig,
     p: dict,
@@ -507,6 +567,8 @@ def decoder_layer(
     true_lengths: torch.Tensor | None = None,
     extra_mask: torch.Tensor | None = None,
     segments: torch.Tensor | None = None,
+    plain_attention: bool = False,
+    blocks: LayerBlocks = LayerBlocks(),
 ):
     ltype = cfg.layer_type(layer_idx)
 
@@ -523,26 +585,26 @@ def decoder_layer(
                   true_lengths=None if decode else true_lengths,
                   continuation=read_cache and x.shape[1] > 1 and cache_row is None)
         if ltype == "gdn":
-            attn_out, new_cache = gdn_block(cfg.gdn, p["gdn"], nrm(x, p["input_ln"]), layer_cache,
-                                            eps=cfg.rms_norm_eps, **kw)
+            attn_out, new_cache = blocks.gdn(cfg.gdn, p["gdn"], nrm(x, p["input_ln"]),
+                                             layer_cache, eps=cfg.rms_norm_eps, **kw)
         else:
-            attn_out, new_cache = short_conv_block(cfg, p["conv"], nrm(x, p["input_ln"]),
-                                                   layer_cache, **kw)
+            attn_out, new_cache = blocks.conv(cfg, p["conv"], nrm(x, p["input_ln"]),
+                                              layer_cache, **kw)
     else:
-        attn_out, new_cache = attention_block(
+        attn_out, new_cache = blocks.attention(
             cfg, p["attn"], nrm(x, p["input_ln"]), layer_cache, positions,
             cache_positions, rope,
             window=cfg.sliding_window if ltype == "sliding" else None,
             read_cache=read_cache, cache_row=cache_row,
             use_local_rope=(ltype == "sliding" and cfg.rope_local_theta is not None),
-            extra_mask=extra_mask, segments=segments,
+            extra_mask=extra_mask, segments=segments, plain=plain_attention,
         )
     if cfg.sandwich_norms:
         x = x + nrm(attn_out, p["post_attn_ln"])
-        x = x + nrm(mlp_block(cfg, p["mlp"], nrm(x, p["pre_ffn_ln"])), p["post_ffn_ln"])
+        x = x + nrm(blocks.mlp(cfg, p["mlp"], nrm(x, p["pre_ffn_ln"])), p["post_ffn_ln"])
     else:
         x = x + attn_out
-        x = x + mlp_block(cfg, p["mlp"], nrm(x, p["post_ln"]))
+        x = x + blocks.mlp(cfg, p["mlp"], nrm(x, p["post_ln"]))
     return x, new_cache
 
 
@@ -563,6 +625,8 @@ def forward_hidden(
     deepstack: tuple | None = None,
     extra_mask: torch.Tensor | None = None,
     segments: torch.Tensor | None = None,
+    remat: bool = False,
+    plain_attention: bool = False,
 ) -> tuple[torch.Tensor, KVCache]:
     """Token ids ``[B, S]`` -> final hidden states ``[B, S, E]`` + cache.
 
@@ -584,47 +648,107 @@ def forward_hidden(
     on the host, so it belongs to a prefill, never to a captured block);
     ``extra_mask`` and ``segments`` go to every attention layer
     (:func:`attention_block`).
-    """
-    B, S = tokens.shape
-    device = tokens.device
-    steps = torch.arange(S, dtype=torch.int32, device=device)
-    if isinstance(cache_positions, torch.Tensor):
-        positions = cache_positions.to(torch.int32)[:, None] + steps[None, :]
-        if active is not None:
-            write_pos = torch.where(active, cache_positions, cache.max_seq)
-            new_lengths = cache.lengths + active.to(torch.int32)
-        else:
-            write_pos = cache_positions
-            new_lengths = cache.lengths + S
-    else:
-        write_pos = int(cache_positions)
-        positions = (steps + write_pos)[None, :].expand(B, S).contiguous()
-        new_lengths = cache.lengths + S
 
+    Training, as crane_tpu's: ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (its activations recomputed in the backward
+    pass; the cache is written again then, with the same values), and
+    ``plain_attention`` sends every attention call to its plain version,
+    the kernels having no backward.
+
+    Params sharded over a dp x tp mesh
+    (:class:`~crane_tpu_torch.parallel.sharding.ShardedParams`) run
+    :func:`~crane_tpu_torch.parallel.inference.sharded_forward_hidden`
+    over the matching cache.
+    """
+    if isinstance(params, ShardedParams):
+        if any(a is not None for a in (inputs_embeds, rope_embeds, deepstack, extra_mask,
+                                       segments)):
+            raise ValueError("a tensor-parallel model takes token ids only")
+        from crane_tpu_torch.parallel.inference import sharded_forward_hidden
+
+        return sharded_forward_hidden(
+            cfg, params, tokens, cache, cache_positions, rope, read_cache=read_cache,
+            cache_row=cache_row, active=active, true_lengths=true_lengths, remat=remat,
+            plain_attention=plain_attention)
+    B, S = tokens.shape
+    positions, write_pos, new_lengths = step_positions(cache, cache_positions, B, S, active,
+                                                       tokens.device)
     if rope_embeds is None:
-        # a position past the tables reads their last row, as jax's gather
-        # clamps it (an index past them asserts on the card and ends the process)
-        idx = positions.long().clamp(max=next(iter(rope.values())).shape[0] - 1)
-        rope_embeds = {name: table[idx] for name, table in rope.items()}
-    x = params["embed"][tokens.long()] if inputs_embeds is None else inputs_embeds
-    if cfg.embed_scale is not None:
-        x = (x.float() * cfg.embed_scale).to(x.dtype)
+        rope_embeds = rope_rows(rope, positions)
+    x = scale_embeds(cfg, params["embed"][tokens.long()] if inputs_embeds is None
+                     else inputs_embeds)
     if deepstack is not None:
         visual = deepstack[0].nonzero(as_tuple=True)
 
     new_layers = list(cache.layers)
     for i in range(cfg.num_layers):
-        x, new_layers[i] = decoder_layer(
-            cfg, params["layers"][i], x, cache.layers[i], positions, write_pos,
-            rope_embeds, layer_idx=i, read_cache=read_cache, cache_row=cache_row,
-            active=active, true_lengths=true_lengths, extra_mask=extra_mask,
-            segments=segments,
-        )
+        layer = functools.partial(
+            decoder_layer, cfg, params["layers"][i], layer_idx=i, read_cache=read_cache,
+            cache_row=cache_row, active=active, true_lengths=true_lengths,
+            extra_mask=extra_mask, segments=segments, plain_attention=plain_attention)
+        x, new_layers[i] = run_layer(layer, remat, x, cache.layers[i], positions, write_pos,
+                                     rope_embeds)
         if deepstack is not None and i < deepstack[1].shape[0]:
             x = x.index_put(visual, deepstack[1][i].to(x.dtype), accumulate=True)
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_norm_eps,
                  weight_offset=cfg.norm_weight_offset)
     return x, KVCache(layers=tuple(new_layers), lengths=new_lengths)
+
+
+def step_positions(cache: KVCache, cache_positions, B: int, S: int, active, device):
+    """(positions ``[B, S]`` int32, the cache write positions, the new
+    lengths) of a forward over ``B`` rows of ``S`` tokens: an ``int`` start
+    writes every row there; ``[B]`` per-row starts write each row at its
+    own, and an inactive row (``active`` False) writes past the buffer,
+    which drops the write, and keeps its length."""
+    steps = torch.arange(S, dtype=torch.int32, device=device)
+    if isinstance(cache_positions, torch.Tensor):
+        positions = cache_positions.to(torch.int32)[:, None] + steps[None, :]
+        if active is not None:
+            return (positions, torch.where(active, cache_positions, cache.max_seq),
+                    cache.lengths + active.to(torch.int32))
+        return positions, cache_positions, cache.lengths + S
+    write_pos = int(cache_positions)
+    return (steps + write_pos)[None, :].expand(B, S).contiguous(), write_pos, cache.lengths + S
+
+
+def rope_rows(rope: dict, positions: torch.Tensor) -> dict:
+    """The rope tables' rows at ``positions``. A position past the tables
+    reads their last row, as jax's gather clamps it (an index past them
+    asserts on the card and ends the process)."""
+    idx = positions.long().clamp(max=next(iter(rope.values())).shape[0] - 1)
+    return {name: table[idx] for name, table in rope.items()}
+
+
+def scale_embeds(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+    """Embeddings times ``cfg.embed_scale`` (in float32, cast back), where
+    the model has one."""
+    if cfg.embed_scale is None:
+        return x
+    return (x.float() * cfg.embed_scale).to(x.dtype)
+
+
+def run_layer(layer, remat: bool, x, *args):
+    """``layer(x, *args)``, under ``torch.utils.checkpoint`` with ``remat``
+    (crane_tpu's per-layer ``jax.checkpoint``: activation memory of one
+    layer, the layer recomputed in the backward pass)."""
+    if remat:
+        _import_dynamo_apart()
+        return torch.utils.checkpoint.checkpoint(layer, x, *args, use_reentrant=False)
+    return layer(x, *args)
+
+
+def _import_dynamo_apart() -> None:
+    """Import ``torch._dynamo``, which checkpoint's first call imports, on a
+    thread of its own. That import leaves a reference cycle through the
+    stack it runs on (``torch.fx``'s ``wrap`` keeps its own frame), and on
+    the forward's stack the cycle would hold the last locals of the forward
+    and of its callers (a train step's activations, logits and gradients)
+    until the garbage collector next ran."""
+    if "torch._dynamo" not in sys.modules:
+        thread = threading.Thread(target=importlib.import_module, args=("torch._dynamo",))
+        thread.start()
+        thread.join()
 
 
 def lm_logits(cfg: TransformerConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
@@ -635,7 +759,13 @@ def lm_logits(cfg: TransformerConfig, params: dict, hidden: torch.Tensor) -> tor
     round ties into the greedy argmax at 151936 entries. A quantized head
     (``QuantizedWeight``) goes through :func:`linear` (K6 on the card), as
     the reference's does: its output is in the hidden dtype, then float32,
-    and the zero columns padding the vocab are sliced off."""
+    and the zero columns padding the vocab are sliced off. Params sharded
+    over a mesh compute their vocab columns per shard
+    (:func:`~crane_tpu_torch.parallel.inference.sharded_lm_logits`)."""
+    if isinstance(params, ShardedParams):
+        from crane_tpu_torch.parallel.inference import sharded_lm_logits
+
+        return sharded_lm_logits(cfg, params, hidden)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T

@@ -13,6 +13,11 @@ A launch captured into a CUDA graph counts once for each replay of the
 graph (:func:`add_launch_counts`), so the counts read the same as the eager
 loop's for the same work.
 
+A kernel writes its output through raw pointers and has no backward, so
+every wrapper first refuses an input that requires grad while grad mode is
+on (``build.refuse_grad``), on the CPU as on the card: a caller that trains
+asks for the plain versions by argument.
+
 :func:`attention_kernel_takes` says which attention shapes the kernels take,
 so a caller routes the others to the plain versions by shape, as crane_tpu
 routes them to ``gqa_attention``; the wrappers themselves raise on them.

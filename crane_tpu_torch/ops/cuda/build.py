@@ -158,6 +158,19 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error code {err}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a kernel's backward: grad mode on and
+    an input that requires grad. A kernel writes its output through raw
+    pointers, so the output has no ``grad_fn`` and every gradient through it
+    would be lost without a word. Every wrapper calls this first, on the card
+    and on the CPU alike; a caller that trains routes the call to the plain
+    version (``forward_hidden(..., plain_attention=True)``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward and an input requires grad; "
+                           f"call its plain version to train through it")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """The checks every wrapper makes before handing pointers to a kernel:
     one CUDA device, contiguous memory."""

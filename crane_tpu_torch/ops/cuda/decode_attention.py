@@ -218,6 +218,7 @@ def fp_decode_attention(
     logit_softcap: float | None = None,
 ) -> torch.Tensor:
     """Decode attention (contract in :func:`fp_decode_attention_plain`)."""
+    build.refuse_grad("fp_decode_attention", q, k, v)
     if q.device.type == "cpu":
         return fp_decode_attention_plain(
             q, k, v, kv_valid, scale=scale, window=window,
@@ -235,6 +236,7 @@ def fp_decode_attention_with_stats(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode attention with its softmax statistics, K1-S (contract in
     :func:`fp_decode_attention_with_stats_plain`)."""
+    build.refuse_grad("fp_decode_attention_with_stats", q, k, v)
     if q.device.type == "cpu":
         return fp_decode_attention_with_stats_plain(
             q, k, v, kv_valid, scale=scale, window=window, logit_softcap=logit_softcap)

@@ -151,6 +151,7 @@ def flash_attention_causal(
 ) -> torch.Tensor:
     """Fresh-prefill flash attention (contract in
     :func:`flash_attention_causal_plain`)."""
+    build.refuse_grad("flash_attention_causal", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_causal_plain(
             q, k, v, segments, scale=scale, window=window, softcap=softcap)
@@ -183,6 +184,7 @@ def flash_attention_cached(
 ) -> torch.Tensor:
     """Cached-continuation flash attention (contract in
     :func:`flash_attention_cached_plain`)."""
+    build.refuse_grad("flash_attention_cached", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_attention_cached_plain(
             q, k_cache, v_cache, positions, scale=scale, window=window,
@@ -201,6 +203,7 @@ def flash_attention_cached_with_stats(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cached-continuation flash attention with its softmax statistics,
     K3-S (contract in :func:`flash_attention_cached_with_stats_plain`)."""
+    build.refuse_grad("flash_attention_cached_with_stats", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_attention_cached_with_stats_plain(
             q, k_cache, v_cache, positions, scale=scale, window=window, softcap=softcap)

@@ -70,6 +70,7 @@ def gdn_scan(
     ``[B, S, H]``; init_state ``[B, H, K, V]`` or None (zeros). Returns
     (y ``[B, S, H, V]`` in v's dtype, final state ``[B, H, K, V]``
     float32)."""
+    build.refuse_grad("gdn_scan", q, k, v, g, beta, init_state)
     if q.device.type == "cpu":
         return gdn_scan_plain(q, k, v, g, beta, init_state)
     return gdn_scan_route(gdn_route(q.shape[1]), q, k, v, g, beta, init_state)
@@ -79,6 +80,7 @@ def gdn_scan_route(route, q, k, v, g, beta, init_state=None):
     """:func:`gdn_scan` on the card through the named route's kernel,
     whatever S is (the wrapper names :func:`gdn_route`'s; a comparison may
     name the other). Counts the launch."""
+    build.refuse_grad("gdn_scan_route", q, k, v, g, beta, init_state)
     if route not in ROUTES:
         raise ValueError(f"gdn_scan: route must be one of {ROUTES}, got {route!r}")
     if q.device.type != "cuda":

@@ -226,6 +226,7 @@ def quant_decode_attention(q, k_codes, v_codes, k_scale, v_scale, kv_valid, *,
                            logit_softcap: float | None = None) -> torch.Tensor:
     """Decode attention over a quantized cache (contract in
     :func:`quant_decode_attention_plain`)."""
+    build.refuse_grad("quant_decode_attention", q, k_codes, v_codes, k_scale, v_scale)
     if q.device.type == "cpu":
         return quant_decode_attention_plain(
             q, k_codes, v_codes, k_scale, v_scale, kv_valid, bits=bits, scale=scale,
@@ -243,6 +244,7 @@ def quant_decode_attention_with_stats(q, k_codes, v_codes, k_scale, v_scale, kv_
                                       logit_softcap: float | None = None):
     """Decode attention over a quantized cache with its softmax statistics,
     K4-S (contract in :func:`quant_decode_attention_with_stats_plain`)."""
+    build.refuse_grad("quant_decode_attention_with_stats", q, k_codes, v_codes, k_scale, v_scale)
     if q.device.type == "cpu":
         return quant_decode_attention_with_stats_plain(
             q, k_codes, v_codes, k_scale, v_scale, kv_valid, bits=bits, scale=scale,
@@ -260,6 +262,7 @@ def quant_cached_attention(q, k_codes, v_codes, k_scale, v_scale, positions, *,
                            logit_softcap: float | None = None) -> torch.Tensor:
     """Continuation-chunk attention over a quantized cache (contract in
     :func:`quant_cached_attention_plain`)."""
+    build.refuse_grad("quant_cached_attention", q, k_codes, v_codes, k_scale, v_scale)
     if q.device.type == "cpu":
         return quant_cached_attention_plain(
             q, k_codes, v_codes, k_scale, v_scale, positions, bits=bits, scale=scale,
@@ -277,6 +280,7 @@ def quant_cached_attention_with_stats(q, k_codes, v_codes, k_scale, v_scale, pos
                                       logit_softcap: float | None = None):
     """Continuation-chunk attention over a quantized cache with its softmax
     statistics, K5-S (contract in :func:`quant_cached_attention_with_stats_plain`)."""
+    build.refuse_grad("quant_cached_attention_with_stats", q, k_codes, v_codes, k_scale, v_scale)
     if q.device.type == "cpu":
         return quant_cached_attention_with_stats_plain(
             q, k_codes, v_codes, k_scale, v_scale, positions, bits=bits, scale=scale,

@@ -57,6 +57,7 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                  *, bits: int) -> torch.Tensor:
     """Quantized-weight matmul (contract in :func:`quant_matmul_plain`).
     Launches are counted per ``bits``: ``launches["w8"]``, ``["w4"]``."""
+    build.refuse_grad("quant_matmul", x, codes, scales)
     if x.device.type == "cpu":
         return quant_matmul_plain(x, codes, scales, bits=bits)
     if x.device.type != "cuda":

@@ -14,6 +14,8 @@ and never regrown:
 - sequence parallelism (:class:`SequenceShardedKVCache`): an fp or
   quantized layer cache split along its sequence axis into slabs, one per
   slab device;
+- tensor and data parallelism (:class:`MeshLayerCache`): any of the above
+  split by slot rows over dp groups and by heads over tp shards;
 
 plus per row ``lengths [B]`` int32. Where JAX donated the buffers and
 returned updated copies, the port writes into them in place and returns the
@@ -261,6 +263,30 @@ def dequant_codes(codes: torch.Tensor, scales: torch.Tensor, bits: int,
     return (c.float() * scales.transpose(1, 2)[..., None]).to(dtype)
 
 
+def slot_errors(layers_a, layers_b, row: int, n: int) -> torch.Tensor:
+    """How far two caches' K/V rows part, slot by slot: for each of the
+    first ``n`` positions of batch row ``row``, the largest relative L2
+    distance over the attention layers and over K and V between
+    ``layers_a``' vector of that slot (all kv heads) and ``layers_b``'
+    (fp or int8/int4 layer caches, quantized ones dequantized). Returns
+    float32 ``[n]`` on the CPU. Two paths that wrote the same tokens' K/V
+    sit near 0; a K/V written one slot off sits near 1 or above."""
+    worst = torch.zeros(n)
+    for a, b in zip(layers_a, layers_b):
+        if isinstance(a, QuantLayerKVCache):
+            pairs = zip(a.dequant(), b.dequant())
+        elif isinstance(a, LayerKVCache):
+            pairs = ((a.k, b.k), (a.v, b.v))
+        else:
+            continue
+        for x, y in pairs:
+            x = x[row, :n].float().cpu().reshape(n, -1)
+            y = y[row, :n].float().cpu().reshape(n, -1)
+            err = (x - y).norm(dim=1) / y.norm(dim=1).clamp_min(1e-30)
+            worst = torch.maximum(worst, err)
+    return worst
+
+
 @dataclasses.dataclass
 class GdnLayerCache:
     """Gated-Delta-Net layer state: the rolling conv window
@@ -421,9 +447,50 @@ class SequenceShardedKVCache:
 
 
 @dataclasses.dataclass
+class MeshLayerCache:
+    """One layer's cache over a dp x tp mesh
+    (:mod:`crane_tpu_torch.parallel.inference`): ``parts[i][t]`` is tp
+    shard ``t``'s layer cache of dp group ``groups[i]`` (its slot rows, its
+    kv heads; a GDN layer's v-heads and conv channels), on
+    ``devices[i][t]``. A layer computed once per group (a short conv, an
+    attention layer kept whole) has one part a group. Group ``groups[i]``
+    holds the rows ``i * rows .. (i + 1) * rows`` of the model's batch. The
+    port of crane_tpu's ``P("dp", None, "tp", None)`` cache placement.
+
+    ``devices`` names each part's device apart from its tensors', so a
+    cache sized on the ``meta`` device still says where each part would
+    live (the engine's memory budget)."""
+
+    parts: tuple
+    devices: tuple
+    groups: tuple
+
+    @property
+    def rows(self) -> int:
+        """Slot rows a group holds."""
+        return self.parts[0][0].tensors()[0].shape[0]
+
+    @property
+    def max_seq(self) -> int:
+        # raises AttributeError for a GDN or conv layer, as its parts do
+        return self.parts[0][0].max_seq
+
+    def row(self, slot: int) -> "MeshLayerCache":
+        """Batch-1 view of row ``slot``: its group's parts, each the row's
+        view; writes through it land in this cache."""
+        i, local = divmod(slot, self.rows)
+        return MeshLayerCache((tuple(p.row(local) for p in self.parts[i]),),
+                              (self.devices[i],), (self.groups[i],))
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(t for group in self.parts for p in group for t in p.tensors())
+
+
+@dataclasses.dataclass
 class KVCache:
     """Whole-model cache: one layer cache per layer (:class:`LayerKVCache`,
-    :class:`QuantLayerKVCache`, :class:`SequenceShardedKVCache` or, in hybrid
+    :class:`QuantLayerKVCache`, :class:`SequenceShardedKVCache`,
+    :class:`MeshLayerCache` or, in hybrid
     models, :class:`GdnLayerCache` and :class:`ConvLayerCache`) + per-row
     ``lengths [B]`` int32 (the number of valid tokens, i.e. the next write
     position)."""

@@ -1,2 +1,3 @@
-"""Multi-device serving: sequence parallelism (:mod:`.sequence`). Tensor
-parallelism and the sharded train step are not ported yet."""
+"""Multi-device serving and training: sequence parallelism
+(:mod:`.sequence`), tensor and data parallelism (:mod:`.sharding`,
+:mod:`.inference`) and the sharded train step (:mod:`.train`)."""

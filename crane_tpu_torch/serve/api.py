@@ -773,10 +773,6 @@ def build_app(server: Server) -> web.Application:
     return app
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _load_text_model(args, dtype, quant_bits):
     """(the CausalLM the engine serves, or None; the TextBackend a Gemma3n
     checkpoint is served through, or None) for ``--model-path``."""
@@ -924,9 +920,11 @@ def main(argv=None):
     ap.add_argument("--quant", default=None, choices=[None, "q8", "q4"])
     ap.add_argument("--kv-quant", default=None, choices=[None, "int8", "int4"])
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported yet)")
+                    help="tensor-parallel degree: Megatron-split weights and KV "
+                    "heads over N devices (--device cpu repeats the CPU)")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel degree (not ported yet)")
+                    help="data-parallel degree: the slots split over N groups "
+                    "of --tp devices (--max-concurrent must divide by it)")
     ap.add_argument("--sp", type=int, default=1,
                     help="sequence-parallel degree: shard the KV cache's "
                     "sequence axis over the first N devices (contexts too "
@@ -939,8 +937,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    if args.tp > 1 or args.dp > 1:
-        _not_ported("tensor- and data-parallel serving (--tp/--dp)", 12)
     if args.model_path is None and args.asr_path is None:
         ap.error("--model-path is required unless --asr-path is given")
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -953,7 +949,23 @@ def main(argv=None):
     if args.model_path is not None:
         args.model_path = resolve_checkpoint(args.model_path)
         lm, backend = _load_text_model(args, dtype, quant_bits)
-    if lm is not None and args.sp > 1:
+    if lm is not None and (args.tp > 1 or args.dp > 1):
+        # tensor/data-parallel serving: weights and KV heads over tp, slot
+        # rows over dp; every engine step runs each group's shards
+        # (parallel/inference.py). Weights quantized in situ raise, as in
+        # crane_tpu.
+        if args.sp > 1:
+            raise ValueError("--tp/--dp and --sp are mutually exclusive")
+        if args.max_concurrent % args.dp:
+            raise ValueError(f"--max-concurrent {args.max_concurrent} must divide by --dp "
+                             f"{args.dp} (slots shard evenly over the dp axis)")
+        from crane_tpu_torch.parallel.inference import shard_lm
+        from crane_tpu_torch.parallel.sharding import make_mesh
+
+        n = args.dp * args.tp
+        devices = [args.device] * n if lm.device.type == "cpu" else None
+        lm = shard_lm(lm, make_mesh(args.dp, args.tp, devices))
+    elif lm is not None and args.sp > 1:
         # sequence-parallel serving: KV sequence axis sharded over sp
         # devices — max_seq_len beyond one card's memory (parallel/sequence.py)
         from crane_tpu_torch.parallel.sequence import make_sp_mesh, sp_shard_lm

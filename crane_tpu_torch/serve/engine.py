@@ -37,6 +37,10 @@ the history rows when speculation can engage, and the speculative rounds.
 model (:func:`~crane_tpu_torch.parallel.sequence.sp_shard_lm`) is served the
 same way: its slots' rows are split into slabs, and every admission, chunk,
 preemption, prefix reuse and speculative verify works on the sharded rows.
+A tensor/data-parallel model (:func:`~crane_tpu_torch.parallel.inference.shard_lm`)
+too: its slots split over the dp groups (``max_slots`` must divide by dp), a
+slot prefill goes to the group that holds the row, and every step runs on
+each group's tp shards.
 """
 
 from __future__ import annotations
@@ -63,9 +67,10 @@ from crane_tpu_torch.serve.stats import EngineStats
 from crane_tpu_torch.tokenizer.token_stream import TokenOutputStream
 from crane_tpu_torch.utils.buckets import bucket_length
 from crane_tpu_torch.models.causal_lm import CausalLM, prompt_ids_error
-from crane_tpu_torch.ops.kv_cache import SequenceShardedKVCache
+from crane_tpu_torch.ops.kv_cache import MeshLayerCache, SequenceShardedKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
+from crane_tpu_torch.parallel.sharding import ShardedParams
 
 log = logging.getLogger("crane_tpu_torch.engine")
 
@@ -88,7 +93,9 @@ def _pow2_floor(cap: int, floor: int) -> int:
 
 def _tree_bytes(tree) -> int:
     """Bytes of a parameter tree; a ``QuantizedWeight`` counts its codes
-    and scales."""
+    and scales, a sharded tree every shard's copy."""
+    if isinstance(tree, ShardedParams):
+        return sum(tree.device_bytes().values())
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
     if isinstance(tree, (tuple, list)):
@@ -98,15 +105,29 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def _weight_bytes(lm) -> dict:
+    """Bytes of weights each device holds: a sharded model's shards on their
+    devices (copies on a repeated device add up), else all on its device."""
+    if isinstance(lm.params, ShardedParams):
+        return lm.params.device_bytes()
+    return {lm.device: _tree_bytes(lm.params)}
+
+
 def _device_bytes(lm, cache) -> dict:
-    """Bytes each device holds: the weights, the lengths and every whole
-    layer cache on the model's (lead) device, and each slab of a
-    sequence-sharded layer on its own device."""
-    held = {lm.device: _tree_bytes(lm.params) + _tree_bytes(cache.lengths)}
+    """Bytes each device holds: the weights (:func:`_weight_bytes`), the
+    lengths and every whole layer cache on the model's (lead) device, each
+    slab of a sequence-sharded layer and each part of a mesh-sharded one on
+    its own device."""
+    held = _weight_bytes(lm)
+    held[lm.device] = held.get(lm.device, 0) + _tree_bytes(cache.lengths)
     for layer in cache.layers:
         if isinstance(layer, SequenceShardedKVCache):
             for slab, dev in zip(layer.slabs, layer.devices):
                 held[dev] = held.get(dev, 0) + _tree_bytes(slab.tensors())
+        elif isinstance(layer, MeshLayerCache):
+            for parts, devs in zip(layer.parts, layer.devices):
+                for part, dev in zip(parts, devs):
+                    held[dev] = held.get(dev, 0) + _tree_bytes(part.tensors())
         else:
             held[lm.device] += _tree_bytes(layer.tensors())
     return held
@@ -123,7 +144,10 @@ def _check_hbm_budget(lm, max_slots: int, max_seq_len: int,
     the engine makes next runs on the ``meta`` device, which allocates
     nothing. A sequence-parallel model counts its lead device as the weights
     plus what it holds of the cache, and every other device as its slabs
-    (slabs on a repeated device add up); the speculative ``history`` rows
+    (slabs on a repeated device add up); a tensor/data-parallel model counts
+    each device's weight shards and cache parts, so weights divide by the tp
+    extent only and the KV by dp x tp, as crane_tpu's rule has it (parts on
+    a repeated device add up); the speculative ``history`` rows
     (``history_cols`` int32 tokens a slot) count on the lead device. 15%
     headroom covers activations and allocator slack. The limit is the
     device's total memory (``torch.cuda.mem_get_info``) on a CUDA model; ``CRANE_HBM_BYTES``
@@ -133,14 +157,14 @@ def _check_hbm_budget(lm, max_slots: int, max_seq_len: int,
     if not env and lm.device.type != "cuda":
         return
     cache = lm.init_cache(max_slots, max_seq_len, quant_bits=kv_quant_bits, device="meta")
-    weights = _tree_bytes(lm.params)
+    weights_by = _weight_bytes(lm)
     gib = 1024 ** 3
     held_by = _device_bytes(lm, cache)
     held_by[lm.device] += max_slots * history_cols * 4
     for dev, held in held_by.items():
         limit = int(env) if env else torch.cuda.mem_get_info(dev)[1]
         need = int(held * 1.15)
-        w = weights if dev == lm.device else 0
+        w = weights_by.get(dev, 0)
         if need > limit:
             raise RuntimeError(
                 f"HBM budget exceeded on {dev}: weights {w / gib:.2f} GiB + cache "

@@ -1078,3 +1078,94 @@ def test_k6_verify_rows_match_plain(dev, dtype, bits, M, I, O):
     got = quant_matmul(x, w.codes, w.scales, bits=bits)
     torch.testing.assert_close(got.float(), quant_matmul_plain(x.float(), w.codes, w.scales,
                                                                bits=bits), **TOL[dtype])
+
+
+def _grad_calls(dev):
+    """A call of every kernel wrapper on small inputs on the card; ``req``
+    makes its first input require grad."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = (rnd(gen, 1, s, h, 64, dtype=torch.bfloat16) for s, h in ((4, 2), (8, 1), (8, 1)))
+    qd = rnd(gen, 1, 1, 2, 64, dtype=torch.bfloat16)
+    cache = QuantLayerKVCache.empty(1, 8, 1, 64, bits=8, device=dev)
+    cache.update(k, v, 0)
+    ops = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    valid = torch.tensor([5], dtype=torch.int32, device=dev)
+    pos = torch.arange(4, 8, dtype=torch.int32, device=dev)[None]
+    w = quantize_weight(rnd(gen, 64, 16, dtype=torch.float32), bits=8)
+    g = -torch.rand(1, 5, 2, generator=gen, device=dev)
+    return {
+        "K1": lambda req: k1.fp_decode_attention(req(qd), k, v, valid, scale=0.125),
+        "K1-S": lambda req: k1.fp_decode_attention_with_stats(req(qd), k, v, valid, scale=0.125),
+        "K2": lambda req: k23.flash_attention_causal(req(q), k[:, :4].contiguous(),
+                                                      v[:, :4].contiguous(), scale=0.125),
+        "K3": lambda req: k23.flash_attention_cached(req(q), k, v, pos, scale=0.125),
+        "K3-S": lambda req: k23.flash_attention_cached_with_stats(req(q), k, v, pos, scale=0.125),
+        "K4": lambda req: k45.quant_decode_attention(req(qd), *ops, valid, bits=8, scale=0.125),
+        "K4-S": lambda req: k45.quant_decode_attention_with_stats(req(qd), *ops, valid, bits=8,
+                                                                  scale=0.125),
+        "K5": lambda req: k45.quant_cached_attention(req(q), *ops, pos, bits=8, scale=0.125),
+        "K5-S": lambda req: k45.quant_cached_attention_with_stats(req(q), *ops, pos, bits=8,
+                                                                  scale=0.125),
+        "K6": lambda req: quant_matmul(req(rnd(gen, 3, 64, dtype=torch.bfloat16)), w.codes,
+                                       w.scales, bits=8),
+        "K7": lambda req: gdn_scan(req(rnd(gen, 1, 5, 2, 64, dtype=torch.bfloat16)),
+                                   rnd(gen, 1, 5, 2, 64, dtype=torch.bfloat16),
+                                   rnd(gen, 1, 5, 2, 64, dtype=torch.bfloat16), g, g.sigmoid()),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K1-S", "K2", "K3", "K3-S", "K4", "K4-S", "K5", "K5-S",
+                                    "K6", "K7"])
+def test_wrappers_refuse_inputs_that_require_grad(dev, kernel):
+    """A kernel's output has no ``grad_fn``: under grad mode each wrapper
+    refuses an input that requires grad before it launches; under
+    ``no_grad`` the same call launches."""
+    call = _grad_calls(dev)[kernel]
+    before = kernels.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(lambda t: t.clone().requires_grad_(True))
+    assert kernels.launch_counts() == before
+    with torch.no_grad():
+        call(lambda t: t.clone().requires_grad_(True))
+    assert kernels.launch_counts() != before
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)])
+def test_sharded_generate_on_card_matches_unsharded(dev, dp, tp):
+    """A tiny float32 model (heads of 64, which the kernels take) split over
+    a mesh of the one card: the engine's greedy tokens equal the unsharded
+    engine's, and each shard launches the kernels at its local heads."""
+    from crane_tpu_torch.parallel.inference import shard_lm
+    from crane_tpu_torch.parallel.sharding import make_mesh
+
+    cfg = dataclasses.replace(QWEN3_TINY, head_dim=64)
+    lm = CausalLM(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                                   dtype=torch.float32), dtype=torch.float32)
+    slm = shard_lm(lm, make_mesh(dp, tp, [dev] * (dp * tp)))
+    prompts = [[3, 14, 15, 92, 6], [7, 8, 9], [5] * 70, [1, 2]]
+
+    def serve(model):
+        engine = InferenceEngine(model, max_slots=4, max_seq_len=256, decode_tokens_per_seq=4)
+        queues = [engine.submit(EngineRequest(f"r{i}", p, 12, SamplingOptions(
+            do_sample=False, repetition_penalty=1.0))) for i, p in enumerate(prompts)]
+        for _ in range(300):
+            if not engine.step() and engine.request_q.empty():
+                break
+        out = []
+        for q in queues:
+            toks = []
+            while not (r := q.get(timeout=60)).finished:
+                if r.token is not None:
+                    toks.append(r.token)
+            assert r.error is None, r.error
+            out.append(toks)
+        return out
+
+    kernels.reset_launch_counts()
+    ref = serve(lm)
+    ref_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    assert serve(slm) == ref
+    got = kernels.launch_counts()
+    assert got["fp_decode_attention"] == dp * tp * ref_counts["fp_decode_attention"] > 0
+    assert got["flash_attention_causal"] == tp * ref_counts["flash_attention_causal"] > 0

@@ -10,7 +10,9 @@ identical, on fp, int8 and int4 caches. ``generate`` with speculation must
 give plain greedy decoding's tokens and crane_tpu's; the configs crane_tpu's
 gate keeps out of speculation (sampled, penalised) must quietly take plain
 decoding. The per-row cache write a verify chunk makes is held at the
-buffer's end and across a slab boundary.
+buffer's end and across a slab boundary. The K/V that speculation writes is
+held slot by slot against the K/V plain decoding writes for the same
+tokens, in bf16 and with int4 weights on an int4 cache.
 """
 
 import dataclasses
@@ -238,6 +240,72 @@ def test_generate_spec_k_and_kv_bits(lms, spec_k, kv_bits):
     assert spec == plain
     assert spec == jl.generate(prompt, JGenerationConfig.greedy(
         16, speculative="ngram", spec_k=spec_k, kv_quant_bits=kv_bits))
+
+
+# the largest per-slot relative distance between speculative and plain K/V:
+# the two paths compute each position's K/V in different products (a verify
+# chunk of k + 1 rows against one row a step), which may round apart in bf16
+# (on the CPU they read 0), and an int4 code may land one step over; a slot
+# written one position off reads about 1 or more (the control below)
+SLOT_BOUND = {"bf16": 0.05, "w4 kv4": 0.2}
+
+
+def spec_and_plain_caches(tl, prompt, n, kv_bits):
+    """The K/V ``generate`` leaves in its kept cache after ``n`` greedy
+    tokens, plainly and speculatively (spec_k 4), with both token lists.
+    Returns (plain layers, speculative layers, live slots, plain tokens,
+    speculative tokens)."""
+    plain = tl.generate(prompt, GenerationConfig.greedy(n, kv_quant_bits=kv_bits))
+    cache = tl._generate_caches[(256, kv_bits)][0]
+    plain_layers = clone_layers(cache.layers)
+    spec = tl.generate(prompt, GenerationConfig.greedy(n, speculative="ngram", spec_k=4,
+                                                       kv_quant_bits=kv_bits))
+    assert tl._generate_caches[(256, kv_bits)][0] is cache
+    # the K/V of the prompt and of every token fed back (all but the last)
+    return plain_layers, cache.layers, len(prompt) + n - 1, plain, spec
+
+
+def clone_layers(layers):
+    return [dataclasses.replace(layer, **{
+        f.name: getattr(layer, f.name).clone() for f in dataclasses.fields(layer)
+        if isinstance(getattr(layer, f.name), torch.Tensor)}) for layer in layers]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "w4 kv4"])
+def test_speculative_kv_equals_plain_kv_slot_by_slot(lms, mode):
+    """The same greedy tokens decoded speculatively and plainly write the
+    same K/V into every slot (bf16, and int4 weights on an int4 cache):
+    the tokens alone cannot show a verify that writes a slot off, since
+    random weights accept few drafts and the tie rule is blunt. A control
+    with the speculative rows shifted one slot fails the bound."""
+    from crane_tpu_torch.models.auto import quantize_params
+    from crane_tpu_torch.ops.kv_cache import slot_errors
+
+    _, tl = lms
+    params = _tree(tl.params, lambda t: t.to(torch.bfloat16))
+    kv_bits = None
+    if mode == "w4 kv4":
+        params, kv_bits = quantize_params(params, bits=4), 4
+    model = TLM(tl.config, params, dtype=torch.bfloat16)
+    prompt = [5, 6, 7, 8] * 5 + [3, 14, 15]
+    plain_layers, spec_layers, live, plain, spec = spec_and_plain_caches(model, prompt, 24,
+                                                                         kv_bits)
+    assert spec == plain
+    errs = slot_errors(spec_layers, plain_layers, 0, live)
+    assert errs.max().item() < SLOT_BOUND[mode], errs
+    shifted = [dataclasses.replace(layer, **{
+        f.name: torch.roll(getattr(layer, f.name), 1, dims=2 if f.name.endswith("scale") else 1)
+        for f in dataclasses.fields(layer) if isinstance(getattr(layer, f.name), torch.Tensor)})
+        for layer in spec_layers]
+    assert slot_errors(shifted, plain_layers, 0, live).max().item() > SLOT_BOUND[mode]
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree(v, fn) for v in tree)
+    return fn(tree)
 
 
 def test_generate_eos_inside_accepted_block(lms):
