@@ -79,6 +79,19 @@ each reported on its own line:
    off); K1, K2, K3 (at head_dim 256) and both K7 routes (the scan for
    the prompts bucketed at 64 tokens) were each launched by this
    hybrid path;
+   fuse: the layout ``CRANE_FUSE_PROJ=1`` gives (``models/fuse.py``:
+   q|k|v and gate|up as one product each) on the models built above. K6
+   at the fused widths (O = 4096 and 6144, M = 1, 8, 256) against its
+   plain version and against the unfused products concatenated (bit for
+   bit where the kernel splits I the same way at both widths); Qwen3-0.6B
+   bf16, w8 kv8 and w4 kv4 fused against unfused (the 300-token prefill's
+   logits, 64 greedy tokens under the tie rule), the engine mix fused at
+   w4 kv4, Qwen3.5-0.8B's prefill and 16 tokens (its gated q twice as
+   wide); K6 launches a w4 kv4 decode step fall by 3 a layer; the graph
+   decode step fused beside unfused (B=1 and 8; an A/B in turns in bf16,
+   w8 kv8 and w4 kv4); a ``utils/tracing.py`` span in a profiler trace,
+   ``utils/timing.py``'s ``marginal_rate`` of graph blocks, and
+   ``ops/activations.py`` on the card against the CPU;
 10. sp: sequence-parallel serving of full-width Qwen3-0.6B in four slabs on
    the one card (``make_sp_mesh(4, ["cuda:0"] * 4)``). The with-stats
    kernels K1-S, K3-S, K4-S and K5-S (kv8, kv4) against their plain
@@ -282,7 +295,7 @@ Decode blocks run as CUDA graphs on every path; ``graphs.eager()`` gives
 the eager loop they are held against. The decode-step lines time both in
 this one process, 4 blocks of 8 steps each. Each phase logs its seconds.
 
-Every model path (dense, quantized, hybrid, sp, the three once-unrun
+Every model path (dense, quantized, hybrid, fuse, sp, the three once-unrun
 paths, lfm2, moe, gemma3n, the three vision-language models, Qwen3-ASR,
 Qwen2-Audio, Qwen3-TTS, CSM, Kokoro and OCR) must route no attention call
 to a plain version, and Voxtral's exactly its backbone's (Gemma 3n's
@@ -438,22 +451,26 @@ def bound(nbytes: float, flops: float, peak: str = "bf16") -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attn_work(B, S, Hq, Hkv, D, pairs, kv_rows, kv_bytes, index_bytes, stats=False):
-    """(bytes, FLOPs) of an attention call with bf16 queries: q read and
-    out written (2 bytes each), ``kv_rows`` token rows of K and V read at
-    ``kv_bytes`` a token and kv-head (2 D in bf16; D or D/2 codes plus a
-    4-byte scale quantized), the indices, and with stats m and l written
-    (float32); ``pairs`` (query row, visible key) pairs summed over the
-    batch, 4 D FLOPs each per query head (q.k and p.v)."""
-    nbytes = 2 * B * S * Hq * D * 2 + 2 * kv_rows * Hkv * kv_bytes + index_bytes
+def attn_work(B, S, Hq, Hkv, D, pairs, kv_rows, kv_bytes, index_bytes, stats=False,
+              q_bytes=2):
+    """(bytes, FLOPs) of an attention call: q read and out written
+    (``q_bytes`` each, 2 in bf16), ``kv_rows`` token rows of K and V read at
+    ``kv_bytes`` a token and kv-head (2 D in bf16, 4 D in float32; D or D/2
+    codes plus a 4-byte scale quantized), the indices, and with stats m and
+    l written (float32); ``pairs`` (query row, visible key) pairs summed over
+    the batch, 4 D FLOPs each per query head (q.k and p.v)."""
+    nbytes = 2 * B * S * Hq * D * q_bytes + 2 * kv_rows * Hkv * kv_bytes + index_bytes
     if stats:
         nbytes += 2 * B * Hq * S * 4
     return nbytes, 4 * Hq * D * pairs
 
 
 def kv_token_bytes(D: int, bits: int) -> int:
-    """Bytes of one token and kv-head of K (or V) as the cache stores it."""
-    return 2 * D if bits == 16 else (D if bits == 8 else D // 2) + 4
+    """Bytes of one token and kv-head of K (or V) as the cache stores it
+    (``bits`` 32: float32)."""
+    if bits in (16, 32):
+        return bits // 8 * D
+    return (D if bits == 8 else D // 2) + 4
 
 
 def decode_work(q, Hkv, valid, bits=16, stats=False):
@@ -470,7 +487,7 @@ def chunk_work(q, Hkv, T, pos, bits=16, stats=False):
     B, S, Hq, D = q.shape
     seen = (pos.clamp(max=T - 1) + 1).clamp(min=0)
     return attn_work(B, S, Hq, Hkv, D, int(seen.sum()), int(seen.amax(dim=1).sum()),
-                     kv_token_bytes(D, bits), 4 * B * S, stats)
+                     kv_token_bytes(D, bits), 4 * B * S, stats, q_bytes=q.element_size())
 
 
 def sdpa(q, k, v, mask=None, causal=False):
@@ -674,8 +691,13 @@ def check_float32_route(q, k, v, shape, pos=None) -> None:
     err = compare(f"{'K2' if pos is None else 'K3'} float32 {shape}", kernel(), plain(),
                   rtol=F32_RTOL, atol=F32_ATOL)
     ms, plain_ms, _ = paired_ms(kernel, plain)
+    B, S, Hq, D = q.shape
+    work = (attn_work(B, S, Hq, k.shape[2], D, B * S * (S + 1) // 2, B * S, 4 * D, 0, q_bytes=4)
+            if pos is None else chunk_work(q, k.shape[2], k.shape[1], pos, bits=32))
+    bound_ms, bound_by = bound(*work, peak="f32")
     log("kernels", f"{'K2' if pos is None else 'K3'} float32 route (CUDA cores): max|err| "
-                   f"{err:.3g}, {ms:.4f} ms vs plain {plain_ms:.4f} ms at {shape}")
+                   f"{err:.3g}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                   f"({bound_by}, float32 outside the tensor cores) at {shape}")
 
 
 # kv_valid of the decode kernels' cases: ragged, with an empty and a full row
@@ -1958,10 +1980,11 @@ def sp_engine_run(lm, prompts, phase):
     return toks, step_ms
 
 
-def launches_per(model, label, kv_bits=None) -> None:
+def launches_per(model, label, kv_bits=None) -> dict[str, int]:
     """Log the kernels one B=1 decode step and one 256-token continuation
     chunk launch, read from the launch counters (outside any main-path
-    window), and the chunk's device time (log_device_ms)."""
+    window), and the chunk's device time (log_device_ms). Returns the
+    step's launches."""
     import torch
 
     from crane_tpu_torch.ops import cuda as kernels
@@ -1983,6 +2006,7 @@ def launches_per(model, label, kv_bits=None) -> None:
                     f"per 256-token chunk {json.dumps(chunk)}")
     log_device_ms(label, "a 256-token chunk at 513 of a 2048-slot row",
                   lambda: model.prefill(cache, [ids[:256]], [256], start=513))
+    return step
 
 
 STEP_BLOCK = 8  # decode steps a timed block runs (the engine's decode_tokens_per_seq)
@@ -1994,15 +2018,22 @@ STEP_BLOCK = 8  # decode steps a timed block runs (the engine's decode_tokens_pe
 DECODE_SHAPES = ((1, 2048, 300), (8, 2048, 300), (1, LONG_T, LONG_LIVE))
 
 
-def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
+# blocks of STEP_BLOCK steps log_decode_steps times on the host clock, by
+# mode: an eager step is the host's dispatch of thousands of launches, tens
+# of milliseconds, so two blocks read it as well as four
+TIMED_BLOCKS = {"eager": 2, "graph": 4}
+
+
+def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES,
+                     modes=("eager", "graph")) -> dict:
     """[profile] lines of a decode step, the eager loop beside the CUDA
-    graph, in this one process: the kernels' device time by family
-    (log_device_ms, over one block of STEP_BLOCK steps) and the wall time a
-    step on the host clock (4 blocks after a synchronize, ended by one), at
-    each of ``shapes``. The device idle share is 1 - busy / wall. Where the profiler
-    sees no device time inside a graph replay, the graph's busy time is the
-    eager block's (the same kernels), and the line says so. Returns
-    {(B, T): {mode: (wall ms, busy ms)}}."""
+    graph (``modes``), in this one process: the kernels' device time by
+    family (log_device_ms, over one block of STEP_BLOCK steps) and the wall
+    time a step on the host clock (TIMED_BLOCKS[mode] blocks after a
+    synchronize, ended by one), at each of ``shapes``. The device idle share is 1 - busy / wall.
+    Where the profiler sees no device time inside a graph replay, the
+    graph's busy time is the eager block's (the same kernels), and the line
+    says so. Returns {(B, T): {mode: (wall ms, busy ms)}}."""
     import torch
 
     from crane_tpu_torch.models import graphs
@@ -2019,7 +2050,7 @@ def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
         gen = torch.Generator(device=dev)
         what = f"a decode step at B={B} after {ctx} tokens in {T}-slot rows"
         table[(B, T)] = {}
-        for mode in ("eager", "graph"):
+        for mode in modes:
             def block():
                 model.decode_steps(cache, tokens, recent, sp, gen, STEP_BLOCK)
 
@@ -2028,13 +2059,13 @@ def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
                                          block)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for _ in range(4):
+                for _ in range(TIMED_BLOCKS[mode]):
                     block()
                 torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / (4 * STEP_BLOCK) * 1e3
+            wall = (time.perf_counter() - t0) / (TIMED_BLOCKS[mode] * STEP_BLOCK) * 1e3
             busy = sum(families.values()) / STEP_BLOCK
             source = ""
-            if not busy and mode == "graph":
+            if not busy and mode == "graph" and "eager" in table[(B, T)]:
                 busy, source = table[(B, T)]["eager"][1], " (busy: the eager block's kernels)"
             table[(B, T)][mode] = (wall, busy)
             idle = (f", device busy {busy:.4f} ms, idle {1 - busy / wall:.1%}{source}"
@@ -2043,6 +2074,9 @@ def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES) -> dict:
                            f"clock{idle}; K1 + K4 "
                            f"{(families.get('K1', 0.0) + families.get('K4', 0.0)) / STEP_BLOCK:.4f}"
                            f" ms a step")
+        if len(table[(B, T)]) < 2:
+            del cache
+            continue
         eager, graph = table[(B, T)]["eager"], table[(B, T)]["graph"]
         log("profile", f"{label}, {what}: graph {graph[0]:.3f} ms vs eager {eager[0]:.3f} ms a "
                        f"step ({eager[0] / graph[0]:.2f}x)")
@@ -3970,12 +4004,20 @@ def reset_counts() -> None:
 
 def no_plain_routes(path: str) -> None:
     """Fail if the path routed any attention call to a plain version: every
-    model the smoke run drives has heads the kernels take."""
+    model the smoke run drives has heads the kernels take. A path whose
+    counts show no attention launch either says that it made no attention
+    call."""
     from crane_tpu_torch.models.modules.transformer import attention_block
+    from crane_tpu_torch.ops import cuda as kernels
 
     if any(attention_block.plain_routes.values()):
         raise AssertionError(f"the {path} routed attention to a plain version: "
                              f"{attention_block.plain_routes}")
+    launched = {k: n for k, n in kernels.launch_counts().items() if n and "attention" in k}
+    if not launched:
+        log("routes", f"{path}: no attention call was made (no attention kernel launched, "
+                      f"plain routes {json.dumps(attention_block.plain_routes)})")
+        return
     log("routes", f"{path}: every attention call went to a kernel (plain routes "
                   f"{json.dumps(attention_block.plain_routes)})")
 
@@ -4068,8 +4110,9 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
     log("launches", f"{path}: {json.dumps(counts)}")
     for row in rows:
         name = row["name"]
-        for tag in (LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32, G3N_HEADS, SEG_HEADS,
-                    MHA_HEADS, PRED_PREFILL, PRED_STEP, DEPTH_CHUNK, TP_06, TP_35, TP_NEXT, TP_H8):
+        for tag in (*FUSED_TAGS, LONG, D256, M256, LFM2_HEADS, NEXT_HEADS, H32, G3N_HEADS,
+                    SEG_HEADS, MHA_HEADS, PRED_PREFILL, PRED_STEP, DEPTH_CHUNK, TP_06, TP_35,
+                    TP_NEXT, TP_H8):
             name = name.removesuffix(tag)
         row["launches"] = counts[name]
         if row["launches"] <= 0:
@@ -7348,10 +7391,11 @@ def require_scaled(label: str, got: dict, ref: dict, factor) -> None:
             raise AssertionError(f"{label}: {name} launched {n} times, want {f} x {r}")
 
 
-def generate_step_logits(model, prompt, ref, i):
+def generate_step_logits(model, prompt, ref, i, kv_bits=None):
     """The logits that chose ``ref[i]`` in ``model.generate(prompt,
-    greedy(len(ref)))``, recomputed on that path's own state: its prefill
-    into a cache of generate's size, then decode steps fed ``ref[:i]``."""
+    greedy(len(ref), kv_quant_bits=kv_bits))``, recomputed on that path's
+    own state: its prefill into a cache of generate's size and kind, then
+    decode steps fed ``ref[:i]``."""
     import torch
 
     from crane_tpu_torch.models.modules.transformer import forward_hidden, lm_logits
@@ -7360,7 +7404,8 @@ def generate_step_logits(model, prompt, ref, i):
     max_seq = bucket_length(len(prompt) + len(ref), floor=256)
     padded = prompt + [0] * (bucket_length(len(prompt), floor=64, ceiling=max_seq) - len(prompt))
     with torch.no_grad():
-        logits, cache = model.prefill(model.init_cache(1, max_seq), [padded], [len(prompt)])
+        logits, cache = model.prefill(model.init_cache(1, max_seq, quant_bits=kv_bits), [padded],
+                                      [len(prompt)])
         logits = logits[0]
         for t in ref[:i]:
             tok = torch.tensor([[t]], dtype=torch.int32, device=model.device)
@@ -7679,6 +7724,378 @@ def check_tp_train(lm, mesh) -> None:
         raise AssertionError("K2 took a query that requires grad")
 
 
+# ---------------------------------------------------------------------------
+# Phase 'fuse': wq|wk|wv and gate|up as one product each (models/fuse.py)
+
+# Qwen3-0.6B's fused K6 shapes at I = 1024: q|k|v (2048 + 1024 + 1024) and
+# gate|up (3072 + 3072); a row's name carries the kind and M
+FUSED_PARTS = {"qkv": (2048, 1024, 1024), "gate_up": (3072, 3072)}
+FUSED_M = (1, 8, 256)
+FUSED_TAGS = tuple(f"[{kind} M{M}]" for kind in FUSED_PARTS for M in FUSED_M)
+# fused against unfused in bf16, on one card: the same weights, K6 bit for
+# bit where its split of I matches (check_fused_k6), cuBLAS free to choose
+# another algorithm for the wider bf16 product and the plain prefill
+# product at M = 300: the last-token logits agree to FUSE_REL_L2, greedy
+# tokens by the tie rule
+FUSE_REL_L2 = 1e-3
+# Qwen3.5-0.8B's random-weight hybrid magnifies every bf16 rounding about 5x
+# the dense model's (bf16 against float32: about 0.08 at 24 layers against
+# 0.017; check_hybrid_model), so its bar is 5x the dense one
+FUSE_REL_L2_35 = 5e-3
+FUSE_NEW = 64  # greedy tokens of the fused-against-unfused generate
+FUSE_NEW_35 = 16  # Qwen3.5-0.8B's
+
+
+def mma_tiles_ran(calls) -> list | None:
+    """The output tile (rows, cols) of the tensor-core K6 instance each of
+    ``calls`` launched, in order, read from the kernel names of one
+    ``torch.profiler`` trace; None unless the trace holds one such kernel a
+    call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    kernel = "quant_matmul_mma_kernel<"  # <rows, cols, int4>
+    found = sorted((e.start_ns(), e.name().split(kernel, 1)[1].split(","))
+                   for e in device_events(prof) if kernel in e.name())
+    if len(found) != len(calls):
+        return None
+    return [(int(args[0]), int(args[1])) for _, args in found]
+
+
+def check_fused_k6() -> list[dict]:
+    """Phase 3 at the fused widths: K6 (w8, w4) at M in FUSED_M on
+    Qwen3-0.6B's fused q|k|v (O = 4096) and gate|up (O = 6144), each fused
+    weight built by fuse_layer from the separately quantized parts. Each
+    against its plain version (float32 on the same codes), and against the
+    unfused products concatenated: bit for bit where the reduction over I
+    runs in the same order at both widths (the CUDA-core kernel below
+    MMA_MIN_M rows; the tensor-core kernel where mma_plan splits I over the
+    same cluster at both widths), else within the kernel bound; the plans
+    are logged. One row per bit width, kind and M, timed against the plain
+    version and the library call where one computes the same function
+    (``int8pack_mm``, ``int4pack_mm``), launches 0. The tensor-core
+    instance each product launched is read from one profiler trace and held
+    to mma_plan's tile."""
+    import torch
+
+    from crane_tpu_torch.models.fuse import fuse_layer
+    from crane_tpu_torch.ops.cuda.quant_matmul import (
+        MMA_MIN_M,
+        MMA_TILES,
+        mma_plan,
+        quant_matmul,
+        quant_matmul_plain,
+    )
+    from crane_tpu_torch.ops.linear import quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(4096)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    rows, tensor_core = [], []
+    for bits in (8, 4):
+        for kind, outs in FUSED_PARTS.items():
+            parts = [quantize_weight(rnd(1024, o) * 1024 ** -0.5, bits=bits) for o in outs]
+            layer = ({"attn": dict(zip(("wq", "wk", "wv"), parts))} if kind == "qkv"
+                     else {"mlp": dict(zip(("gate", "up"), parts))})
+            fused = fuse_layer(layer)
+            w = fused["attn"]["wqkv"] if kind == "qkv" else fused["mlp"]["gate_up"]
+            I, O = w.shape
+            if w.packed != (bits == 4) or O != sum(outs):
+                raise AssertionError(f"fused w{bits} {kind}: shape {w.shape}, packed {w.packed}")
+            for M in FUSED_M:
+                x = rnd(M, I).to(torch.bfloat16)
+                name = f"K6 w{bits} {kind} M={M} I={I} O={O}"
+                got = quant_matmul(x, w.codes, w.scales, bits=bits)
+                err = compare(name, got, quant_matmul_plain(x.float(), w.codes, w.scales,
+                                                            bits=bits))
+                plan = mma_plan(M, I, O, bits, sms)
+                o, verdicts = 0, []
+                for p in parts:
+                    ref = quant_matmul(x, p.codes, p.scales, bits=bits)
+                    piece = got[:, o:o + p.shape[1]]
+                    o += p.shape[1]
+                    if M < MMA_MIN_M:
+                        same_order, where = True, "CUDA-core kernel"
+                    else:
+                        part_plan = mma_plan(M, I, p.shape[1], bits, sms)
+                        same_order = part_plan[1] == plan[1]
+                        where = (f"tiles {MMA_TILES[part_plan[0]]} / {MMA_TILES[plan[0]]}, "
+                                 f"split {part_plan[1]} / {plan[1]}")
+                    equal = torch.equal(piece, ref)
+                    if same_order and not equal:
+                        raise AssertionError(f"{name}: the columns of O={p.shape[1]} differ from "
+                                             f"the unfused product in the same order ({where})")
+                    if not equal:
+                        compare(f"{name} vs unfused O={p.shape[1]}", piece, ref)
+                    same = "bit-equal" if equal else f"{int((piece != ref).sum())} elements differ"
+                    verdicts.append(f"O={p.shape[1]}: {same} ({where})")
+                if M >= MMA_MIN_M:
+                    tensor_core.append((name, [
+                        (lambda x=x, q=q, b=bits: quant_matmul(x, q.codes, q.scales, bits=b),
+                         MMA_TILES[mma_plan(M, I, q.shape[1], bits, sms)[0]])
+                        for q in [w] + parts]))
+                log("kernels", f"{name}: max|err| {err:.3g} vs plain; against the unfused "
+                               f"products (part / fused): {'; '.join(verdicts)}")
+                library = int4pack_mm(x, w) if bits == 4 else int8pack_mm(x, w)
+                rows.append(timed_row(
+                    f"quant_matmul[w{bits}][{kind} M{M}]",
+                    "quant_matmul.cu" if M < MMA_MIN_M else "quant_matmul_mma.cu",
+                    "crane_tpu/ops/pallas/quant_matmul.py:" + ("102" if bits == 8 else "115"),
+                    [err], lambda: quant_matmul(x, w.codes, w.scales, bits=bits),
+                    lambda: quant_matmul_plain(x, w.codes, w.scales, bits=bits),
+                    f"M={M} I={I} O={O} (fused {kind})",
+                    (M * I * 2 + I * O * bits // 8 + O * 4 + M * O * 2, 2 * M * I * O),
+                    library))
+    # the tensor-core instance each product launched, from one trace
+    tiles = mma_tiles_ran([call for _, calls in tensor_core for call, _ in calls])
+    for name, calls in tensor_core:
+        planned = [tile for _, tile in calls]
+        if tiles is None:
+            log("kernels", f"{name}: the tiles that ran: not measured (no kernel in the trace)")
+            continue
+        ran, tiles = tiles[:len(calls)], tiles[len(calls):]
+        if ran != planned:
+            raise AssertionError(f"{name}: the tiles that ran, {ran} (fused, then the parts), "
+                                 f"are not mma_plan's {planned}")
+        log("kernels", f"{name}: the tiles that ran (fused, then the parts): {ran}, as planned")
+    return rows
+
+
+def fused_model(lm):
+    """``lm``'s model with its projections fused (a new tree; the weights'
+    bytes as they are), its quantized codes checked against the parts'."""
+    import torch
+
+    from crane_tpu_torch.models.causal_lm import CausalLM
+    from crane_tpu_torch.ops.linear import QuantizedWeight
+
+    fused = CausalLM(lm.config, lm.params, dtype=lm.dtype, fuse=True)
+    for lf, lu in zip(fused.params["layers"], lm.params["layers"]):
+        for part, key, names in (("attn", "wqkv", ("wq", "wk", "wv")),
+                                 ("mlp", "gate_up", ("gate", "up"))):
+            if part not in lf or names[0] not in lu.get(part, {}):
+                continue  # a GDN layer has no q|k|v
+            w = lf[part][key]
+            ws = [lu[part][n] for n in names]
+            if isinstance(w, QuantizedWeight):
+                same = (torch.equal(w.codes, torch.cat([u.codes for u in ws], 1))
+                        and torch.equal(w.scales, torch.cat([u.scales for u in ws], 1)))
+            else:
+                same = torch.equal(w, torch.cat(ws, 1))
+            if not same:
+                raise AssertionError(f"fused {key} is not its parts concatenated")
+    return fused
+
+
+def greedy_blocks(model, prompt, n, kv_bits=None):
+    """(the prefill's last-token logits, ``n`` greedy tokens, the cache, a
+    block): the prompt's fresh prefill into a 512-slot row, then decode
+    steps in graph blocks of STEP_BLOCK (one capture, then replays), as
+    generate's tokens (graph_vs_eager holds a block against the eager
+    loop). ``block()`` replays that program once more at the prompt's end
+    (the row rewound there) and returns its tokens."""
+    import torch
+
+    from crane_tpu_torch.ops.sampling import SamplingParams
+
+    dev = model.device
+    logits, cache = model.prefill(model.init_cache(1, 512, quant_bits=kv_bits), [prompt],
+                                  [len(prompt)])
+    tok = logits.argmax(-1).to(torch.int32)
+    toks = [int(tok[0])]
+    recent = torch.full((1, 64), -1, dtype=torch.int32, device=dev)
+    sp = SamplingParams.make(1, do_sample=False, device=dev)
+    gen = torch.Generator(device=dev)
+    while len(toks) < n:
+        out, cache, recent = model.decode_steps(cache, tok, recent, sp, gen, STEP_BLOCK)
+        toks += out[0].tolist()
+        tok = out[:, -1]
+
+    def block():
+        cache.lengths.fill_(len(prompt))
+        return model.decode_steps(cache, tok, recent, sp, gen, STEP_BLOCK)[0]
+
+    return logits[0], toks[:n], cache, block
+
+
+def fused_against_unfused(label, lm, fused, prompt, n, kv_bits=None,
+                          limit=FUSE_REL_L2) -> tuple:
+    """The 300-token prefill's last-token logits within ``limit`` of the
+    unfused model's, then ``n`` greedy tokens (greedy_blocks) equal, or
+    parting at a tie on the unfused path's own state: its prefill logits
+    for the first token, its replayed decode step over its cache
+    (ties_on_reference_state) for a later one. Returns the two paths'
+    blocks (unfused, fused)."""
+    ref_logits, ref, ref_cache, ref_block = greedy_blocks(lm, prompt, n, kv_bits)
+    logits, got, _, block = greedy_blocks(fused, prompt, n, kv_bits)
+    err = rel_l2(logits, ref_logits)
+    log("fuse", f"{label}: 300-token prefill logits fused vs unfused rel L2 {err:.4g} (limit "
+                f"{limit:g})")
+    if err > limit:
+        raise AssertionError(f"{label}: fused prefill logits disagree with the unfused model's")
+    if got[0] != ref[0]:
+        tie_at_first_difference("fuse", f"{label} greedy({n}) fused vs unfused", ref, got,
+                                lambda i: ref_logits)
+        return ref_block, block
+    parted = ties_on_reference_state(lm, f"{label} fused vs unfused", ref_cache.layers, 1,
+                                     {0: (prompt + ref[:1], got[1:], ref[1:])}, LOGIT_TIE)
+    log("fuse", f"{label}: {n} greedy tokens fused vs unfused: "
+                f"{'identical' if not parted else f'first difference at a tie {parted}'}")
+    return ref_block, block
+
+
+def fuse_ab(blocks: dict) -> None:
+    """The fused/unfused A/B of a graph decode step at B=1 after 300
+    tokens, on the programs fused_against_unfused ran (``blocks``: label ->
+    (unfused block, fused block)): unfused, fused, fused, unfused in turns,
+    CUDA events over 5 blocks of STEP_BLOCK steps each (behind the
+    device-side wait); ms a step each way and their ratio."""
+    for label, (unfused, fused) in blocks.items():
+        t = {"unfused": [], "fused": []}
+        for k, block in (("unfused", unfused), ("fused", fused), ("fused", fused),
+                         ("unfused", unfused)):
+            t[k].append(cuda_ms(block, iters=5, warmup=2) / STEP_BLOCK)
+        u, f = (sum(t[k]) / 2 for k in ("unfused", "fused"))
+        log("fuse", f"A/B {label} B=1, a graph decode step after 300 tokens (CUDA events, in "
+                    f"turns u f f u): unfused {t['unfused'][0]:.4f} / {t['unfused'][1]:.4f} ms, "
+                    f"fused {t['fused'][0]:.4f} / {t['fused'][1]:.4f} ms; fused / unfused "
+                    f"{f / u:.4f}")
+
+
+def check_span_and_rate(label, block) -> None:
+    """utils/tracing.py's span around one graph block (``block()``, which
+    returns its tokens): its name must appear among the events of a
+    torch.profiler trace, and report() is logged; utils/timing.py's
+    marginal_rate of graph blocks (2 against 10, each chain ended by one
+    host sync) beside the CUDA-event ms of a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from crane_tpu_torch.utils import timing, tracing
+
+    name = "fused_decode_block"
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tracing.span(name):
+            timing.host_sync(block())
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    if name not in names or tracing.stats()[name][0] != 1:
+        raise AssertionError(f"span {name!r} is not in the profiler's trace")
+    log("tracing", f"span {name!r} found in the torch.profiler trace; report():\n"
+                   f"{tracing.report()}")
+    rate = timing.marginal_rate(lambda: block, 2, 10)
+    ms = cuda_ms(block, iters=10, warmup=1) / STEP_BLOCK
+    log("timing", f"{label}: marginal_rate of graph blocks {rate:.3f} blocks/s, "
+                  f"{1e3 / (rate * STEP_BLOCK):.4f} ms a step (host clock, one sync a chain) vs "
+                  f"{ms:.4f} ms a step by CUDA events")
+    tracing.reset()
+    torch.cuda.synchronize()
+
+
+def check_activations() -> None:
+    """ops/activations.py on the card against the CPU, on the same inputs:
+    snake (some alpha == 0, the identity) and atan2 (the four quadrants, the
+    axes, the origin), in float32 (1e-5: sin and atan2 of two libraries)
+    and in bf16 (one bf16 rounding of the float32 result)."""
+    import torch
+
+    from crane_tpu_torch.ops.activations import atan2, snake
+
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn(4, 64, 1000, generator=gen) * 3
+    alpha = torch.rand(64, 1, generator=gen) + 0.1
+    alpha[[3, 40]] = 0.0
+    y2, x2 = torch.randn(10000, generator=gen), torch.randn(10000, generator=gen)
+    y2[:9] = torch.tensor([1.0, 1.0, -1.0, -1.0, 0.0, 0.0, 2.0, -2.0, 0.0])
+    x2[:9] = torch.tensor([1.0, -1.0, -1.0, 1.0, 3.0, -3.0, 0.0, 0.0, 0.0])
+    for dtype, tol in ((torch.float32, (1e-5, 1e-5)), (torch.bfloat16, (2 ** -8, 2 ** -8))):
+        for name, fn, args in (("snake", snake, (x.to(dtype), alpha)),
+                               ("atan2", atan2, (y2.to(dtype), x2.to(dtype)))):
+            got = fn(*(a.cuda() for a in args))
+            ref = fn(*args)
+            if got.dtype != ref.dtype:
+                raise AssertionError(f"{name} {dtype}: {got.dtype} on the card")
+            err = compare(f"{name} {dtype} card vs CPU", got.cpu(), ref, rtol=tol[0], atol=tol[1])
+            log("activations", f"{name} {str(dtype).removeprefix('torch.')} card vs CPU: "
+                               f"max|err| {err:.3g} over {ref.numel()} elements")
+        ident = snake(x.to(dtype).cuda(), alpha.cuda())[:, [3, 40]].cpu()
+        if not torch.equal(ident, x.to(dtype)[:, [3, 40]]):
+            raise AssertionError(f"snake {dtype}: alpha == 0 is not the identity on the card")
+
+
+def check_fuse(lm, lm8, lm4, lm35, rows: list[dict], unfused_w4: dict) -> None:
+    """Phase 'fuse': the fused projections (CRANE_FUSE_PROJ's layout) on the
+    models the earlier phases built. The main path, its counts zeroed just
+    before it: Qwen3-0.6B bf16, w8 kv8 and w4 kv4 fused against unfused
+    (fused_against_unfused: the 300-token prefill and FUSE_NEW greedy
+    tokens in graph blocks), the engine mix once fused at w4 kv4, and
+    Qwen3.5-0.8B's prefill and FUSE_NEW_35 tokens (its gated q is 2 H D
+    wide; its GDN layers fuse the MLP only). Then the K6 launches of a B=1
+    w4 kv4 decode step, fused against unfused (3 fewer a layer), the graph
+    decode step fused beside unfused (log_decode_steps at B=1 and 8, w4
+    kv4, and fuse_ab's A/B at B=1 in bf16, w8 kv8 and w4 kv4), a tracing
+    span, timing's marginal rate and the activations on the card. The
+    unfused w4 kv4 model's step launches and graph steps are the quantized
+    phase's (``unfused_w4``: launches_per's "step", log_decode_steps'
+    "table")."""
+    import torch
+
+    from crane_tpu_torch.ops import cuda as kernels
+
+    cfg = lm.config
+    fused = {"bf16": fused_model(lm), "w8 kv8": fused_model(lm8), "w4 kv4": fused_model(lm4)}
+    fused35 = fused_model(lm35)
+    gen = torch.Generator().manual_seed(300)
+    prompt = torch.randint(0, cfg.vocab_size, (300,), generator=gen).tolist()
+    prompt35 = torch.randint(0, lm35.config.vocab_size, (300,), generator=gen).tolist()
+
+    reset_counts()
+    blocks = {label: fused_against_unfused(f"Qwen3-0.6B {label}", unfused, fused[label], prompt,
+                                           FUSE_NEW, kv_bits)
+              for label, unfused, kv_bits in (("bf16", lm, None), ("w8 kv8", lm8, 8),
+                                              ("w4 kv4", lm4, 4))}
+    check_engine(fused["w4 kv4"], "fuse-engine w4 kv4", kv_quant_bits=4)
+    k7_routes_launched("Qwen3.5-0.8B fused", lambda: fused_against_unfused(
+        "Qwen3.5-0.8B bf16", lm35, fused35, prompt35, FUSE_NEW_35, limit=FUSE_REL_L2_35))
+    counts = kernels.launch_counts()
+    read_launches("fuse path", rows, counts)
+    require_launched("fuse path", counts, (
+        "fp_decode_attention", "flash_attention_causal", "quant_decode_attention[kv8]",
+        "quant_decode_attention[kv4]", "quant_cached_attention[kv4]", "quant_matmul[w8]",
+        "quant_matmul[w4]", "gdn_scan[chunk]"))
+    no_plain_routes("fuse path")
+
+    k6 = {"unfused": unfused_w4["step"].get("quant_matmul[w4]", 0),
+          "fused": launches_per(fused["w4 kv4"], "Qwen3-0.6B w4 kv4 fused",
+                                kv_bits=4).get("quant_matmul[w4]", 0)}
+    log("launches", f"Qwen3-0.6B w4 kv4, K6 a B=1 decode step: unfused {k6['unfused']}, fused "
+                    f"{k6['fused']}")
+    if k6["unfused"] - k6["fused"] != 3 * cfg.num_layers:
+        raise AssertionError(f"K6 launches a decode step {k6['unfused']} -> {k6['fused']}, want "
+                             f"{3 * cfg.num_layers} fewer")
+    table = log_decode_steps(fused["w4 kv4"], "Qwen3-0.6B w4 kv4 fused", kv_bits=4,
+                             shapes=DECODE_SHAPES[:2], modes=("graph",))
+    for (B, T), modes in table.items():
+        wall, busy = modes["graph"]
+        ref_wall, ref_busy = unfused_w4["table"][(B, T)]["graph"]
+        log("fuse", f"Qwen3-0.6B w4 kv4 graph step at B={B} (host clock; busy from the "
+                    f"profiler): fused {wall:.3f} ms, busy {busy:.4f}; unfused (phase "
+                    f"quantized) {ref_wall:.3f} ms, busy {ref_busy:.4f}")
+    fuse_ab(blocks)
+    check_span_and_rate("Qwen3-0.6B w4 kv4 fused, B=1", blocks["w4 kv4"][1])
+    check_activations()
+    for model in (lm, lm8, lm4, lm35, fused35, *fused.values()):
+        model.release_graphs()
+
+
 def main() -> int:
     import torch
 
@@ -7725,6 +8142,7 @@ def main() -> int:
     slice_rows = check_slice_kernels()
     audio_rows = check_audio_kernels()
     tts_rows = check_tts_kernels()
+    fuse_rows = check_fused_k6()
     check_routed_configs()
     phase_done("kernels")
 
@@ -7757,10 +8175,10 @@ def main() -> int:
     no_plain_routes("quantized path")
     graph_vs_eager(lm8, "Qwen3-0.6B w8 kv8", kv_bits=8)
     launches_per(lm8, "Qwen3-0.6B w8", kv_bits=8)
-    del lm8
+    lm8.release_graphs()
     graph_vs_eager(lm4, "Qwen3-0.6B w4 kv4", kv_bits=4)
-    launches_per(lm4, "Qwen3-0.6B w4", kv_bits=4)
-    log_decode_steps(lm4, "Qwen3-0.6B w4 kv4", kv_bits=4)
+    unfused_w4 = {"step": launches_per(lm4, "Qwen3-0.6B w4", kv_bits=4),
+                  "table": log_decode_steps(lm4, "Qwen3-0.6B w4 kv4", kv_bits=4)}
     lm4.release_graphs()
     phase_done("quantized")
 
@@ -7775,6 +8193,14 @@ def main() -> int:
     launches_per(lm35, "Qwen3.5-0.8B bf16")
     lm35.release_graphs()
     phase_done("hybrid")
+
+    # the fused projections (CRANE_FUSE_PROJ's layout) on the models the
+    # quantized and hybrid phases built: K6 at the fused widths (O = 4096,
+    # 6144), K1-K5 fed slices of one product, K7 beside a fused MLP
+    check_fuse(lm, lm8, lm4, lm35, fuse_rows, unfused_w4)
+    del lm8
+    torch.cuda.empty_cache()
+    phase_done("fuse")
 
     # the sequence-parallel main path: Qwen3-0.6B in four slabs on the card
     # (K2 for fresh prompts; K1-S, K3-S, K4-S and K5-S over the slabs)
@@ -7943,7 +8369,7 @@ def main() -> int:
 
     rows += quant_rows + hybrid_rows + sp_rows + verify_rows + family_rows["lfm2"] \
         + family_rows["moe"] + slice_rows + audio_rows + tts_rows + tp_rows["dense"] \
-        + tp_rows["hybrid"] + tp_rows["moe"]
+        + tp_rows["hybrid"] + tp_rows["moe"] + fuse_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

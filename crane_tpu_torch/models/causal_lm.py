@@ -29,6 +29,7 @@ as crane_tpu's gate says; any other config takes plain decoding.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Sequence
 
@@ -37,6 +38,7 @@ import torch
 
 from crane_tpu_torch.generation.config import GenerationConfig
 from crane_tpu_torch.models import graphs
+from crane_tpu_torch.models.fuse import fuse_params
 from crane_tpu_torch.utils.buckets import bucket_length
 from crane_tpu_torch.models.modules.transformer import (
     TransformerConfig,
@@ -147,7 +149,17 @@ class CausalLM:
         tokenizer=None,
         eos_token_ids: Sequence[int] = (),
         dtype: torch.dtype = torch.bfloat16,
+        fuse: bool | None = None,
     ):
+        """``fuse`` joins each layer's wq|wk|wv and gate|up into one product
+        each (:mod:`crane_tpu_torch.models.fuse`); ``None`` reads
+        ``CRANE_FUSE_PROJ`` (``"1"`` fuses; off by default, as in
+        crane_tpu). A tensor-parallel model passes ``False`` after
+        unfusing: its shards split q, k and v by heads."""
+        if fuse is None:
+            fuse = os.environ.get("CRANE_FUSE_PROJ", "0") == "1"
+        if fuse:
+            params = fuse_params(params)
         self.config = config
         self.params = params
         self.tokenizer = tokenizer

@@ -146,8 +146,10 @@ class Gemma3VLModel:
         self.tokenizer = tokenizer
         self.eos_token_ids = tuple(eos_token_ids)
         self.dtype = dtype
+        # crane_tpu's model has no CausalLM, so nothing fuses: the forwards
+        # here read self.params, and the helper shares them
         self.lm = CausalLM(text_config, params, tokenizer=tokenizer,
-                           eos_token_ids=eos_token_ids, dtype=dtype)
+                           eos_token_ids=eos_token_ids, dtype=dtype, fuse=False)
         self.device = self.lm.device
         self.rope = self.lm.rope
         self._programs: dict = {}  # the captured decode step (models/graphs.py)

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import threading
 
 import torch
@@ -141,6 +142,25 @@ def _warm_up(fn, generator, device: torch.device) -> None:
         generator.set_state(state)
 
 
+_capture_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Captures one at a time, with Python's cyclic garbage collector
+    paused: a collection that frees another CUDA graph in the middle of a
+    capture destroys it there (``cudaGraphExecDestroy``, which a capturing
+    stream does not permit), and that invalidates the capture."""
+    with _capture_lock:
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if enabled:
+                gc.enable()
+
+
 def _capture(graph, fn, generator, device: torch.device) -> None:
     """Capture ``fn`` into ``graph``, the generator registered with it."""
     if generator is not None:
@@ -173,7 +193,8 @@ class Program:
         before = counts()
         _warm_up(fn, generator, device)
         start = counts()
-        _capture(self.graph, fn, generator, device)
+        with _collector_paused():
+            _capture(self.graph, fn, generator, device)
         end = counts()
         self.launches = _changes(end[0], start[0])
         self.routes = _changes(end[1], start[1])

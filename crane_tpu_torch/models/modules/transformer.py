@@ -63,6 +63,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from crane_tpu_torch.models.fuse import qkv_sizes
 from crane_tpu_torch.models.modules.gdn_layer import gdn_block
 from crane_tpu_torch.ops.attention import gqa_attention
 from crane_tpu_torch.ops.cuda import ATTENTION_KINDS, attention_kernel_takes
@@ -253,7 +254,12 @@ def mlp_block(cfg: TransformerConfig, p: dict, x: torch.Tensor, expert_offset: i
     one rounding)."""
     if "router" in p:
         return moe_block(cfg, p, x, expert_offset, partial)
-    h = _activation(cfg, linear(x, p["gate"])) * linear(x, p["up"])
+    if "gate_up" in p:
+        # fused gate|up (models/fuse.py): one product, sliced after
+        g, u = linear(x, p["gate_up"]).chunk(2, dim=-1)
+        h = _activation(cfg, g) * u
+    else:
+        h = _activation(cfg, linear(x, p["gate"])) * linear(x, p["up"])
     return matmul_f32(h, p["down"].to(h.dtype)) if partial else linear(h, p["down"])
 
 
@@ -407,15 +413,21 @@ def attention_block(
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    q = linear(x, p["wq"], p.get("bq"))
+    if "wqkv" in p:
+        # fused q|k|v (models/fuse.py): one product, sliced after
+        q, k, v = linear(x, p["wqkv"], p.get("bqkv")).split(qkv_sizes(cfg), dim=-1)
+    else:
+        q = linear(x, p["wq"], p.get("bq"))
+        k = linear(x, p["wk"], p.get("bk"))
+        v = linear(x, p["wv"], p.get("bv"))
     gate = None
     if cfg.attn_output_gate:
         q = q.reshape(B, S, H, 2 * D)
         q, gate = q[..., :D], q[..., D:]
     else:
         q = q.reshape(B, S, H, D)
-    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, D)
-    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, D)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
 
     def qk_normalize(q, k):
         q = rms_norm(q, p["q_norm"], eps=cfg.rms_norm_eps, weight_offset=cfg.norm_weight_offset)
@@ -430,7 +442,8 @@ def attention_block(
     k = apply_rope_embeds(k, cos, sin, mode=cfg.rope_mode)
     if cfg.qk_norm and cfg.qk_norm_after_rope:
         q, k = qk_normalize(q, k)
-    q, k = q.contiguous(), k.contiguous()
+    # the kernels take contiguous rows: a fused product's slices are views
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
 
     new_cache = layer_cache.update(k, v, cache_positions, row=cache_row)
     scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5

@@ -76,9 +76,11 @@ class Qwen3VLModel:
         self.tokenizer = tokenizer
         self.eos_token_ids = tuple(eos_token_ids)
         self.dtype = dtype
-        # the text model: its rope tables and kept caches
+        # the text model: its rope tables and kept caches. crane_tpu's model
+        # has no CausalLM, so nothing fuses: the forwards here read
+        # self.params, and the helper shares them
         self.lm = CausalLM(text_config, params, tokenizer=tokenizer,
-                           eos_token_ids=eos_token_ids, dtype=dtype)
+                           eos_token_ids=eos_token_ids, dtype=dtype, fuse=False)
         self.device = self.lm.device
         self.rope = self.lm.rope
         self._programs: dict = {}  # captured decode blocks (models/graphs.py)

@@ -87,6 +87,35 @@ def quant_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+# the tensor-core kernel's code rows a stage and its most blocks a cluster
+# (quant_matmul_mma.cu kBK, kMaxSplitK)
+MMA_BK, MMA_MAX_SPLIT = 64, 8
+
+
+def mma_plan(M: int, I: int, O: int, bits: int, sms: int) -> tuple[int, int]:
+    """(tile, n_split): the output tile (an index of ``MMA_TILES``) and the
+    blocks of a cluster that split I, as the C entry chooses them for the
+    tensor-core kernel on a card of ``sms`` SMs (quant_matmul_mma.cu
+    ``quant_matmul_mma_bf16`` and ``launch_mma``): the largest tile whose
+    grid gives every SM a block, else the smallest, whose k-tiles double
+    over a cluster while the grid leaves SMs without a block and each block
+    keeps two k-tiles. An output column's float32 sum runs over the same
+    k-steps in the same order at every tile; only ``n_split`` changes the
+    order (each block sums its share, the first block adds the others')."""
+    def tiles(t):
+        bm, bn = MMA_TILES[t]
+        return -(-O // bn) * -(-M // bm)
+
+    tile = 0
+    while tile < len(MMA_TILES) - 1 and tiles(tile) < sms:
+        tile += 1
+    k_tiles = -(-(I // 2 if bits == 4 else I) // MMA_BK)
+    n_split = 1
+    while n_split < MMA_MAX_SPLIT and tiles(tile) * n_split < sms and 4 * n_split <= k_tiles:
+        n_split *= 2
+    return tile, n_split
+
+
 def mma_kernel_info(tile: int, bits: int) -> dict[str, int]:
     """The compiled form of the bf16 tensor-core K6 at output tile ``tile``
     (an index of ``MMA_TILES``) and ``bits``: registers and local (spill)

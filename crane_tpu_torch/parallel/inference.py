@@ -43,6 +43,7 @@ import functools
 import torch
 
 from crane_tpu_torch.models.causal_lm import CausalLM
+from crane_tpu_torch.models.fuse import unfuse_params
 from crane_tpu_torch.models.modules.gdn_layer import gdn_block
 from crane_tpu_torch.models.modules.transformer import (
     LayerBlocks,
@@ -385,13 +386,16 @@ class ShardedCausalLM(CausalLM):
     included, runs the sharded forward unchanged. ``mesh`` (the flat device
     tuple) tells :mod:`crane_tpu_torch.models.graphs` whether decode blocks
     can run as CUDA graphs: on a mesh whose devices are all one card they
-    do. The port has no fused projections yet (crane_tpu's ``fuse.py``), so
-    nothing needs unfusing first."""
+    do. A fused base (``models/fuse.py``) is unfused first: a tp split of
+    ``wqkv`` or ``gate_up`` would mix q, k and v (or gate and up) columns
+    across shards, so the shards keep the unfused names (``fuse=False``),
+    as crane_tpu's do."""
 
     def __init__(self, base: CausalLM, mesh: Mesh):
-        super().__init__(base.config, shard_params(base.config, base.params, mesh),
+        params = unfuse_params(base.config, base.params)
+        super().__init__(base.config, shard_params(base.config, params, mesh),
                          tokenizer=base.tokenizer, eos_token_ids=base.eos_token_ids,
-                         dtype=base.dtype)
+                         dtype=base.dtype, fuse=False)
         self.grid = mesh
         self.mesh = mesh.flat
 

@@ -142,7 +142,8 @@ class SequenceShardedCausalLM(CausalLM):
     """A :class:`CausalLM` whose full-attention KV caches split their
     sequence axis over the slab devices ``mesh`` (:func:`make_sp_mesh`).
     The weights stay on the lead device ``mesh[0]``, where the model must
-    already be; each other device holds only its slabs."""
+    already be, in the base's layout (a fused tree stays fused, as in
+    crane_tpu); each other device holds only its slabs."""
 
     def __init__(self, base: CausalLM, mesh):
         mesh = tuple(_indexed(torch.device(d)) for d in mesh)

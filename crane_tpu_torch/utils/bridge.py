@@ -51,7 +51,9 @@ def params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
     keep their type. A ``crane_tpu`` ``QuantizedWeight`` becomes the port's
     :class:`~crane_tpu_torch.ops.linear.QuantizedWeight` with the same int8
     codes, float32 scales, ``block`` and ``bits``: ``dtype`` never touches
-    codes or scales."""
+    codes or scales. A fused tree (``wqkv``, ``bqkv``, ``gate_up``, fused
+    ``QuantizedWeight`` leaves) comes across as it is, equal to the port's
+    ``fuse_params`` of the bridged unfused tree."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

@@ -1169,3 +1169,92 @@ def test_sharded_generate_on_card_matches_unsharded(dev, dp, tp):
     got = kernels.launch_counts()
     assert got["fp_decode_attention"] == dp * tp * ref_counts["fp_decode_attention"] > 0
     assert got["flash_attention_causal"] == tp * ref_counts["flash_attention_causal"] > 0
+
+
+# Qwen3-0.6B's fused widths at I = 1024: q|k|v (2048 + 1024 + 1024) and
+# gate|up (3072 + 3072)
+FUSED_PARTS = {"qkv": (2048, 1024, 1024), "gate_up": (3072, 3072)}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 3, 8, 256])
+@pytest.mark.parametrize("kind", ["qkv", "gate_up"])
+def test_k6_fused_widths_match_plain_and_the_unfused_products(dev, bits, M, kind):
+    """K6 on a fused weight (models/fuse.py) against its plain version, and
+    against the unfused products concatenated: bit for bit where the
+    reduction over I runs in the same order at both widths (the CUDA-core
+    kernel at M < 4; the tensor-core kernel where mma_plan gives the fused
+    weight and the part the same cluster split), else within the kernel
+    bound. (chip_smoke.py's check_fused_k6 reads the instance that ran from
+    a profiler trace.)"""
+    from crane_tpu_torch.models.fuse import fuse_layer
+    from crane_tpu_torch.ops.cuda.quant_matmul import MMA_MIN_M, mma_plan
+
+    gen = torch.Generator(device=dev).manual_seed(M + bits + len(kind))
+    parts = [quantize_weight(rnd(gen, 1024, o, dtype=torch.float32) * 1024 ** -0.5, bits=bits)
+             for o in FUSED_PARTS[kind]]
+    layer = ({"attn": dict(zip(("wq", "wk", "wv"), parts))} if kind == "qkv"
+             else {"mlp": dict(zip(("gate", "up"), parts))})
+    fused_layer = fuse_layer(layer)
+    w = fused_layer["attn"]["wqkv"] if kind == "qkv" else fused_layer["mlp"]["gate_up"]
+    assert w.packed == (bits == 4) and w.shape == (1024, sum(FUSED_PARTS[kind]))
+    x = rnd(gen, M, 1024, dtype=torch.bfloat16)
+    got = quant_matmul(x, w.codes, w.scales, bits=bits)
+    torch.testing.assert_close(got.float(), quant_matmul_plain(x.float(), w.codes, w.scales,
+                                                               bits=bits),
+                               **TOL[torch.bfloat16])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fused_plan = mma_plan(M, 1024, w.shape[1], bits, sms)
+    o = 0
+    for p in parts:
+        ref = quant_matmul(x, p.codes, p.scales, bits=bits)
+        piece = got[:, o:o + p.shape[1]]
+        if M < MMA_MIN_M or mma_plan(M, 1024, p.shape[1], bits, sms)[1] == fused_plan[1]:
+            assert torch.equal(piece, ref), (M, p.shape, fused_plan)
+        else:
+            torch.testing.assert_close(piece.float(), ref.float(), **TOL[torch.bfloat16])
+        o += p.shape[1]
+
+
+@pytest.mark.parametrize("quant", [None, 4], ids=["bf16", "w4-kv4"])
+def test_fused_layer_runs_the_kernels_on_contiguous_kv(dev, quant):
+    """A fused tiny model (heads of 64, which the kernels take) on the card:
+    a fresh prefill feeds K2 the sliced v (a view of the fused product
+    unless made contiguous: the wrappers refuse views), a chunk K3 or K5,
+    decode K1 or K4; logits match the unfused model's and greedy tokens
+    equal them (float32 activations, so cuBLAS's choice of algorithm at
+    the wider product moves them by float32 rounding only). At w4 kv4 a
+    decode step launches K6 three times fewer a layer."""
+    cfg = dataclasses.replace(QWEN3_TINY, head_dim=64)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.float32)
+    if quant:
+        params = quantize_params(params, bits=quant)
+    fused = CausalLM(cfg, params, dtype=torch.float32, fuse=True)
+    unfused = CausalLM(cfg, params, dtype=torch.float32, fuse=False)
+    assert "wqkv" in fused.params["layers"][0]["attn"]
+    ids = [[(7 * i + 3) % cfg.vocab_size for i in range(40)]]
+    kernels.reset_launch_counts()
+    logits = [lm.prefill(lm.init_cache(1, 128, quant_bits=quant), ids, [40])[0]
+              for lm in (fused, unfused)]
+    assert kernels.launch_counts()["flash_attention_causal"] == 2 * cfg.num_layers
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+    gen = GenerationConfig.greedy(16, kv_quant_bits=quant)
+    assert fused.generate(ids[0], gen) == unfused.generate(ids[0], gen)
+    steps = []
+    for lm in (fused, unfused):
+        _, cache = lm.prefill(lm.init_cache(1, 128, quant_bits=quant), ids, [40])
+        # a continuation chunk over the cache, then one decode step
+        lm.prefill(cache, [ids[0][:8]], [8], start=40)
+        kernels.reset_launch_counts()
+        with graphs.eager():
+            lm.decode_steps(cache, torch.ones(1, dtype=torch.int32, device=dev),
+                            torch.full((1, 8), -1, dtype=torch.int32, device=dev),
+                            SamplingParams.make(1, do_sample=False, device=dev),
+                            torch.Generator(device=dev), 1)
+        steps.append(kernels.launch_counts())
+    if quant:
+        assert steps[1]["quant_matmul[w4]"] - steps[0]["quant_matmul[w4]"] == 3 * cfg.num_layers
+        assert steps[0]["quant_decode_attention[kv4]"] == cfg.num_layers
+    else:
+        assert steps[0]["fp_decode_attention"] == cfg.num_layers

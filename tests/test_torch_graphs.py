@@ -166,6 +166,39 @@ def test_capture_writes_nothing_the_caller_sees(stand_in, monkeypatch):
     assert not torch.equal(history, before[-1])  # the replay did write
 
 
+@pytest.mark.parametrize("fails", [False, True], ids=["captures", "capture-raises"])
+def test_capture_pauses_the_garbage_collector(stand_in, monkeypatch, fails):
+    """A capture runs with the cyclic collector paused (a CUDA graph it
+    freed mid-capture would invalidate the capture), and the collector runs
+    again after it, also when the capture raises; the warm-up and the
+    replays leave it on."""
+    import gc
+
+    lm = tiny_lm()
+    cache, toks, recent, sp, active = state(lm)
+    seen = []
+
+    def capture_and_look(graph, fn, generator, device):
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("capture invalidated")
+        stand_in_capture(graph, fn, generator, device)
+
+    def warm_up_and_look(fn, generator, device):
+        seen.append(gc.isenabled())
+        stand_in_warm_up(fn, generator, device)
+
+    monkeypatch.setattr(graphs, "_capture", capture_and_look)
+    monkeypatch.setattr(graphs, "_warm_up", warm_up_and_look)
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="invalidated"):
+            lm.decode_active(cache, toks, recent, sp, torch.Generator(), active, 2)
+    else:
+        lm.decode_active(cache, toks, recent, sp, torch.Generator(), active, 2)
+    assert seen == [True, False] and gc.isenabled()
+
+
 def test_program_keys(stand_in):
     """A program is keyed as a jit is: the same cache, sizes and generator
     replay one program; another n_steps, generator or cache buffer, or the
