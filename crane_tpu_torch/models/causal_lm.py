@@ -50,6 +50,7 @@ from crane_tpu_torch.models.modules.transformer import (
 from crane_tpu_torch.ops.kv_cache import KVCache
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
 from crane_tpu_torch.parallel.sharding import ShardedParams
+from crane_tpu_torch.utils import tracing
 
 
 def _greedy_accept(logits: torch.Tensor, tokens: torch.Tensor):
@@ -190,29 +191,32 @@ class CausalLM:
         a fresh prefill that attends the in-context K/V (K2); a later start
         attends the cache buffers (K3) and continues the GDN states."""
         tokens = self._ids(token_ids)
-        true_lengths = self._ids(true_lengths)
-        hidden, new_cache = forward_hidden(
-            self.config, self.params, tokens, cache, start, self.rope,
-            read_cache=start != 0, true_lengths=true_lengths,
-        )
-        new_cache.lengths = cache.lengths + true_lengths
-        b = torch.arange(tokens.shape[0], device=self.device)
-        last = hidden[b, (true_lengths - 1).long()]  # the chunk's last real token
-        return lm_logits(self.config, self.params, last[:, None])[:, 0], new_cache
+        with tracing.span("model.prefill", tokens=int(np.sum(true_lengths)),
+                          bucket=tokens.numel()):
+            true_lengths = self._ids(true_lengths)
+            hidden, new_cache = forward_hidden(
+                self.config, self.params, tokens, cache, start, self.rope,
+                read_cache=start != 0, true_lengths=true_lengths,
+            )
+            new_cache.lengths = cache.lengths + true_lengths
+            b = torch.arange(tokens.shape[0], device=self.device)
+            last = hidden[b, (true_lengths - 1).long()]  # the chunk's last real token
+            return lm_logits(self.config, self.params, last[:, None])[:, 0], new_cache
 
     @torch.no_grad()
     def prefill_slot(self, cache: KVCache, token_ids, slot: int, true_length: int):
         """Prefill ``token_ids [1, S_bucket]`` into row ``slot`` of a
         multi-slot serving cache. Attention reads the in-context K/V, so no
         other row is touched. Returns (last-token logits ``[1, V]``, cache)."""
-        hidden, new_cache = forward_hidden(
-            self.config, self.params, self._ids(token_ids), cache, 0, self.rope,
-            read_cache=False, cache_row=slot, true_lengths=self._ids([true_length]),
-        )
-        new_cache.lengths = cache.lengths.clone()
-        new_cache.lengths[slot] = true_length
-        last = hidden[0, true_length - 1]
-        return lm_logits(self.config, self.params, last[None, None])[:, 0], new_cache
+        with tracing.span("model.prefill", tokens=true_length, bucket=np.shape(token_ids)[-1]):
+            hidden, new_cache = forward_hidden(
+                self.config, self.params, self._ids(token_ids), cache, 0, self.rope,
+                read_cache=False, cache_row=slot, true_lengths=self._ids([true_length]),
+            )
+            new_cache.lengths = cache.lengths.clone()
+            new_cache.lengths[slot] = true_length
+            last = hidden[0, true_length - 1]
+            return lm_logits(self.config, self.params, last[None, None])[:, 0], new_cache
 
     @torch.no_grad()
     def prefill_slot_continue(self, cache: KVCache, token_ids, slot: int,
@@ -223,15 +227,16 @@ class CausalLM:
         GDN states. JAX sliced the row out and merged it back; here the
         layers write through a batch-1 view of the row, in place. Returns
         logits at the chunk's last real token."""
-        hidden, _ = forward_hidden(
-            self.config, self.params, self._ids(token_ids), cache.row(slot),
-            start, self.rope, true_lengths=self._ids([true_length]),
-        )
-        lengths = cache.lengths.clone()
-        lengths[slot] = start + true_length
-        last = hidden[0, true_length - 1]
-        logits = lm_logits(self.config, self.params, last[None, None])[:, 0]
-        return logits, KVCache(layers=cache.layers, lengths=lengths)
+        with tracing.span("model.prefill", tokens=true_length, bucket=np.shape(token_ids)[-1]):
+            hidden, _ = forward_hidden(
+                self.config, self.params, self._ids(token_ids), cache.row(slot),
+                start, self.rope, true_lengths=self._ids([true_length]),
+            )
+            lengths = cache.lengths.clone()
+            lengths[slot] = start + true_length
+            last = hidden[0, true_length - 1]
+            logits = lm_logits(self.config, self.params, last[None, None])[:, 0]
+            return logits, KVCache(layers=cache.layers, lengths=lengths)
 
     # -- decode blocks -------------------------------------------------------
     # Each block is one function of tensors (the ``_*_body`` methods below):

@@ -71,6 +71,7 @@ from crane_tpu_torch.ops.kv_cache import MeshLayerCache, SequenceShardedKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
 from crane_tpu_torch.parallel.sharding import ShardedParams
+from crane_tpu_torch.utils import tracing
 
 log = logging.getLogger("crane_tpu_torch.engine")
 
@@ -473,6 +474,7 @@ class InferenceEngine:
         self.slots[victim.slot] = None
         victim.slot = -1
         victim.preempted = True
+        victim.queued_ns = time.time_ns()
         self.scheduler.requeue(victim)
         # the freed slot goes to the starved request this preemption was for
         if self.scheduler.waiting[0] is not head:
@@ -521,111 +523,114 @@ class InferenceEngine:
         self._resident = [None] * self.max_slots
 
     def _admit(self, seq: Sequence):
-        req = seq.request
-        # context = prompt for a fresh sequence; prompt + generated-so-far
-        # for one resumed after preemption (KV reconstruction by re-prefill)
-        ctx = seq.context_ids()
-        ctx_len = len(ctx)
-        if ctx_len == 0:
-            seq.send_error("empty prompt")
-            self.stats.requests_failed += 1
-            return
-        # refused on the host: an id past the embedding would be a device-
-        # side assert inside the gather, and the thread and the card with it
-        err = prompt_ids_error(ctx, self.lm.config.vocab_size)
-        if err:
-            seq.send_error(err)
-            self.stats.requests_failed += 1
-            return
-        if ctx_len + 1 >= self.max_seq_len:
-            seq.send_error(
-                f"prompt length {ctx_len} exceeds max_seq_len {self.max_seq_len}"
-            )
-            self.stats.requests_failed += 1
-            return
-        # clamp generation budget to the slot capacity
-        budget = self.max_seq_len - ctx_len - 1
-        req.max_new_tokens = min(req.max_new_tokens, len(seq.generated) + budget)
+        tracing.record("request.queued", seq.queued_ns, rid=seq.request_id)
+        with tracing.span("engine.admit", rid=seq.request_id):
+            req = seq.request
+            # context = prompt for a fresh sequence; prompt + generated-so-far
+            # for one resumed after preemption (KV reconstruction by re-prefill)
+            ctx = seq.context_ids()
+            ctx_len = len(ctx)
+            if ctx_len == 0:
+                seq.send_error("empty prompt")
+                self.stats.requests_failed += 1
+                return
+            # refused on the host: an id past the embedding would be a device-
+            # side assert inside the gather, and the thread and the card with it
+            err = prompt_ids_error(ctx, self.lm.config.vocab_size)
+            if err:
+                seq.send_error(err)
+                self.stats.requests_failed += 1
+                return
+            if ctx_len + 1 >= self.max_seq_len:
+                seq.send_error(
+                    f"prompt length {ctx_len} exceeds max_seq_len {self.max_seq_len}"
+                )
+                self.stats.requests_failed += 1
+                return
+            # clamp generation budget to the slot capacity
+            budget = self.max_seq_len - ctx_len - 1
+            req.max_new_tokens = min(req.max_new_tokens, len(seq.generated) + budget)
 
-        slot, reuse = self._choose_slot(ctx)
-        seq.slot = slot
-        self._resident[slot] = None  # the new occupant overwrites the row
-        if reuse:
-            self.stats.prefix_hits += 1
-            self.stats.prefix_tokens_reused += reuse
-            # the row's live length becomes the reused prefix
-            self.cache.lengths[slot] = reuse
+            slot, reuse = self._choose_slot(ctx)
+            seq.slot = slot
+            self._resident[slot] = None  # the new occupant overwrites the row
+            if reuse:
+                self.stats.prefix_hits += 1
+                self.stats.prefix_tokens_reused += reuse
+                # the row's live length becomes the reused prefix
+                self.cache.lengths[slot] = reuse
 
-        n_new = ctx_len - reuse
-        s_bucket = bucket_length(n_new, floor=self.align, ceiling=self.max_seq_len)
-        if (self.prefill_chunk is not None and n_new > self.prefill_chunk) or (
-            s_bucket > self.max_seq_len - reuse
-        ):
-            # chunked admission: reserve the slot (inactive), promote so the
-            # scheduler's capacity accounting sees it, then feed chunks one
-            # step at a time from the engine loop. Also taken when the
-            # whole-suffix bucket would overrun the buffer past a reused
-            # prefix: chunks shrink to buckets that fit.
+            n_new = ctx_len - reuse
+            s_bucket = bucket_length(n_new, floor=self.align, ceiling=self.max_seq_len)
+            if (self.prefill_chunk is not None and n_new > self.prefill_chunk) or (
+                s_bucket > self.max_seq_len - reuse
+            ):
+                # chunked admission: reserve the slot (inactive), promote so the
+                # scheduler's capacity accounting sees it, then feed chunks one
+                # step at a time from the engine loop. Also taken when the
+                # whole-suffix bucket would overrun the buffer past a reused
+                # prefix: chunks shrink to buckets that fit.
+                self.slots[slot] = seq
+                self.scheduler.promote(seq)
+                self._pending = {
+                    "seq": seq, "ctx": np.asarray(ctx, np.int32), "offset": reuse,
+                    "spent": 0.0,
+                    "chunk": self.prefill_chunk
+                    or _pow2_floor(self.max_seq_len - reuse, self.align),
+                }
+                self._admit_chunk()
+                return
+
+            t0 = time.perf_counter()
+            padded = np.zeros((1, s_bucket), np.int32)
+            padded[0, :n_new] = ctx[reuse:]
+            if reuse:
+                logits, self.cache = self.lm.prefill_slot_continue(
+                    self.cache, padded, slot, reuse, n_new)
+            else:
+                logits, self.cache = self.lm.prefill_slot(self.cache, padded, slot, n_new)
             self.slots[slot] = seq
             self.scheduler.promote(seq)
-            self._pending = {
-                "seq": seq, "ctx": np.asarray(ctx, np.int32), "offset": reuse,
-                "spent": 0.0,
-                "chunk": self.prefill_chunk
-                or _pow2_floor(self.max_seq_len - reuse, self.align),
-            }
-            self._admit_chunk()
-            return
-
-        t0 = time.perf_counter()
-        padded = np.zeros((1, s_bucket), np.int32)
-        padded[0, :n_new] = ctx[reuse:]
-        if reuse:
-            logits, self.cache = self.lm.prefill_slot_continue(
-                self.cache, padded, slot, reuse, n_new)
-        else:
-            logits, self.cache = self.lm.prefill_slot(self.cache, padded, slot, n_new)
-        self.slots[slot] = seq
-        self.scheduler.promote(seq)
-        self.stats.prefill_time_s += time.perf_counter() - t0
-        self._finish_admission(seq, logits, ctx)
+            self.stats.prefill_time_s += time.perf_counter() - t0
+            self._finish_admission(seq, logits, ctx)
 
     def _admit_chunk(self):
         """One chunk of a pending chunked admission: the first chunk is a
         fresh slot prefill, later chunks run the cached continuation at the
         row's live offset. The final chunk's logits complete admission."""
         p = self._pending
-        seq = p["seq"]
-        if seq.cancelled or seq.slot < 0 or self.slots[seq.slot] is not seq:
-            # aborted or preempted mid-admission; the slot is already freed
+        with tracing.span("engine.admit_chunk", rid=p["seq"].request_id):
+            seq = p["seq"]
+            if seq.cancelled or seq.slot < 0 or self.slots[seq.slot] is not seq:
+                # aborted or preempted mid-admission; the slot is already freed
+                self._pending = None
+                return
+            ctx, offset = p["ctx"], p["offset"]
+            n = min(p["chunk"], len(ctx) - offset)
+            # the [1, bucket] cache write must fit the buffer: shrink the bucket
+            # to the largest aligned power of two below the remaining capacity
+            # (offsets are align multiples, so the cap is >= align and the
+            # shrunk n keeps the next offset aligned)
+            s_bucket = bucket_length(n, floor=self.align)
+            cap = self.max_seq_len - offset
+            if s_bucket > cap:
+                s_bucket = _pow2_floor(cap, self.align)
+                n = min(n, s_bucket)
+            padded = np.zeros((1, s_bucket), np.int32)
+            padded[0, :n] = ctx[offset:offset + n]
+            t0 = time.perf_counter()
+            if offset == 0:
+                logits, self.cache = self.lm.prefill_slot(self.cache, padded, seq.slot, n)
+            else:
+                logits, self.cache = self.lm.prefill_slot_continue(
+                    self.cache, padded, seq.slot, offset, n)
+            p["spent"] += time.perf_counter() - t0
+            p["offset"] = offset + n
+            if p["offset"] < len(ctx):
+                return
             self._pending = None
-            return
-        ctx, offset = p["ctx"], p["offset"]
-        n = min(p["chunk"], len(ctx) - offset)
-        # the [1, bucket] cache write must fit the buffer: shrink the bucket
-        # to the largest aligned power of two below the remaining capacity
-        # (offsets are align multiples, so the cap is >= align and the
-        # shrunk n keeps the next offset aligned)
-        s_bucket = bucket_length(n, floor=self.align)
-        cap = self.max_seq_len - offset
-        if s_bucket > cap:
-            s_bucket = _pow2_floor(cap, self.align)
-            n = min(n, s_bucket)
-        padded = np.zeros((1, s_bucket), np.int32)
-        padded[0, :n] = ctx[offset:offset + n]
-        t0 = time.perf_counter()
-        if offset == 0:
-            logits, self.cache = self.lm.prefill_slot(self.cache, padded, seq.slot, n)
-        else:
-            logits, self.cache = self.lm.prefill_slot_continue(
-                self.cache, padded, seq.slot, offset, n)
-        p["spent"] += time.perf_counter() - t0
-        p["offset"] = offset + n
-        if p["offset"] < len(ctx):
-            return
-        self._pending = None
-        self.stats.prefill_time_s += p["spent"]
-        self._finish_admission(seq, logits, ctx)
+            self.stats.prefill_time_s += p["spent"]
+            self._finish_admission(seq, logits, ctx)
 
     def _finish_admission(self, seq: Sequence, logits, ctx):
         """Sampling state + first token + activation, shared by whole-prompt
@@ -650,7 +655,10 @@ class InferenceEngine:
         self.stats.prompt_tokens += len(ctx)
         if seq.detok is None and self.lm.tokenizer is not None:
             seq.detok = TokenOutputStream(self.lm.tokenizer)  # survives preemption
+        first_token = not seq.generated  # else re-admitted after a preemption
         self._emit(seq, int(first[0]))
+        if first_token:
+            tracing.record("request.ttft", seq.submitted_ns, rid=seq.request_id)
 
     def _emit(self, seq: Sequence, token: int) -> bool:
         """Record + stream one token; returns False when the seq finished."""
@@ -761,35 +769,37 @@ class InferenceEngine:
         drafts from each slot's history, one device-to-host copy for
         1..spec_rounds*(spec_k+1) tokens a stream, byte-identical to
         sequential greedy decoding."""
-        t0 = time.perf_counter()
-        R, K = self.spec_rounds_n, self.spec_k
-        out_tok, out_acc, self.cache, self.history = self.lm.spec_rounds(
-            self.cache, self.history, self.active_mask, R, K, self.spec_ngram)
-        tok_np = out_tok.cpu().numpy()  # [R, B, K+1]
-        acc_np = out_acc.cpu().numpy()  # [R, B]
-        self.stats.spec_steps += R
-        for seq in running:
-            slot = seq.slot
-            done = False
-            for r in range(R):
-                for t in tok_np[r, slot, : int(acc_np[r, slot]) + 1].tolist():
-                    # count only tokens delivered: an early finish must not
-                    # inflate the acceptance reported
-                    self.stats.spec_tokens += 1
-                    if not self._emit(seq, int(t)):
-                        done = True
+        with tracing.span("engine.spec_block", rows=len(running), slots=self.max_slots,
+                          steps=self.spec_rounds_n):
+            t0 = time.perf_counter()
+            R, K = self.spec_rounds_n, self.spec_k
+            out_tok, out_acc, self.cache, self.history = self.lm.spec_rounds(
+                self.cache, self.history, self.active_mask, R, K, self.spec_ngram)
+            tok_np = out_tok.cpu().numpy()  # [R, B, K+1]
+            acc_np = out_acc.cpu().numpy()  # [R, B]
+            self.stats.spec_steps += R
+            for seq in running:
+                slot = seq.slot
+                done = False
+                for r in range(R):
+                    for t in tok_np[r, slot, : int(acc_np[r, slot]) + 1].tolist():
+                        # count only tokens delivered: an early finish must not
+                        # inflate the acceptance reported
+                        self.stats.spec_tokens += 1
+                        if not self._emit(seq, int(t)):
+                            done = True
+                            break
+                    if done:
                         break
-                if done:
-                    break
-            if self.slots[slot] is seq:  # still running: the next block continues
-                self.cur_tokens[slot] = seq.generated[-1]
-        # the device's acceptance (tokens the host dropped past EOS or
-        # max_tokens included: they cost weight passes either way)
-        m = float((acc_np[:, [s.slot for s in running]] + 1).mean())
-        self._spec_ema = m if self._spec_ema is None else 0.5 * self._spec_ema + 0.5 * m
-        if self._spec_ema < self.spec_min_gain:
-            self._spec_wait = self.spec_cooldown
-        self.stats.decode_time_s += time.perf_counter() - t0
+                if self.slots[slot] is seq:  # still running: the next block continues
+                    self.cur_tokens[slot] = seq.generated[-1]
+            # the device's acceptance (tokens the host dropped past EOS or
+            # max_tokens included: they cost weight passes either way)
+            m = float((acc_np[:, [s.slot for s in running]] + 1).mean())
+            self._spec_ema = m if self._spec_ema is None else 0.5 * self._spec_ema + 0.5 * m
+            if self._spec_ema < self.spec_min_gain:
+                self._spec_wait = self.spec_cooldown
+            self.stats.decode_time_s += time.perf_counter() - t0
 
     def _run_decode(self, n_steps: int) -> torch.Tensor:
         """One masked decode block over every slot (with the history rows
@@ -811,34 +821,38 @@ class InferenceEngine:
         writes past the finished prefix, which the length reset at reuse
         time masks, and ``max_new_tokens``'s slot-capacity clamp keeps it
         inside the buffer."""
-        t0 = time.perf_counter()
-        out = self._run_decode(n_steps)
-        self.cur_tokens = out[:, -1].clone()
-        seqs = [s if self.active[i] else None for i, s in enumerate(self.slots)]
-        prev, self._inflight = self._inflight, (_start_host_copy(out), n_steps, seqs)
-        if prev is not None:
-            self._process_block(*prev)
-        self.stats.decode_time_s += time.perf_counter() - t0
+        with tracing.span("engine.decode_block", rows=int(np.count_nonzero(self.active)),
+                          slots=self.max_slots, steps=n_steps):
+            t0 = time.perf_counter()
+            out = self._run_decode(n_steps)
+            self.cur_tokens = out[:, -1].clone()
+            seqs = [s if self.active[i] else None for i, s in enumerate(self.slots)]
+            prev, self._inflight = self._inflight, (_start_host_copy(out), n_steps, seqs)
+            if prev is not None:
+                self._process_block(*prev)
+            self.stats.decode_time_s += time.perf_counter() - t0
 
     def _process_block(self, out, n_steps: int, seqs):
         """Emit a decode block's tokens (``out`` from :func:`_start_host_copy`):
         wait for its device-to-host copy, then per-stream detok and queue
         puts. ``seqs`` is the slot snapshot at dispatch; a slot whose
         occupant changed since is skipped."""
-        tokens = _host_tokens(out)
-        for slot, seq in enumerate(seqs):
-            if seq is None or self.slots[slot] is not seq:
-                continue
-            for j in range(n_steps):
-                if not self._emit(seq, int(tokens[slot, j])):
-                    break
+        with tracing.span("engine.emit_tokens"):
+            tokens = _host_tokens(out)
+            for slot, seq in enumerate(seqs):
+                if seq is None or self.slots[slot] is not seq:
+                    continue
+                for j in range(n_steps):
+                    if not self._emit(seq, int(tokens[slot, j])):
+                        break
 
     def _flush_inflight(self):
         if self._inflight is not None:
-            t0 = time.perf_counter()
-            prev, self._inflight = self._inflight, None
-            self._process_block(*prev)
-            self.stats.decode_time_s += time.perf_counter() - t0
+            with tracing.span("engine.flush_inflight"):
+                t0 = time.perf_counter()
+                prev, self._inflight = self._inflight, None
+                self._process_block(*prev)
+                self.stats.decode_time_s += time.perf_counter() - t0
 
 
 def _start_host_copy(out: torch.Tensor):

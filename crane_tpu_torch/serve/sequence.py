@@ -71,6 +71,10 @@ class Sequence:
         self.cancelled = False
         self.preempted = False
         self.submitted_at = time.monotonic()
+        # on the tracing clock (utils/tracing.py): the submit, and the start
+        # of the current wait for admission (the submit, or a preemption's
+        # requeue)
+        self.submitted_ns = self.queued_ns = time.time_ns()
         self.first_token_at: Optional[float] = None
         self.stopped_by_string = False
         self._stop_buf = ""
