@@ -596,6 +596,7 @@ def check_kernels() -> list[dict]:
             ref = k23.flash_attention_cached_plain(q, kc, vc, pos, scale=D ** -0.5)
             errs.append(compare(f"K3 D={D} offset={off}", got, ref))
         errs += ragged_k3(rnd, Hq, Hkv, D)
+    errs += slot_k3(rnd, Hq, Hkv)
     check_float32_route(q, kc, vc, "B=1 S=256 at offset 1000, T=2048, Hq=16 Hkv=8 D=128", pos)
     rows.append(timed_row("flash_attention_cached", "flash_attention_mma.cu",
                           "crane_tpu/ops/pallas/flash_attention.py:384", errs,
@@ -668,13 +669,46 @@ def ragged_k3(rnd, Hq, Hkv, D) -> list[float]:
     return errs
 
 
-def check_float32_route(q, k, v, shape, pos=None) -> None:
-    """The float32 route of K2 (``pos`` None) or K3, the CUDA-core kernel
-    that float32 runs take (the float32 checks of phases 8 and 10): held to
-    the float32 tolerance against its plain version, timed beside it."""
+def slot_k3(rnd, Hq, Hkv, slots=16, T=4096, S=256, D=128) -> list[float]:
+    """K3 as the engine's prefill graphs launch it: a batch-1 chunk over the
+    cache row that ``kv_rows`` names on the device (chat's 16-row, 4096-slot
+    cache), rows 0 and last at offsets 0, 1000 and T - S, against its plain
+    version and bitwise against K3 on the row's view; then its float32
+    route. Returns the errors."""
+    import torch
+
+    from crane_tpu_torch.ops.cuda import flash_attention as k23
+
+    kc, vc = rnd(slots, T, Hkv, D), rnd(slots, T, Hkv, D)
+    q = rnd(1, S, Hq, D)
+    errs = []
+    for slot in (0, slots - 1):
+        rows = torch.tensor([slot], dtype=torch.int32, device="cuda")
+        for off in (0, 1000, T - S):
+            pos = (torch.arange(S, dtype=torch.int32, device="cuda") + off)[None].contiguous()
+            got = k23.flash_attention_cached(q, kc, vc, pos, scale=D ** -0.5, kv_rows=rows)
+            label = f"K3 kv_rows=[{slot}] of {slots} offset={off}"
+            errs.append(compare(label, got, k23.flash_attention_cached_plain(
+                q, kc, vc, pos, scale=D ** -0.5, kv_rows=rows)))
+            view = k23.flash_attention_cached(q, kc[slot:slot + 1], vc[slot:slot + 1], pos,
+                                              scale=D ** -0.5)
+            if not torch.equal(got, view):
+                raise AssertionError(f"{label}: differs from K3 on the row's view")
+    check_float32_route(q, kc, vc, f"B=1 S={S} at offset {T - S} of row {slots - 1} "
+                        f"(kv_rows), {slots} rows of T={T}, Hq={Hq} Hkv={Hkv} D={D}", pos,
+                        kv_rows=rows)
+    return errs
+
+
+def check_float32_route(q, k, v, shape, pos=None, kv_rows=None) -> None:
+    """The float32 route of K2 (``pos`` None) or K3 (maybe over the rows
+    ``kv_rows`` names), the CUDA-core kernel that float32 runs take (the
+    float32 checks of phases 8 and 10): held to the float32 tolerance
+    against its plain version, timed beside it."""
     from crane_tpu_torch.ops.cuda import flash_attention as k23
 
     q, k, v = q.float(), k.float(), v.float()
+    kw = {} if kv_rows is None else {"kv_rows": kv_rows}
     scale = q.shape[-1] ** -0.5
     if pos is None:
         def kernel():
@@ -684,10 +718,10 @@ def check_float32_route(q, k, v, shape, pos=None) -> None:
             return k23.flash_attention_causal_plain(q, k, v, scale=scale)
     else:
         def kernel():
-            return k23.flash_attention_cached(q, k, v, pos, scale=scale)
+            return k23.flash_attention_cached(q, k, v, pos, scale=scale, **kw)
 
         def plain():
-            return k23.flash_attention_cached_plain(q, k, v, pos, scale=scale)
+            return k23.flash_attention_cached_plain(q, k, v, pos, scale=scale, **kw)
     err = compare(f"{'K2' if pos is None else 'K3'} float32 {shape}", kernel(), plain(),
                   rtol=F32_RTOL, atol=F32_ATOL)
     ms, plain_ms, _ = paired_ms(kernel, plain)
@@ -2433,7 +2467,8 @@ def spec_generate(model, label, kv_bits=None, reference=None, n=128, calibrate=F
     return launches
 
 
-def spec_engine(model, label, kv_bits=None, reference=None, n=96, calibrate=False) -> dict:
+def spec_engine(model, label, kv_bits=None, reference=None, n=96, calibrate=False,
+                kept=None) -> dict:
     """The 8-slot engine with speculative="ngram" on eight repetitive greedy
     prompts against the plain engine (of ``reference``, by default the same
     model): each request's tokens equal, or part at a tie on the plain
@@ -2442,17 +2477,31 @@ def spec_engine(model, label, kv_bits=None, reference=None, n=96, calibrate=Fals
     batched verify, and a stream), each engine's wall time and decode time
     a token, and the kernels the served speculative blocks launched (their
     verify forwards, 8 slots x 9 rows). ``calibrate`` measures the sound
-    shifts on the plain engine's state. Returns those launches."""
+    shifts on the plain engine's state. ``kept``, a dict, carries the plain
+    engine's run (its tokens and a copy of its cache as serving left it) to
+    a later call with the same reference, bits and ``n``, which serves the
+    speculative engine alone. Returns those launches."""
     import torch
 
     from crane_tpu_torch.serve.engine import InferenceEngine
 
     reference = reference or model
     prompts = repetitive_prompts(model.config.vocab_size, 8, 8)
-    runs, launches = {}, {}
+    key = (id(reference), kv_bits, n)
+    # name -> (cache layers, stats, tokens, wall s, slot of each request)
+    runs, launches, warm_s = {}, {}, {}
+    if kept is not None and key in kept:
+        runs["plain"] = kept.pop(key)
     for name, m, kw in (("plain", reference, {}), ("spec", model, {"speculative": "ngram"})):
-        engine = InferenceEngine(m, max_slots=8, max_seq_len=2048, kv_quant_bits=kv_bits, **kw)
+        if name in runs:
+            continue
+        # every prompt fits one 256-token chunk: the chunk only bounds the
+        # prefill buckets a graph-taking model captures at warmup
+        engine = InferenceEngine(m, max_slots=8, max_seq_len=2048, prefill_chunk=256,
+                                 kv_quant_bits=kv_bits, **kw)
+        t0 = time.perf_counter()
         engine.warmup()
+        warm_s[name] = f"{time.perf_counter() - t0:.2f} s"
         slots, emit = {}, engine._emit
 
         def emit_noting_slot(seq, token, slots=slots, emit=emit):
@@ -2462,19 +2511,23 @@ def spec_engine(model, label, kv_bits=None, reference=None, n=96, calibrate=Fals
         engine._emit = emit_noting_slot
         if name == "spec":
             counted_calls(m, "spec_rounds", launches)
+            spec_k = engine.spec_k
         try:
             toks, wall = serve_greedy(engine, prompts, n)
         finally:
             m.__dict__.pop("spec_rounds", None)
-        runs[name] = (engine, toks, wall, slots)
-    (plain, ref_toks, plain_wall, at), (spec, got_toks, spec_wall, _) = runs["plain"], runs["spec"]
+        runs[name] = (engine.cache.layers, engine.stats, toks, wall, slots)
+        if name == "plain" and kept is not None:
+            kept[key] = (clone_layers(engine.cache.layers), engine.stats, toks, wall, slots)
+        del engine
+    (plain_layers, plain_stats, ref_toks, plain_wall, at) = runs["plain"]
+    (_, s, got_toks, spec_wall, _) = runs["spec"]
     by_slot = {at[rid]: rid for rid in prompts}
     ties = ties_on_reference_state(
-        reference, f"spec engine {label}", plain.cache.layers, 8,
+        reference, f"spec engine {label}", plain_layers, 8,
         {at[rid]: (p, got_toks[rid], ref_toks[rid]) for rid, p in prompts.items()},
         LOGIT_TIE)
-    ties = {by_slot[s]: tie for s, tie in ties.items()}
-    s = spec.stats
+    ties = {by_slot[r]: tie for r, tie in ties.items()}
     if s.spec_steps <= 0:
         raise AssertionError(f"spec engine {label}: no speculative block ran")
     tokens = 8 * n
@@ -2486,9 +2539,10 @@ def spec_engine(model, label, kv_bits=None, reference=None, n=96, calibrate=Fals
                 f"{plain_wall:.3f} s plain ({spec_wall / tokens * 1e3:.3f} vs "
                 f"{plain_wall / tokens * 1e3:.3f} ms a token); decode time "
                 f"{s.decode_time_s / tokens * 1e3:.3f} vs "
-                f"{plain.stats.decode_time_s / tokens * 1e3:.3f} ms a token (host clock)")
+                f"{plain_stats.decode_time_s / tokens * 1e3:.3f} ms a token (host clock); "
+                f"warmup {warm_s['spec']} vs {warm_s.get('plain', 'the kept run')} plain")
     log("launches", f"spec {label}: the served speculative blocks ({s.spec_steps} verify "
-                    f"forwards of 8 x {spec.spec_k + 1} rows) launched {json.dumps(launches)}")
+                    f"forwards of 8 x {spec_k + 1} rows) launched {json.dumps(launches)}")
     attention = ("flash_attention_cached_with_stats" if getattr(model, "mesh", None) and
                  kv_bits is None else "flash_attention_cached" if kv_bits is None else
                  f"quant_cached_attention[kv{kv_bits}]")
@@ -2496,10 +2550,10 @@ def spec_engine(model, label, kv_bits=None, reference=None, n=96, calibrate=Fals
         raise AssertionError(f"spec {label}: the verify forwards never launched {attention}")
     if calibrate:
         log_sound_shifts(f"{label} engine",
-                         sound_shifts(reference, plain.cache.layers, 8,
+                         sound_shifts(reference, plain_layers, 8,
                                       {at[rid]: (p, ref_toks[rid]) for rid, p in prompts.items()},
                                       range(2, n, 3)))
-    del runs, plain, spec
+    del runs, plain_layers
     torch.cuda.synchronize()
     return launches
 
@@ -2519,13 +2573,14 @@ def check_spec(lm, lm4, rows: list[dict]) -> None:
 
     reset_counts()
     spec_generate(lm, "Qwen3-0.6B bf16")
-    bf16_blocks = spec_engine(lm, "Qwen3-0.6B bf16", calibrate=True)
+    kept = {}  # the bf16 plain engine's run, the 4-slab engine's reference too
+    bf16_blocks = spec_engine(lm, "Qwen3-0.6B bf16", calibrate=True, kept=kept)
     lm.release_graphs()
     w4_verify = spec_generate(lm4, "Qwen3-0.6B w4 kv4", 4, control=True)
     w4_blocks = spec_engine(lm4, "Qwen3-0.6B w4 kv4", 4, calibrate=True)
     lm4.release_graphs()
     slm = sp_shard_lm(lm, make_sp_mesh(4, ["cuda:0"] * 4))
-    spec_engine(slm, "Qwen3-0.6B bf16, 4 slabs", None, reference=lm)
+    spec_engine(slm, "Qwen3-0.6B bf16, 4 slabs", None, reference=lm, kept=kept)
     spec_generate(slm, "Qwen3-0.6B bf16 on an int8 cache, 4 slabs", 8, reference=lm,
                   calibrate=True)
     slm.release_graphs()
@@ -2687,7 +2742,10 @@ def direct_engine_run(lm, kv_bits, prompts: dict, tail: list[int], firsts: dict 
     submitted. Returns the tokens by request and, for each request, its
     slot's cache row as the request left it (copied when it finished).
     ``firsts``, if given, gets each request's admission logits (float32,
-    on the CPU): those that chose its first token."""
+    on the CPU): those that chose its first token. The launch counters are
+    zeroed after the engine's warmup, so a caller reads serving's launches
+    alone: warmup's prefills differ by path (a model whose slot prefills are
+    graphs warms every bucket, others one of each kind)."""
     import torch
 
     from crane_tpu_torch.serve.engine import (
@@ -2701,6 +2759,7 @@ def direct_engine_run(lm, kv_bits, prompts: dict, tail: list[int], firsts: dict 
     engine = InferenceEngine(lm, max_slots=8, max_seq_len=2048, prefill_chunk=256,
                              kv_quant_bits=kv_bits)
     engine.warmup()
+    reset_counts()
     slots, emit = {}, engine._emit
 
     def emit_noting_slot(seq, token):

@@ -54,7 +54,7 @@ cudaError_t flash_attention_mma_bf16(const void* q, const void* k, const void* v
                                      float* m_out, float* l_out, const int* positions,
                                      const int* segments, int B, int S, int Tk, int Hq,
                                      int Hkv, int D, float scale, int window, float softcap,
-                                     cudaStream_t stream);
+                                     cudaStream_t stream, const int* kv_rows);
 
 namespace {
 
@@ -64,7 +64,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ m_out, float* __restrict__ l_out,
                        const int* __restrict__ positions,
-                       const int* __restrict__ segments, int S, int Tk,
+                       const int* __restrict__ segments,
+                       const int* __restrict__ kv_rows, int S, int Tk,
                        int Hkv, int G, float scale, int window,
                        float softcap) {
   constexpr int kBlockQ = RowTile<D>::kBlockQ;
@@ -122,8 +123,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = -INFINITY, l = 0.f;
 
   const size_t row_stride = (size_t)Hkv * D;
-  const T* kb = k + (size_t)b * Tk * row_stride + (size_t)hk * D;
-  const T* vb = v + (size_t)b * Tk * row_stride + (size_t)hk * D;
+  const int bk = kv_rows != nullptr ? kv_rows[b] : b;  // the K/V row
+  const T* kb = k + (size_t)bk * Tk * row_stride + (size_t)hk * D;
+  const T* vb = v + (size_t)bk * Tk * row_stride + (size_t)hk * D;
 
   for (int kt = (kv_lo / kBlockK) * kBlockK; kt <= kv_hi; kt += kBlockK) {
     for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
@@ -192,34 +194,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* out,
             float* m_out, float* l_out, const int* positions,
-            const int* segments, int B, int S, int Tk, int Hq, int Hkv,
+            const int* segments, const int* kv_rows, int B, int S, int Tk, int Hq, int Hkv,
             float scale, int window, float softcap, cudaStream_t stream) {
   using Tl = RowTile<D>;
   dim3 grid((S + Tl::kBlockQ - 1) / Tl::kBlockQ, Hq, B);
   flash_attention_kernel<T, D><<<grid, Tl::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), m_out, l_out, positions,
-      segments, S, Tk, Hkv, Hq / Hkv, scale, window, softcap);
+      segments, kv_rows, S, Tk, Hkv, Hq / Hkv, scale, window, softcap);
 }
 
 template <typename T>
 bool dispatch_dim(int D, const void* q, const void* k, const void* v,
                   void* out, float* m_out, float* l_out, const int* positions,
-                  const int* segments, int B, int S, int Tk, int Hq, int Hkv,
-                  float scale, int window, float softcap,
+                  const int* segments, const int* kv_rows, int B, int S, int Tk, int Hq,
+                  int Hkv, float scale, int window, float softcap,
                   cudaStream_t stream) {
   if (D == 64) {
-    launch<T, 64>(q, k, v, out, m_out, l_out, positions, segments, B, S, Tk,
+    launch<T, 64>(q, k, v, out, m_out, l_out, positions, segments, kv_rows, B, S, Tk,
                   Hq, Hkv, scale, window, softcap, stream);
     return true;
   }
   if (D == 128) {
-    launch<T, 128>(q, k, v, out, m_out, l_out, positions, segments, B, S, Tk,
+    launch<T, 128>(q, k, v, out, m_out, l_out, positions, segments, kv_rows, B, S, Tk,
                    Hq, Hkv, scale, window, softcap, stream);
     return true;
   }
   if (D == 256) {
-    launch<T, 256>(q, k, v, out, m_out, l_out, positions, segments, B, S, Tk,
+    launch<T, 256>(q, k, v, out, m_out, l_out, positions, segments, kv_rows, B, S, Tk,
                    Hq, Hkv, scale, window, softcap, stream);
     return true;
   }
@@ -228,6 +230,40 @@ bool dispatch_dim(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 }  // namespace crane
+
+// crane_flash_attention (below) with the K/V row of each query batch row
+// named on the device: kv_rows [B] int32 (K3 only), so k/v may hold more rows than q
+// (a batch-1 chunk over row kv_rows[0] of a multi-row cache, the row chosen
+// at run time, as a CUDA graph replays it). The caller keeps each row inside
+// the buffers. NULL is batch row b, crane_flash_attention's indexing.
+extern "C" int crane_flash_attention_rows(int dtype, const void* q, const void* k,
+                                          const void* v, void* out, void* m_out,
+                                          void* l_out, const void* positions,
+                                          const void* segments, const void* kv_rows,
+                                          int B, int S, int Tk, int Hq, int Hkv, int D,
+                                          float scale, int window, float softcap,
+                                          void* stream) {
+  using namespace crane;
+  if (B == 0 || S == 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Tk <= 0) return cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
+  if (m_out != nullptr && positions == nullptr) return cudaErrorInvalidValue;
+  if (kv_rows != nullptr && positions == nullptr) return cudaErrorInvalidValue;
+  const int* pos = static_cast<const int*>(positions);
+  const int* seg = static_cast<const int*>(segments);
+  const int* rows = static_cast<const int*>(kv_rows);
+  float* ms = static_cast<float*>(m_out);
+  float* ls = static_cast<float*>(l_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBFloat16)
+    return flash_attention_mma_bf16(q, k, v, out, ms, ls, pos, seg, B, S, Tk, Hq,
+                                    Hkv, D, scale, window, softcap, s, rows);
+  if (dtype != kFloat32 ||
+      !dispatch_dim<float>(D, q, k, v, out, ms, ls, pos, seg, rows, B, S, Tk, Hq,
+                           Hkv, scale, window, softcap, s))
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
 
 // q [B,S,Hq,D], k/v [B,Tk,Hkv,D], out [B,S,Hq,D]; all contiguous.
 // m_out/l_out [B,Hq,S] float32, both NULL or both set (K3-S; positions path
@@ -245,22 +281,7 @@ extern "C" int crane_flash_attention(int dtype, const void* q, const void* k,
                                      int Tk, int Hq, int Hkv, int D,
                                      float scale, int window, float softcap,
                                      void* stream) {
-  using namespace crane;
-  if (B == 0 || S == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Tk <= 0) return cudaErrorInvalidValue;
-  if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
-  if (m_out != nullptr && positions == nullptr) return cudaErrorInvalidValue;
-  const int* pos = static_cast<const int*>(positions);
-  const int* seg = static_cast<const int*>(segments);
-  float* ms = static_cast<float*>(m_out);
-  float* ls = static_cast<float*>(l_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16)
-    return flash_attention_mma_bf16(q, k, v, out, ms, ls, pos, seg, B, S, Tk, Hq,
-                                    Hkv, D, scale, window, softcap, s);
-  if (dtype != kFloat32 ||
-      !dispatch_dim<float>(D, q, k, v, out, ms, ls, pos, seg, B, S, Tk, Hq,
-                           Hkv, scale, window, softcap, s))
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return crane_flash_attention_rows(dtype, q, k, v, out, m_out, l_out, positions,
+                                    segments, nullptr, B, S, Tk, Hq, Hkv, D, scale,
+                                    window, softcap, stream);
 }

@@ -25,14 +25,14 @@ cudaError_t flash_attention_mma_bf16(const void* q, const void* k, const void* v
                                      float* m_out, float* l_out, const int* positions,
                                      const int* segments, int B, int S, int Tk, int Hq,
                                      int Hkv, int D, float scale, int window, float softcap,
-                                     cudaStream_t stream) {
+                                     cudaStream_t stream, const int* kv_rows) {
 #define CRANE_FLASH_MMA(d)                                                                  \
   case d: {                                                                                 \
     const mma::Bf16Tiles<d>::Args kv{static_cast<const __nv_bfloat16*>(k),                  \
                                      static_cast<const __nv_bfloat16*>(v)};                 \
     return mma::launch<d, mma::Bf16Tiles<d>>(q, kv, out, m_out, l_out, positions, segments, \
                                              B, S, Tk, Hq, Hkv, scale, window, softcap,     \
-                                             stream);                                       \
+                                             stream, kv_rows);                              \
   }
   switch (D) {
     CRANE_FLASH_MMA(64)

@@ -8,7 +8,10 @@
 // k_scale[j] * q.code), optionally c * tanh(s / c); the softmax is online in
 // float32. A row that sees no key writes zeros, and with stats m = -INFINITY
 // and l = 0; m is the row max of the logits in natural-log units and
-// l = sum exp(s - m), [B, Hq, S] float32.
+// l = sum exp(s - m), [B, Hq, S] float32. Batch row b reads the K/V of
+// cache row b, or of row kv_rows[b] where the caller names one (K3 through
+// crane_flash_attention_rows: a batch-1 chunk over a slot of a multi-row
+// cache chosen on the device).
 //
 // What bounds it on an H100: the attention FLOPs (4 D per visible (row, key)
 // pair and query head), which belong on the bf16 tensor cores; K/V bytes
@@ -274,7 +277,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const typename KV::Args kv
                  __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
                  float* __restrict__ l_out, const int* __restrict__ positions,
                  const int* __restrict__ segments, int S, int Tk, int Hkv, int G, int GH,
-                 int wave, float scale, int window, float softcap) {
+                 int wave, float scale, int window, float softcap,
+                 const int* __restrict__ kv_rows) {
   using Tl = MmaTile<D>;
   constexpr int BK = Tl::kBlockK;
   constexpr int NC = Tl::kChunks;
@@ -313,7 +317,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const typename KV::Args kv
   const int wr = tid / 32;  // this warp's rows: 16 wr .. 16 wr + 15
   const int lane = tid % 32;
   const size_t q_stride = (size_t)Hq * D;  // elements between query positions
-  KV kv(kv_args, smem_raw + Tl::kQBytes, b, hk, Tk, Hkv);
+  // the K/V row: kv_rows[b] where the caller names one (a slot of a
+  // multi-row cache read by a batch-1 chunk), else batch row b
+  KV kv(kv_args, smem_raw + Tl::kQBytes, kv_rows != nullptr ? kv_rows[b] : b, hk, Tk, Hkv);
 
   // Q tile -> shared (zero rows where no row lives)
 #pragma unroll
@@ -633,7 +639,7 @@ template <int D, class KV>
 cudaError_t launch(const void* q, const typename KV::Args& kv, void* out, float* m_out,
                    float* l_out, const int* positions, const int* segments, int B, int S,
                    int Tk, int Hq, int Hkv, float scale, int window, float softcap,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const int* kv_rows = nullptr) {
   static_assert((D / 2 + 4) * kThreads * sizeof(float) <= smem_bytes<D, KV>(),
                 "the merge does not fit in shared memory");
   const int G = Hq / Hkv;
@@ -670,7 +676,7 @@ cudaError_t launch(const void* q, const typename KV::Args& kv, void* out, float*
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(q), kv,
                            static_cast<__nv_bfloat16*>(out), m_out, l_out, positions, segments,
-                           S, Tk, Hkv, G, GH, wave, scale, window, softcap);
+                           S, Tk, Hkv, G, GH, wave, scale, window, softcap, kv_rows);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
 """Generic causal-LM driver: prefill, decode steps and generate.
 
 Port of ``crane_tpu/models/causal_lm.py``. JAX ran each step as one jitted
-program over donated buffers; the port runs prefills eagerly and decode blocks
-as CUDA graphs (below), and the cache buffers are written in place by the
+program over donated buffers; the port runs decode blocks as CUDA graphs
+(below), the serving engine's slot prefills too where the model lets it
+(:meth:`CausalLM.prefill_graphs`), other prefills eagerly, and the cache
+buffers are written in place by the
 layers (the returned cache shares them and carries
 the new lengths). Forward, logits, repetition penalty and sampling stay on
 the device; only sampled token ids cross to the host, for streaming and EOS
@@ -47,7 +49,7 @@ from crane_tpu_torch.models.modules.transformer import (
     make_cache,
     make_rope_tables,
 )
-from crane_tpu_torch.ops.kv_cache import KVCache
+from crane_tpu_torch.ops.kv_cache import KVCache, LayerKVCache
 from crane_tpu_torch.ops.sampling import SamplingParams, sample, update_recent
 from crane_tpu_torch.parallel.sharding import ShardedParams
 from crane_tpu_torch.utils import tracing
@@ -168,7 +170,8 @@ class CausalLM:
         self.dtype = dtype
         self.device = params.device if isinstance(params, ShardedParams) else params["embed"].device
         self.rope = make_rope_tables(config, device=self.device)
-        self._programs: dict = {}  # captured decode blocks (models/graphs.py)
+        self._programs: dict = {}  # captured decode blocks and prefills (models/graphs.py)
+        self._prefill_pool = None  # the memory pool the prefill programs share
         self._generate_caches: dict = {}
 
     def _ids(self, token_ids) -> torch.Tensor:
@@ -207,16 +210,26 @@ class CausalLM:
     def prefill_slot(self, cache: KVCache, token_ids, slot: int, true_length: int):
         """Prefill ``token_ids [1, S_bucket]`` into row ``slot`` of a
         multi-slot serving cache. Attention reads the in-context K/V, so no
-        other row is touched. Returns (last-token logits ``[1, V]``, cache)."""
-        with tracing.span("model.prefill", tokens=true_length, bucket=np.shape(token_ids)[-1]):
-            hidden, new_cache = forward_hidden(
-                self.config, self.params, self._ids(token_ids), cache, 0, self.rope,
-                read_cache=False, cache_row=slot, true_lengths=self._ids([true_length]),
-            )
+        other row is touched. Returns (last-token logits ``[1, V]``, cache).
+        Where :meth:`prefill_graphs` holds, one CUDA-graph replay."""
+        graph = self.prefill_graphs(cache)
+        with tracing.span("model.prefill", tokens=true_length, bucket=np.shape(token_ids)[-1],
+                          graph=int(graph)):
+            if graph:
+                logits = self._prefill_replay(cache, token_ids, slot, 0, true_length, True)
+                new_cache = KVCache(layers=cache.layers, lengths=cache.lengths)
+            else:
+                hidden, new_cache = forward_hidden(
+                    self.config, self.params, self._ids(token_ids), cache, 0, self.rope,
+                    read_cache=False, cache_row=slot, true_lengths=self._ids([true_length]),
+                )
+                last = hidden[0, true_length - 1]
+                logits = lm_logits(self.config, self.params, last[None, None])[:, 0]
             new_cache.lengths = cache.lengths.clone()
-            new_cache.lengths[slot] = true_length
-            last = hidden[0, true_length - 1]
-            return lm_logits(self.config, self.params, last[None, None])[:, 0], new_cache
+            # fill_ on a slice: a Python number set at an index would copy
+            # from the host and wait for the card
+            new_cache.lengths[slot:slot + 1].fill_(true_length)
+            return logits, new_cache
 
     @torch.no_grad()
     def prefill_slot_continue(self, cache: KVCache, token_ids, slot: int,
@@ -225,18 +238,83 @@ class CausalLM:
         positions ``start..`` of row ``slot`` (chunked admission and prefix
         reuse); it attends the row's live context and continues the row's
         GDN states. JAX sliced the row out and merged it back; here the
-        layers write through a batch-1 view of the row, in place. Returns
-        logits at the chunk's last real token."""
-        with tracing.span("model.prefill", tokens=true_length, bucket=np.shape(token_ids)[-1]):
-            hidden, _ = forward_hidden(
-                self.config, self.params, self._ids(token_ids), cache.row(slot),
-                start, self.rope, true_lengths=self._ids([true_length]),
-            )
+        layers write through a batch-1 view of the row, in place (or, where
+        :meth:`prefill_graphs` holds, one CUDA-graph replay writes and reads
+        the row it is given on the device). Returns logits at the chunk's
+        last real token."""
+        graph = self.prefill_graphs(cache)
+        with tracing.span("model.prefill", tokens=true_length, bucket=np.shape(token_ids)[-1],
+                          graph=int(graph)):
+            if graph:
+                logits = self._prefill_replay(cache, token_ids, slot, start, true_length, False)
+            else:
+                hidden, _ = forward_hidden(
+                    self.config, self.params, self._ids(token_ids), cache.row(slot),
+                    start, self.rope, true_lengths=self._ids([true_length]),
+                )
+                last = hidden[0, true_length - 1]
+                logits = lm_logits(self.config, self.params, last[None, None])[:, 0]
             lengths = cache.lengths.clone()
-            lengths[slot] = start + true_length
-            last = hidden[0, true_length - 1]
-            logits = lm_logits(self.config, self.params, last[None, None])[:, 0]
+            lengths[slot:slot + 1].fill_(start + true_length)
             return logits, KVCache(layers=cache.layers, lengths=lengths)
+
+    # -- slot prefills as CUDA graphs -----------------------------------------
+    # The engine's admissions (prefill_slot, prefill_slot_continue) replay
+    # one program per (kind, bucket): the slot, the start and the true
+    # length are device inputs, so warmup's captures serve every slot.
+
+    def prefill_graphs(self, cache: KVCache) -> bool:
+        """True when slot prefills over ``cache`` run as CUDA-graph
+        replays: the model takes graphs on its device (``graphs.takes_graphs``:
+        the card, one device, outside ``graphs.eager()``), every layer is
+        full attention over an fp cache (:class:`LayerKVCache`), and no
+        layer has experts. A GDN or short-conv layer, a sliding window, an
+        int8/int4 cache, a mesh or the CPU keep the eager prefill."""
+        cfg = self.config
+        return (graphs.takes_graphs(self.device, self.mesh) and not self.mesh
+                and cfg.num_experts == 0
+                and all(cfg.layer_type(i) == "full" for i in range(cfg.num_layers))
+                and all(type(layer) is LayerKVCache for layer in cache.layers))
+
+    def _prefill_body(self, *, layers, fresh, tokens, meta, active, logits):
+        """A slot prefill of ``tokens [1, S]`` into row ``meta[0]`` from
+        position ``meta[1]`` (``fresh``: 0, K2 over the in-context K/V;
+        else K3 over the row's live context), ``meta[2]`` of its tokens
+        real; the head's logits at the last real token go to ``logits
+        [1, V]``. With ``active`` false (the capture) no slot is written."""
+        slot, start, n = meta[0:1], meta[1:2], meta[2:3]
+        hidden, _ = forward_hidden(self.config, self.params, tokens,
+                                   KVCache(layers=layers, lengths=start), start, self.rope,
+                                   read_cache=not fresh, cache_row=slot, active=active)
+        last = hidden[0].index_select(0, (n - 1).long())
+        logits.copy_(lm_logits(self.config, self.params, last[None])[:, 0])
+
+    def _prefill_replay(self, cache, token_ids, slot, start, true_length, fresh):
+        """Logits ``[1, V]`` of one replay of the (``fresh``, bucket)
+        prefill program, captured at its first call. The tokens, slot,
+        start and length reach the card in one copy from pinned memory,
+        queued behind the stream's work: nothing here waits for the card."""
+        if isinstance(token_ids, torch.Tensor):
+            token_ids = token_ids.cpu()
+        ids = np.asarray(token_ids, np.int32).reshape(-1)
+        S, T = ids.shape[0], cache.max_seq
+        if not (0 <= slot < cache.lengths.shape[0] and 0 < true_length <= S
+                and 0 <= start and start + S <= T):
+            raise ValueError(f"prefill of {true_length} in a bucket of {S} at [{start}, "
+                             f"{start + S}) of slot {slot}: outside the cache")
+        if self._prefill_pool is None:
+            self._prefill_pool = graphs.new_pool(self.device)
+        host = torch.from_numpy(np.concatenate([ids, np.array([slot, start, true_length],
+                                                              np.int32)]))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        dev = host.to(self.device, non_blocking=True)
+        inputs = dict(tokens=dev[:S].view(1, S), meta=dev[S:],
+                      active=torch.ones((1,), dtype=torch.bool, device=self.device))
+        kind = "prefill" if fresh else "prefill_continue"
+        return graphs.dispatch(self._programs, self.device, kind, self._prefill_body, cache,
+                               inputs, {"logits": ((1, self.config.vocab_size), torch.float32)},
+                               mesh=self.mesh, pool=self._prefill_pool, fresh=fresh)["logits"]
 
     # -- decode blocks -------------------------------------------------------
     # Each block is one function of tensors (the ``_*_body`` methods below):
@@ -258,6 +336,7 @@ class CausalLM:
         new cache or generator a caller hands a decode block captures new
         programs, kept until this call."""
         self._programs.clear()
+        self._prefill_pool = None
         self._generate_caches.clear()
 
     def _decode_body(self, *, layers, generator, n_steps, tokens, lengths, recent, active,

@@ -1,5 +1,5 @@
-"""Decode programs as CUDA graphs: the counterpart of crane_tpu's jitted
-``lax.scan`` blocks.
+"""Decode programs (and the serving engine's slot prefills) as CUDA graphs:
+the counterpart of crane_tpu's jitted ``lax.scan`` blocks and prefills.
 
 crane_tpu runs a whole decode block (``_decode_steps``, ``_decode_active``,
 ``_decode_active_hist``, ``_spec_rounds``) as one device program: ``jax.jit``
@@ -35,6 +35,10 @@ results are read out of the static buffers.
   what they were before the warm-up, the capture's change is recorded, and
   every replay adds it, so the counts after N replays equal the eager
   loop's for the same work.
+- **Memory.** A decode program's graph keeps a memory pool of its own. The
+  slot prefill programs of a model share one (:func:`new_pool`): they run
+  one at a time on one stream, so their scratch may overlap, and the pool
+  holds one forward of the largest bucket, captured first.
 - **Device rule.** A model on a CUDA device whose slabs or shards (if
   any) all share its device runs programs; a CPU model, and a sequence- or
   tensor-parallel model over several devices (which one graph cannot
@@ -70,8 +74,9 @@ _local = threading.local()
 
 @contextlib.contextmanager
 def eager():
-    """Run decode blocks as the eager loop in this thread, even on the card
-    (the reference the card tests and ``chip_smoke.py`` hold graphs to)."""
+    """Run decode blocks as the eager loop, and slot prefills eagerly, in this
+    thread, even on the card (the reference the card tests and
+    ``chip_smoke.py`` hold graphs to)."""
     prev = getattr(_local, "eager", False)
     _local.eager = True
     try:
@@ -129,11 +134,24 @@ def _new_graph():
     return torch.cuda.CUDAGraph()
 
 
+_side_streams: dict = {}
+
+
+def _side_stream(device: torch.device):
+    """The one side stream of ``device`` that every warm-up runs on. cuBLAS
+    keeps a workspace (32 MiB on an H100) for each stream it runs on, for
+    the life of the process, so a new stream a warm-up would hold a new
+    one."""
+    if device not in _side_streams:
+        _side_streams[device] = torch.cuda.Stream(device)
+    return _side_streams[device]
+
+
 def _warm_up(fn, generator, device: torch.device) -> None:
-    """Run ``fn`` once on a side stream of ``device`` (the kernels' one-time
-    set-up), its random draws taken back."""
+    """Run ``fn`` once on the side stream of ``device`` (the kernels'
+    one-time set-up), its random draws taken back."""
     state = generator.get_state() if generator is not None else None
-    side = torch.cuda.Stream(device)
+    side = _side_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         fn()
@@ -161,12 +179,19 @@ def _collector_paused():
                 gc.enable()
 
 
-def _capture(graph, fn, generator, device: torch.device) -> None:
-    """Capture ``fn`` into ``graph``, the generator registered with it."""
+def _capture(graph, fn, generator, device: torch.device, pool=None) -> None:
+    """Capture ``fn`` into ``graph``, the generator registered with it, its
+    memory from ``pool`` (None: a pool of its own)."""
     if generator is not None:
         graph.register_generator_state(generator)
-    with torch.cuda.device(device), torch.cuda.graph(graph):
+    with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
         fn()
+
+
+def new_pool(device: torch.device):
+    """A graph memory pool programs can share (``pool`` of :func:`dispatch`);
+    None off the card."""
+    return torch.cuda.graph_pool_handle() if device.type == "cuda" else None
 
 
 class Program:
@@ -178,11 +203,13 @@ class Program:
     while the program captures. The program holds the generator and the
     objects in ``keep`` (the cache layers the graph writes), so neither
     their memory nor their ``id`` can pass to another object while it lives.
+    ``pool`` is a memory pool shared with other programs (:func:`new_pool`).
     Calling the program copies the given tensors into their static buffers,
     replays the graph once and adds the capture's launch counts; it returns
     the static buffers, which the next replay overwrites."""
 
-    def __init__(self, body, statics: dict[str, torch.Tensor], generator=None, keep=()):
+    def __init__(self, body, statics: dict[str, torch.Tensor], generator=None, keep=(),
+                 pool=None):
         global captures
         self.statics = statics
         self.generator, self.keep = generator, keep
@@ -194,7 +221,7 @@ class Program:
         _warm_up(fn, generator, device)
         start = counts()
         with _collector_paused():
-            _capture(self.graph, fn, generator, device)
+            _capture(self.graph, fn, generator, device, pool)
         end = counts()
         self.launches = _changes(end[0], start[0])
         self.routes = _changes(end[1], start[1])
@@ -225,7 +252,7 @@ def kept_copies(store: dict, key, pairs) -> tuple:
 
 
 def dispatch(programs: dict, device: torch.device, kind: str, body, cache, inputs: dict,
-             outputs: dict, *, generator=None, copy_out: bool = True, mesh=(),
+             outputs: dict, *, generator=None, copy_out: bool = True, mesh=(), pool=None,
              **static) -> dict:
     """Run block ``body`` over ``cache`` on ``device``: ``inputs`` are read
     (and those named in :data:`IN_OUT` written back in place), ``outputs``
@@ -237,9 +264,9 @@ def dispatch(programs: dict, device: torch.device, kind: str, body, cache, input
     :class:`Program` kept in the model's ``programs`` dict and keyed, as a
     jit is, by ``kind``, the ``static`` sizes, the generator, the cache
     layers' buffers (address and shape) and the inputs' shapes; the first
-    call of a key captures it, and the program holds the generator and the
-    layers. Elsewhere (and under :func:`eager`) the body runs eagerly on
-    the caller's tensors."""
+    call of a key captures it (its memory from ``pool`` where one is given),
+    and the program holds the generator and the layers. Elsewhere (and
+    under :func:`eager`) the body runs eagerly on the caller's tensors."""
     fn = functools.partial(body, layers=cache.layers, **static)
     if generator is not None:
         fn = functools.partial(fn, generator=generator)
@@ -257,7 +284,8 @@ def dispatch(programs: dict, device: torch.device, kind: str, body, cache, input
         statics = {name: t.clone() for name, t in inputs.items()}
         statics.update({name: torch.empty(shape, dtype=dt, device=device)
                         for name, (shape, dt) in outputs.items()})
-        program = programs[key] = Program(fn, statics, generator, keep=cache.layers)
+        program = programs[key] = Program(fn, statics, generator, keep=cache.layers,
+                                          pool=pool)
     res = program(**inputs)
     for name in IN_OUT:
         if name in inputs:

@@ -373,7 +373,7 @@ def attention_block(
     *,
     window: int | None = None,
     read_cache: bool = True,
-    cache_row: int | None = None,
+    cache_row: int | torch.Tensor | None = None,
     use_local_rope: bool = False,
     extra_mask: torch.Tensor | None = None,
     segments: torch.Tensor | None = None,
@@ -387,6 +387,11 @@ def attention_block(
     start or ``[B]`` per-row write positions (see ``LayerKVCache.update``).
     ``read_cache=False`` attends over the freshly computed in-context K/V
     (fresh prefill from position 0) so a slot prefill touches no other row.
+    ``cache_row`` is the slot row of an ``int``-start write, or, with
+    ``[B]`` per-row starts, a ``[B]`` int32 device tensor of the rows the
+    batch writes and, reading the cache, attends (a batch-1 chunk into a
+    slot chosen on the device, as a CUDA graph replays it: K3 over an fp
+    cache only).
     With ``cfg.attn_output_gate`` the q projection is twice as wide and
     carries ``[query | gate]`` per head; the attention output is multiplied
     by ``sigmoid(gate)`` before the output projection. The cache is written
@@ -449,6 +454,10 @@ def attention_block(
     scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
     softcap = cfg.attn_logit_softcap
     kind = "prefill" if not read_cache else ("decode" if S == 1 else "chunk")
+    kv_rows = cache_row if isinstance(cache_row, torch.Tensor) else None
+    if kv_rows is not None and read_cache and (
+            kind != "chunk" or extra_mask is not None or type(new_cache) is not LayerKVCache):
+        raise ValueError("a device cache row is read only by a chunk over an fp cache (K3)")
 
     def route(kernel, plain_fn):
         return attention_route(kind, kernel, plain_fn, D, H, Hkv, force_plain=plain)
@@ -491,7 +500,7 @@ def attention_block(
     else:
         out = route(flash_attention_cached, flash_attention_cached_plain)(
             q, new_cache.k, new_cache.v, positions, scale=scale, window=window,
-            softcap=softcap)
+            softcap=softcap, kv_rows=kv_rows)
 
     if gate is not None:
         out = out * torch.sigmoid(gate.float()).to(out.dtype)
@@ -575,7 +584,7 @@ def decoder_layer(
     *,
     layer_idx: int,
     read_cache: bool = True,
-    cache_row: int | None = None,
+    cache_row: int | torch.Tensor | None = None,
     active: torch.Tensor | None = None,
     true_lengths: torch.Tensor | None = None,
     extra_mask: torch.Tensor | None = None,
@@ -630,7 +639,7 @@ def forward_hidden(
     rope: dict,
     *,
     read_cache: bool = True,
-    cache_row: int | None = None,
+    cache_row: int | torch.Tensor | None = None,
     active: torch.Tensor | None = None,
     true_lengths: torch.Tensor | None = None,
     inputs_embeds: torch.Tensor | None = None,
@@ -644,7 +653,9 @@ def forward_hidden(
     """Token ids ``[B, S]`` -> final hidden states ``[B, S, E]`` + cache.
 
     ``cache_positions``: an ``int`` start (prefill; all rows aligned) or a
-    ``[B]`` tensor of per-row write positions (batched decode, S == 1).
+    ``[B]`` tensor of per-row write positions (batched decode, S == 1; a
+    slot prefill replayed as a CUDA graph, whose ``cache_row`` is then a
+    ``[B]`` device tensor too, :func:`attention_block`).
     ``active [B]`` bool masks rows out of a batched decode: their KV writes
     are dropped, their GDN states stay and their lengths don't advance
     (static-slot serving). ``true_lengths [B]``: the unpadded length of each

@@ -54,6 +54,8 @@ SIGNATURES = {
     "crane_decode_attention_info": [_I, _I, _I, _P],
     "crane_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _F, _I, _F, _P],
+    "crane_flash_attention_rows": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _F, _I, _F, _P],
     "crane_flash_attention_mma_info": [_I, _P],
     "crane_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "crane_quant_matmul_mma_info": [_I, _I, _P],

@@ -7,8 +7,11 @@ Port of ``crane_tpu/ops/pallas/flash_attention.py``:
   with optional sliding ``window``, ``softcap`` and ``segments``.
 - :func:`flash_attention_cached` (K3): a continuation chunk at absolute
   ``positions`` over the whole cache buffer ``[B, T, Hkv, D]`` read as
-  stored. It also stands for ``quant_cached_attention(bits=16)``, which
-  computes the same function over the same layout.
+  stored, or with ``kv_rows`` over the rows it names of a buffer of any
+  number of rows (a batch-1 chunk over a slot chosen on the device, as a
+  CUDA graph replays it). It also stands for
+  ``quant_cached_attention(bits=16)``, which computes the same function over
+  the same layout.
 - :func:`flash_attention_cached_with_stats` (K3-S, the same launch with
   stats pointers): K3 that also returns each query row's softmax max and sum,
   ``cached_attention_with_stats(bits=16)``, for the sequence-parallel merge
@@ -68,11 +71,16 @@ def flash_attention_cached_plain(
     scale: float,
     window: int | None = None,
     softcap: float | None = None,
+    kv_rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q ``[B, S, Hq, D]`` at absolute ``positions [B, S]``; k/v the whole
-    cache buffers ``[B, T, Hkv, D]`` (the chunk already written). Positions
-    past the buffer (bucket-padded tail rows) are clamped to ``T - 1``, as
-    the TPU kernel clamps them. Returns ``[B, S, Hq, D]`` in q's dtype."""
+    cache buffers ``[B, T, Hkv, D]`` (the chunk already written), or with
+    ``kv_rows [B]`` int32 buffers ``[R, T, Hkv, D]`` of which query row b
+    reads row ``kv_rows[b]``. Positions past the buffer (bucket-padded tail
+    rows) are clamped to ``T - 1``, as the TPU kernel clamps them. Returns
+    ``[B, S, Hq, D]`` in q's dtype."""
+    if kv_rows is not None:
+        k_cache, v_cache = k_cache[kv_rows.long()], v_cache[kv_rows.long()]
     mask = _cached_mask(positions, k_cache.shape[1], window)
     return masked_attention(q, k_cache, v_cache, mask, scale=scale,
                             logit_softcap=softcap)
@@ -102,6 +110,8 @@ def _cached_mask(positions, T, window):
 
 
 def _check(name, q, k, v, B, S, Tk, Hkv):
+    """``B`` is the K/V buffers' rows (q's batch but where ``kv_rows``
+    names the rows)."""
     Hq, D = q.shape[2], q.shape[3]
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim must be in {HEAD_DIMS}, got {D}")
@@ -117,9 +127,11 @@ def _check(name, q, k, v, B, S, Tk, Hkv):
         raise ValueError(f"{name}: bf16 q/k/v must start on a 16-byte boundary")
 
 
-def _launch(q, k, v, positions, segments, Tk, scale, window, softcap, stats=False):
-    """Launch K2 (no positions) or K3 (positions); ``stats`` (K3-S) also
-    writes ``m``, ``l`` ``[B, Hq, S]`` and returns ``(out, m, l)``."""
+def _launch(q, k, v, positions, segments, Tk, scale, window, softcap, stats=False,
+            kv_rows=None):
+    """Launch K2 (no positions) or K3 (positions, maybe ``kv_rows``);
+    ``stats`` (K3-S) also writes ``m``, ``l`` ``[B, Hq, S]`` and returns
+    ``(out, m, l)``."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     out = torch.empty_like(q)
@@ -127,11 +139,12 @@ def _launch(q, k, v, positions, segments, Tk, scale, window, softcap, stats=Fals
     if stats:
         m = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
-    err = build.lib().crane_flash_attention(
+    err = build.lib().crane_flash_attention_rows(
         build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), m.data_ptr() if stats else None, l.data_ptr() if stats else None,
         positions.data_ptr() if positions is not None else None,
         segments.data_ptr() if segments is not None else None,
+        kv_rows.data_ptr() if kv_rows is not None else None,
         B, S, Tk, Hq, Hkv, D, float(scale), int(window or 0),
         float(softcap or 0.0), build.stream_ptr(q.device),
     )
@@ -181,18 +194,21 @@ def flash_attention_cached(
     scale: float,
     window: int | None = None,
     softcap: float | None = None,
+    kv_rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Cached-continuation flash attention (contract in
-    :func:`flash_attention_cached_plain`)."""
+    :func:`flash_attention_cached_plain`). The rows ``kv_rows`` names are
+    read on the card, where nothing checks them: the caller keeps them
+    inside the buffers."""
     build.refuse_grad("flash_attention_cached", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_attention_cached_plain(
             q, k_cache, v_cache, positions, scale=scale, window=window,
-            softcap=softcap)
+            softcap=softcap, kv_rows=kv_rows)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cached: no kernel for {q.device}")
     out = _launch_cached("flash_attention_cached", q, k_cache, v_cache, positions,
-                         scale, window, softcap, stats=False)
+                         scale, window, softcap, stats=False, kv_rows=kv_rows)
     flash_attention_cached.launches += 1
     return out
 
@@ -215,14 +231,22 @@ def flash_attention_cached_with_stats(
     return res
 
 
-def _launch_cached(name, q, k_cache, v_cache, positions, scale, window, softcap, stats):
+def _launch_cached(name, q, k_cache, v_cache, positions, scale, window, softcap, stats,
+                   kv_rows=None):
     B, S = q.shape[0], q.shape[1]
     T = k_cache.shape[1]
-    _check(name, q, k_cache, v_cache, B, S, T, k_cache.shape[2])
+    tensors = [q, k_cache, v_cache, positions]
+    if kv_rows is not None:
+        if kv_rows.dtype != torch.int32 or kv_rows.shape != (B,):
+            raise TypeError("kv_rows must be int32 [B]")
+        tensors.append(kv_rows)
+    _check(name, q, k_cache, v_cache, B if kv_rows is None else k_cache.shape[0], S, T,
+           k_cache.shape[2])
     if positions.dtype != torch.int32 or positions.shape != (B, S):
         raise TypeError("positions must be int32 [B, S]")
-    build.require_cuda(name, q, k_cache, v_cache, positions)
-    return _launch(q, k_cache, v_cache, positions, None, T, scale, window, softcap, stats)
+    build.require_cuda(name, *tensors)
+    return _launch(q, k_cache, v_cache, positions, None, T, scale, window, softcap, stats,
+                   kv_rows)
 
 
 def mma_kernel_info(head_dim: int) -> dict[str, int]:

@@ -62,7 +62,7 @@ class LayerKVCache:
         k_new: torch.Tensor,
         v_new: torch.Tensor,
         positions,
-        row: int | None = None,
+        row: int | torch.Tensor | None = None,
     ) -> "LayerKVCache":
         """Write ``k_new/v_new`` ``[B, S_new, H, D]`` at ``positions``, in
         place.
@@ -70,7 +70,9 @@ class LayerKVCache:
         ``positions`` is either an ``int`` start shared by all rows (prefill)
         or a ``[B]`` tensor of per-row starts (batched decode, speculative
         verify). ``row`` offsets the batch row of an ``int``-start write
-        (slot prefill into a multi-slot cache). Per-row positions outside
+        (slot prefill into a multi-slot cache); with per-row starts it is a
+        ``[B]`` tensor naming each written row's buffer row (a slot chosen
+        on the device, as a CUDA graph replays it). Per-row positions outside
         ``[0, max_seq)`` are dropped (inactive-slot masking in the serving
         engine; a sequence-sharded slab's positions of other slabs).
         Returns ``self``."""
@@ -80,8 +82,8 @@ class LayerKVCache:
             self.v[r, t] = v_new.to(self.v.dtype)
             return self
         w = _row_writes(positions, k_new.shape[0], k_new.shape[1], self.max_seq)
-        _put(self.k, *w, k_new)
-        _put(self.v, *w, v_new)
+        _put(self.k, *w, k_new, row)
+        _put(self.v, *w, v_new, row)
         return self
 
 
@@ -115,12 +117,14 @@ def _row_writes(positions: torch.Tensor, B: int, s: int, max_seq: int):
     return b, (start + j).clamp(0, max_seq - 1), src, first <= last
 
 
-def _put(buf: torch.Tensor, b, idx, src, hit, new: torch.Tensor) -> None:
-    """``buf[b, idx] = new[b, src]`` along dims 0 and 1, a row with no kept
+def _put(buf: torch.Tensor, b, idx, src, hit, new: torch.Tensor, rows=None) -> None:
+    """``buf[r, idx] = new[b, src]`` along dims 0 and 1, ``r`` the buffer
+    row of each written row (``rows [B]``, else ``b``), a row with no kept
     token storing back what the slot already held, so no host-side
     filtering (and no device sync) is needed."""
+    r = b if rows is None else rows.long()[:, None]
     hit = hit.reshape(*hit.shape, *([1] * (new.ndim - 2)))
-    buf[b, idx] = torch.where(hit, new[b, src].to(buf.dtype), buf[b, idx])
+    buf[r, idx] = torch.where(hit, new[b, src].to(buf.dtype), buf[r, idx])
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
@@ -227,7 +231,10 @@ class QuantLayerKVCache:
         scales at ``positions``, in place, with :meth:`LayerKVCache.update`'s
         contract: an ``int`` start (with ``row``) or ``[B]`` per-row starts,
         whose writes outside ``[0, max_seq)`` are dropped for codes and
-        scales alike. Returns ``self``."""
+        scales alike. A device ``row`` is refused: quantized caches keep the
+        eager prefill. Returns ``self``."""
+        if isinstance(row, torch.Tensor):
+            raise TypeError("QuantLayerKVCache.update: row must be an int")
         kq, ks = self._encode(k_new)
         vq, vs = self._encode(v_new)
         if not isinstance(positions, torch.Tensor):

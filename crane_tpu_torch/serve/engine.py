@@ -298,20 +298,45 @@ class InferenceEngine:
             self._thread.join(timeout=30)
         self._flush_inflight()  # deliver any tokens the loop left in flight
 
+    def prefill_buckets(self) -> tuple[list[int], list[int]]:
+        """(fresh, continuation) buckets admission can reach: powers of two
+        from ``align`` up to the chunk's bucket, or up to ``max_seq_len``
+        when there is no chunk (and ``max_seq_len`` itself, where a whole
+        prompt's bucket is cut to the buffer); a continuation starts at
+        ``align`` or later, so its bucket fits below that."""
+        top = self.max_seq_len
+        if self.prefill_chunk is not None:
+            top = min(top, bucket_length(self.prefill_chunk, floor=self.align))
+        pow2, b = [], self.align
+        while b <= top:
+            pow2.append(b)
+            b *= 2
+        fresh = pow2 + ([top] if top not in pow2 else [])
+        return fresh, [b for b in pow2 if b + self.align <= self.max_seq_len]
+
     def warmup(self):
         """Run each program serving reaches once (slot prefill, continuation
         chunk, admission sampling, the decode blocks of 1 and
         ``decode_tokens_per_seq`` steps, with the history rows when
         speculation can engage, and the speculative rounds), so the first
         request pays no one-time cost: on a CUDA model that includes
-        building the kernels and capturing every decode block's graph, so
-        none is captured while serving. Every slot is inactive here, so the
-        blocks write nothing; state touched by the prefills is reset after."""
+        building the kernels and capturing every decode block's graph and,
+        where the model runs slot prefills as graphs
+        (``CausalLM.prefill_graphs``), the prefill graph of each bucket
+        :meth:`prefill_buckets` gives, the largest first (their shared pool
+        then holds one forward of it), so none is captured while serving.
+        Every slot is inactive here, so the blocks write nothing; state
+        touched by the prefills is reset after."""
         t0 = time.perf_counter()
-        tok = np.zeros((1, self.align), np.int32)
-        logits, self.cache = self.lm.prefill_slot(self.cache, tok, 0, 1)
-        if self.max_seq_len >= 2 * self.align:
-            _, self.cache = self.lm.prefill_slot_continue(self.cache, tok, 0, self.align, 1)
+        fresh, cont = [self.align], [self.align]
+        if self.lm.prefill_graphs(self.cache):
+            fresh, cont = self.prefill_buckets()
+        for b in sorted(set(fresh) | set(cont), reverse=True):
+            tok = np.zeros((1, b), np.int32)
+            if b in fresh:
+                logits, self.cache = self.lm.prefill_slot(self.cache, tok, 0, 1)
+            if b in cont and self.align + b <= self.max_seq_len:
+                _, self.cache = self.lm.prefill_slot_continue(self.cache, tok, 0, self.align, 1)
         for n in sorted({1, self.decode_tokens_per_seq}):
             out = self._run_decode(n)
         if self.history is not None:

@@ -1034,6 +1034,123 @@ def test_engine_captures_nothing_after_warmup(dev):
     assert captured == 0 and got[:3] == plain
 
 
+# -- slot prefills as CUDA graphs (CausalLM.prefill_graphs) -------------------
+
+# where the replayed prefill's argmax and the eager one's part, the eager
+# logits at the two tokens must lie within this (chip_smoke.py's LOGIT_TIE)
+PREFILL_LOGIT_TIE = 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 8), (128, 16, 8), (256, 8, 2)])
+def test_k3_row_pointer_equals_the_row_view(dev, dtype, D, Hq, Hkv):
+    """K3 given the cache row on the device (``kv_rows``) over a 5-row
+    cache equals K3 on that row's view, bit for bit, at the first and last
+    slot and at starts 0, 300 and the buffer's end; a chunk that crosses
+    the buffer's end is clamped alike."""
+    gen = torch.Generator(device=dev).manual_seed(D + Hq)
+    B, T, S = 5, 1024, 256
+    k, v = (rnd(gen, B, T, Hkv, D, dtype=dtype) for _ in range(2))
+    q = rnd(gen, 1, S, Hq, D, dtype=dtype)
+    for slot in (0, B - 1):
+        rows = torch.tensor([slot], dtype=torch.int32, device=dev)
+        for start in (0, 300, T - S, T - S // 2):
+            pos = (start + torch.arange(S, device=dev, dtype=torch.int32))[None]
+            got = k23.flash_attention_cached(q, k, v, pos, scale=D ** -0.5, kv_rows=rows)
+            ref = k23.flash_attention_cached(q, k[slot:slot + 1], v[slot:slot + 1], pos,
+                                             scale=D ** -0.5)
+            assert torch.equal(got, ref), (slot, start)
+    with pytest.raises(TypeError, match="kv_rows"):
+        k23.flash_attention_cached(q, k, v, pos, scale=0.1, kv_rows=rows.long())
+
+
+def _prefill_calls(lm, buckets, slots=(0, 3), starts=(64, 512)):
+    """Each bucket's fresh prefill at ``slots`` and continuation chunks
+    there at ``starts``, over a 4-row cache whose rows hold 1024 tokens of
+    their own; the logits of each call, the cache after, and the launch
+    counts they added."""
+    dev = lm.device
+    B, T = 4, 2048
+    ctx = [[(11 * r + 5 * j) % 400 + 1 for j in range(1024)] for r in range(B)]
+    _, cache = lm.prefill(lm.init_cache(B, T), ctx, [1024] * B)
+    kernels.reset_launch_counts()
+    launches, _ = graphs.counts()
+    out = []
+    for b in buckets:
+        for slot in slots:
+            toks = [[(3 * j + b + slot) % 400 + 1 for j in range(b)]]
+            logits, cache = lm.prefill_slot(cache, toks, slot, b - 7)
+            out.append(logits)
+            for start in starts:
+                logits, cache = lm.prefill_slot_continue(cache, toks, slot, start, b - 3)
+                out.append(logits)
+    counts = {k: n - launches[k] for k, n in graphs.counts()[0].items() if n != launches[k]}
+    return torch.cat(out).cpu(), cache, counts
+
+
+@pytest.mark.parametrize("path", ["bf16", "f32"])
+def test_prefill_replays_equal_eager(dev, path):
+    """Fresh prefills and continuation chunks at every chat bucket (64-512),
+    at two slots and two starts, replayed as CUDA graphs against
+    graphs.eager(): each call's argmax is the eager one's or ties on the
+    eager logits within PREFILL_LOGIT_TIE; the K/V written agree; the K2/K3
+    launch counts are the eager path's; one program per (kind, bucket)."""
+    lm, _ = _path_lm(dev, path)
+    buckets = (64, 128, 256, 512)
+    start = graphs.captures
+    got, cache, counts = _prefill_calls(lm, buckets)
+    assert graphs.captures - start == 2 * len(buckets)
+    with graphs.eager():
+        ref, ref_cache, ref_counts = _prefill_calls(lm, buckets)
+    assert counts == ref_counts and counts["flash_attention_causal"] == 2 * 4 * 2
+    assert counts["flash_attention_cached"] == 2 * 4 * 2 * 2
+    picked, ref_picked = got.argmax(-1), ref.argmax(-1)
+    rows = torch.arange(ref.shape[0])
+    gaps = ref[rows, ref_picked] - ref[rows, picked]
+    assert bool((gaps <= PREFILL_LOGIT_TIE).all()), gaps.max()
+    for a, b in zip(cache.layers, ref_cache.layers):
+        for x, y in ((a.k, b.k), (a.v, b.v)):
+            err = (x.float() - y.float()).norm() / y.float().norm()
+            assert err < (1e-5 if path == "f32" else 1e-2), err
+
+
+def test_served_mix_after_warm_prefills_captures_nothing(dev):
+    """The chat cell's engine flags on a tiny float32 model: warmup
+    captures every prefill bucket, the benchmark's warm_prefills then
+    replays them, and a short mix (a short prompt, a chunked one, a second
+    turn past a reused prefix) is served with no capture; its greedy tokens
+    equal the eager engine's."""
+    from crane_bench import system
+    from crane_bench.spec import HERE, read_json
+
+    lm, _ = _path_lm(dev, "f32")
+    mix = read_json(HERE / "traffic" / "chat.json")
+    greedy = SamplingOptions(do_sample=False, repetition_penalty=1.0)
+    first = [(7 * j) % 400 + 1 for j in range(300)]
+    prompts = [("a", first), ("b", list(range(3, 40))),
+               ("c", [(5 * j) % 400 + 1 for j in range(1300)])]
+
+    def serve():
+        engine = InferenceEngine(lm, max_slots=16, max_seq_len=4096, prefill_chunk=512)
+        engine.warmup()
+        captured = graphs.captures
+        system.warm_prefills(engine, mix)
+        outs = {}
+        for batch in (prompts, [("a2", first + [9, 8, 7] * 40)]):
+            qs = {rid: engine.submit(EngineRequest(rid, p, 16, greedy)) for rid, p in batch}
+            for _ in range(2000):
+                if not engine.step() and engine.request_q.empty():
+                    break
+            outs.update({rid: _drain(q) for rid, q in qs.items()})
+        return outs, graphs.captures - captured, engine.stats.prefix_tokens_reused
+
+    got, captured, reused = serve()
+    assert captured == 0 and reused >= 256
+    with graphs.eager():
+        ref, _, _ = serve()
+    assert got == ref
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [16, 8, 4])
 @pytest.mark.parametrize("S", [5, 9])

@@ -62,7 +62,7 @@ def stand_in_warm_up(fn, generator, device):
         generator.set_state(state)
 
 
-def stand_in_capture(graph, fn, generator, device):
+def stand_in_capture(graph, fn, generator, device, pool=None):
     """The capture pass: ``fn`` once on the static buffers (its launch
     counts stay, as a capture's do; its random draws are taken back, as the
     capture draws none)."""
@@ -156,7 +156,7 @@ def test_capture_writes_nothing_the_caller_sees(stand_in, monkeypatch):
     seen = []
     real = stand_in_capture
 
-    def capture_then_look(graph, fn, generator, device):
+    def capture_then_look(graph, fn, generator, device, pool=None):
         real(graph, fn, generator, device)
         seen.append(snapshot(cache) + [recent.clone(), history.clone()])
 
@@ -178,7 +178,7 @@ def test_capture_pauses_the_garbage_collector(stand_in, monkeypatch, fails):
     cache, toks, recent, sp, active = state(lm)
     seen = []
 
-    def capture_and_look(graph, fn, generator, device):
+    def capture_and_look(graph, fn, generator, device, pool=None):
         seen.append(gc.isenabled())
         if fails:
             raise RuntimeError("capture invalidated")
@@ -285,9 +285,10 @@ def test_counts_after_replays_equal_the_eager_loop(stand_in):
 
 def test_engine_captures_nothing_after_warmup(stand_in):
     """warmup captures every program serving reaches (blocks of 1 and
-    decode_tokens_per_seq steps with the history rows, and the speculative
-    rounds); a mix of speculative, plain and sampled serving then captures
-    none, and its tokens equal the eager engine's."""
+    decode_tokens_per_seq steps with the history rows, the speculative
+    rounds, and the slot prefills of every bucket: fresh 64 and 128,
+    continuing 64); a mix of speculative, plain and sampled serving then
+    captures none, and its tokens equal the eager engine's."""
     lm = tiny_lm()
     kw = dict(max_slots=3, max_seq_len=128, decode_tokens_per_seq=4, speculative="ngram",
               spec_k=4, spec_rounds=2)
@@ -317,7 +318,8 @@ def test_engine_captures_nothing_after_warmup(stand_in):
     engine = InferenceEngine(lm, **kw)
     start = graphs.captures
     got, after = serve(engine)
-    assert after == 0 and len(stand_in) == 3 and graphs.captures - start == 3
+    assert engine.prefill_buckets() == ([64, 128], [64])
+    assert after == 0 and len(stand_in) == 6 and graphs.captures - start == 6
     assert engine.stats.spec_steps > 0
     with graphs.eager():
         ref, _ = serve(InferenceEngine(lm, **kw))
