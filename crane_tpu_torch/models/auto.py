@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from crane_tpu_torch.loaders.safetensors_loader import load_state_dict
 from crane_tpu_torch.models.causal_lm import CausalLM
 from crane_tpu_torch.models.modules.gdn_layer import GdnConfig
-from crane_tpu_torch.models.modules.transformer import TransformerConfig
+from crane_tpu_torch.models.modules.transformer import MoeRouterConfig, TransformerConfig
 from crane_tpu_torch.ops.linear import quantize_weight
 from crane_tpu_torch.utils.device import default_device
 
@@ -39,7 +39,8 @@ def load_hf_config(model_dir: str) -> dict:
 def transformer_config_from_hf(hf: dict) -> TransformerConfig:
     """Map an HF config.json dict to a TransformerConfig: qwen2, qwen3,
     llama/mistral, ernie4_5, hunyuan_v1_dense, gemma3(_text), the short-conv
-    hybrid lfm2 and the GDN hybrids qwen3_next / qwen3_5 (dense or MoE).
+    hybrids lfm2 and lfm2_moe (a :class:`MoeRouterConfig`: sigmoid-routed
+    experts) and the GDN hybrids qwen3_next / qwen3_5 (dense or MoE).
 
     As in the reference, lfm2 reads ``intermediate_size`` as it stands and
     ignores ``block_auto_adjust_ff_dim``: a checkpoint's MLP weights keep
@@ -114,10 +115,13 @@ def transformer_config_from_hf(hf: dict) -> TransformerConfig:
             logit_softcap=hf.get("final_logit_softcapping"),
             **common,
         )
-    if mt == "lfm2":
-        # hybrid attention + short-conv layers
+    if mt in ("lfm2", "lfm2_moe"):
+        # hybrid attention + short-conv layers; newer configs keep theta only
+        # under rope_parameters
         common["rms_norm_eps"] = hf.get("norm_eps", 1e-5)
-        return TransformerConfig(
+        common["rope_theta"] = hf.get(
+            "rope_theta", (hf.get("rope_parameters") or {}).get("rope_theta", 10000.0))
+        lfm2 = dict(
             qk_norm=True,
             layer_types=tuple(
                 "conv" if t != "full_attention" else "full" for t in hf["layer_types"]
@@ -125,6 +129,20 @@ def transformer_config_from_hf(hf: dict) -> TransformerConfig:
             conv_l_cache=hf.get("conv_L_cache", 3),
             conv_bias=hf.get("conv_bias", False),
             **common,
+        )
+        if mt == "lfm2":
+            return TransformerConfig(**lfm2)
+        # LFM2-MoE: the first num_dense_layers keep a dense MLP, the rest
+        # route over num_experts (no shared expert) by sigmoid scores
+        return MoeRouterConfig(
+            num_experts=hf["num_experts"],
+            num_experts_per_tok=hf["num_experts_per_tok"],
+            moe_intermediate_size=hf["moe_intermediate_size"],
+            norm_topk_prob=hf.get("norm_topk_prob", True),
+            mlp_only_layers=tuple(range(hf.get("num_dense_layers", 0))),
+            moe_router="sigmoid",
+            routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)),
+            **lfm2,
         )
     if mt in ("qwen3_next", "qwen3_5"):
         # hybrid GDN: unit-offset norms, 2x-wide gated q_proj, partial
@@ -168,26 +186,36 @@ def _pick(sd: dict, *names: str):
     raise KeyError(names[0])
 
 
-def _map_moe(cfg: TransformerConfig, sd: dict, lp: str, t) -> dict:
-    """Layer ``lp``'s sparse-MoE MLP (qwen3_next names): the router, the
-    experts' gate/up/down stacked into ``[n_experts, in, out]``, and the
-    shared expert with its sigmoid gate where the checkpoint has one. ``t``
+def _map_moe(cfg: TransformerConfig, sd: dict, lp: str, t, a) -> dict:
+    """Layer ``lp``'s sparse-MoE MLP (qwen3_next's ``mlp.`` names, or
+    lfm2_moe's ``feed_forward.`` ones with experts ``w1``/``w3``/``w2``):
+    the router, the experts' gate/up/down stacked into
+    ``[n_experts, in, out]``, the shared expert with its sigmoid gate where
+    the checkpoint has one, and LFM2-MoE's ``expert_bias`` in float32. ``t``
     transposes one HF ``[out, in]`` weight onto the target device and
-    dtype; each stack is built there, one expert at a time."""
+    dtype, ``a`` casts one; each stack is built there, one expert at a
+    time."""
+    if lp + "mlp.gate.weight" in sd:
+        mp, names = lp + "mlp.", ("gate_proj", "up_proj", "down_proj")
+    else:
+        mp, names = lp + "feed_forward.", ("w1", "w3", "w2")
+
     def stack(name):
-        first = t(sd[f"{lp}mlp.experts.0.{name}.weight"])
+        first = t(sd[f"{mp}experts.0.{name}.weight"])
         out = first.new_empty((cfg.num_experts, *first.shape))
         out[0] = first
         for e in range(1, cfg.num_experts):
-            out[e] = t(sd[f"{lp}mlp.experts.{e}.{name}.weight"])
+            out[e] = t(sd[f"{mp}experts.{e}.{name}.weight"])
         return out
 
     moe = {
-        "router": t(sd[lp + "mlp.gate.weight"]),
-        "experts_gate": stack("gate_proj"),
-        "experts_up": stack("up_proj"),
-        "experts_down": stack("down_proj"),
+        "router": t(sd[mp + "gate.weight"]),
+        "experts_gate": stack(names[0]),
+        "experts_up": stack(names[1]),
+        "experts_down": stack(names[2]),
     }
+    if mp + "expert_bias" in sd:
+        moe["expert_bias"] = a(sd[mp + "expert_bias"], torch.float32)
     if lp + "mlp.shared_expert.gate_proj.weight" in sd:
         moe["shared_gate_proj"] = t(sd[lp + "mlp.shared_expert.gate_proj.weight"])
         moe["shared_up"] = t(sd[lp + "mlp.shared_expert.up_proj.weight"])
@@ -202,7 +230,8 @@ def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
     port's param tree: linear weights transposed to ``[in, out]``, MoE
     experts stacked (:func:`_map_moe`). A GDN or short-conv layer's conv
     weight ``[C, 1, k]`` becomes ``[C, k]`` float32, and a GDN layer's
-    ``A_log`` and ``dt_bias`` stay float32."""
+    ``A_log`` and ``dt_bias`` and an LFM2-MoE layer's ``expert_bias`` stay
+    float32."""
 
     def a(w, dt=dtype):
         return w.to(device=device, dtype=dt)
@@ -215,7 +244,7 @@ def map_hf_weights(cfg: TransformerConfig, sd: dict, dtype=torch.bfloat16,
     for i in range(cfg.num_layers):
         lp = f"{p}layers.{i}."
         if cfg.is_moe_layer(i):
-            mlp = _map_moe(cfg, sd, lp, t)
+            mlp = _map_moe(cfg, sd, lp, t, a)
         else:
             mlp = {
                 "gate": t(_pick(sd, lp + "mlp.gate_proj.weight", lp + "feed_forward.w1.weight")),

@@ -3,9 +3,10 @@
 Port of ``crane_tpu/models/modules/transformer.py``: the dense branches,
 quantized weights and int8/int4 KV caches, the hybrid Gated-DeltaNet layers
 of Qwen3-Next / Qwen3.5, their sparse-MoE MLPs, and LFM2's short-conv
-layers. The pre-norm block is input_ln -> token mixer -> +res -> post_ln ->
-MLP -> +res, one parameterised implementation for Qwen3, Qwen2.5,
-Llama-likes, Hunyuan-dense, Gemma3 text, LFM2 and the GDN hybrids. The
+layers (with LFM2-MoE's sigmoid-routed experts). The pre-norm block is
+input_ln -> token mixer -> +res -> post_ln -> MLP -> +res, one
+parameterised implementation for Qwen3, Qwen2.5, Llama-likes,
+Hunyuan-dense, Gemma3 text, LFM2 and the GDN hybrids. The
 mixer is GQA attention (QK-norm, RoPE, KV-cache write, the optional sigmoid
 output gate), in a ``gdn`` layer
 :func:`~crane_tpu_torch.models.modules.gdn_layer.gdn_block` (K7 for fresh
@@ -58,7 +59,7 @@ import math
 import os
 import sys
 import threading
-from typing import Any
+from typing import Any, ClassVar
 
 import torch
 import torch.nn.functional as F
@@ -97,6 +98,7 @@ from crane_tpu_torch.ops.linear import QuantizedWeight, linear
 from crane_tpu_torch.ops.norm import rms_norm
 from crane_tpu_torch.ops.rope import apply_rope_embeds, inv_frequencies, rope_table
 from crane_tpu_torch.parallel.sharding import ShardedParams
+from crane_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +146,10 @@ class TransformerConfig:
     decoder_sparse_step: int = 1
     mlp_only_layers: tuple[int, ...] = ()
     sequence_axis: str | None = None
+    # the MoE router (:func:`moe_block`): class attributes and not fields,
+    # so the fields stay crane_tpu's; :class:`MoeRouterConfig` sets them
+    moe_router: ClassVar[str] = "softmax"
+    routed_scaling_factor: ClassVar[float] = 1.0
 
     def is_moe_layer(self, i: int) -> bool:
         return (
@@ -168,6 +174,19 @@ class TransformerConfig:
         return self.layer_types is not None and any(
             t in ("gdn", "conv") for t in self.layer_types
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeRouterConfig(TransformerConfig):
+    """A :class:`TransformerConfig` whose sparse-MoE layers route otherwise
+    than Qwen3-Next's softmax (crane_tpu has no other router, so its config
+    has no such fields). ``moe_router`` ``"sigmoid"`` is LFM2-MoE's (HF
+    ``Lfm2MoeSparseMoeBlock``): experts chosen on ``sigmoid(logits) +
+    expert_bias``, weighted by their unbiased sigmoids, renormalised when
+    ``norm_topk_prob``, then times ``routed_scaling_factor``."""
+
+    moe_router: str = "softmax"
+    routed_scaling_factor: float = 1.0
 
 
 def make_cache(
@@ -331,35 +350,66 @@ def _moe_dispatch_ragged(cfg: TransformerConfig, p: dict, xt: torch.Tensor,
     return torch.zeros((T, E), dtype=out.dtype, device=xt.device).index_add_(0, token_idx, out)
 
 
+def _route_sigmoid(cfg: TransformerConfig, p: dict, xt: torch.Tensor):
+    """LFM2-MoE's router (HF ``Lfm2MoeSparseMoeBlock``), in float32: the
+    top k of ``sigmoid(logits) + expert_bias`` (the bias, where the layer
+    has one, chooses and never weighs), weighted by their unbiased
+    sigmoids, renormalised when ``norm_topk_prob`` (``/ (sum + 1e-6)``),
+    times ``routed_scaling_factor``. Returns (w, sel) ``[T, k]``."""
+    scores = torch.sigmoid((xt @ p["router"].to(xt.dtype)).float())
+    bias = p.get("expert_bias")
+    choice = scores if bias is None else scores + bias.float()
+    sel = torch.topk(choice, cfg.num_experts_per_tok, dim=-1).indices
+    w = scores.gather(1, sel)
+    if cfg.norm_topk_prob:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-6)
+    return w * cfg.routed_scaling_factor, sel
+
+
 def moe_block(cfg: TransformerConfig, p: dict, x: torch.Tensor,
               expert_offset: int = 0, partial: bool = False) -> torch.Tensor:
-    """Sparse-MoE SwiGLU with a sigmoid-gated shared expert (Qwen3-Next).
+    """Sparse-MoE SwiGLU, with a sigmoid-gated shared expert where the
+    layer has one (Qwen3-Next).
 
     Routing as the reference does it (HF ``Qwen3NextSparseMoeBlock``): a
     softmax over the experts in float32, top-k, renormalised when
-    ``norm_topk_prob``. The dispatch is dense unless
+    ``norm_topk_prob``; or, where ``cfg.moe_router`` is ``"sigmoid"``,
+    LFM2-MoE's (:func:`_route_sigmoid`). The dispatch is dense unless
     ``CRANE_MOE_DISPATCH=ragged``, the reference's own switch. A
     tensor-parallel shard (:mod:`crane_tpu_torch.parallel.inference`)
     passes its experts ``expert_offset ..`` and its columns of the shared
     expert; the router runs whole, and the result is the shard's partial
-    sum (in float32 with ``partial``)."""
+    sum (in float32 with ``partial``).
+
+    The block is the span ``model.moe`` (:mod:`crane_tpu_torch.utils.tracing`)
+    with the counts ``rows`` (tokens in), ``computed`` ((token, expert)
+    products the dispatch runs: ``rows`` times the experts held for the
+    dense one, times k for the ragged one) and ``routed`` (``rows`` times
+    k: the pairs the router chose, over all the layer's experts)."""
     B, S, E = x.shape
     xt = x.reshape(B * S, E)
-    probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
-    w, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
-    if cfg.norm_topk_prob:
-        w = w / w.sum(dim=-1, keepdim=True)
-    if os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged":
-        y = _moe_dispatch_ragged(cfg, p, xt, w, sel, expert_offset, partial)
-    else:
-        y = _moe_dispatch_dense(cfg, p, xt, w, sel, expert_offset, partial)
-    if "shared_gate" in p:
-        hs = _activation(cfg, linear(xt, p["shared_gate_proj"])) * linear(xt, p["shared_up"])
-        sh = matmul_f32(hs, p["shared_down"].to(hs.dtype)) if partial else \
-            linear(hs, p["shared_down"])
-        gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()).to(x.dtype)
-        y = y + gate.to(sh.dtype) * sh
-    return y.reshape(B, S, E)
+    k = cfg.num_experts_per_tok
+    ragged = os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged"
+    per_row = k if ragged else p["experts_down"].shape[0]
+    with tracing.span("model.moe", rows=B * S, computed=B * S * per_row, routed=B * S * k):
+        if cfg.moe_router == "sigmoid":
+            w, sel = _route_sigmoid(cfg, p, xt)
+        else:
+            probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
+            w, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+            if cfg.norm_topk_prob:
+                w = w / w.sum(dim=-1, keepdim=True)
+        if ragged:
+            y = _moe_dispatch_ragged(cfg, p, xt, w, sel, expert_offset, partial)
+        else:
+            y = _moe_dispatch_dense(cfg, p, xt, w, sel, expert_offset, partial)
+        if "shared_gate" in p:
+            hs = _activation(cfg, linear(xt, p["shared_gate_proj"])) * linear(xt, p["shared_up"])
+            sh = matmul_f32(hs, p["shared_down"].to(hs.dtype)) if partial else \
+                linear(hs, p["shared_down"])
+            gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()).to(x.dtype)
+            y = y + gate.to(sh.dtype) * sh
+        return y.reshape(B, S, E)
 
 
 def attention_block(

@@ -12,7 +12,8 @@ device:
   split their in rows, so a shard's product is a partial sum;
 - embed splits its vocab rows, lm_head its vocab columns;
 - the stacked MoE experts split the expert axis, the shared expert like a
-  dense MLP; the router and ``shared_gate`` replicate;
+  dense MLP; the router, ``shared_gate`` and LFM2-MoE's ``expert_bias``
+  replicate;
 - a GDN layer splits in_proj_qkvz / in_proj_ba by whole k-head groups,
   A_log and dt_bias by v-head, out_proj on its in rows; its conv weight
   replicates in crane_tpu's spec, and each shard keeps the channels its
@@ -111,8 +112,9 @@ def param_partition_specs(params: dict) -> dict:
                     spec[k] = (None, "tp")
             if "shared_down" in mlp:
                 spec["shared_down"] = ("tp", None)
-            if "shared_gate" in mlp:
-                spec["shared_gate"] = ()
+            for k in ("shared_gate", "expert_bias"):
+                if k in mlp:
+                    spec[k] = ()
             return spec
         return {"gate": (None, "tp"), "up": (None, "tp"), "down": ("tp", None)}
 
