@@ -98,7 +98,6 @@ from crane_tpu_torch.ops.linear import QuantizedWeight, linear
 from crane_tpu_torch.ops.norm import rms_norm
 from crane_tpu_torch.ops.rope import apply_rope_embeds, inv_frequencies, rope_table
 from crane_tpu_torch.parallel.sharding import ShardedParams
-from crane_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,37 +378,27 @@ def moe_block(cfg: TransformerConfig, p: dict, x: torch.Tensor,
     tensor-parallel shard (:mod:`crane_tpu_torch.parallel.inference`)
     passes its experts ``expert_offset ..`` and its columns of the shared
     expert; the router runs whole, and the result is the shard's partial
-    sum (in float32 with ``partial``).
-
-    The block is the span ``model.moe`` (:mod:`crane_tpu_torch.utils.tracing`)
-    with the counts ``rows`` (tokens in), ``computed`` ((token, expert)
-    products the dispatch runs: ``rows`` times the experts held for the
-    dense one, times k for the ragged one) and ``routed`` (``rows`` times
-    k: the pairs the router chose, over all the layer's experts)."""
+    sum (in float32 with ``partial``)."""
     B, S, E = x.shape
     xt = x.reshape(B * S, E)
-    k = cfg.num_experts_per_tok
-    ragged = os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged"
-    per_row = k if ragged else p["experts_down"].shape[0]
-    with tracing.span("model.moe", rows=B * S, computed=B * S * per_row, routed=B * S * k):
-        if cfg.moe_router == "sigmoid":
-            w, sel = _route_sigmoid(cfg, p, xt)
-        else:
-            probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
-            w, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
-            if cfg.norm_topk_prob:
-                w = w / w.sum(dim=-1, keepdim=True)
-        if ragged:
-            y = _moe_dispatch_ragged(cfg, p, xt, w, sel, expert_offset, partial)
-        else:
-            y = _moe_dispatch_dense(cfg, p, xt, w, sel, expert_offset, partial)
-        if "shared_gate" in p:
-            hs = _activation(cfg, linear(xt, p["shared_gate_proj"])) * linear(xt, p["shared_up"])
-            sh = matmul_f32(hs, p["shared_down"].to(hs.dtype)) if partial else \
-                linear(hs, p["shared_down"])
-            gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()).to(x.dtype)
-            y = y + gate.to(sh.dtype) * sh
-        return y.reshape(B, S, E)
+    if cfg.moe_router == "sigmoid":
+        w, sel = _route_sigmoid(cfg, p, xt)
+    else:
+        probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
+        w, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+        if cfg.norm_topk_prob:
+            w = w / w.sum(dim=-1, keepdim=True)
+    if os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged":
+        y = _moe_dispatch_ragged(cfg, p, xt, w, sel, expert_offset, partial)
+    else:
+        y = _moe_dispatch_dense(cfg, p, xt, w, sel, expert_offset, partial)
+    if "shared_gate" in p:
+        hs = _activation(cfg, linear(xt, p["shared_gate_proj"])) * linear(xt, p["shared_up"])
+        sh = matmul_f32(hs, p["shared_down"].to(hs.dtype)) if partial else \
+            linear(hs, p["shared_down"])
+        gate = torch.sigmoid((xt @ p["shared_gate"].to(xt.dtype)).float()).to(x.dtype)
+        y = y + gate.to(sh.dtype) * sh
+    return y.reshape(B, S, E)
 
 
 def attention_block(

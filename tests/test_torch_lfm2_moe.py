@@ -5,17 +5,16 @@ at tiny widths (crane_tpu has no such model, so the reference is the plain
 one): the configuration's mapping, the sigmoid router with its
 selection-only bias, prefill and decode through the cache (whole and
 chunked) under both dispatches, tensor-parallel shards of the experts, the
-``model.moe`` span and its reader, and a tiny run of the benchmark cell.
+idle of a traced prefill, and a tiny run of the benchmark cell.
 """
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
 import torch
 
-from crane_bench import run, weights
+from crane_bench import devtrace, program_spans, run, weights
 from crane_bench.models import plain
 from crane_bench.spec import HERE, load_module, read_json
 from crane_bench.tests import tiny
@@ -281,32 +280,35 @@ def recording():
 
 
 @pytest.mark.parametrize("dispatch", DISPATCHES)
-def test_moe_span_counts(recording, dispatch, monkeypatch):
-    """``rows`` in, ``computed`` every expert a row (dense) or k a row
-    (ragged), ``routed`` k a row; nested in the enclosing span."""
+@pytest.mark.parametrize("chunks", [[26], [16, 10]])
+def test_prefill_idle_stays_the_prefills(tiny_preset, recording, dispatch, chunks, monkeypatch):
+    """A traced slot prefill of the MoE stack opens no span inside
+    ``model.prefill``: every idle gap of the device during it goes to
+    ``model.prefill`` (``model.prefill_idle_share``), the MoE layers'
+    included. The device here is busy for a microsecond at 64 points
+    spread over each prefill, so idle gaps fall all through it."""
     monkeypatch.setenv("CRANE_MOE_DISPATCH", dispatch)
-    cfg = _router_cfg()
-    p = _moe_params(8, 32, 24, seed=5, bias_scale=0.1)
-    x = torch.randn(2, 5, 32)
-    per_row = 8 if dispatch == "dense" else 3
-    with tracing.span("model.prefill"):
-        ttf.moe_block(cfg, p, x)
-    spans = [s for s in tracing.timeline() if s.name == "model.moe"]
-    assert len(spans) == 1 and spans[0].parent == "model.prefill"
-    assert spans[0].counts == {"rows": 10, "computed": 10 * per_row, "routed": 10 * 3}
-
-
-def test_moe_routed_share_reader(recording):
-    reader = load_module(HERE / "metrics" / "model.moe_routed_share.py", "m_moe_routed_share")
-    t0 = tracing.clock_ns()
-    ctx = types.SimpleNamespace(slice=types.SimpleNamespace(t0_ns=t0, t1_ns=t0 + 10 ** 9))
-    assert reader.read(ctx) is None  # nothing recorded
-    tracing.record("model.prefill", t0 + 10, t0 + 20, tokens=5, bucket=64)
-    assert reader.read(ctx) is None  # no MoE call in the slice
-    tracing.record("model.moe", t0 - 100, t0 + 5, rows=64, computed=64 * 64, routed=64 * 4)
-    assert reader.read(ctx) is None  # started before the slice
-    tracing.record("model.moe", t0 + 10, t0 + 11, rows=512, computed=512 * 64, routed=512 * 4)
-    tracing.record("model.moe", t0 + 12, t0 + 13, rows=64, computed=64 * 64, routed=64 * 4)
-    assert reader.read(ctx) == pytest.approx(6.25)
-    tracing.record("model.moe", t0 + 14, t0 + 15, rows=8, computed=8 * 512, routed=8 * 10)
-    assert reader.read(ctx) == pytest.approx(100.0 * (576 * 4 + 80) / (576 * 64 + 8 * 512))
+    hf, _, cfg, params = _tiny_model()
+    lm = CausalLM(cfg, params, dtype=torch.float32)
+    ids = np.random.default_rng(4).integers(0, hf["vocab_size"], sum(chunks))
+    cache, start = lm.init_cache(2, 128), 0
+    for n in chunks:
+        x = np.zeros((1, 64), np.int32)
+        x[0, :n] = ids[start:start + n]
+        with tracing.span("engine.admit"):
+            if start == 0:
+                _, cache = lm.prefill_slot(cache, x, 1, n)
+            else:
+                _, cache = lm.prefill_slot_continue(cache, x, 1, start, n)
+        start += n
+    recs = tracing.timeline()
+    prefills = [r for r in recs if r.name == "model.prefill"]
+    assert len(prefills) == len(chunks)
+    assert [r.name for r in recs if r.parent == "model.prefill"] == []
+    sl = devtrace.Slice([], None)
+    sl.t0_ns, sl.t1_ns = min(r.start_ns for r in recs), max(r.end_ns for r in recs)
+    sl.events = [("k", t, t + 1000) for r in prefills
+                 for t in (r.start_ns + (r.end_ns - 1000 - r.start_ns) * i // 63 for i in range(64))]
+    idle = program_spans.idle_by_span(sl, program_spans.records(sl))
+    inside = sum(r.end_ns - r.start_ns - 64 * 1000 for r in prefills) / 1e9
+    assert idle.get("model.prefill", 0.0) == pytest.approx(inside, rel=1e-6)
