@@ -167,10 +167,11 @@ each reported on its own line:
 18. moe: Qwen3-Next-80B-A3B at full width (512 experts, top-10) and 12 of
    its 48 layers: map_hf_weights on one full-width MoE layer, the prefill of
    its first 4 layers in float32 on the card against the CPU, then the
-   12-layer bf16 model: the prefill (dense against ragged dispatch),
-   generate, graphs against eager, the engine mix; K1, K2, K3 (16 / 2
-   heads of 256) and K7 (32 value heads) were launched by it; its decode
-   step beside the bound of reading every expert;
+   12-layer bf16 model: the prefill, generate, graphs against eager, the
+   engine mix; K1, K2, K3 (16 / 2 heads of 256), K7 (32 value heads) and
+   K8 (every MoE layer) were launched by it, and neither plain MoE
+   dispatch; its decode step at 1, 8 and 32 distinct rows beside the bound
+   of reading the experts those rows route to;
 19. gemma3n: Gemma 3n E4B's text model (transformers' Gemma3nTextConfig()
    defaults: 35 layers, 8 query / 2 KV heads of 256, the last 15 layers
    reading the KV of layers 18 and 19, AltUp, Laurel, per-layer embeddings,
@@ -2059,12 +2060,14 @@ TIMED_BLOCKS = {"eager": 2, "graph": 4}
 
 
 def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES,
-                     modes=("eager", "graph")) -> dict:
+                     modes=("eager", "graph"), distinct=False) -> dict:
     """[profile] lines of a decode step, the eager loop beside the CUDA
     graph (``modes``), in this one process: the kernels' device time by
     family (log_device_ms, over one block of STEP_BLOCK steps) and the wall
     time a step on the host clock (TIMED_BLOCKS[mode] blocks after a
-    synchronize, ended by one), at each of ``shapes``. The device idle share is 1 - busy / wall.
+    synchronize, ended by one), at each of ``shapes``. With ``distinct``
+    each row has a prompt and a first token of its own (an MoE's rows then
+    route to experts of their own). The device idle share is 1 - busy / wall.
     Where the profiler sees no device time inside a graph replay, the
     graph's busy time is the eager block's (the same kernels), and the line
     says so. Returns {(B, T): {mode: (wall ms, busy ms)}}."""
@@ -2075,10 +2078,13 @@ def log_decode_steps(model, label, kv_bits=None, shapes=DECODE_SHAPES,
 
     dev = model.device
     table = {}
+    V = model.config.vocab_size
     for B, T, ctx in shapes:
-        ids = [i % model.config.vocab_size for i in range(1, ctx + 1)]
-        _, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), [ids] * B, [ctx] * B)
-        tokens = torch.ones(B, dtype=torch.int32, device=dev)
+        rows = [[(i + (7919 * b if distinct else 0)) % V for i in range(1, ctx + 1)]
+                for b in range(B)]
+        _, cache = model.prefill(model.init_cache(B, T, quant_bits=kv_bits), rows, [ctx] * B)
+        tokens = (torch.arange(B, dtype=torch.int32, device=dev) % V + 1 if distinct
+                  else torch.ones(B, dtype=torch.int32, device=dev))
         recent = torch.full((B, 8), -1, dtype=torch.int32, device=dev)
         sp = SamplingParams.make(B, do_sample=False, device=dev)
         gen = torch.Generator(device=dev)
@@ -3297,6 +3303,7 @@ KERNEL_FAMILIES = (
     ("K2/K3", ("flash_attention", "flash_mma")),
     ("K1", ("decode_attention", "FpRows")),
     ("K7", ("gdn_scan", "gdn_chunk")),
+    ("K8", ("moe_expert", "moe_group", "moe_combine")),
     ("cuBLAS", ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")),
     ("aten copy", ("copy", "Copy")),
     ("aten reduce", ("reduce", "softmax", "Softmax")),
@@ -3465,7 +3472,16 @@ def log_build_info() -> None:
     log_decode_build_info()
     import torch
 
+    from crane_tpu_torch.ops.cuda import moe as k8
     from crane_tpu_torch.ops.cuda.gdn_scan import KEY_DIMS, chunk_kernel_info
+
+    for gate_up in (True, False):
+        for bm in k8.ROW_TILES:
+            info = k8.kernel_info(gate_up, bm)
+            line(f"K8 {'gate|up' if gate_up else 'down'} at a {info['rows']} x {info['cols']} "
+                 f"tile", info)
+            if info["local_bytes"]:
+                raise AssertionError(f"K8 spills at row tile {bm}: {info}")
 
     for K in KEY_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3616,6 +3632,101 @@ def check_family_kernels() -> dict[str, list[dict]]:
     return rows
 
 
+# K8's rows carry their shape after this (read_launches reads the name before it)
+K8_AT = " @ "
+# (experts, picks, hidden, expert width) of K8's rows: Qwen3-Next-80B-A3B's
+# experts and LFM2-24B-A2B's
+K8_SHAPES = {"Qwen3-Next": (512, 10, 2048, 512), "LFM2-24B-A2B": (64, 4, 2048, 1536)}
+
+
+def check_moe_kernels() -> list[dict]:
+    """K8 (the routed experts) at both expert shapes, over T = 1, 8 and 32
+    rows (decode steps) and 512 (a prefill chunk), in bf16 with random
+    router picks (the top k of a softmax over random scores, renormalised):
+    against its plain version, timed beside it and, as yardsticks, the dense
+    dispatch (every expert on every row: the card's route before K8) and
+    the ragged one (``torch._grouped_mm``), at the bound of the distinct
+    routed experts' bytes or the routed operations, the larger. Returns the
+    JSON rows (``moe_experts[gate_up]``, launches 0; ``library_ms`` the
+    dense dispatch's, ``ragged_ms``)."""
+    import dataclasses
+
+    import torch
+
+    from crane_tpu_torch.models.modules import transformer as ttf
+    from crane_tpu_torch.ops.cuda import moe as k8
+
+    gen = torch.Generator(device="cuda").manual_seed(2408)
+
+    def weights(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * shape[-2] ** -0.5).to(
+            torch.bfloat16)
+
+    rows = []
+    for label, (n, k, E, I) in K8_SHAPES.items():
+        cfg = dataclasses.replace(moe_config(1), num_experts=n, num_experts_per_tok=k,
+                                  moe_intermediate_size=I)
+        p = {"experts_gate": weights(n, E, I), "experts_up": weights(n, E, I),
+             "experts_down": weights(n, I, E)}
+        for T in (1, 8, 32, 512):
+            x = torch.randn(T, E, generator=gen, device="cuda").to(torch.bfloat16)
+            probs = torch.softmax(torch.randn(T, n, generator=gen, device="cuda") * 3, -1)
+            w, sel = torch.topk(probs, k, dim=-1)
+            w = w / w.sum(-1, keepdim=True)
+            args = (x, w, sel, p["experts_gate"], p["experts_up"], p["experts_down"])
+            err = compare(f"K8 {label} T={T}", k8.moe_experts(*args), k8.moe_experts_plain(*args))
+            # in turns: plain, K8, dense, ragged, ragged, dense, K8, plain (the plain
+            # version, one host loop over the experts, twice a turn)
+            fns = (lambda: k8.moe_experts_plain(*args), lambda: k8.moe_experts(*args),
+                   lambda: ttf._moe_dispatch_dense(cfg, p, x, w, sel),
+                   lambda: ttf._moe_dispatch_ragged(cfg, p, x, w, sel))
+            t = [cuda_ms(fns[i], 2, warmup=1) if i == 0 else cuda_ms(fns[i])
+                 for i in (0, 1, 2, 3, 3, 2, 1, 0)]
+            plain_ms, ms, dense_ms, ragged_ms = ((t[i] + t[7 - i]) / 2 for i in range(4))
+            routed = int(torch.unique(sel).numel())
+            bound_ms, bound_by = bound(routed * 3 * E * I * 2 + 2 * T * E * 2, 6 * T * k * E * I)
+            plan = k8.mma_plan(T, k, n, E, I,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+            shape = f"{label} T={T}: {routed} of {n} experts of {I} routed (top-{k}), E={E}"
+            log("kernels", f"K8 {shape}: max|err| {err:.3g}, {ms:.4f} ms vs plain {plain_ms:.4f} "
+                           f"ms, dense dispatch {dense_ms:.4f} ms ({ms / dense_ms:.2f}x), ragged "
+                           f"(torch._grouped_mm) {ragged_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                           f"({bound_by}, {ms / bound_ms:.2f}x); plan {json.dumps(plan)}")
+            rows.append({"name": f"moe_experts[gate_up]{K8_AT}{label} T={T}", "route": "cuda",
+                         "source": "crane_tpu_torch/csrc/moe_experts.cu",
+                         "replaces": "none (XLA's dispatch in moe_block)", "launches": 0,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": dense_ms,
+                         "ms_over_library": ms / dense_ms, "ragged_ms": ragged_ms,
+                         "shape": shape})
+        del p
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def plain_moe_on_card():
+    """Counts the calls of the plain MoE dispatches on a CUDA tensor inside
+    (the card runs K8; a CPU reference keeps the dense dispatch)."""
+    from crane_tpu_torch.models.modules import transformer as ttf
+
+    calls = {"dense": 0, "ragged": 0}
+    saved = ttf._moe_dispatch_dense, ttf._moe_dispatch_ragged
+
+    def counted(name, fn):
+        def call(cfg, p, xt, *args, **kw):
+            calls[name] += int(xt.is_cuda)
+            return fn(cfg, p, xt, *args, **kw)
+        return call
+
+    ttf._moe_dispatch_dense = counted("dense", saved[0])
+    ttf._moe_dispatch_ragged = counted("ragged", saved[1])
+    try:
+        yield calls
+    finally:
+        ttf._moe_dispatch_dense, ttf._moe_dispatch_ragged = saved
+
+
 # Qwen3-Next-80B-A3B's text model, the published config as transformers'
 # Qwen3NextConfig defaults give it: 48 layers as [gdn, gdn, gdn, full] x 12,
 # hidden 2048, 16 query / 2 KV heads of 256 with a sigmoid output gate and
@@ -3721,16 +3832,6 @@ def sync_ms(run) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-@contextlib.contextmanager
-def moe_dispatch(mode: str):
-    """``CRANE_MOE_DISPATCH`` (the reference's switch) set to ``mode`` inside."""
-    os.environ["CRANE_MOE_DISPATCH"] = mode
-    try:
-        yield
-    finally:
-        del os.environ["CRANE_MOE_DISPATCH"]
-
-
 def check_moe_model():
     """Phase 'moe': Qwen3-Next-80B-A3B at full width and MOE_LAYERS of its
     48 layers, random bf16 weights drawn on the card by ``init_params`` in
@@ -3741,19 +3842,19 @@ def check_moe_model():
     can break apart, so the check against the CPU runs in float32 on both
     sides, over the first MOE_F32_LAYERS layers (the CPU's float32 copy of
     all 12 would not fit its host): the 300-token prefill's logits to
-    LOGIT_REL_L2 with the greedy top-1; the bf16 prefill's distance from
-    the CPU is logged beside it. The 12-layer bf16 model then runs the
-    300-token prefill (its device time by kernel family), 64 greedy tokens
-    through ``generate`` (graph decode against its own prefill and decode
-    steps), and the same prefill with ``CRANE_MOE_DISPATCH=ragged``: the
-    token-sorted dispatch must give dense's greedy top-1 (or part at a tie
-    of dense's logits), with the distance and both times logged."""
+    LOGIT_REL_L2 with the greedy top-1 (K8's float32 form on the card, the
+    dense dispatch on the CPU); the bf16 prefill's distance from the CPU is
+    logged beside it. The 12-layer bf16 model then runs the 300-token
+    prefill (its device time by kernel family, one K8 call a layer) and 64
+    greedy tokens through ``generate`` (graph decode against its own
+    prefill and decode steps)."""
     import dataclasses
 
     import torch
 
     from crane_tpu_torch.models.causal_lm import CausalLM, GenerationConfig
     from crane_tpu_torch.models.init import init_params
+    from crane_tpu_torch.ops import cuda as kernels
 
     check_moe_mapping()
     cfg = moe_config(MOE_LAYERS)
@@ -3793,24 +3894,16 @@ def check_moe_model():
     del part, logits_cpu
 
     lm = CausalLM(cfg, params, dtype=torch.bfloat16)
-    dense = k7_routes_launched(f"Qwen3-Next {MOE_LAYERS} layers bf16 prefill",
-                               lambda: prefill_300(lm, prompt))
-    logits_distance(dense, dense)  # finite, of the vocab's shape
+    before = kernels.launch_counts()["moe_experts[gate_up]"]
+    logits = k7_routes_launched(f"Qwen3-Next {MOE_LAYERS} layers bf16 prefill",
+                                lambda: prefill_300(lm, prompt))
+    if kernels.launch_counts()["moe_experts[gate_up]"] - before != MOE_LAYERS:
+        raise AssertionError("the bf16 prefill did not run K8 once a layer")
+    logits_distance(logits, logits)  # finite, of the vocab's shape
     log_device_ms(f"Qwen3-Next {MOE_LAYERS} layers bf16", "the 300-token prefill",
                   lambda: prefill_300(lm, prompt))
-    dense_ms = sync_ms(lambda: prefill_300(lm, prompt))
-    with moe_dispatch("ragged"):
-        ragged = prefill_300(lm, prompt)
-        ragged_ms = sync_ms(lambda: prefill_300(lm, prompt))
-    rel_l2, top = logits_distance(ragged, dense)
-    top2 = dense.float().topk(2)
-    tie = (top2.values[0] - top2.values[1]).item() < LOGIT_TIE \
-        and dense[top].item() >= top2.values[0].item() - LOGIT_TIE
-    log("moe", f"dense vs ragged dispatch, the 300-token prefill: rel L2 {rel_l2:.4g}, top-1 "
-               f"ragged {top} dense {int(top2.indices[0])}; {ragged_ms:.1f} ms ragged vs "
-               f"{dense_ms:.1f} ms dense (host clock)")
-    if top != int(top2.indices[0]) and not tie:
-        raise AssertionError("the ragged dispatch's greedy top-1 differs from dense's, no tie")
+    log("moe", f"Qwen3-Next {MOE_LAYERS} layers bf16, the 300-token prefill: "
+               f"{sync_ms(lambda: prefill_300(lm, prompt)):.1f} ms (host clock)")
     prefill_ms, decode_tps = time_generate(lm, prompt, GenerationConfig.greedy(64))
     log("moe", f"Qwen3-Next {MOE_LAYERS} layers bf16: prefill 300 tokens (bucket 512) "
                f"{prefill_ms:.2f} ms, decode 63 tokens at batch 1 {decode_tps:.1f} tok/s; "
@@ -3819,47 +3912,32 @@ def check_moe_model():
 
 
 def log_moe_decode(lm) -> None:
-    """A dense decode step of the MoE model beside its bound: every expert
-    computes every row, so a step reads all the experts (and every other
-    weight but the embedding) whatever the batch; log_decode_steps gives its
-    time. The same step with the ragged dispatch (a block of STEP_BLOCK
-    steps at B=1, eager and as a graph, host clock) reads only the chosen
-    experts."""
-    import torch
-
-    from crane_tpu_torch.models import graphs
-    from crane_tpu_torch.ops.sampling import SamplingParams
-
+    """A decode step of the MoE model beside its bound, at 1, 8 and 32 rows
+    of their own (log_decode_steps, graphs): K8 reads only the experts the
+    rows route to, so the step's bound is every other weight but the
+    embedding, read once, and the experts the rows route to, n (1 - (1 -
+    k / n)^B) a layer when the router spreads the rows evenly (a random
+    router does), at 3.35 TB/s. The dense dispatch's bound (every expert)
+    is logged beside it."""
     params = lm.params
+    cfg = lm.config
     experts = expert_bytes(params)
     weights = sum(t.numel() * t.element_size() for t in _leaves(params)) \
         - params["embed"].numel() * params["embed"].element_size()
-    table = log_decode_steps(lm, f"Qwen3-Next {MOE_LAYERS} layers bf16",
-                             shapes=((1, 2048, 300), (8, 2048, 300)))
-    ids = [i % lm.config.vocab_size for i in range(1, 301)]
-    _, cache = lm.prefill(lm.init_cache(1, 2048), [ids], [300])
-    args = (cache, torch.ones(1, dtype=torch.int32, device="cuda"),
-            torch.full((1, 8), -1, dtype=torch.int32, device="cuda"),
-            SamplingParams.make(1, do_sample=False, device="cuda"),
-            torch.Generator(device="cuda"), STEP_BLOCK)
-    ragged = {}
-    for mode in ("eager", "graph"):  # the graph is captured on this cache, under ragged
-        with moe_dispatch("ragged"), graphs.eager() if mode == "eager" else contextlib.nullcontext():
-            lm.decode_steps(*args)
-            ragged[mode] = sync_ms(lambda: lm.decode_steps(*args)) / STEP_BLOCK
-    lm.release_graphs()
-    cfg = lm.config
-    chosen = weights - experts + experts * cfg.num_experts_per_tok // cfg.num_experts
+    table = log_decode_steps(lm, f"Qwen3-Next {MOE_LAYERS} layers bf16", modes=("graph",),
+                             shapes=((1, 2048, 300), (8, 2048, 300), (32, 2048, 300)),
+                             distinct=True)
+    n, k = cfg.num_experts, cfg.num_experts_per_tok
     for (B, _), modes in table.items():
-        log("profile", f"Qwen3-Next {MOE_LAYERS} layers bf16, a dense decode step at B={B}: "
-                       f"{modes['graph'][0]:.3f} ms (graph, host clock) against its bound "
-                       f"{experts / HBM_BYTES_PER_S * 1e3:.2f} ms for the experts' "
-                       f"{experts / 1e9:.2f} GB at 3.35 TB/s ({weights / HBM_BYTES_PER_S * 1e3:.2f} "
-                       f"ms for all {weights / 1e9:.2f} GB of weights a step reads)")
-    log("profile", f"Qwen3-Next {MOE_LAYERS} layers bf16, a ragged-dispatch decode step at B=1: "
-                   f"{ragged['graph']:.3f} ms (graph), {ragged['eager']:.3f} ms (eager), host "
-                   f"clock; it reads {chosen / 1e9:.2f} GB of weights (10 experts a layer), "
-                   f"{chosen / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
+        routed = 1 - (1 - k / n) ** B
+        step_bytes = weights - experts + experts * routed
+        ms = modes["graph"][0]
+        log("profile", f"Qwen3-Next {MOE_LAYERS} layers bf16, a K8 decode step at B={B}: "
+                       f"{ms:.3f} ms (graph, host clock) against its bound "
+                       f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({step_bytes / 1e9:.2f} GB: "
+                       f"{routed:.1%} of the experts' {experts / 1e9:.2f} GB and the other "
+                       f"weights), {ms / (step_bytes / HBM_BYTES_PER_S * 1e3):.2f}x; every expert "
+                       f"read, as the dense dispatch did: {weights / HBM_BYTES_PER_S * 1e3:.2f} ms")
 
 
 # LFM2-1.2B, as its published config.json gives it (huggingface.co/
@@ -4173,7 +4251,7 @@ def read_launches(path: str, rows: list[dict], counts: dict[str, int]) -> None:
                     SEG_HEADS, MHA_HEADS, PRED_PREFILL, PRED_STEP, DEPTH_CHUNK, TP_06, TP_35,
                     TP_NEXT, TP_H8):
             name = name.removesuffix(tag)
-        row["launches"] = counts[name]
+        row["launches"] = counts[name.split(K8_AT)[0]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched by the {path}")
 
@@ -7532,7 +7610,8 @@ def check_tp(lm, lm35, rows: dict) -> None:
     - Qwen3.5-0.8B bf16 at tp=2: prefill and 32 greedy tokens (K7 and K2
       per shard);
     - Qwen3-Next-80B-A3B at tp=2 and TP_MOE_LAYERS layers, expert
-      parallel (256 experts a shard), dense dispatch: 16 greedy tokens in
+      parallel (256 experts a shard), K8 on each shard's experts
+      (``expert_offset``, float32 partials): 16 greedy tokens in
       bf16 and in float32, and the float32 prefill's logits;
     - the train step: Qwen3-0.6B in float32 at full width, dp=2 x tp=2, B=4,
       S=512, three AdamW steps with remat against the unsharded model's
@@ -8197,6 +8276,7 @@ def main() -> int:
     quant_rows += long_rows["quantized"]
     hybrid_rows += long_rows["hybrid"]
     family_rows = check_family_kernels()
+    family_rows["moe"] += check_moe_kernels()
     tp_rows = check_tp_kernels()
     slice_rows = check_slice_kernels()
     audio_rows = check_audio_kernels()
@@ -8333,12 +8413,17 @@ def main() -> int:
 
     # the MoE main path: Qwen3-Next-80B-A3B at 12 layers, generation and
     # serving (K1, K2, K3 at head_dim 256 with 16 / 2 heads; K7 over 32
-    # value heads)
+    # value heads; K8 in every MoE layer, eager prefills and decode replays)
     reset_counts()
-    lm_moe = check_moe_model()
-    check_engine(lm_moe, "moe-engine")
-    graph_vs_eager(lm_moe, f"Qwen3-Next {MOE_LAYERS} layers bf16")
+    with plain_moe_on_card() as plain_moe:
+        lm_moe = check_moe_model()
+        check_engine(lm_moe, "moe-engine")
+        graph_vs_eager(lm_moe, f"Qwen3-Next {MOE_LAYERS} layers bf16")
     read_launches("moe path", family_rows["moe"], kernels.launch_counts())
+    require_launched("moe path", kernels.launch_counts(), (
+        "moe_experts[group]", "moe_experts[gate_up]", "moe_experts[down]"))
+    if any(plain_moe.values()):
+        raise AssertionError(f"the moe path ran a plain MoE dispatch on the card: {plain_moe}")
     no_plain_routes("moe path")
     log_moe_decode(lm_moe)
     del lm_moe

@@ -46,8 +46,9 @@ shapes go to the kernel's plain version, as crane_tpu sends them to
 Quantized linear weights go through :func:`~crane_tpu_torch.ops.linear.linear`
 (K6 at M <= 256). Each wrapper launches its CUDA kernel on a CUDA tensor and
 runs its plain PyTorch version on a CPU tensor. The MoE dispatch and the
-short conv have no Pallas kernel in the reference (XLA computes them) and
-are plain PyTorch here.
+short conv have no Pallas kernel in the reference (XLA computes them): the
+short conv is plain PyTorch here, and the MoE's routed experts run K8 on
+the card (:func:`moe_block`) and the reference's dispatches on the CPU.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_causal,
     flash_attention_causal_plain,
 )
+from crane_tpu_torch.ops.cuda.moe import moe_experts
 from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_cached_attention,
     quant_cached_attention_plain,
@@ -365,30 +367,53 @@ def _route_sigmoid(cfg: TransformerConfig, p: dict, xt: torch.Tensor):
     return w * cfg.routed_scaling_factor, sel
 
 
+def moe_route(cfg: TransformerConfig, p: dict, xt: torch.Tensor):
+    """The router's picks for tokens xt ``[T, E]``: (w float32, sel int64),
+    ``[T, k]`` each. Qwen3-Next's (HF ``Qwen3NextSparseMoeBlock``): a
+    softmax over the experts in float32, top-k, renormalised when
+    ``norm_topk_prob``; or, where ``cfg.moe_router`` is ``"sigmoid"``,
+    LFM2-MoE's (:func:`_route_sigmoid`)."""
+    if cfg.moe_router == "sigmoid":
+        return _route_sigmoid(cfg, p, xt)
+    probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
+    w, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    if cfg.norm_topk_prob:
+        w = w / w.sum(dim=-1, keepdim=True)
+    return w, sel
+
+
+def moe_dispatch(device: torch.device) -> str:
+    """Which dispatch runs the routed experts on ``device``: ``"kernel"``
+    (K8) on the card; on the CPU the reference's, ``"dense"`` unless
+    ``CRANE_MOE_DISPATCH=ragged``."""
+    if device.type == "cuda":
+        return "kernel"
+    return "ragged" if os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged" else "dense"
+
+
 def moe_block(cfg: TransformerConfig, p: dict, x: torch.Tensor,
               expert_offset: int = 0, partial: bool = False) -> torch.Tensor:
     """Sparse-MoE SwiGLU, with a sigmoid-gated shared expert where the
     layer has one (Qwen3-Next).
 
-    Routing as the reference does it (HF ``Qwen3NextSparseMoeBlock``): a
-    softmax over the experts in float32, top-k, renormalised when
-    ``norm_topk_prob``; or, where ``cfg.moe_router`` is ``"sigmoid"``,
-    LFM2-MoE's (:func:`_route_sigmoid`). The dispatch is dense unless
-    ``CRANE_MOE_DISPATCH=ragged``, the reference's own switch. A
+    Routing as the reference does it (:func:`moe_route`). On the card the
+    routed experts go through K8
+    (:func:`~crane_tpu_torch.ops.cuda.moe.moe_experts`), which runs only the
+    (token, expert) pairs the router chose; on the CPU the dispatch is the
+    reference's, dense unless ``CRANE_MOE_DISPATCH=ragged``, its own switch
+    (:func:`moe_dispatch`). A
     tensor-parallel shard (:mod:`crane_tpu_torch.parallel.inference`)
     passes its experts ``expert_offset ..`` and its columns of the shared
     expert; the router runs whole, and the result is the shard's partial
     sum (in float32 with ``partial``)."""
     B, S, E = x.shape
     xt = x.reshape(B * S, E)
-    if cfg.moe_router == "sigmoid":
-        w, sel = _route_sigmoid(cfg, p, xt)
-    else:
-        probs = torch.softmax((xt @ p["router"].to(xt.dtype)).float(), dim=-1)
-        w, sel = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
-        if cfg.norm_topk_prob:
-            w = w / w.sum(dim=-1, keepdim=True)
-    if os.environ.get("CRANE_MOE_DISPATCH", "dense") == "ragged":
+    w, sel = moe_route(cfg, p, xt)
+    dispatch = moe_dispatch(xt.device)
+    if dispatch == "kernel":
+        y = moe_experts(xt.contiguous(), w, sel, p["experts_gate"], p["experts_up"],
+                        p["experts_down"], act=cfg.act, offset=expert_offset, partial=partial)
+    elif dispatch == "ragged":
         y = _moe_dispatch_ragged(cfg, p, xt, w, sel, expert_offset, partial)
     else:
         y = _moe_dispatch_dense(cfg, p, xt, w, sel, expert_offset, partial)

@@ -5,7 +5,8 @@ plain PyTorch counterpart on a CPU tensor, and counts its launches in a
 plain attribute ``launches``, so a run can show that the main path went
 through the kernels. The quantized kernels count per bit width
 (``launches`` is a dict, ``{"w8": n, "w4": n}`` or ``{"kv8": n, "kv4": n}``),
-so a run can show each variant was launched; K2 also counts its launches
+so a run can show each variant was launched (K8, ``moe_experts``, counts
+each of its three C entries: ``{"group": n, "gate_up": n, "down": n}``); K2 also counts its launches
 given ``segments`` (``flash_attention_causal.segment_launches``, reset with
 the others). A with-stats form (K1-S, K3-S,
 K4-S, K5-S) shares its kernel's launch path but counts on its own wrapper.
@@ -37,6 +38,7 @@ from crane_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_causal,
 )
 from crane_tpu_torch.ops.cuda.gdn_scan import gdn_scan
+from crane_tpu_torch.ops.cuda.moe import moe_experts
 from crane_tpu_torch.ops.cuda.quant_attention import (
     quant_cached_attention,
     quant_cached_attention_with_stats,
@@ -81,6 +83,7 @@ KERNELS = {
     **_variants("quant_cached_attention", quant_cached_attention),
     **_variants("quant_cached_attention_with_stats", quant_cached_attention_with_stats),
     **_variants("gdn_scan", gdn_scan),
+    **_variants("moe_experts", moe_experts),
 }
 
 

@@ -68,6 +68,11 @@ SIGNATURES = {
     "crane_gdn_scan": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "crane_gdn_chunk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "crane_gdn_chunk_info": [_I, _I, _P],
+    "crane_moe_group": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "crane_moe_gate_up": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "crane_moe_down": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _P],
+    "crane_moe_experts_info": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

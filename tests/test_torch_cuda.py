@@ -34,6 +34,7 @@ from crane_tpu_torch.ops.cuda.gdn_scan import (
     gdn_scan_plain,
     gdn_scan_route,
 )
+from crane_tpu_torch.ops.cuda import moe as k8
 from crane_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
 from crane_tpu_torch.ops.kv_cache import QuantLayerKVCache
 from crane_tpu_torch.ops.linear import QuantizedWeight, quantize_weight
@@ -628,6 +629,10 @@ def test_launch_counts_and_refusals(dev):
     gdn_scan(q, q, q, q[..., 0], q[..., 0])  # S = 4: the sequential scan
     qs = torch.zeros(1, CHUNK_MIN_S, 2, 64, device=dev)
     gdn_scan(qs, qs, qs, qs[..., 0], qs[..., 0])  # the chunkwise route
+    ex = torch.zeros(4, 64, 16, device=dev)
+    sel = torch.zeros(3, 2, dtype=torch.int64, device=dev)
+    k8.moe_experts(q[0, :3, 0].contiguous(), sel.float(), sel, ex, ex,
+                   ex.transpose(1, 2).contiguous())
     assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
     odd = torch.zeros(1, 4, 2, 96, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -646,6 +651,12 @@ def test_launch_counts_and_refusals(dev):
         quant_matmul(q[0, 0], w.codes, w.scales, bits=8)
     with pytest.raises(ValueError, match="key head dim"):
         gdn_scan(odd, odd, odd, odd[..., 0], odd[..., 0])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k8.moe_experts(q[0, :3, 0, :60].contiguous(), sel.float(), sel, ex[:, :60].contiguous(),
+                       ex[:, :60].contiguous(), ex.transpose(1, 2)[:, :, :60].contiguous())
+    with pytest.raises(TypeError, match="int64"):
+        k8.moe_experts(q[0, :3, 0].contiguous(), sel.float(), sel.int(), ex, ex,
+                       ex.transpose(1, 2).contiguous())
     assert kernels.launch_counts() == {name: 1 for name in kernels.KERNELS}
 
 
@@ -768,6 +779,14 @@ TINY_HYBRID = {
 }
 
 
+# the tiny hybrid with Qwen3-Next's sparse MLP: 16 experts of 32, top-4, a
+# shared expert (K8 in every layer)
+TINY_MOE = dict(TINY_HYBRID, model_type="qwen3_next", tie_word_embeddings=False,
+                num_experts=16, num_experts_per_tok=4, moe_intermediate_size=32,
+                shared_expert_intermediate_size=32, norm_topk_prob=True, decoder_sparse_step=1,
+                mlp_only_layers=[])
+
+
 @pytest.fixture
 def hybrid_lms(dev):
     """The tiny hybrid in float32 on the card (K7 for every prefill) and on
@@ -863,14 +882,14 @@ def test_routed_heads_on_card_match_cpu(dev, name):
 
 # -- decode blocks as CUDA graphs, and speculation (models/graphs.py) ---------
 
-GRAPH_PATHS = ["bf16", "f32", "w8kv8", "w4kv4", "hybrid", "sp"]
+GRAPH_PATHS = ["bf16", "f32", "w8kv8", "w4kv4", "hybrid", "sp", "moe"]
 
 
 def _path_lm(dev, path):
     """(model on the card, KV bits) of one served decode path, tiny and
     with heads the kernels take."""
-    if path == "hybrid":
-        cfg = transformer_config_from_hf(TINY_HYBRID)
+    if path in ("hybrid", "moe"):
+        cfg = transformer_config_from_hf(TINY_HYBRID if path == "hybrid" else TINY_MOE)
         sd = hf_state_dict(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
         return CausalLM(cfg, map_hf_weights(cfg, sd, torch.bfloat16, dev),
                         dtype=torch.bfloat16), None
@@ -1210,6 +1229,9 @@ def _grad_calls(dev):
     pos = torch.arange(4, 8, dtype=torch.int32, device=dev)[None]
     w = quantize_weight(rnd(gen, 64, 16, dtype=torch.float32), bits=8)
     g = -torch.rand(1, 5, 2, generator=gen, device=dev)
+    ex = rnd(gen, 4, 64, 16, dtype=torch.bfloat16)
+    exd = rnd(gen, 4, 16, 64, dtype=torch.bfloat16)
+    picks = torch.tensor([[0, 1], [2, 3], [1, 0]], device=dev)
     return {
         "K1": lambda req: k1.fp_decode_attention(req(qd), k, v, valid, scale=0.125),
         "K1-S": lambda req: k1.fp_decode_attention_with_stats(req(qd), k, v, valid, scale=0.125),
@@ -1223,6 +1245,8 @@ def _grad_calls(dev):
         "K5": lambda req: k45.quant_cached_attention(req(q), *ops, pos, bits=8, scale=0.125),
         "K5-S": lambda req: k45.quant_cached_attention_with_stats(req(q), *ops, pos, bits=8,
                                                                   scale=0.125),
+        "K8": lambda req: k8.moe_experts(req(rnd(gen, 3, 64, dtype=torch.bfloat16)),
+                                         torch.ones(3, 2, device=dev), picks, ex, ex, exd),
         "K6": lambda req: quant_matmul(req(rnd(gen, 3, 64, dtype=torch.bfloat16)), w.codes,
                                        w.scales, bits=8),
         "K7": lambda req: gdn_scan(req(rnd(gen, 1, 5, 2, 64, dtype=torch.bfloat16)),
@@ -1232,7 +1256,7 @@ def _grad_calls(dev):
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K1-S", "K2", "K3", "K3-S", "K4", "K4-S", "K5", "K5-S",
-                                    "K6", "K7"])
+                                    "K6", "K7", "K8"])
 def test_wrappers_refuse_inputs_that_require_grad(dev, kernel):
     """A kernel's output has no ``grad_fn``: under grad mode each wrapper
     refuses an input that requires grad before it launches; under
@@ -1375,3 +1399,167 @@ def test_fused_layer_runs_the_kernels_on_contiguous_kv(dev, quant):
         assert steps[0]["quant_decode_attention[kv4]"] == cfg.num_layers
     else:
         assert steps[0]["fp_decode_attention"] == cfg.num_layers
+
+
+# -- K8: the routed experts (ops/cuda/moe.py) ----------------------------------
+
+# (experts, picks, hidden, expert width): Qwen3-Next-80B-A3B's and LFM2-24B-A2B's
+MOE_SHAPES = {"next": (512, 10, 2048, 512), "lfm2": (64, 4, 2048, 1536)}
+
+
+@pytest.fixture(scope="module")
+def moe_experts_bf16():
+    """Both expert shapes' weights in bf16 on the card (3.2 GB and 1.2 GB)."""
+    if os.environ.get("CRANE_CUDA_TESTS") != "1" or not torch.cuda.is_available():
+        pytest.skip("CUDA kernel tests need CRANE_CUDA_TESTS=1 and a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = {}
+    for name, (n, k, E, I) in MOE_SHAPES.items():
+        out[name] = (rnd(gen, n, E, I, dtype=torch.bfloat16) * E ** -0.5,
+                     rnd(gen, n, E, I, dtype=torch.bfloat16) * E ** -0.5,
+                     rnd(gen, n, I, E, dtype=torch.bfloat16) * I ** -0.5)
+    return out
+
+
+def _moe_picks(gen, T, n, k, dev):
+    """x-independent router picks: the top k of random softmax scores,
+    renormalised (w float32, sel int64)."""
+    probs = torch.softmax(torch.randn(T, n, generator=gen, device=dev) * 3, -1)
+    w, sel = torch.topk(probs, k, dim=-1)
+    return w / w.sum(-1, keepdim=True), sel
+
+
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+@pytest.mark.parametrize("T", [1, 8, 32, 512])
+def test_k8_matches_plain(dev, moe_experts_bf16, shape, T):
+    """K8 against its plain version at both expert shapes, decode rows to a
+    512-token chunk; two launches give the same bits."""
+    n, k, E, I = MOE_SHAPES[shape]
+    gate, up, down = moe_experts_bf16[shape]
+    gen = torch.Generator(device=dev).manual_seed(T)
+    x = rnd(gen, T, E, dtype=torch.bfloat16)
+    w, sel = _moe_picks(gen, T, n, k, dev)
+    got = k8.moe_experts(x, w, sel, gate, up, down)
+    ref = k8.moe_experts_plain(x, w, sel, gate, up, down)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[torch.bfloat16])
+    assert torch.equal(got, k8.moe_experts(x, w, sel, gate, up, down))
+
+
+@pytest.mark.parametrize("T", [1, 40, 300])
+@pytest.mark.parametrize("act", k8.ACTS)
+def test_k8_float32_and_edges_match_plain(dev, T, act):
+    """The float32 (CUDA-core) form, and bf16 with every token on the same
+    k experts (T pairs an expert: several row tiles), an expert width that
+    is not a multiple of a column tile, and gelu."""
+    n, k, E, I = 24, 3, 136, 40
+    gen = torch.Generator(device=dev).manual_seed(T)
+    for dtype in (torch.float32, torch.bfloat16):
+        gate, up = (rnd(gen, n, E, I, dtype=dtype) * E ** -0.5 for _ in range(2))
+        down = rnd(gen, n, I, E, dtype=dtype) * I ** -0.5
+        x = rnd(gen, T, E, dtype=dtype)
+        w, sel = _moe_picks(gen, T, n, k, dev)
+        for picks in (sel, torch.tensor([[5, 0, 23]], device=dev).expand(T, 3).contiguous()):
+            got = k8.moe_experts(x, w, picks, gate, up, down, act=act)
+            ref = k8.moe_experts_plain(x, w, picks, gate, up, down, act=act)
+            torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+def test_k8_shards_match_plain(dev, moe_experts_bf16, shape):
+    """A tensor-parallel shard (``offset``, ``partial``): float32 partials
+    that match the plain version's and sum to the whole layer."""
+    n, k, E, I = MOE_SHAPES[shape]
+    gate, up, down = moe_experts_bf16[shape]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = rnd(gen, 32, E, dtype=torch.bfloat16)
+    w, sel = _moe_picks(gen, 32, n, k, dev)
+    parts = []
+    for t in range(2):
+        cut = slice(t * n // 2, (t + 1) * n // 2)
+        args = (x, w, sel, gate[cut], up[cut], down[cut])
+        part = k8.moe_experts(*args, offset=t * n // 2, partial=True)
+        assert part.dtype == torch.float32
+        torch.testing.assert_close(part, k8.moe_experts_plain(*args, offset=t * n // 2,
+                                                              partial=True),
+                                   **TOL[torch.bfloat16])
+        parts.append(part)
+    whole = k8.moe_experts(x, w, sel, gate, up, down, partial=True)
+    torch.testing.assert_close(parts[0] + parts[1], whole, rtol=1e-5, atol=1e-5)
+
+
+def test_k8_graph_replay_equals_eager(dev, moe_experts_bf16):
+    """K8 captured in a CUDA graph at Qwen3-Next's 32-row decode shape and
+    replayed with new tokens and picks gives the eager call's bits: the
+    grouping runs on the device and the grids come from shapes alone."""
+    n, k, E, I = MOE_SHAPES["next"]
+    gate, up, down = moe_experts_bf16["next"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = rnd(gen, 32, E, dtype=torch.bfloat16)
+    w, sel = _moe_picks(gen, 32, n, k, dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k8.moe_experts(x, w, sel, gate, up, down)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k8.moe_experts(x, w, sel, gate, up, down)
+    for seed in range(4):
+        x.copy_(rnd(gen, 32, E, dtype=torch.bfloat16))
+        nw, nsel = _moe_picks(gen, 32, n, k, dev)
+        if seed == 3:  # every row on the same experts
+            nsel = nsel[:1].expand(32, k).contiguous()
+        w.copy_(nw)
+        sel.copy_(nsel)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k8.moe_experts(x, w, sel, gate, up, down)), seed
+
+
+def test_k8_grouping_matches_plain(dev):
+    """The device grouping's order, first slots and work items against the
+    plain version's sort, in a shard and across row tiles."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for T, n, k, offset, m, bm in [(32, 512, 10, 0, 512, 16), (512, 64, 4, 0, 64, 64),
+                                   (300, 64, 8, 16, 32, 16), (1, 512, 10, 256, 256, 16)]:
+        _, sel = _moe_picks(gen, T, n, k, dev)
+        order, start, items, n_items = k8.moe_group(sel, m, offset, bm)
+        r_order, r_start, r_items = k8.moe_group_plain(sel.cpu(), m, offset, bm)
+        assert start.cpu().tolist() == r_start.tolist()
+        assert order[:int(start[-1])].cpu().tolist() == r_order.tolist()
+        assert int(n_items) == len(r_items) <= len(items)
+        assert items[:int(n_items)].cpu().tolist() == r_items.tolist()
+
+
+def test_k8_compiles_without_spills(dev):
+    for gate_up in (True, False):
+        for bm in k8.ROW_TILES:
+            info = k8.kernel_info(gate_up, bm)
+            assert info["local_bytes"] == 0, (gate_up, bm, info)
+            assert info["rows"] == bm and info["threads"] == 128
+
+
+@pytest.fixture
+def moe_lms(dev):
+    """The tiny MoE hybrid in float32 on the card (K8's CUDA-core form) and
+    on the CPU (the dense dispatch), same weights."""
+    cfg = transformer_config_from_hf(TINY_MOE)
+    sd = hf_state_dict(cfg, torch.Generator().manual_seed(0), dtype=torch.float32)
+    return (CausalLM(cfg, map_hf_weights(cfg, sd, torch.float32), dtype=torch.float32),
+            CausalLM(cfg, map_hf_weights(cfg, sd, torch.float32, dev), dtype=torch.float32))
+
+
+def test_moe_generate_on_card_matches_cpu(moe_lms):
+    """A 300-token prefill's logits and greedy generation, K8 on the card
+    against the CPU's dense dispatch; every MoE layer call a K8 launch."""
+    cpu, gpu = moe_lms
+    ids = [3 + 7 * i % 250 for i in range(280)]
+    padded = [ids + [0] * 20]
+    kernels.reset_launch_counts()
+    logits_g, _ = gpu.prefill(gpu.init_cache(1, 512), padded, [len(ids)])
+    assert kernels.launch_counts()["moe_experts[gate_up]"] == gpu.config.num_layers
+    logits_c, _ = cpu.prefill(cpu.init_cache(1, 512), padded, [len(ids)])
+    torch.testing.assert_close(logits_g.cpu(), logits_c, rtol=1e-4, atol=1e-4)
+    gen = GenerationConfig.greedy(24)
+    prompt = list(range(3, 200, 2))
+    assert gpu.generate(prompt, gen) == cpu.generate(prompt, gen)
